@@ -1,35 +1,58 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one GPU.
 
-    python3 chip_smoke.py [--records N] [--seed S]
+    python3 chip_smoke.py [--records N] [--points P] [--seed S]
 
-Three phases; any failure exits non-zero and nothing is caught and
-passed over.
+Every phase must pass; any failure exits non-zero and nothing is caught
+and passed over.
 
-1. **Set-up.**  Prints the card's name and power limit as
-   ``nvidia-smi`` reports them, then builds every CUDA kernel of the main
-   path from the sources in this checkout (a fresh ``nvcc`` build) and
-   prints the build seconds and ``ptxas``'s register report.
-2. **Kernels.**  Holds the CUDA ``bucket_dest`` kernel, and the
-   ``bucket_dest`` / ``bucket_scatter`` entry points built on it, against
-   the plain PyTorch version on the card — exact equality of ids, ranks,
-   block histograms, destinations and scattered bytes — on the cases the
-   CPU tests cover, at the main path's shape ``[16, 655360]`` (k=3,
-   6 buckets) and with 64 buckets.  At the main-path shape it times the
-   kernel and the plain version (CUDA events, median of 20 runs after 3
-   warm-ups) beside the least time the card could take.
-3. **Main path.**  TeraSort through the port's ``SphereEngine`` on CUDA:
-   ``--records`` 100-byte records (default 10,000,000, 1.0 GB) with random
-   10-byte keys and payload from ``--seed``, uploaded to Sector in
-   record-aligned 64 MB chunks (640,000 records), replication 3, one
-   chunk server per Teraflow site; 6 buckets from ``sample_boundaries``.
-   The outputs, concatenated in worker order, must be byte-identical to
-   a numpy oracle (a stable lexsort of the keys, which must have no
-   ties); the kernel's launch count must rise by exactly one per shuffle
-   round, with one host sync per round.
+1. **Set-up.**  Prints the card's name and power limit as ``nvidia-smi``
+   reports them, then builds every CUDA kernel from the sources in this
+   checkout in one fresh build (one ``nvcc`` per source, all started
+   together) and prints the build seconds and ``ptxas``'s register report
+   of each.
+2. **Kernels.**  Holds each kernel against its plain PyTorch version on
+   the card, and times both at the shape its path gives it (CUDA events
+   around one call queued behind a device sleep, so the host's enqueue
+   time is not counted; median of 20 after 3 warm-ups) beside the least
+   time the card could take:
+   - ``bucket_dest`` (and the ``bucket_dest`` / ``bucket_scatter`` entry
+     points on it), exact, at the TeraSort stack ``[16, 655360]``, k=3,
+     6 buckets;
+   - ``bucket_partition``, exact ids and histogram, at ``[10000000, 3]``,
+     6 buckets;
+   - ``kmeans_assign``, ids exact where the plain version's best-to-second
+     gap exceeds ``1e-5 * (|x|^2 + |c|^2)`` and d2 within
+     ``1e-5 * (|x|^2 + |c|^2) + 1e-6``, at ``[2097152, 8]``, K=10.  The
+     plain version runs in full float32: TF32 is switched off for matrix
+     products (``torch.backends.cuda.matmul.allow_tf32 = False``,
+     ``torch.set_float32_matmul_precision("highest")``).
+3. **TeraSort** through the port's ``SphereEngine`` on CUDA: ``--records``
+   100-byte records (default 10,000,000, 1.0 GB) with random 10-byte keys
+   and payload from ``--seed``, uploaded to Sector in record-aligned 64 MB
+   chunks (640,000 records), replication 3, one chunk server per Teraflow
+   site; 6 buckets from ``sample_boundaries``.  The outputs, concatenated
+   in worker order, must be byte-identical to a numpy oracle (a stable
+   lexsort of the keys, which must have no ties); ``bucket_dest`` must
+   launch exactly once per shuffle round, with one host sync per round.
+4. **partition_batch** on the TeraSort data on the card, through the range
+   partitioner of the same boundaries: ids must equal a numpy oracle of
+   ``#{bounds < key}``, the histogram the per-bucket record counts of the
+   TeraSort outputs, and ``shuffle_batch``'s pieces, each sorted by key
+   and concatenated, the oracle order; ``bucket_partition`` must launch
+   exactly once per call.
+5. **k-means**, the paper's Table 2 workload (§5.3) at its largest scale:
+   ``--points`` float32 points (default 100,000,000), D=8, K=10, 5
+   iterations, a mixture of K Gaussian clusters from ``--seed``, uploaded
+   to Sector in the default 64 MiB chunks (2,097,152 points each),
+   replication 2, one chunk server per Teraflow site, and run by
+   ``kmeans_sphere`` through one session.  The centroids must match a
+   float64 numpy Lloyd oracle (same seeded init, same keep-empty rule)
+   within ``rtol = atol = 1e-3``; ``udf_traces`` must be one per stage and
+   ``kmeans_assign`` must launch once per assign task and iteration.
 
-The line before the last is one JSON object describing every kernel of
-the path; the last line is
+The line before the last is one JSON object describing every kernel; the
+last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Without a CUDA device, or without the rest of the repository beside this
 script, it exits non-zero and prints no result.
@@ -38,12 +61,14 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import shutil
 import statistics
 import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -53,12 +78,24 @@ RECORD, KEY = 100, 10
 CHUNK_RECORDS = 640_000                 # 64,000,000-byte chunks
 N_BUCKETS = 6
 MAIN_SLOTS, MAIN_ROWS = 16, 655_360     # the stage-0 stack at 10M records
+PART_ROWS = 10_000_000                  # partition_batch over 10M records
+DIM, K, ITERS = 8, 10, 5                # benchmarks/table2_kmeans.py
+ASSIGN_ROWS = 2_097_152                 # points in one 64 MiB chunk
 # H100 SXM data-sheet peaks (NVIDIA): HBM bandwidth, and the 32-bit
-# non-tensor rate used as the ceiling for the kernel's integer compares
+# non-tensor rate used as the ceiling for integer compares and float32
+# FMAs
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = 67e12
-KERNEL_SOURCE = "src/repro_torch/kernels/bucket_partition/csrc/bucket_dest.cu"
-REPLACES = "src/repro/kernels/bucket_partition/kernel.py:138"
+SLEEP_CYCLES = 2_000_000                # ~1 ms of device sleep before a timed call
+PKG = "src/repro_torch/kernels"
+KERNELS = {
+    "bucket_dest": (f"{PKG}/bucket_partition/csrc/bucket_dest.cu",
+                    "src/repro/kernels/bucket_partition/kernel.py:138"),
+    "bucket_partition": (f"{PKG}/bucket_partition/csrc/bucket_partition.cu",
+                         "src/repro/kernels/bucket_partition/kernel.py:70"),
+    "kmeans_assign": (f"{PKG}/kmeans_assign/csrc/kmeans_assign.cu",
+                      "src/repro/kernels/kmeans_assign/kernel.py:19"),
+}
 
 
 def fail(msg: str) -> None:
@@ -79,13 +116,16 @@ def card_line() -> str:
 
 
 def timed_ms(torch, fn, warmup: int = 3, runs: int = 20) -> float:
-    """Median CUDA-event time of ``fn()`` in milliseconds."""
+    """Median device time of ``fn()`` in milliseconds: CUDA events around
+    one call, queued behind a device sleep so that the host's time to
+    enqueue the call is not counted."""
     for _ in range(warmup):
         fn()
     times = []
     for _ in range(runs):
         start = torch.cuda.Event(enable_timing=True)
         stop = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(SLEEP_CYCLES)
         start.record()
         fn()
         stop.record()
@@ -102,10 +142,69 @@ def bound_ms(n_bytes: int, n_ops: int):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def row(name, worst, ms, plain, bound, by):
+    source, replaces = KERNELS[name]
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": None, "max_abs_err": worst,
+            "ms": ms, "plain_ms": plain, "bound_ms": bound, "bound_by": by,
+            "library_ms": None}
+
+
+def spans_line(tracer) -> str:
+    """Wall seconds per span name.  Device work is asynchronous, so it
+    lands in the span that waits for it."""
+    totals: dict = {}
+    for sp in tracer.snapshot():
+        if sp.kind == "span" and sp.clock == "wall":
+            totals[sp.name] = totals.get(sp.name, 0.0) + sp.wall_seconds
+    return " ".join(f"{name}={sec:.4f}" for name, sec in sorted(totals.items()))
+
+
+def cloud(tmp: Path, chunk_size=None):
+    """A Sector master with one chunk server per Teraflow site."""
+    from repro_torch.sector import ChunkServer, SectorClient, SectorMaster
+    master = (SectorMaster() if chunk_size is None
+              else SectorMaster(chunk_size=chunk_size))
+    for i, site in enumerate(master.topology.sites):
+        master.register(ChunkServer(f"s{i}", site, tmp))
+    master.acl.add_member("u")
+    master.acl.grant_write("u")
+    return master, SectorClient(master, "u", "chicago")
+
+
+# ------------------------------------------------------------ phase 1
+def build_all(build_dir: Path) -> None:
+    """One fresh build of every kernel source, one nvcc each, in parallel."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.bucket_partition import kernel as bkernel
+    from repro_torch.kernels.kmeans_assign import kernel as kkernel
+    shutil.rmtree(build_dir, ignore_errors=True)
+
+    def one(src):
+        t = time.perf_counter()
+        lib = _build.build(ROOT / src, build_dir)
+        return lib, time.perf_counter() - t
+
+    t = time.perf_counter()
+    with ThreadPoolExecutor(len(KERNELS)) as pool:
+        futures = {name: pool.submit(one, src)
+                   for name, (src, _) in KERNELS.items()}
+        built = {name: f.result() for name, f in futures.items()}
+    print(f"build: {len(built)} kernels in {time.perf_counter() - t:.2f}s")
+    for name, (lib, sec) in built.items():
+        print(f"build: {name}: {lib.relative_to(ROOT)} in {sec:.2f}s")
+        log = lib.parent / f"{Path(KERNELS[name][0]).stem}.log"
+        print(log.read_text().strip())
+    bkernel.load_library(build_dir)
+    bkernel.load_partition_library(build_dir)
+    kkernel.load_library(build_dir)
+
+
 # ------------------------------------------------------------ phase 2
-def kernel_phase(torch, modules):
+def dest_phase(torch):
     from repro_torch.convert import bounds_from_numpy
-    kernel, ops, ref, shuffle = modules
+    from repro_torch.core import shuffle
+    from repro_torch.kernels.bucket_partition import kernel, ops, ref
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(1234)
     worst = 0
@@ -120,8 +219,8 @@ def kernel_phase(torch, modules):
         for name, g, w in zip(("ids", "rank", "bhist"), got, want):
             err = int((g.long() - w.long()).abs().max()) if g.numel() else 0
             worst = max(worst, err)
-            check(err == 0, f"kernel {name} differs from the plain version "
-                            f"(n_out={n_out}, bn={bn}, max err {err})")
+            check(err == 0, f"bucket_dest {name} differs from the plain "
+                            f"version (n_out={n_out}, bn={bn}, max err {err})")
         nv = mask if mask is not None else counts
         dest, hist = ops.bucket_dest(keys, bounds, nv, n_buckets=n_out,
                                      block_n=bn)
@@ -254,24 +353,190 @@ def kernel_phase(torch, modules):
           f"key_bytes_bound_ms={key_bound:.4f} ({key_bytes} bytes) "
           f"carried_bytes={carried} "
           f"({carried / (kernel_ms * 1e-3) / 1e12:.3f} TB/s) "
-          f"plain_ms={plain_ms:.4f} "
-          f"check_launches={kernel.launches} cases={n_cases} "
-          f"max_abs_err={worst}")
+          f"plain_ms={plain_ms:.4f} cases={n_cases} max_abs_err={worst}")
     print(f"bucket_scatter (kernel + epilogue + row move) "
           f"[{MAIN_SLOTS}, {MAIN_ROWS}, {RECORD}]: scatter_ms="
           f"{scatter_ms:.4f} bound_ms={s_bound:.4f} ({s_bytes} bytes)")
-    return {"name": "bucket_dest", "route": "cuda", "source": KERNEL_SOURCE,
-            "replaces": REPLACES, "launches": None, "max_abs_err": worst,
-            "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": k_bound,
-            "bound_by": k_by, "library_ms": None}
+    return row("bucket_dest", worst, kernel_ms, plain_ms, k_bound, k_by)
+
+
+def partition_phase(torch):
+    from repro_torch.convert import bounds_from_numpy
+    from repro_torch.core import shuffle
+    from repro_torch.core.records import key_rows_of
+    from repro_torch.kernels.bucket_partition import kernel, ops, ref
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(99)
+    worst = 0
+    n_cases = 0
+
+    def compare(keys, bounds, n_buckets, bn, entry=True):
+        nonlocal worst, n_cases
+        got = kernel.bucket_partition_ids(keys, bounds, n_buckets=n_buckets,
+                                          bn=bn)
+        want = ref.bucket_partition_ref(keys, bounds, n_buckets)
+        for name, g, w in zip(("ids", "hist"), got, want):
+            err = int((g.long() - w.long()).abs().max()) if g.numel() else 0
+            worst = max(worst, err)
+            check(err == 0, f"bucket_partition {name} differs from the "
+                            f"plain version (n={keys.shape[0]}, k="
+                            f"{keys.shape[1]}, nb={n_buckets}, bn={bn}, "
+                            f"max err {err})")
+        if entry:
+            ids, hist = ops.bucket_partition(keys, bounds,
+                                             n_buckets=n_buckets, block_n=bn)
+            check(torch.equal(ids, want[0]) and torch.equal(hist, want[1]),
+                  f"ops.bucket_partition differs (nb={n_buckets})")
+        n_cases += 1
+
+    def rand(shape, high):
+        return torch.randint(0, high, shape, generator=gen,
+                             dtype=torch.int64).to(dev)
+
+    # low-entropy words: boundary ties, multi-word ties, duplicates;
+    # a ragged N (not a multiple of any block)
+    for k in (1, 3, 4):
+        for nb in (2, 6, 16, 64):
+            for bn in (7, 256, 2048):
+                keys, bounds = rand((3001, k), 4), rand((nb - 1, k), 4)
+                bounds = bounds[torch.from_numpy(np.lexsort(
+                    bounds.cpu().numpy().T[::-1])).to(dev)]
+                compare(keys, bounds, nb, bn)
+    # N = 0 and one row
+    compare(rand((0, 3), 4), rand((5, 3), 4), 6, 2048)
+    compare(rand((1, 3), 4), rand((5, 3), 4), 6, 2048)
+    # overflow ids: more boundary rows than buckets, at the kernel's own
+    # level (unclamped ids, counted in no bin)
+    keys, bounds = rand((5000, 3), 4), rand((9, 3), 4)
+    for nb in (2, 4):
+        compare(keys, bounds, nb, 128, entry=False)
+    # full-range 32-bit words
+    compare(rand((70_001, 3), 2 ** 32), rand((5, 3), 2 ** 32), 6, 2048)
+    torch.cuda.synchronize()
+
+    # the path's shape: 10,000,000 records' 10-byte keys, k=3, 6 buckets
+    dgen = torch.Generator(device=dev).manual_seed(77)
+    raw = torch.randint(0, 256, (PART_ROWS, KEY), generator=dgen,
+                        dtype=torch.uint8, device=dev)
+    sample = sorted(bytes(r) for r in raw[:100_000].cpu().numpy())
+    part = shuffle.range_partitioner(
+        shuffle.sample_boundaries(sample, N_BUCKETS, KEY))
+    keys = key_rows_of(raw, KEY, n_words=3).contiguous()
+    _, bwords = part.kernel_inputs(shuffle.RecordBatch(raw), N_BUCKETS)
+    bounds = bounds_from_numpy(bwords).to(dev)
+    compare(keys, bounds, N_BUCKETS, ops.ACCEL_BLOCK_N)
+    bn = ops.ACCEL_BLOCK_N
+    kernel_ms = timed_ms(torch, lambda: kernel.bucket_partition_ids(
+        keys, bounds, n_buckets=N_BUCKETS, bn=bn))
+    plain_ms = timed_ms(torch, lambda: ref.bucket_partition_ref(
+        keys, bounds, N_BUCKETS))
+    n_bounds, k = bounds.shape
+    # 32-bit key words in, ids out, the histogram and the boundary words
+    p_bytes = PART_ROWS * (4 * k + 4) + 4 * (N_BUCKETS + n_bounds * k)
+    p_ops = PART_ROWS * n_bounds * k * 2
+    p_bound, p_by = bound_ms(p_bytes, p_ops)
+    carried = PART_ROWS * (8 * k + 4)
+    print(f"kernel bucket_partition [{PART_ROWS}, {k}] n_buckets="
+          f"{N_BUCKETS}: kernel_ms={kernel_ms:.4f} bound_ms={p_bound:.4f} "
+          f"({p_bytes} bytes, 32-bit key words) carried_bytes={carried} "
+          f"({carried / (kernel_ms * 1e-3) / 1e12:.3f} TB/s) "
+          f"plain_ms={plain_ms:.4f} cases={n_cases} max_abs_err={worst}")
+    return row("bucket_partition", worst, kernel_ms, plain_ms, p_bound, p_by)
+
+
+def assign_phase(torch):
+    from repro_torch.kernels.kmeans_assign import kernel, ops, ref
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(7)
+    worst = 0.0
+    n_cases = 0
+
+    def case(n, d, k, dtype, dup=False):
+        x = torch.randn((n, d), generator=gen).to(dtype).to(dev)
+        c = torch.randn((k, d), generator=gen)
+        if dup and k > 2:
+            c[k - 1] = c[1]
+        return x, c.to(dev)
+
+    def compare(x, c, bn=1024):
+        nonlocal worst, n_cases
+        ids, d2 = kernel.kmeans_assign_ids(x, c, bn=bn)
+        want_ids, want_d2 = ref.kmeans_assign_ref(x, c)
+        x32 = x.float()
+        xx = (x32 * x32).sum(1)
+        cc = (c * c).sum(1)
+        scale = xx + cc[want_ids.long()]
+        if x.shape[0]:
+            err = (d2 - want_d2).abs()
+            worst = max(worst, float(err.max()))
+            check(bool(torch.all(err <= 1e-5 * scale + 1e-6)),
+                  f"kmeans_assign d2 beyond tolerance {tuple(x.shape)} "
+                  f"K={c.shape[0]} {x.dtype}: max err {float(err.max())}")
+        if c.shape[0] > 1 and x.shape[0]:
+            full = xx[:, None] - 2 * (x32 @ c.T) + cc[None]
+            two = full.topk(2, dim=1, largest=False).values
+            decided = two[:, 1] - two[:, 0] > 1e-5 * scale
+        else:
+            decided = torch.ones_like(ids, dtype=torch.bool)
+        bad = int((ids[decided] != want_ids[decided]).sum())
+        check(bad == 0, f"kmeans_assign ids differ at {bad} decided points "
+                        f"{tuple(x.shape)} K={c.shape[0]} {x.dtype}")
+        got = ops.kmeans_assign(x, c, block_n=bn)
+        check(torch.equal(got[0], ids) and torch.equal(got[1], d2),
+              "ops.kmeans_assign differs from the kernel")
+        n_cases += 1
+        return ids
+
+    for dtype in (torch.float32, torch.bfloat16):
+        for n, d, k, bn in ((0, 8, 10, 1024), (1, 1, 1, 1024),
+                            (100_003, 8, 10, 1024), (65_536, 32, 100, 512),
+                            (777, 3, 5, 7)):
+            x, c = case(n, d, k, dtype, dup=True)
+            ids = compare(x, c, bn)
+            check(k <= 2 or not bool((ids == k - 1).any()),
+                  "a duplicated centroid won over its lower twin")
+    # the shared-memory limit: exactly full runs, one float more raises
+    kd = (256, 226)
+    check(kernel.shared_bytes(*kd) == kernel.MAX_SHARED,
+          "the limit case does not fill shared memory")
+    x, c = case(4096, kd[1], kd[0], torch.float32)
+    compare(x, c)
+    x, c = case(64, kd[1] + 1, kd[0], torch.float32)
+    try:
+        kernel.kmeans_assign_ids(x, c, bn=1024)
+    except ValueError:
+        pass
+    else:
+        fail("kmeans_assign took a centroid table over the shared memory")
+    torch.cuda.synchronize()
+
+    # the path's launch shape: one 64 MiB chunk of points, K=10
+    x, c = case(ASSIGN_ROWS, DIM, K, torch.float32)
+    compare(x, c)
+    kernel_ms = timed_ms(torch, lambda: kernel.kmeans_assign_ids(
+        x, c, bn=1024))
+    plain_ms = timed_ms(torch, lambda: ref.kmeans_assign_ref(x, c))
+    # points and centroids in, ids and d2 out
+    a_bytes = x.nbytes + c.nbytes + ASSIGN_ROWS * 8
+    # |x|^2 and x.c as FMAs (2 operations each), and the compare-and-add
+    a_ops = ASSIGN_ROWS * (2 * DIM * (K + 1) + 2 * K)
+    a_bound, a_by = bound_ms(a_bytes, a_ops)
+    print(f"kernel kmeans_assign [{ASSIGN_ROWS}, {DIM}] K={K}: "
+          f"kernel_ms={kernel_ms:.4f} bound_ms={a_bound:.4f} "
+          f"({a_bytes} bytes, {a_ops} operations) "
+          f"({a_bytes / (kernel_ms * 1e-3) / 1e12:.3f} TB/s) "
+          f"plain_ms={plain_ms:.4f} cases={n_cases} max_abs_err={worst:.3e}")
+    return row("kmeans_assign", worst, kernel_ms, plain_ms, a_bound, a_by)
 
 
 # ------------------------------------------------------------ phase 3
-def main_path(torch, kernel, n_records: int, seed: int) -> None:
+def terasort_path(torch, n_records: int, seed: int, device="cuda"):
+    """TeraSort through the port's engine.  Returns (bucket_dest launches,
+    report, outputs, data, oracle order, boundaries, tracer)."""
     from repro_torch.core import SphereEngine, SphereJob
     from repro_torch.core.shuffle import sample_boundaries, terasort_stages
     from repro_torch.core.trace import Tracer
-    from repro_torch.sector import ChunkServer, SectorClient, SectorMaster
+    from repro_torch.kernels.bucket_partition import kernel
 
     rng = np.random.default_rng(seed)
     t = time.perf_counter()
@@ -285,16 +550,11 @@ def main_path(torch, kernel, n_records: int, seed: int) -> None:
     ties = (k_hi[order][1:] == k_hi[order][:-1]) \
         & (k_lo[order][1:] == k_lo[order][:-1])
     check(not ties.any(), "random keys have ties; pick another --seed")
-    print(f"main: data + oracle {time.perf_counter() - t:.2f}s")
+    print(f"terasort: data + oracle {time.perf_counter() - t:.2f}s")
 
     tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_"))
     try:
-        master = SectorMaster(chunk_size=CHUNK_RECORDS * RECORD)
-        for i, site in enumerate(master.topology.sites):
-            master.register(ChunkServer(f"s{i}", site, tmp))
-        master.acl.add_member("u")
-        master.acl.grant_write("u")
-        client = SectorClient(master, "u", "chicago")
+        master, client = cloud(tmp, CHUNK_RECORDS * RECORD)
         t = time.perf_counter()
         client.upload("tera", data.tobytes(), replication=3)
         upload_s = time.perf_counter() - t
@@ -305,19 +565,35 @@ def main_path(torch, kernel, n_records: int, seed: int) -> None:
                         terasort_stages(bounds, "array", N_BUCKETS, KEY),
                         record_size=RECORD, backend="array")
         tracer = Tracer()
-        engine = SphereEngine(master, client, device="cuda",
+        engine = SphereEngine(master, client, device=device,
                               timing_sync=True, tracer=tracer)
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
+        if device == "cuda":
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
         kernel.launches = 0
         t = time.perf_counter()
         outs, rep = engine.run(job)
-        torch.cuda.synchronize()
+        if device == "cuda":
+            torch.cuda.synchronize()
         wall_s = time.perf_counter() - t
         launches = kernel.launches
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+    peak = torch.cuda.max_memory_allocated() if device == "cuda" else 0
+    print(f"terasort: {n_records} records x {RECORD} B: "
+          f"upload_s={upload_s:.3f} run_wall_s={wall_s:.3f} "
+          f"partition_seconds={rep.partition_seconds:.4f} "
+          f"rec_per_s={n_records / wall_s:.0f} "
+          f"sim_seconds={rep.sim_seconds:.3f} "
+          f"max_memory_allocated={peak} "
+          f"shuffle_rounds={rep.shuffle_rounds} host_syncs={rep.host_syncs} "
+          f"device_dispatches={rep.device_dispatches} "
+          f"udf_traces={rep.udf_traces} launches={launches}")
+    print(f"terasort: host-clock spans (s): {spans_line(tracer)}")
+    return launches, rep, outs, data, order, bounds
 
+
+def check_terasort(launches, rep, outs, data, order) -> bytes:
     check(rep.shuffle_rounds >= 1, "the job ran no shuffle round")
     check(launches == rep.shuffle_rounds,
           f"bucket_dest launched {launches} times for "
@@ -326,37 +602,224 @@ def main_path(torch, kernel, n_records: int, seed: int) -> None:
           f"host_syncs {rep.host_syncs} != shuffle_rounds "
           f"{rep.shuffle_rounds}")
     check(len(outs) == N_BUCKETS, f"{len(outs)} output partitions")
-    t = time.perf_counter()
     got = b"".join(outs)
     check(len(got) == data.nbytes, f"{len(got)} output bytes, expected "
                                    f"{data.nbytes}")
-    check(got == data[order].tobytes(),
-          "sorted output differs from the numpy oracle")
-    print(f"main: check {time.perf_counter() - t:.2f}s")
-    print(f"main: TeraSort {n_records} records x {RECORD} B: "
-          f"upload_s={upload_s:.3f} run_wall_s={wall_s:.3f} "
-          f"partition_seconds={rep.partition_seconds:.4f} "
-          f"rec_per_s={n_records / wall_s:.0f} "
-          f"sim_seconds={rep.sim_seconds:.3f} "
-          f"max_memory_allocated={torch.cuda.max_memory_allocated()} "
-          f"shuffle_rounds={rep.shuffle_rounds} host_syncs={rep.host_syncs} "
+    want = data[order].tobytes()
+    check(got == want, "sorted output differs from the numpy oracle")
+    return want
+
+
+# ------------------------------------------------------------ phase 4
+def partition_path(torch, data, bounds, device="cuda"):
+    """partition_batch and shuffle_batch on the TeraSort records.  Returns
+    (bucket_partition launches, calls, ids, hist, pieces' sorted bytes)."""
+    from repro_torch.core.records import RecordBatch
+    from repro_torch.core.shuffle import (partition_batch, range_partitioner,
+                                          shuffle_batch)
+    from repro_torch.kernels.bucket_partition import kernel
+
+    batch = RecordBatch.from_bytes(data.tobytes(), RECORD, device=device)
+    part = range_partitioner(bounds)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    kernel.partition_launches = 0
+    t = time.perf_counter()
+    ids, hist = partition_batch(batch, part, N_BUCKETS)
+    pieces = shuffle_batch(batch, part, N_BUCKETS)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t
+    launches = kernel.partition_launches
+    t = time.perf_counter()
+    sorted_bytes = b"".join(p.sort_by_key(KEY).to_bytes() for p in pieces)
+    print(f"partition_batch + shuffle_batch: {batch.num_records} records: "
+          f"wall_s={wall_s:.4f} hist={hist.tolist()} launches={launches} "
+          f"(sort check {time.perf_counter() - t:.2f}s)")
+    return launches, 2, ids.cpu().numpy(), hist.cpu().numpy(), sorted_bytes
+
+
+def check_partition(launches, calls, ids, hist, sorted_bytes, data, bounds,
+                    outs, want) -> None:
+    check(launches == calls, f"bucket_partition launched {launches} times "
+                             f"for {calls} calls")
+    key_hi = data[:, :8].copy().view(">u8")[:, 0]
+    key_lo = data[:, 8:10].copy().view(">u2")[:, 0]
+    oracle = np.zeros(len(data), np.int64)
+    for b in bounds:
+        b_hi = np.frombuffer(b[:8], ">u8")[0]
+        b_lo = np.frombuffer(b[8:10], ">u2")[0]
+        oracle += (b_hi < key_hi) | ((b_hi == key_hi) & (b_lo < key_lo))
+    check(np.array_equal(ids, np.minimum(oracle, N_BUCKETS - 1)),
+          "partition_batch ids differ from the numpy oracle")
+    counts = [len(o) // RECORD for o in outs]
+    check(hist.tolist() == counts, f"partition_batch hist {hist.tolist()} "
+                                   f"!= TeraSort bucket counts {counts}")
+    check(sorted_bytes == want,
+          "shuffle_batch pieces, sorted, differ from the oracle order")
+
+
+# ------------------------------------------------------------ phase 5
+def make_points(n_points: int, seed: int) -> np.ndarray:
+    """A mixture of K Gaussian clusters, float32, made in slices."""
+    rng = np.random.default_rng([seed, 2])
+    centers = rng.normal(size=(K, DIM)) * 4.0
+    pts = np.empty((n_points, DIM), np.float32)
+    step = 1 << 22
+    for i in range(0, n_points, step):
+        m = min(step, n_points - i)
+        pts[i:i + m] = centers[rng.integers(0, K, m)]
+        pts[i:i + m] += rng.standard_normal((m, DIM), dtype=np.float32)
+    return pts
+
+
+def _lloyd_partials(x32: np.ndarray, c64: np.ndarray):
+    """(sums [K, DIM], counts [K]) of one slice of points in float64; the
+    argmin keeps the lowest index on a tie, as the kernel does."""
+    x = x32.astype(np.float64)
+    d2 = (c64 * c64).sum(1) - 2 * (x @ c64.T)    # |x|^2 is common to a row
+    best, a = d2[:, 0].copy(), np.zeros(len(x), np.int64)
+    for j in range(1, K):
+        nearer = d2[:, j] < best
+        best[nearer] = d2[nearer, j]
+        a[nearer] = j
+    oh = np.zeros((len(x), K))
+    oh[np.arange(len(x)), a] = 1.0
+    return oh.T @ x, np.bincount(a, minlength=K)
+
+
+def lloyd_oracle(pts: np.ndarray, seed: int, iters: int) -> np.ndarray:
+    """Float64 Lloyd iterations from kmeans_sphere's seeded init, with its
+    keep-empty-centroid rule, over slices of the points on every host
+    core (numpy releases the interpreter lock inside each operation)."""
+    c = np.random.default_rng(seed).normal(size=(K, DIM)).astype(np.float32)
+    step = 1 << 21
+    slices = [pts[i:i + step] for i in range(0, len(pts), step)]
+    with ThreadPoolExecutor(os.cpu_count() or 1) as pool:
+        for _ in range(iters):
+            c64 = c.astype(np.float64)
+            sums = np.zeros((K, DIM))
+            counts = np.zeros(K)
+            for s_part, n_part in pool.map(
+                    lambda x: _lloyd_partials(x, c64), slices):
+                sums += s_part
+                counts += n_part
+            nz = counts > 0
+            c[nz] = (sums[nz] / counts[nz, None]).astype(np.float32)
+    return c
+
+
+def profile_iteration(torch, engine, session, cents, steady_s: float
+                      ) -> None:
+    """One more k-means iteration in the same session, under
+    ``torch.profiler``: the device's busy time per steady iteration (the
+    sum of its kernels and copies on the one stream), its idle share
+    against the median unprofiled iteration, and the largest device
+    consumers.  A measurement only: the checked run is over."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core.kmeans import kmeans_sphere
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        kmeans_sphere(engine, "angle/points.f32", dim=DIM, k=K, iters=1,
+                      backend="array", session=session, init=cents)
+        torch.cuda.synchronize()
+    on_card = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in on_card) / 1e3
+    if not busy_ms:
+        print("kmeans: profiled iteration: the profiler saw no device "
+              "time; device busy share not measured")
+        return
+    top = sorted(on_card, key=lambda e: -e.self_device_time_total)[:8]
+    print(f"kmeans: profiled iteration: device busy {busy_ms:.3f} ms "
+          f"against a steady iteration of {steady_s * 1e3:.3f} ms "
+          f"(idle share {1 - busy_ms / (steady_s * 1e3):.3f}); largest: "
+          + "; ".join(f"{e.key[:60]} x{e.count} "
+                      f"{e.self_device_time_total / 1e3:.3f} ms"
+                      for e in top))
+
+
+def kmeans_path(torch, n_points: int, seed: int, device="cuda"):
+    """k-means through one session.  Returns (kmeans_assign launches,
+    assign tasks a run, centroids, report, points)."""
+    from repro_torch.core import SphereEngine
+    from repro_torch.core.kmeans import encode_points, kmeans_sphere
+    from repro_torch.core.trace import Tracer
+    from repro_torch.kernels.kmeans_assign import kernel
+
+    t = time.perf_counter()
+    pts = make_points(n_points, seed)
+    print(f"kmeans: data {time.perf_counter() - t:.2f}s")
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_km_"))
+    try:
+        master, client = cloud(tmp)
+        t = time.perf_counter()
+        client.upload("angle/points.f32", encode_points(pts), replication=2)
+        upload_s = time.perf_counter() - t
+        n_chunks = master.files["angle/points.f32"].n_chunks
+        tracer = Tracer()
+        engine = SphereEngine(master, client, device=device, tracer=tracer)
+        session = engine.session("angle/points.f32", record_size=4 * DIM,
+                                 backend="array")
+        if device == "cuda":
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        kernel.launches = 0
+        iter_s: list = []
+        t = time.perf_counter()
+        cents, rep = kmeans_sphere(engine, "angle/points.f32", dim=DIM, k=K,
+                                   iters=ITERS, seed=seed, backend="array",
+                                   session=session, iter_seconds=iter_s)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t
+        launches = kernel.launches
+        peak = torch.cuda.max_memory_allocated() if device == "cuda" else 0
+        spans = spans_line(tracer)
+        if device == "cuda":
+            profile_iteration(torch, engine, session, cents,
+                              statistics.median(iter_s[1:]))
+        session.close()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    steady = sum(iter_s[1:])
+    print(f"kmeans: {n_points} points x {DIM} K={K} iters={ITERS} "
+          f"chunks={n_chunks}: upload_s={upload_s:.3f} "
+          f"run_wall_s={wall_s:.3f} iter_s="
+          f"{[round(s, 4) for s in iter_s]} "
+          f"points_per_s_iters_1_4="
+          f"{n_points * (ITERS - 1) / steady if steady else 0:.0f} "
+          f"sim_seconds={rep.sim_seconds:.3f} max_memory_allocated={peak} "
+          f"tasks={rep.tasks} shuffle_rounds={rep.shuffle_rounds} "
+          f"host_syncs={rep.host_syncs} "
           f"device_dispatches={rep.device_dispatches} "
           f"udf_traces={rep.udf_traces} launches={launches}")
-    # where the host clock went: wall seconds per span name.  Device work
-    # is asynchronous, so it lands in the span that waits for it (the
-    # shuffle round's histogram copy, the outputs' copy to the host).
-    totals: dict = {}
-    for sp in tracer.snapshot():
-        if sp.kind == "span" and sp.clock == "wall":
-            totals[sp.name] = totals.get(sp.name, 0.0) + sp.wall_seconds
-    print("main: host-clock spans (s): " + " ".join(
-        f"{name}={sec:.4f}" for name, sec in sorted(totals.items())))
-    return launches
+    print(f"kmeans: host-clock spans (s): {spans}")
+    return launches, n_chunks, cents, rep, pts
+
+
+def check_kmeans(launches, n_chunks, cents, rep, pts, seed) -> float:
+    check(rep.udf_traces == {"assign": 1, "fold": 1},
+          f"udf_traces {rep.udf_traces}")
+    check(launches == ITERS * n_chunks,
+          f"kmeans_assign launched {launches} times for {ITERS} iterations "
+          f"x {n_chunks} assign tasks")
+    t = time.perf_counter()
+    want = lloyd_oracle(pts, seed, ITERS)
+    err = float(np.abs(cents - want).max())
+    print(f"kmeans: oracle {time.perf_counter() - t:.2f}s, centroids max "
+          f"abs err {err:.3e}")
+    check(np.allclose(cents, want, rtol=1e-3, atol=1e-3),
+          f"k-means centroids differ from the float64 oracle (max abs "
+          f"err {err})")
+    return err
 
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--records", type=int, default=10_000_000)
+    ap.add_argument("--points", type=int, default=100_000_000)
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
 
@@ -366,30 +829,47 @@ def main() -> None:
     if not (ROOT / "src" / "repro_torch").is_dir():
         fail(f"no src/repro_torch beside {Path(__file__).name}")
     sys.path.insert(0, str(ROOT / "src"))
-    from repro_torch.core import shuffle
-    from repro_torch.kernels.bucket_partition import kernel, ops, ref
+    from repro_torch.kernels.bucket_partition import kernel as bkernel
+    from repro_torch.kernels.kmeans_assign import kernel as kkernel
+    # the plain versions run in full float32 (no TF32 matrix products)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
 
     # phase 1: set-up
+    t0 = time.perf_counter()
     print(card_line())
     print(f"python {sys.version.split()[0]} torch {torch.__version__} "
           f"cuda {torch.version.cuda}")
-    build_dir = ROOT / "build" / "repro_torch"
-    shutil.rmtree(build_dir, ignore_errors=True)
-    t = time.perf_counter()
-    lib = kernel.build(build_dir)
-    kernel.load_library(build_dir)
-    print(f"build: {lib.relative_to(ROOT)} in "
-          f"{time.perf_counter() - t:.2f}s")
-    print((lib.parent / "build.log").read_text().strip())
+    build_all(ROOT / "build" / "repro_torch")
 
     # phase 2: every kernel against its plain version on the card
-    row = kernel_phase(torch, (kernel, ops, ref, shuffle))
+    rows = {r["name"]: r for r in (dest_phase(torch), partition_phase(torch),
+                                   assign_phase(torch))}
+    print(f"kernels checked at {time.perf_counter() - t0:.1f}s")
 
-    # phase 3: the main path, counting only its own launches
-    row["launches"] = main_path(torch, kernel, args.records, args.seed)
-    check(row["launches"] > 0, "the main path never launched bucket_dest")
+    # phases 3-5: the paths, each counting only its own launches
+    launches, rep, outs, data, order, bounds = terasort_path(
+        torch, args.records, args.seed)
+    want = check_terasort(launches, rep, outs, data, order)
+    rows["bucket_dest"]["launches"] = launches
+    del order, rep
+    p_launches, calls, ids, hist, sorted_bytes = partition_path(torch, data,
+                                                                bounds)
+    check_partition(p_launches, calls, ids, hist, sorted_bytes, data, bounds,
+                    outs, want)
+    rows["bucket_partition"]["launches"] = p_launches
+    del data, outs, want, ids, sorted_bytes
+    print(f"terasort and partition paths done at "
+          f"{time.perf_counter() - t0:.1f}s")
+    k_launches, n_chunks, cents, k_rep, pts = kmeans_path(
+        torch, args.points, args.seed)
+    check_kmeans(k_launches, n_chunks, cents, k_rep, pts, args.seed)
+    rows["kmeans_assign"]["launches"] = k_launches
+    for r in rows.values():
+        check(r["launches"] > 0, f"its path never launched {r['name']}")
+    print(f"chip_smoke: all phases passed in {time.perf_counter() - t0:.1f}s")
 
-    print(json.dumps({"kernels": [row]}))
+    print(json.dumps({"kernels": list(rows.values())}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,9 +1,11 @@
-"""State conversion: numpy arrays into the port's record and boundary types.
+"""State conversion: numpy arrays into the port's record, boundary and
+point types.
 
-The system has no weights; its state is record data plus the
-partitioner's boundary tables.  These helpers turn the numpy arrays a
-test or a script makes from one seed into the port's types, so the JAX
-package and the port can be fed identical inputs.
+The system has no weights; its state is record data, the partitioner's
+boundary tables, and for k-means the points and the centroid table.
+These helpers turn the numpy arrays a test or a script makes from one
+seed into the port's types, so the JAX package and the port can be fed
+identical inputs.
 """
 from __future__ import annotations
 
@@ -43,3 +45,18 @@ def bounds_from_numpy(bounds_u32: np.ndarray) -> torch.Tensor:
     if b.dtype != np.uint32:
         raise ValueError(f"boundary words must be uint32, got {b.dtype}")
     return torch.from_numpy(b.astype(np.int64))
+
+
+def points_from_numpy(pts: np.ndarray, device=None) -> torch.Tensor:
+    """``[N, D]`` points as a float32 tensor on ``device`` (default
+    CUDA)."""
+    a = np.asarray(pts)
+    if a.ndim != 2:
+        raise ValueError(f"points must be 2-D, got {a.shape}")
+    return torch.from_numpy(a.astype(np.float32)).to(resolve_device(device))
+
+
+def centroids_from_numpy(c: np.ndarray, device=None) -> torch.Tensor:
+    """A ``[K, D]`` centroid table as a float32 tensor on ``device``
+    (default CUDA)."""
+    return points_from_numpy(c, device)

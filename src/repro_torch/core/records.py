@@ -325,6 +325,32 @@ class RecordBatch:
             return base
         return RecordBatch(base.data.index_select(0, order))
 
+    # ------------------------------------------------------- float views
+    def to_points(self, dim: int) -> torch.Tensor:
+        """Reinterpret valid records as little-endian float32 [n, dim]
+        points (junk padding rows would read as garbage floats)."""
+        if self.record_size != 4 * dim:
+            raise ValueError(f"record_size {self.record_size} != 4*dim")
+        return f32_view(self.valid_data)
+
+    @staticmethod
+    def from_points(points: torch.Tensor) -> "RecordBatch":
+        """float32 [n, d] points -> records of d*4 bytes each."""
+        n, d = points.shape
+        raw = points.to(torch.float32).contiguous().view(torch.uint8)
+        return RecordBatch(raw.reshape(n, d * 4))
+
+
+def f32_view(data: torch.Tensor) -> torch.Tensor:
+    """``data [n, 4 * m]`` uint8 rows as little-endian float32 ``[n, m]``
+    (a view where the layout allows one, else a copy: a view needs unit
+    stride on the last axis, and a storage offset and row stride that are
+    multiples of 4 — a contiguous slice may still start off that grid)."""
+    if data.stride(-1) != 1 or data.storage_offset() % 4 \
+            or (data.ndim > 1 and data.stride(0) % 4):
+        data = data.clone(memory_format=torch.contiguous_format)
+    return data.view(torch.float32)
+
 
 def _pow2_rows(n: int, floor: int) -> int:
     """Smallest padded row count >= n from the {2^k, 1.5 * 2^k} ladder,
@@ -428,13 +454,17 @@ class StackedBatch:
         return StackedBatch(data, n_valid)
 
 
+def _host(x) -> np.ndarray:
+    return x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+
 def scatter_by_ids(batch: RecordBatch, ids, hist) -> List[RecordBatch]:
-    """Split a batch into per-bucket batches given (ids, hist): one
-    stable host argsort of the bucket ids, then one gather per bucket —
-    record order within a bucket matches the bytes backend's append
-    order."""
-    ids_np = np.asarray(ids)
-    hist_np = np.asarray(hist)
+    """Split a batch into per-bucket batches given (ids, hist) — tensors on
+    any device, or arrays: one stable host argsort of the bucket ids, then
+    one gather per bucket — record order within a bucket matches the bytes
+    backend's append order."""
+    ids_np = _host(ids)
+    hist_np = _host(hist)
     order = np.argsort(ids_np, kind="stable")
     pieces = np.split(order, np.cumsum(hist_np)[:-1])
     return [batch.take(p) for p in pieces]

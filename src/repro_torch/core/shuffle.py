@@ -2,8 +2,15 @@
 
 The port of ``repro.core.shuffle``.  Each partitioner is a callable
 ``(record: bytes, n: int) -> int`` (the bytes reference path, unchanged
-engine protocol) and additionally exposes ``scatter_spec(batch, n)`` —
-the static key spec and boundary words the device scatter compares.
+engine protocol) and additionally exposes
+
+* ``kernel_inputs(batch, n)`` — the (keys, bounds) word rows the bucket
+  kernels compare;
+* ``bucket_ids(batch, n)`` — ids + histogram via the ``bucket_partition``
+  kernel (the analysis path: :func:`partition_batch` /
+  :func:`shuffle_batch`, where the ids come back to the caller);
+* ``scatter_spec(batch, n)`` — the static key spec and boundary words the
+  device scatter compares.
 
 * :func:`scatter_dispatch` / :func:`scatter_batch` — the per-worker
   engine shuffle: the ``bucket_scatter`` kernel lands records
@@ -36,7 +43,45 @@ from repro_torch.core.records import (RecordBatch, StackedBatch,  # noqa: F401
                                       _pow2_rows, _quarter_rows, fnv1a32,
                                       hash_keys_of, key_rows_of,
                                       scatter_by_ids, uniform_hash_bounds)
-from repro_torch.kernels.bucket_partition import bucket_scatter
+from repro_torch.kernels.bucket_partition import (bucket_partition,
+                                                  bucket_scatter)
+
+
+def _all_in_bucket0(nrec: int, n: int, device
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(ids, hist) that put all ``nrec`` records in bucket 0 of ``n``."""
+    ids = torch.zeros((nrec,), dtype=torch.int32, device=device)
+    hist = torch.zeros((max(n, 1),), dtype=torch.int32, device=device)
+    hist[0] = nrec
+    return ids, hist
+
+
+def _kernel_partition(keys: torch.Tensor, bounds_u32: np.ndarray, n: int,
+                      *, block_n: Optional[int] = None
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """bucket_partition over key words with degenerate-shape handling.
+
+    ``keys`` is [N] (single-word) or [N, k] (multi-word rows) int64 with
+    ``bounds_u32`` shaped to match.  The kernel needs at least one
+    boundary; n == 1 (or an empty boundary list) means every record lands
+    in bucket 0.  When there are more boundaries than n - 1 the tail
+    buckets are clamped onto n - 1, mirroring the ``min(lo, n - 1)`` in
+    the bytes reference.  Returns ``(ids [N] int32, hist [n] int32)`` on
+    the keys' device.
+    """
+    nrec = keys.shape[0]
+    if nrec == 0 or n <= 1 or len(bounds_u32) == 0:
+        return _all_in_bucket0(nrec, n, keys.device)
+    nb = len(bounds_u32) + 1
+    ids, hist = bucket_partition(keys, _bounds_tensor(bounds_u32,
+                                                      keys.device),
+                                 n_buckets=nb, block_n=block_n)
+    if nb > n:  # clamp overflow buckets, fold their histogram tail
+        ids = ids.clamp_max(n - 1)
+        tail = hist[n - 1:].sum().to(torch.int32)
+        hist = hist[:n].clone()
+        hist[n - 1] = tail
+    return ids, hist
 
 
 class HashPartitioner:
@@ -55,12 +100,23 @@ class HashPartitioner:
         h = fnv1a32(record[:self.key_bytes])
         return bisect_left(self._bounds_for(n), h)
 
+    def kernel_inputs(self, batch: RecordBatch, n: int
+                      ) -> Tuple[torch.Tensor, np.ndarray]:
+        """(keys, bounds) word rows for the bucket kernels."""
+        return batch.hash_keys_u32(self.key_bytes), uniform_hash_bounds(n)
+
     def scatter_spec(self, batch: RecordBatch, n: int):
         """(static key spec, bounds) for the device scatter, or None when
         every record belongs in bucket 0."""
         if n <= 1:
             return None
         return ("hash", self.key_bytes), uniform_hash_bounds(n)
+
+    def bucket_ids(self, batch: RecordBatch, n: int, *,
+                   block_n: Optional[int] = None
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+        keys, bounds = self.kernel_inputs(batch, n)
+        return _kernel_partition(keys, bounds, n, block_n=block_n)
 
 
 class RangePartitioner:
@@ -95,30 +151,57 @@ class RangePartitioner:
             rows.append(row)
         return np.array(rows, dtype=np.uint32)
 
-    def scatter_spec(self, batch: RecordBatch, n: int):
-        """(static key spec, bounds) for the device scatter.
+    def _word_spec(self, record_size: int):
+        """(static key spec, bounds) of the word rows both bucket kernels
+        compare.
 
         A record's comparison key is its first len(bnd[0]) bytes (clipped
         to the record) as rows of big-endian words; when any boundary
         length differs from that key length the zero-padded words can tie
         where the byte strings differ, so a trailing length word
         reproduces bytes ordering exactly."""
-        if not self.bnd or n <= 1:
-            return None
-        key_len = min(len(self.bnd[0]), batch.record_size)
+        key_len = min(len(self.bnd[0]), record_size)
         width = max(key_len, max(len(b) for b in self.bnd))
         n_words = max(1, -(-width // 4))
         need_len = any(len(b) != key_len for b in self.bnd)
         return (("range", key_len, n_words, key_len if need_len else None),
                 self.bounds_words(n_words, lengths=need_len))
 
+    def kernel_inputs(self, batch: RecordBatch, n: int
+                      ) -> Tuple[torch.Tensor, np.ndarray]:
+        """(keys, bounds) word rows for the bucket kernels."""
+        if not self.bnd:
+            return batch.keys_u32(4), np.empty(0)
+        key_spec, bounds = self._word_spec(batch.record_size)
+        return _extract_keys(batch.data, key_spec), bounds
+
+    def bucket_ids(self, batch: RecordBatch, n: int, *,
+                   block_n: Optional[int] = None
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+        keys, bounds = self.kernel_inputs(batch, n)
+        return _kernel_partition(keys, bounds, n, block_n=block_n)
+
+    def scatter_spec(self, batch: RecordBatch, n: int):
+        """(static key spec, bounds) for the device scatter, or None when
+        every record belongs in bucket 0 (see :meth:`_word_spec`)."""
+        if not self.bnd or n <= 1:
+            return None
+        return self._word_spec(batch.record_size)
+
 
 class ReducePartitioner:
     """Every record to bucket 0 — the reduction shuffle (e.g. k-means
-    partials folding on one worker); resolves without a kernel call."""
+    partials folding on one worker); resolves without a kernel call, so
+    reduce stages stay off the per-record host loop that an arbitrary
+    ``lambda r, n: 0`` would take."""
 
     def __call__(self, record: bytes, n: int) -> int:
         return 0
+
+    def bucket_ids(self, batch: RecordBatch, n: int, *,
+                   block_n: Optional[int] = None
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+        return _all_in_bucket0(batch.num_records, n, batch.device)
 
 
 def hash_partitioner(key_bytes: int = 8) -> HashPartitioner:
@@ -140,6 +223,36 @@ def _host_partition(batch: RecordBatch, partitioner, n: int
     ids = np.fromiter((partitioner(r, n) for r in batch.to_records()),
                       np.int32, count=batch.num_records)
     return ids, np.bincount(ids, minlength=n).astype(np.int32)
+
+
+def partition_batch(batch: RecordBatch, partitioner, n: int, *,
+                    block_n: Optional[int] = None
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(ids [N] int32, hist [n] int32)`` on the batch's device for a
+    batch under any engine partitioner.
+
+    Array-aware partitioners go through the ``bucket_partition`` kernel
+    (one launch on the card); arbitrary ``(record, n) -> int`` callables
+    take the per-record host loop, so the array backend stays correct for
+    custom partitioners.  ``block_n`` is the kernel's rows per thread
+    block (default: the kernel's own).
+    """
+    batch = batch.compact()  # analysis keys are host-visible: no junk rows
+    if hasattr(partitioner, "bucket_ids"):
+        return partitioner.bucket_ids(batch, n, block_n=block_n)
+    ids, hist = _host_partition(batch, partitioner, n)
+    return (torch.from_numpy(ids).to(batch.device),
+            torch.from_numpy(hist).to(batch.device))
+
+
+def shuffle_batch(batch: RecordBatch, partitioner, n: int, *,
+                  block_n: Optional[int] = None) -> List[RecordBatch]:
+    """Partition + host-driven scatter: one kernel call, one host
+    argsort, n gathers.  The engine uses :func:`scatter_batch` (fully
+    device-resident) instead; this path remains for custom callable
+    partitioners and as the ids-visible reference."""
+    ids, hist = partition_batch(batch, partitioner, n, block_n=block_n)
+    return scatter_by_ids(batch, ids, hist)
 
 
 def _single_bucket_pieces(batch: RecordBatch, n: int) -> List[RecordBatch]:

@@ -1,4 +1,5 @@
-from repro_torch.kernels.bucket_partition.ops import (bucket_dest,  # noqa: F401
-                                                      bucket_scatter)
+from repro_torch.kernels.bucket_partition.ops import (  # noqa: F401
+    bucket_dest, bucket_partition, bucket_scatter)
 from repro_torch.kernels.bucket_partition.ref import (  # noqa: F401
-    bucket_blocks_ref, bucket_dest_ref, dest_from_blocks)
+    bucket_blocks_ref, bucket_dest_ref, bucket_partition_ref,
+    dest_from_blocks)

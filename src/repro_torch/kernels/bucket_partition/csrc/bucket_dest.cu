@@ -29,7 +29,8 @@
 // key bytes straight from the 100-byte rows (one 32-byte sector a row)
 // would move less, and is left with the row move for a fused version.
 // The design is simple on purpose: a grid of (row blocks, slots), the
-// boundary table in shared memory, a linear scan over it per row, and the
+// boundary table in shared memory, a linear scan over it per row (the
+// compare of compare.cuh, shared with bucket_partition.cu), and the
 // stable rank from a walk over the block's rows in chunks of the thread
 // count — a warp match gives the rank among equal ids inside a warp, a
 // count per (warp, bucket) in shared memory gives the rank across the
@@ -39,6 +40,8 @@
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "compare.cuh"
 
 namespace {
 
@@ -66,9 +69,7 @@ bucket_dest_kernel(const int64_t* __restrict__ keys,
   const int warp = tid >> 5;
   const int slot = blockIdx.y;
 
-  for (int i = tid; i < n_bounds * k; i += kThreads) {
-    sb[i] = static_cast<uint32_t>(bounds[i]);
-  }
+  bucket_compare::load_bounds(sb, bounds, n_bounds * k, tid, kThreads);
   for (int i = tid; i < n_cols * (kWarps + 1); i += kThreads) {
     run[i] = 0;  // run and wcnt are contiguous
   }
@@ -90,25 +91,10 @@ bucket_dest_kernel(const int64_t* __restrict__ keys,
                                         : r < limit;
       id = n_out;  // the trash bucket, unless the row is real
       if (real) {
-        const int64_t* kp = keys + (slot_base + r) * k;
         uint32_t kw[KMAX];
-#pragma unroll
-        for (int w = 0; w < KMAX; ++w) {
-          kw[w] = w < k ? static_cast<uint32_t>(kp[w]) : 0u;
-        }
-        int below = 0;
-        for (int j = 0; j < n_bounds; ++j) {
-          const uint32_t* b = sb + j * k;
-          // strict lexicographic bounds[j] < key: walking the words from
-          // last to first, the first differing word overwrites the verdict
-          int lt = 0;
-#pragma unroll
-          for (int w = KMAX - 1; w >= 0; --w) {
-            if (w < k && b[w] != kw[w]) lt = b[w] < kw[w];
-          }
-          below += lt;
-        }
-        id = min(below, n_out - 1);
+        bucket_compare::load_key<KMAX>(keys + (slot_base + r) * k, k, kw);
+        id = min(bucket_compare::count_below<KMAX>(sb, n_bounds, k, kw),
+                 n_out - 1);
       }
     }
     const unsigned peers = __match_any_sync(0xffffffffu, id);

@@ -1,114 +1,67 @@
-"""Build, load and launch the CUDA bucket_dest kernel (``csrc/bucket_dest.cu``).
+"""Build, load and launch the CUDA bucket kernels (``csrc/*.cu``).
 
-The port's counterpart of the Pallas ``_scatter_kernel`` launch in
-``repro.kernels.bucket_partition.kernel``.  The source is compiled with
-``nvcc`` for ``sm_90a`` into a shared library with a plain C interface
-and bound with ``ctypes``; the build runs at first use and is cached by
-the source's hash under :func:`default_build_dir`: ``$REPRO_TORCH_BUILD_DIR``
-when it is set, else ``build/repro_torch/`` of the checkout the package
-is imported from.  A missing ``nvcc``, a failed build or a package outside
-a checkout with no build directory named raises ``RuntimeError`` — there
-is no fallback to the plain version for CUDA tensors.
+The port's counterparts of the two Pallas launches in
+``repro.kernels.bucket_partition.kernel``: ``bucket_dest.cu`` for
+``_scatter_kernel`` (the shuffle's stable counting scatter) and
+``bucket_partition.cu`` for ``_kernel`` (the ids-visible partition pass).
+Both include the compare of ``csrc/compare.cuh``.  Each source is built
+by :mod:`repro_torch.kernels._build` (``nvcc`` for ``sm_90a``, cached by
+the hash of ``csrc/``) into a library of its own, bound here with
+``ctypes``.
 
-``launches`` counts the kernel launches made by :func:`bucket_dest_blocks`
-(and nothing else), so a run can show that its shuffle went through the
+``launches`` counts the launches made by :func:`bucket_dest_blocks` and
+``partition_launches`` those made by :func:`bucket_partition_ids`; nothing
+else adds to them, so a run can show which path went through which
 kernel.
 """
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
 from pathlib import Path
 from typing import Optional
 
 import torch
 
-SOURCE = Path(__file__).resolve().parent / "csrc" / "bucket_dest.cu"
-BUILD_DIR_ENV = "REPRO_TORCH_BUILD_DIR"
-# the checkout holding src/repro_torch, when the package is imported from it
-CHECKOUT = Path(__file__).resolve().parents[4]
-LIB_NAME = "libbucket_partition.so"
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+from repro_torch.kernels import _build
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+SOURCE = CSRC / "bucket_dest.cu"
+PARTITION_SOURCE = CSRC / "bucket_partition.cu"
 
 MAX_COLS = 1024          # n_out + 1 buckets, trash included
 MAX_WORDS = 16           # key words per row
 MAX_SLOTS = 65535        # grid y
-MAX_SHARED = 232448      # bytes of shared memory a block may use (H100)
-_WARPS = 8               # kThreads / 32 in the source
+MAX_SHARED = _build.MAX_SHARED
+_WARPS = 8               # kThreads / 32 in bucket_dest.cu
 
 launches = 0
-_lib: Optional[ctypes.CDLL] = None
-
-
-def find_nvcc() -> str:
-    """Path of ``nvcc``: ``$CUDA_HOME/bin`` (default ``/usr/local/cuda``),
-    else ``PATH``; raises ``RuntimeError`` when there is none."""
-    home = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda"))
-    if (home / "bin" / "nvcc").is_file():
-        return str(home / "bin" / "nvcc")
-    found = shutil.which("nvcc")
-    if found is None:
-        raise RuntimeError("cannot build the bucket_dest CUDA kernel: nvcc "
-                           "not found (set CUDA_HOME or put nvcc on PATH)")
-    return found
-
-
-def default_build_dir() -> Path:
-    """``$REPRO_TORCH_BUILD_DIR`` when set, else ``build/repro_torch`` of
-    the checkout; raises ``RuntimeError`` for a package installed outside
-    a checkout with the variable unset."""
-    named = os.environ.get(BUILD_DIR_ENV)
-    if named:
-        return Path(named)
-    if not ((CHECKOUT / "pyproject.toml").is_file()
-            and (CHECKOUT / "src" / "repro_torch").is_dir()):
-        raise RuntimeError(f"repro_torch is not imported from a checkout: "
-                           f"set {BUILD_DIR_ENV} to a directory for its "
-                           f"CUDA kernel builds")
-    return CHECKOUT / "build" / "repro_torch"
+partition_launches = 0
 
 
 def build(build_dir: Optional[Path] = None) -> Path:
-    """Compile the source into ``build_dir/<source hash>/`` (default
-    :func:`default_build_dir`) unless it is already there; returns the
-    library's path.  ``nvcc``'s report (registers, shared memory, spills)
-    is kept beside it in ``build.log``."""
-    src = SOURCE.read_bytes()
-    if build_dir is None:
-        build_dir = default_build_dir()
-    out_dir = Path(build_dir) / hashlib.sha256(src).hexdigest()[:16]
-    lib = out_dir / LIB_NAME
-    if lib.is_file():
-        return lib
-    nvcc = find_nvcc()
-    out_dir.mkdir(parents=True, exist_ok=True)
-    tmp = out_dir / f"{LIB_NAME}.{os.getpid()}.tmp"
-    proc = subprocess.run([nvcc, *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
-                          capture_output=True, text=True, check=False)
-    (out_dir / "build.log").write_text(proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed to build {SOURCE.name} "
-                           f"(exit {proc.returncode}):\n{proc.stderr}")
-    os.replace(tmp, lib)          # atomic publish when two processes build at once
-    return lib
+    """Build ``bucket_dest.cu`` (see :func:`_build.build`); returns the
+    library's path."""
+    return _build.build(SOURCE, build_dir)
+
+
+def build_partition(build_dir: Optional[Path] = None) -> Path:
+    """Build ``bucket_partition.cu``; returns the library's path."""
+    return _build.build(PARTITION_SOURCE, build_dir)
 
 
 def load_library(build_dir: Optional[Path] = None) -> ctypes.CDLL:
-    """The built kernel library, compiled into ``build_dir`` (see
-    :func:`build`) on first use."""
-    global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(str(build(build_dir)))
-        fn = lib.bucket_dest_launch
-        fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
-                       + [ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-        _lib = lib
-    return _lib
+    """The bucket_dest library, built into ``build_dir`` on first use."""
+    return _build.load(SOURCE, "bucket_dest_launch",
+                       [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
+                       + [ctypes.c_void_p], build_dir)
+
+
+def load_partition_library(build_dir: Optional[Path] = None) -> ctypes.CDLL:
+    """The bucket_partition library, built into ``build_dir`` on first
+    use."""
+    return _build.load(PARTITION_SOURCE, "bucket_partition_launch",
+                       [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
+                       + [ctypes.c_void_p], build_dir)
 
 
 def _check(t: torch.Tensor, name: str, dtype: torch.dtype, ndim: int,
@@ -187,3 +140,47 @@ def bucket_dest_blocks(keys: torch.Tensor, bounds: torch.Tensor,
                            f"cudaError_t {err}")
     launches += 1
     return ids, rank, bhist
+
+
+def bucket_partition_ids(keys: torch.Tensor, bounds: torch.Tensor, *,
+                         n_buckets: int, bn: int):
+    """Launch the partition kernel: ``(ids [n] int32, hist [n_buckets]
+    int32)`` for ``keys [n, k]`` and ``bounds [n_bounds, k]`` int64 words
+    on one CUDA device.  ``ids`` are not clamped; ``hist`` counts only the
+    ids below ``n_buckets``.  ``bn`` is the rows each thread block walks."""
+    global partition_launches
+    if keys.device.type != "cuda":
+        raise ValueError(f"the CUDA kernel needs CUDA tensors, got "
+                         f"{keys.device}")
+    dev = keys.device
+    _check(keys, "keys", torch.int64, 2, dev)
+    n, k = keys.shape
+    _check(bounds, "bounds", torch.int64, 2, dev)
+    if bounds.shape[1] != k:
+        raise ValueError(f"keys have {k} words per row but bounds have "
+                         f"{bounds.shape[1]}")
+    if not 1 <= k <= MAX_WORDS:
+        raise ValueError(f"the CUDA kernel takes 1..{MAX_WORDS} key words, "
+                         f"got {k}")
+    if n_buckets < 1 or n >= 2 ** 31 or bn < 1:
+        raise ValueError(f"unsupported shape: {n} rows, {n_buckets} "
+                         f"buckets, block {bn}")
+    smem = 4 * (bounds.shape[0] * k + n_buckets)
+    if smem > MAX_SHARED:
+        raise ValueError(f"boundary table and histogram too large for "
+                         f"shared memory ({smem} bytes)")
+    ids = torch.empty((n,), dtype=torch.int32, device=dev)
+    if n == 0:
+        return ids, torch.zeros((n_buckets,), dtype=torch.int32, device=dev)
+    hist = torch.empty((n_buckets,), dtype=torch.int32, device=dev)
+    lib = load_partition_library()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.bucket_partition_launch(
+            keys.data_ptr(), bounds.data_ptr(), ids.data_ptr(),
+            hist.data_ptr(), n, k, bounds.shape[0], n_buckets, bn, stream)
+    if err != 0:
+        raise RuntimeError(f"bucket_partition kernel launch failed: "
+                           f"cudaError_t {err}")
+    partition_launches += 1
+    return ids, hist

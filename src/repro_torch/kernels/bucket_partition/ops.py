@@ -1,11 +1,13 @@
-"""Entry points of the bucket scatter: ``bucket_dest`` and ``bucket_scatter``.
+"""Entry points of the bucket kernels: ``bucket_partition``, ``bucket_dest``
+and ``bucket_scatter``.
 
 The port of ``repro.kernels.bucket_partition.ops`` (and of the epilogue in
-its ``kernel.py``), stacked over an optional leading slot axis so one
-call serves a whole shuffle round.  The route follows the tensors'
-device: CUDA tensors go through the hand-written kernel
-(:func:`.kernel.bucket_dest_blocks`) or raise; CPU tensors take the plain
-version (:mod:`.ref`); any other device raises.
+its ``kernel.py``); the scatter is stacked over an optional leading slot
+axis so one call serves a whole shuffle round.  The route follows the
+tensors' device: CUDA tensors go through the hand-written kernels
+(:func:`.kernel.bucket_partition_ids`, :func:`.kernel.bucket_dest_blocks`)
+or raise; CPU tensors take the plain versions (:mod:`.ref`); any other
+device raises.
 
 **Contract** (as in the JAX package).  Keys and boundaries are rows of
 ``k`` big-endian 32-bit words, carried as int64, compared
@@ -25,10 +27,52 @@ import torch
 
 from repro_torch.kernels.bucket_partition import kernel as _kernel
 from repro_torch.kernels.bucket_partition.ref import (bucket_blocks_ref,
+                                                      bucket_partition_ref,
                                                       dest_from_blocks)
 
 # rows per thread block on the card (the TPU kernel's accelerator block)
 ACCEL_BLOCK_N = 2048
+
+
+def bucket_partition(keys: torch.Tensor, bounds, *, n_buckets: int,
+                     block_n: Optional[int] = None
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(ids [N] int32, hist [n_buckets] int32)`` for key rows ``keys [N]``
+    or ``[N, k]`` (int64 words in ``[0, 2**32)``) against boundary rows
+    ``bounds [n_buckets - 1(, k)]``.
+
+    As in the JAX package, ``ids`` are ``#{j : bounds[j] < key}`` and are
+    not clamped, and only the first ``n_buckets - 1`` boundary rows take
+    part (the TPU kernel's boundary block); fewer rows than that, or
+    ``n_buckets < 2``, raise ``ValueError`` (the TPU kernel would read past
+    the table).  ``block_n`` is the rows a thread block walks on the card
+    (default 2048); the plain version has no blocks.  No rows give empty
+    ids and a zero histogram.
+    """
+    if keys.ndim not in (1, 2):
+        raise ValueError(f"keys must be [N] or [N, k], got "
+                         f"{tuple(keys.shape)}")
+    keys = keys if keys.ndim == 2 else keys[:, None]
+    bounds = torch.as_tensor(bounds, device=keys.device).to(torch.int64)
+    if bounds.ndim == 1:
+        bounds = bounds[:, None]
+    if keys.shape[1] != bounds.shape[1]:
+        raise ValueError(f"keys have {keys.shape[1]} words per row but "
+                         f"bounds have {bounds.shape[1]}")
+    if n_buckets < 2 or bounds.shape[0] < n_buckets - 1:
+        raise ValueError(f"{n_buckets} buckets need {n_buckets - 1} "
+                         f"boundary rows (at least one), got "
+                         f"{bounds.shape[0]}")
+    keys = keys.to(torch.int64).contiguous()
+    bounds = bounds[:n_buckets - 1].contiguous()
+    dev = keys.device.type
+    if dev == "cuda":
+        return _kernel.bucket_partition_ids(
+            keys, bounds, n_buckets=n_buckets,
+            bn=ACCEL_BLOCK_N if block_n is None else block_n)
+    if dev != "cpu":
+        raise ValueError(f"bucket_partition runs on cuda or cpu, not {dev}")
+    return bucket_partition_ref(keys, bounds, n_buckets)
 
 
 def _stacked_inputs(keys, bounds, n_valid):

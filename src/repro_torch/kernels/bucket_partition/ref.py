@@ -1,16 +1,35 @@
-"""Plain PyTorch version of the bucket_dest kernel, and the shared epilogue.
+"""Plain PyTorch versions of the bucket kernels, and the shared epilogue.
 
 :func:`bucket_blocks_ref` computes what ``csrc/bucket_dest.cu`` computes
 — bucket ids, intra-block stable ranks and per-block histograms — with
 ordinary tensor ops: a word-by-word lexicographic compare against every
-boundary, and a one-hot running count (cumsum) for the rank.  The
-wrappers in :mod:`.ops` use it for tensors on the CPU; on the card it is
-the yardstick the kernel is held to.  :func:`dest_from_blocks` is the
-epilogue both routes share.
+boundary, and a one-hot running count (cumsum) for the rank.
+:func:`bucket_partition_ref` computes what ``csrc/bucket_partition.cu``
+computes — unclamped ids and one histogram — with the same compare.  The
+wrappers in :mod:`.ops` use them for tensors on the CPU; on the card they
+are the yardsticks the kernels are held to.  :func:`dest_from_blocks` is
+the epilogue both routes of the scatter share.
 """
 from __future__ import annotations
 
 import torch
+
+
+def count_below_ref(keys: torch.Tensor, bounds: torch.Tensor
+                    ) -> torch.Tensor:
+    """``[...]`` int64 ``#{j : bounds[j] < key}`` for ``keys [..., k]`` and
+    ``bounds [n_bounds, k]``, int64 words in ``[0, 2**32)`` compared
+    lexicographically — the compare of ``csrc/compare.cuh``."""
+    k = keys.shape[-1]
+    lt = torch.zeros(keys.shape[:-1] + (bounds.shape[0],), dtype=torch.bool,
+                     device=keys.device)
+    eq = torch.ones_like(lt)
+    for w in range(k):
+        kw = keys[..., w, None]            # [..., 1]
+        bw = bounds[:, w]                  # [n_bounds]
+        lt |= eq & (bw < kw)
+        eq &= bw == kw
+    return lt.sum(-1)
 
 
 def bucket_ids_ref(keys: torch.Tensor, bounds: torch.Tensor,
@@ -20,17 +39,20 @@ def bucket_ids_ref(keys: torch.Tensor, bounds: torch.Tensor,
 
     ``keys [s, n, k]`` and ``bounds [n_bounds, k]`` are int64 words in
     ``[0, 2**32)``; ``valid [s, n]`` is bool."""
-    s, n, k = keys.shape
-    n_bounds = bounds.shape[0]
-    lt = torch.zeros((s, n, n_bounds), dtype=torch.bool, device=keys.device)
-    eq = torch.ones_like(lt)
-    for w in range(k):
-        kw = keys[..., w, None]            # [s, n, 1]
-        bw = bounds[:, w]                  # [n_bounds]
-        lt |= eq & (bw < kw)
-        eq &= bw == kw
-    ids = lt.sum(-1).clamp_max(n_out - 1)
+    ids = count_below_ref(keys, bounds).clamp_max(n_out - 1)
     return torch.where(valid, ids, n_out)
+
+
+def bucket_partition_ref(keys: torch.Tensor, bounds: torch.Tensor,
+                         n_buckets: int):
+    """``(ids [n] int32, hist [n_buckets] int32)`` — what
+    ``csrc/bucket_partition.cu`` computes: unclamped ids
+    ``#{j : bounds[j] < key}`` for ``keys [n, k]``, and their histogram
+    with ids of ``n_buckets`` or more counted in no bin."""
+    ids = count_below_ref(keys, bounds)
+    kept = ids[ids < n_buckets]
+    hist = torch.bincount(kept, minlength=n_buckets)
+    return ids.to(torch.int32), hist.to(torch.int32)
 
 
 def bucket_blocks_ref(keys: torch.Tensor, bounds: torch.Tensor,

@@ -26,6 +26,7 @@ from repro_torch.convert import (bounds_from_numpy, record_batch_from_numpy,
                                  stacked_from_numpy)
 from repro_torch.core import shuffle as tsh
 from repro_torch.kernels.bucket_partition import bucket_dest, bucket_scatter
+from repro_torch.kernels import _build
 from repro_torch.kernels.bucket_partition import kernel as tkernel
 
 PAD = 64
@@ -334,12 +335,13 @@ def test_kernel_build_without_nvcc_raises(tmp_path, monkeypatch):
 def test_kernel_build_dir(tmp_path, monkeypatch):
     """Builds land in the named directory, else in the checkout's
     build/; a package outside a checkout with none named raises."""
-    monkeypatch.delenv(tkernel.BUILD_DIR_ENV, raising=False)
-    assert tkernel.default_build_dir() == (tkernel.CHECKOUT / "build"
-                                           / "repro_torch")
-    monkeypatch.setenv(tkernel.BUILD_DIR_ENV, str(tmp_path / "b"))
-    assert tkernel.default_build_dir() == tmp_path / "b"
-    monkeypatch.delenv(tkernel.BUILD_DIR_ENV)
-    monkeypatch.setattr(tkernel, "CHECKOUT", tmp_path / "site-packages")
-    with pytest.raises(RuntimeError, match=tkernel.BUILD_DIR_ENV):
+    monkeypatch.delenv(_build.BUILD_DIR_ENV, raising=False)
+    assert _build.default_build_dir() == (_build.CHECKOUT / "build"
+                                          / "repro_torch")
+    assert (_build.CHECKOUT / "src" / "repro_torch").is_dir()
+    monkeypatch.setenv(_build.BUILD_DIR_ENV, str(tmp_path / "b"))
+    assert _build.default_build_dir() == tmp_path / "b"
+    monkeypatch.delenv(_build.BUILD_DIR_ENV)
+    monkeypatch.setattr(_build, "CHECKOUT", tmp_path / "site-packages")
+    with pytest.raises(RuntimeError, match=_build.BUILD_DIR_ENV):
         tkernel.build()

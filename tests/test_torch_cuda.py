@@ -1,6 +1,8 @@
-"""The port's CUDA kernel on the card: ``bucket_dest`` against its plain
-PyTorch version, and TeraSort through ``SphereEngine(device="cuda")``
-against the same job on the CPU.
+"""The port's CUDA kernels on the card against their plain PyTorch
+versions — ``bucket_dest``, ``bucket_partition`` and ``kmeans_assign`` —
+and the paths built on them (TeraSort through ``SphereEngine``,
+``partition_batch`` / ``shuffle_batch``, k-means through ``kmeans_sphere``)
+against the same calls on the CPU.
 
 Every test here needs a CUDA device and skips itself without one (the
 check runs inside the ``cuda`` fixture, never at import).  The module
@@ -9,7 +11,11 @@ with a card and no JAX it runs as
 
     PYTHONPATH=src python -m pytest -q --noconftest tests/test_torch_cuda.py
 
-Tolerance: exact equality (integer and byte data).
+Tolerances: exact equality for integer and byte data.  ``kmeans_assign``:
+ids equal wherever the plain version's best-to-second d2 gap exceeds
+``1e-5 * (|x|^2 + |c|^2)``, d2 within ``1e-5 * (|x|^2 + |c|^2) + 1e-6``
+(float32 sums in another order), with float32 matrix products in full
+precision (no TF32); k-means centroids within ``1e-5``.
 """
 import numpy as np
 import pytest
@@ -17,10 +23,16 @@ import torch
 
 import repro_torch.core as tcore
 import repro_torch.sector as tsector
+from repro_torch.core import kmeans as tkm
 from repro_torch.core import shuffle as tsh
+from repro_torch.core.records import RecordBatch
 from repro_torch.kernels.bucket_partition import (bucket_blocks_ref,
+                                                  bucket_partition,
+                                                  bucket_partition_ref,
                                                   bucket_scatter)
 from repro_torch.kernels.bucket_partition import kernel as tkernel
+from repro_torch.kernels.kmeans_assign import kernel as kkernel
+from repro_torch.kernels.kmeans_assign import kmeans_assign_ref
 
 pytestmark = pytest.mark.requires_cuda
 REC = 100
@@ -30,6 +42,8 @@ REC = 100
 def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
     return torch.device("cuda")
 
 
@@ -117,3 +131,143 @@ def test_cuda_terasort_through_kernel(cuda, tmp_path):
     assert outs == cpu_outs
     assert tkernel.launches - before == rep.shuffle_rounds == rep.host_syncs
     assert rep.sim_seconds == cpu_rep.sim_seconds
+
+
+@pytest.mark.parametrize("n,k,nb,high,bn", [
+    (1000, 1, 2, 4, 64), (1000, 3, 6, 4, 101), (5000, 4, 16, 4, 2048),
+    (70001, 3, 6, 2 ** 32, 2048), (3000, 3, 64, 3, 257), (1, 2, 3, 4, 1)])
+def test_cuda_partition_kernel_matches_plain(cuda, n, k, nb, high, bn):
+    g = torch.Generator().manual_seed(n + nb)
+    keys = torch.randint(0, high, (n, k), generator=g, dtype=torch.int64)
+    bounds = torch.randint(0, high, (nb - 1, k), generator=g,
+                           dtype=torch.int64)
+    want = bucket_partition_ref(keys, bounds, nb)
+    before = tkernel.partition_launches
+    got = bucket_partition(keys.to(cuda), bounds.to(cuda), n_buckets=nb,
+                           block_n=bn)
+    torch.cuda.synchronize()
+    assert tkernel.partition_launches == before + 1
+    for g_, w in zip(got, want):
+        assert torch.equal(g_.cpu(), w)
+
+
+def test_cuda_partition_kernel_overflow_ids(cuda):
+    """At the kernel's own level: more boundary rows than buckets leave
+    ids unclamped and count the overflow in no bin."""
+    keys = torch.arange(0, 400, 5, dtype=torch.int64)[:, None]
+    bounds = torch.tensor([[10], [20], [30], [250]], dtype=torch.int64)
+    got = tkernel.bucket_partition_ids(keys.to(cuda), bounds.to(cuda),
+                                       n_buckets=2, bn=32)
+    want = bucket_partition_ref(keys, bounds, 2)
+    assert torch.equal(got[0].cpu(), want[0])
+    assert torch.equal(got[1].cpu(), want[1])
+    assert int(want[0].max()) == 4 and int(want[1].sum()) == 5
+
+
+def test_cuda_partition_batch_matches_cpu(cuda):
+    data = np.random.default_rng(6).bytes(4000 * REC)
+    records = [data[i:i + REC] for i in range(0, len(data), REC)]
+    part = tsh.range_partitioner(tsh.sample_boundaries(records[:500], 6))
+    cpu = RecordBatch.from_bytes(data, REC, device="cpu")
+    dev = RecordBatch.from_bytes(data, REC, device=cuda)
+    ids, hist = tsh.partition_batch(cpu, part, 6)
+    before = tkernel.partition_launches
+    c_ids, c_hist = tsh.partition_batch(dev, part, 6)
+    pieces = tsh.shuffle_batch(dev, part, 6)
+    assert tkernel.partition_launches == before + 2
+    assert c_ids.device.type == "cuda"
+    assert torch.equal(c_ids.cpu(), ids) and torch.equal(c_hist.cpu(), hist)
+    assert [p.to_bytes() for p in pieces] == \
+        [p.to_bytes() for p in tsh.shuffle_batch(cpu, part, 6)]
+
+
+def _assign_case(n, d, k, dtype, seed, dup=False):
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn((n, d), generator=g).to(dtype)
+    c = torch.randn((k, d), generator=g)
+    if dup and k > 2:
+        c[k - 1] = c[1]
+    return x, c
+
+
+def _check_assign(x, c, got, cuda):
+    """ids exact where the plain version's top-two gap clears the margin,
+    d2 within the stated tolerance — all against the plain version on the
+    card."""
+    xg, cg = x.to(cuda), c.to(cuda)
+    want_ids, want_d2 = kmeans_assign_ref(xg, cg)
+    x32, c32 = xg.float(), cg.float()
+    xx = (x32 * x32).sum(1)
+    cc = (c32 * c32).sum(1)
+    scale = xx + cc[want_ids.long()]
+    ids, d2 = got
+    assert torch.all((d2 - want_d2).abs() <= 1e-5 * scale + 1e-6)
+    if c.shape[0] > 1:
+        full = xx[:, None] - 2 * (x32 @ c32.T) + cc[None]
+        two = full.topk(2, dim=1, largest=False).values
+        decided = two[:, 1] - two[:, 0] > 1e-5 * scale
+    else:
+        decided = torch.ones_like(ids, dtype=torch.bool)
+    assert torch.equal(ids[decided], want_ids[decided])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,d,k,bn", [(0, 8, 10, 1024), (1, 1, 1, 1024),
+                                      (100003, 8, 10, 1024),
+                                      (65536, 32, 100, 512), (777, 3, 5, 7)])
+def test_cuda_kmeans_kernel_matches_plain(cuda, dtype, n, d, k, bn):
+    x, c = _assign_case(n, d, k, dtype, seed=n + k, dup=True)
+    before = kkernel.launches
+    got = kkernel.kmeans_assign_ids(x.to(cuda), c.to(cuda), bn=bn)
+    torch.cuda.synchronize()
+    assert kkernel.launches == before + (1 if n else 0)
+    if n:
+        _check_assign(x, c, got, cuda)
+        if k > 2:          # the duplicated last centroid never wins
+            assert not bool((got[0] == k - 1).any())
+
+
+def test_cuda_kmeans_kernel_shared_memory_limit(cuda):
+    """A centroid table that fills a block's shared memory exactly runs;
+    one float more is refused before launch."""
+    k, d = 256, 226
+    assert kkernel.shared_bytes(k, d) == kkernel.MAX_SHARED
+    x, c = _assign_case(4096, d, k, torch.float32, seed=1)
+    got = kkernel.kmeans_assign_ids(x.to(cuda), c.to(cuda), bn=1024)
+    torch.cuda.synchronize()
+    _check_assign(x, c, got, cuda)
+    x, c = _assign_case(64, d + 1, k, torch.float32, seed=2)
+    with pytest.raises(ValueError, match="shared memory"):
+        kkernel.kmeans_assign_ids(x.to(cuda), c.to(cuda), bn=1024)
+
+
+def test_cuda_kmeans_sphere_through_kernel(cuda, tmp_path):
+    """k-means through the port's engine on the card: centroids of the CPU
+    run, and one kernel launch per assign task."""
+    rng = np.random.default_rng(0)
+    pts = np.concatenate([rng.normal(c, 0.5, (3000, 8)) for c in
+                          (np.zeros(8), np.full(8, 6.0), np.full(8, -5.0))]) \
+        .astype(np.float32)
+    results = {}
+    for name, device in (("cpu", "cpu"), ("cuda", cuda)):
+        sub = tmp_path / name
+        sub.mkdir()
+        master = tsector.SectorMaster(chunk_size=4096 * 32)
+        for i, site in enumerate(master.topology.sites):
+            master.register(tsector.ChunkServer(f"s{i}", site, sub))
+        master.acl.add_member("a")
+        master.acl.grant_write("a")
+        client = tsector.SectorClient(master, "a", "chicago")
+        client.upload("pts", tkm.encode_points(pts), replication=2)
+        before = kkernel.launches
+        cents, rep = tkm.kmeans_sphere(
+            tcore.SphereEngine(master, client, device=device), "pts",
+            dim=8, k=3, iters=4, backend="array")
+        results[name] = (cents, rep, kkernel.launches - before)
+    (c_cpu, r_cpu, l_cpu), (c_dev, r_dev, l_dev) = (results["cpu"],
+                                                    results["cuda"])
+    np.testing.assert_allclose(c_dev, c_cpu, rtol=1e-5, atol=1e-5)
+    n_chunks = -(-pts.nbytes // (4096 * 32))
+    assert l_cpu == 0 and l_dev == 4 * n_chunks
+    assert r_dev.udf_traces == {"assign": 1, "fold": 1}
+    assert r_dev.sim_seconds == r_cpu.sim_seconds

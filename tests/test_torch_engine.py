@@ -250,8 +250,8 @@ def test_default_device_raises_without_cuda(tmp_path, monkeypatch):
 _VERBATIM = ["sector/chunk.py", "sector/acl.py", "sector/events.py",
              "sector/topology.py", "sector/transport.py", "sector/server.py",
              "sector/master.py", "sector/client.py", "sector/__init__.py",
-             "core/trace.py", "core/metrics.py", "core/planner.py",
-             "core/job.py"]
+             "sector/replication.py", "core/trace.py", "core/metrics.py",
+             "core/planner.py", "core/job.py"]
 
 
 def _without_package_imports(path: Path, package: str) -> list:
@@ -282,6 +282,8 @@ def test_port_imports_no_jax_and_no_reference():
     code = ("import sys\n"
             "import repro_torch, repro_torch.core, repro_torch.sector\n"
             "import repro_torch.kernels.bucket_partition, repro_torch.convert\n"
+            "import repro_torch.kernels.kmeans_assign, repro_torch.core.kmeans\n"
+            "import repro_torch.sector.replication\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'repro' or m.startswith('repro.'))\n"
             "print(bad)\n"
