@@ -51,6 +51,35 @@ and passed over.
    within ``rtol = atol = 1e-3``; ``udf_traces`` must be one per stage and
    ``kmeans_assign`` must launch once per assign task and iteration.
 
+6. **LM kernels.**  ``recurrentgemma-2b`` at its full config (26 layers,
+   ``d_model`` 2560, vocab 256,000, bf16) with parameters from ``--seed``
+   on the card; one prefill of the 3,072-token prompt captures the q / k /
+   v of its first local-attention layer and the a / b / h0 of its first
+   RG-LRU layer.  Each kernel is held against its plain version on those
+   activations and on a sweep of small cases, and timed as in phase 2
+   beside its bound and, for attention, beside
+   ``torch.nn.functional.scaled_dot_product_attention`` (timed only as a
+   yardstick):
+   - ``flash_attention``, local: q ``[1, 3072, 10, 256]``, k / v
+     ``[1, 3072, 1, 256]``, bf16, causal, window 2048; global (Qwen2.5-3B's
+     shape): q ``[1, 3072, 16, 128]``, k / v ``[1, 3072, 2, 128]``, causal;
+     within 2e-5 in float32 and 2e-2 in bf16;
+   - ``rg_lru_scan``, exact, at prefill ``[1, 3072, 2560]`` and decode
+     ``[4, 1, 2560]``.
+7. **Serving** through the port's ``ServeEngine`` (``max_batch=4``,
+   ``max_len=4096``, greedy): 8 requests of 32 new tokens, prompts of
+   3,072 and 2,500 tokens (longer than the window) and six lengths drawn
+   from ``--seed`` in 16-512.  Every request must finish with 32
+   in-vocabulary tokens and every slot be recycled; ``flash_attention``
+   must launch exactly 8 times a prefill and ``rg_lru_scan`` 18 times a
+   prefill and a decode step; the two long prompts' last prefill logits
+   must match a reference prefill on the card in which both kernels are
+   swapped for their plain versions (inside this script only) within
+   ``5e-2`` of the reference logits' largest magnitude.  Prints time to
+   first token, prefill and steady decode tokens/s, peak device memory,
+   and one decode step under ``torch.profiler`` (device busy time and
+   idle share).
+
 The line before the last is one JSON object describing every kernel; the
 last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -60,6 +89,7 @@ script, it exits non-zero and prints no result.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import shutil
@@ -86,6 +116,7 @@ ASSIGN_ROWS = 2_097_152                 # points in one 64 MiB chunk
 # FMAs
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = 67e12
+PEAK_BF16_PER_S = 989e12                # dense bf16 tensor-core rate
 SLEEP_CYCLES = 2_000_000                # ~1 ms of device sleep before a timed call
 PKG = "src/repro_torch/kernels"
 KERNELS = {
@@ -95,7 +126,15 @@ KERNELS = {
                          "src/repro/kernels/bucket_partition/kernel.py:70"),
     "kmeans_assign": (f"{PKG}/kmeans_assign/csrc/kmeans_assign.cu",
                       "src/repro/kernels/kmeans_assign/kernel.py:19"),
+    "flash_attention": (f"{PKG}/flash_attention/csrc/flash_attention.cu",
+                        "src/repro/kernels/flash_attention/kernel.py:29"),
+    "rg_lru_scan": (f"{PKG}/rg_lru_scan/csrc/rg_lru_scan.cu",
+                    "src/repro/kernels/rg_lru_scan/kernel.py:23"),
 }
+LM_ARCH = "recurrentgemma-2b"
+LONG_PROMPTS = (3072, 2500)             # longer than the 2,048 window
+N_REQUESTS, MAX_NEW, SERVE_SLOTS, SERVE_LEN = 8, 32, 4, 4096
+LOGIT_TOL = 5e-2                        # of the reference's largest |logit|
 
 
 def fail(msg: str) -> None:
@@ -134,20 +173,21 @@ def timed_ms(torch, fn, warmup: int = 3, runs: int = 20) -> float:
     return statistics.median(times)
 
 
-def bound_ms(n_bytes: int, n_ops: int):
+def bound_ms(n_bytes: int, n_ops: int, ops_per_s: float = PEAK_OPS_PER_S):
     """(least time in ms, what bounds it) for moving ``n_bytes`` through
-    device memory and doing ``n_ops`` 32-bit operations."""
+    device memory and doing ``n_ops`` operations at ``ops_per_s`` (default
+    the 32-bit rate)."""
     t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = n_ops / PEAK_OPS_PER_S * 1e3
+    t_ops = n_ops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def row(name, worst, ms, plain, bound, by):
+def row(name, worst, ms, plain, bound, by, library=None):
     source, replaces = KERNELS[name]
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": None, "max_abs_err": worst,
             "ms": ms, "plain_ms": plain, "bound_ms": bound, "bound_by": by,
-            "library_ms": None}
+            "library_ms": library}
 
 
 def spans_line(tracer) -> str:
@@ -177,7 +217,9 @@ def build_all(build_dir: Path) -> None:
     """One fresh build of every kernel source, one nvcc each, in parallel."""
     from repro_torch.kernels import _build
     from repro_torch.kernels.bucket_partition import kernel as bkernel
+    from repro_torch.kernels.flash_attention import kernel as fkernel
     from repro_torch.kernels.kmeans_assign import kernel as kkernel
+    from repro_torch.kernels.rg_lru_scan import kernel as lkernel
     shutil.rmtree(build_dir, ignore_errors=True)
 
     def one(src):
@@ -198,6 +240,8 @@ def build_all(build_dir: Path) -> None:
     bkernel.load_library(build_dir)
     bkernel.load_partition_library(build_dir)
     kkernel.load_library(build_dir)
+    fkernel.load_library(build_dir)
+    lkernel.load_library(build_dir)
 
 
 # ------------------------------------------------------------ phase 2
@@ -816,6 +860,406 @@ def check_kmeans(launches, n_chunks, cents, rep, pts, seed) -> float:
     return err
 
 
+# ------------------------------------------------------------ phases 6-7
+@contextlib.contextmanager
+def patched(module, name: str, fn):
+    """``module.name`` replaced by ``fn`` inside the block."""
+    old = getattr(module, name)
+    setattr(module, name, fn)
+    try:
+        yield
+    finally:
+        setattr(module, name, old)
+
+
+@contextlib.contextmanager
+def plain_kernels():
+    """Both LM kernels' launchers swapped for their plain versions: the
+    reference run of the logit check, set up here and nowhere else."""
+    from repro_torch.kernels.flash_attention import kernel as fkernel
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    from repro_torch.kernels.rg_lru_scan import kernel as lkernel
+    from repro_torch.kernels.rg_lru_scan.ref import lru_scan_ref
+
+    def attn(q, k, v, *, causal, window):
+        return flash_attention_ref(q, k, v, causal=causal, window=window)
+
+    with patched(fkernel, "flash_attention_fwd", attn), \
+            patched(lkernel, "lru_scan", lru_scan_ref):
+        yield
+
+
+def lm_model(torch, seed: int, cfg=None, device="cuda"):
+    """The LM config (default: recurrentgemma-2b's full config) and its
+    parameters from ``seed`` on ``device``."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import model
+    from repro_torch.utils.pytree import tree_leaves
+    cfg = cfg or get_config(LM_ARCH)
+    t = time.perf_counter()
+    params = model.init_params(cfg, torch.Generator().manual_seed(seed),
+                               device)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    n = sum(p.numel() for p in tree_leaves(params))
+    print(f"lm: {cfg.name}: {cfg.n_layers} layers d_model={cfg.d_model} "
+          f"vocab={cfg.vocab_size} {cfg.param_dtype}: {n} parameters "
+          f"({sum(p.nbytes for p in tree_leaves(params))} bytes) in "
+          f"{time.perf_counter() - t:.2f}s")
+    return cfg, params
+
+
+def serve_prompts(cfg, seed: int, long=LONG_PROMPTS, short=(16, 513)):
+    """The long prompts, then six lengths drawn from ``seed`` in
+    ``short``; tokens drawn from ``seed``."""
+    rng = np.random.default_rng([seed, 3])
+    lengths = list(long) + [int(n) for n in rng.integers(
+        short[0], short[1], N_REQUESTS - len(long))]
+    return [rng.integers(0, cfg.vocab_size, n).tolist() for n in lengths]
+
+
+def capture_activations(torch, cfg, params, prompt, max_len=SERVE_LEN):
+    """One prefill of ``prompt``; returns the inputs of its first
+    ``flash_attention`` and first ``rg_lru_scan`` launch (the first L and
+    the first R layer) and the prefill's seconds."""
+    from repro_torch.kernels.flash_attention import kernel as fkernel
+    from repro_torch.kernels.rg_lru_scan import kernel as lkernel
+    from repro_torch.models import model
+    got = {}
+    real_attn, real_scan = fkernel.flash_attention_fwd, lkernel.lru_scan
+
+    def attn(q, k, v, *, causal, window):
+        got.setdefault("attn", (q.clone(), k.clone(), v.clone(), causal,
+                                window))
+        return real_attn(q, k, v, causal=causal, window=window)
+
+    def scan(a, b, h0):
+        got.setdefault("scan", (a.clone(), b.clone(), h0.clone()))
+        return real_scan(a, b, h0)
+
+    dev = params["embed"]["w"].device
+    with patched(fkernel, "flash_attention_fwd", attn), \
+            patched(lkernel, "lru_scan", scan), torch.inference_mode():
+        t = time.perf_counter()
+        model.prefill(params, {"inputs": torch.tensor([prompt], device=dev)},
+                      cfg=cfg, max_len=max_len)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+    print(f"lm: capture prefill of {len(prompt)} tokens (the first, cold) "
+          f"{time.perf_counter() - t:.3f}s")
+    return got
+
+
+def _sdpa_mask(torch, T, S, window, dev):
+    tpos = torch.arange(T, device=dev)[:, None]
+    spos = torch.arange(S, device=dev)[None, :]
+    mask = spos <= tpos
+    if window:
+        mask &= tpos - spos < window
+    return mask
+
+
+def flash_phase(torch, captured):
+    """flash_attention against its plain version: a sweep of small cases,
+    the captured local layer, random inputs at the local and the global
+    shape; timings at both shapes."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import kernel, ops, ref
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(13)
+    worst = 0.0
+    n_cases = 0
+
+    def compare(q, k, v, causal, window):
+        nonlocal worst, n_cases
+        got = kernel.flash_attention_fwd(q, k, v, causal=causal,
+                                         window=window)
+        want = ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+        err = float((got.float() - want.float()).abs().max())
+        tol = 2e-2 if q.dtype == torch.bfloat16 else 2e-5
+        check(bool(torch.allclose(got.float(), want.float(), rtol=tol,
+                                  atol=tol)),
+              f"flash_attention beyond tolerance {tuple(q.shape)} "
+              f"{tuple(k.shape)} {q.dtype} causal={causal} window={window}: "
+              f"max err {err}")
+        check(torch.equal(ops.flash_attention(q, k, v, causal=causal,
+                                              window=window), got),
+              "ops.flash_attention differs from the kernel")
+        worst = max(worst, err)
+        n_cases += 1
+        return got
+
+    def rand(shape, dtype):
+        return torch.randn(shape, generator=gen).to(dtype).to(dev)
+
+    for dtype in (torch.float32, torch.bfloat16):
+        for B, T, S, H, K, D, causal, window in (
+                (2, 64, 64, 2, 2, 32, True, 0), (2, 64, 64, 4, 2, 32, True, 24),
+                (2, 50, 70, 2, 2, 32, False, 0),
+                (2, 32, 96, 2, 1, 64, False, 24),
+                (1, 333, 333, 10, 1, 256, True, 100),
+                (1, 257, 257, 16, 2, 128, True, 0),
+                (3, 1, 1, 4, 4, 16, True, 0), (1, 129, 129, 2, 1, 12, True, 0)):
+            compare(rand((B, T, H, D), dtype), rand((B, S, K, D), dtype),
+                    rand((B, S, K, D), dtype), causal, window)
+    q, k, v, causal, window = captured["attn"]
+    compare(q, k, v, causal, window)
+    torch.cuda.synchronize()
+    B, T, H, D = q.shape
+    S, K = k.shape[1], k.shape[2]
+
+    def times(q, k, v, window, mask):
+        ms = timed_ms(torch, lambda: kernel.flash_attention_fwd(
+            q, k, v, causal=True, window=window))
+        plain = timed_ms(torch, lambda: ref.flash_attention_ref(
+            q, k, v, causal=True, window=window))
+        qs, ks, vs = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+
+        def lib():
+            if mask is None:
+                return F.scaled_dot_product_attention(
+                    qs, ks, vs, is_causal=True, enable_gqa=True)
+            return F.scaled_dot_product_attention(
+                qs, ks, vs, attn_mask=mask, enable_gqa=True)
+        lib_err = float((lib().transpose(1, 2).float() - ref.flash_attention_ref(
+            q, k, v, causal=True, window=window).float()).abs().max())
+        return ms, plain, timed_ms(torch, lib), lib_err
+
+    def pairs(T, window):
+        return sum(min(t + 1, window) if window else t + 1 for t in range(T))
+
+    # the path's local layer: the captured activations
+    mask = _sdpa_mask(torch, T, S, window, dev)
+    ms, plain, lib, lib_err = times(q, k, v, window, mask)
+    live = pairs(T, window)
+    f_ops = 4 * D * H * live
+    f_bytes = 2 * q.nbytes + k.nbytes + v.nbytes
+    f_bound, f_by = bound_ms(f_bytes, f_ops, PEAK_BF16_PER_S)
+    fp32_floor = f_ops / PEAK_OPS_PER_S * 1e3
+    print(f"kernel flash_attention local q {list(q.shape)} k/v "
+          f"{list(k.shape)} {q.dtype} window={window}: kernel_ms={ms:.4f} "
+          f"bound_ms={f_bound:.4f} ({live} live pairs, {f_ops} operations at "
+          f"989 TFLOP/s bf16; {f_bytes} bytes) "
+          f"fp32_rate_floor_ms={fp32_floor:.4f} "
+          f"({f_ops / (ms * 1e-3) / 1e12:.2f} TFLOP/s) plain_ms={plain:.4f} "
+          f"sdpa_ms={lib:.4f} (max err vs plain {lib_err:.3e}) "
+          f"cases={n_cases} max_abs_err={worst:.3e}")
+    # Qwen2.5-3B's global layer shape, random inputs
+    gq, gk, gv = (rand(shape, torch.bfloat16) for shape in (
+        (1, T, 16, 128), (1, T, 2, 128), (1, T, 2, 128)))
+    compare(gq, gk, gv, True, 0)
+    g_ms, g_plain, g_lib, g_lib_err = times(gq, gk, gv, 0, None)
+    g_ops = 4 * 128 * 16 * pairs(T, 0)
+    g_bound, _ = bound_ms(2 * gq.nbytes + gk.nbytes + gv.nbytes, g_ops,
+                          PEAK_BF16_PER_S)
+    print(f"kernel flash_attention global q {list(gq.shape)} k/v "
+          f"{list(gk.shape)} bf16 causal: kernel_ms={g_ms:.4f} "
+          f"bound_ms={g_bound:.4f} ({g_ops} operations) "
+          f"fp32_rate_floor_ms={g_ops / PEAK_OPS_PER_S * 1e3:.4f} "
+          f"({g_ops / (g_ms * 1e-3) / 1e12:.2f} TFLOP/s) "
+          f"plain_ms={g_plain:.4f} sdpa_ms={g_lib:.4f} (max err vs plain "
+          f"{g_lib_err:.3e})")
+    return row("flash_attention", worst, ms, plain, f_bound, f_by, lib)
+
+
+def lru_phase(torch, captured):
+    """rg_lru_scan against its plain version, exactly: small cases, the
+    captured first R layer of the long prefill and a decode step;
+    timings at the prefill and the decode shape."""
+    from repro_torch.kernels.rg_lru_scan import kernel, ops, ref
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(17)
+    n_cases = 0
+
+    def compare(a, b, h0):
+        nonlocal n_cases
+        got = kernel.lru_scan(a, b, h0)
+        want = ref.lru_scan_ref(a, b, h0)
+        for name, g, w in zip(("h", "h_last"), got, want):
+            err = float((g - w).abs().max()) if g.numel() else 0.0
+            check(err == 0, f"rg_lru_scan {name} differs from the plain "
+                            f"version {tuple(a.shape)}: max err {err}")
+        check(all(torch.equal(x, y) for x, y in
+                  zip(ops.rg_lru_scan(a, b, h0), got)),
+              "ops.rg_lru_scan differs from the kernel")
+        n_cases += 1
+
+    def rand(B, T, W):
+        a = torch.rand((B, T, W), generator=gen) * 0.299 + 0.7
+        b = torch.randn((B, T, W), generator=gen) * 0.1
+        return a.to(dev), b.to(dev), torch.randn((B, W), generator=gen).to(dev)
+
+    for shape in ((1, 16, 32), (2, 33, 64), (3, 8, 48), (1, 13, 1000),
+                  (4, 1, 2560), (2, 0, 8)):
+        compare(*rand(*shape))
+    a, b, h0 = captured["scan"]
+    compare(a, b, h0)
+    torch.cuda.synchronize()
+    out = {}
+    for label, args in (("prefill", (a, b, h0)),
+                        ("decode", rand(4, 1, a.shape[2]))):
+        ms = timed_ms(torch, lambda: kernel.lru_scan(*args))
+        plain = timed_ms(torch, lambda: ref.lru_scan_ref(*args))
+        x = args[0]
+        n_bytes = 3 * x.nbytes + 2 * args[2].nbytes
+        bnd, by = bound_ms(n_bytes, 2 * x.numel())
+        out[label] = (ms, plain, bnd, by)
+        print(f"kernel rg_lru_scan {label} {list(x.shape)}: "
+              f"kernel_ms={ms:.4f} bound_ms={bnd:.6f} ({n_bytes} bytes) "
+              f"({n_bytes / (ms * 1e-3) / 1e12:.3f} TB/s) plain_ms={plain:.4f}"
+              + (f" cases={n_cases} max_abs_err=0" if label == "prefill"
+                 else ""))
+    ms, plain, bnd, by = out["prefill"]
+    return row("rg_lru_scan", 0.0, ms, plain, bnd, by)
+
+
+def serve_path(torch, cfg, params, prompts, max_len=SERVE_LEN,
+               max_new=MAX_NEW, slots=SERVE_SLOTS, device="cuda"):
+    """The requests through the port's ServeEngine, one host-clock time
+    per step.  Returns (engine, requests, [(seconds, admitted, active)],
+    (flash_attention, rg_lru_scan) launches, [(prompt length, last
+    prefill logits)], peak device memory)."""
+    from repro_torch.kernels.flash_attention import kernel as fkernel
+    from repro_torch.kernels.rg_lru_scan import kernel as lkernel
+    from repro_torch.models import model
+    from repro_torch.serve import SamplerConfig, ServeEngine
+
+    eng = ServeEngine(cfg, params, max_batch=slots, max_len=max_len,
+                      scfg=SamplerConfig(temperature=0.0), device=device)
+    last_logits = []
+    real_prefill = model.prefill
+
+    def prefill(params, batch, **kw):
+        logits, cache = real_prefill(params, batch, **kw)
+        last_logits.append((batch["inputs"].shape[1],
+                            logits[0].float().cpu()))
+        return logits, cache
+
+    if device == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    steps = []
+    fkernel.launches = 0
+    lkernel.launches = 0
+    with patched(model, "prefill", prefill):
+        reqs = [eng.submit(p, max_new=max_new) for p in prompts]
+        while eng.queue or any(r is not None for r in eng.slot_req):
+            queued = len(eng.queue)
+            t = time.perf_counter()
+            active = eng.step()
+            steps.append((time.perf_counter() - t, queued - len(eng.queue),
+                          active))
+    launches = (fkernel.launches, lkernel.launches)
+    peak = torch.cuda.max_memory_allocated() if device == "cuda" else 0
+    return eng, reqs, steps, launches, last_logits, peak
+
+
+def report_serve(reqs, steps, launches, peak) -> float:
+    """Print the serving metrics; returns the median steady step's
+    seconds."""
+    prefill_s = [r.t_first - r.t_admit for r in reqs]
+    steady = [(sec, act) for sec, adm, act in steps if adm == 0]
+    steady_s = sum(sec for sec, _ in steady)
+    print(f"serve: {len(reqs)} requests x {reqs[0].max_new} new tokens, "
+          f"prompts {[len(r.prompt) for r in reqs]}, {len(steps)} decode "
+          f"steps ({len(steady)} steady): "
+          f"ttft_long_s={reqs[0].t_first - reqs[0].t_submit:.4f} "
+          f"(prompt {len(reqs[0].prompt)}) prefill_s="
+          f"{[round(s, 4) for s in prefill_s]} prefill_tok_per_s="
+          f"{sum(len(r.prompt) for r in reqs) / sum(prefill_s):.1f} "
+          f"decode_tok_per_s_steady="
+          f"{sum(act for _, act in steady) / steady_s:.1f} "
+          f"steady_step_ms_median="
+          f"{statistics.median(s for s, _ in steady) * 1e3:.3f} "
+          f"max_memory_allocated={peak} launches flash_attention="
+          f"{launches[0]} rg_lru_scan={launches[1]}")
+    return statistics.median(sec for sec, _ in steady)
+
+
+def check_serve(cfg, eng, reqs, steps, launches, max_new=MAX_NEW) -> None:
+    for r in reqs:
+        check(r.done and len(r.out) == max_new,
+              f"request {r.rid} finished {r.done} with {len(r.out)} tokens")
+        check(all(0 <= t < cfg.vocab_size for t in r.out),
+              f"request {r.rid} has tokens outside the vocabulary")
+    check(all(s is None for s in eng.slot_req), "a slot was not recycled")
+    n_attn = cfg.n_groups * sum(s in "AL" for s in cfg.block_pattern)
+    n_rec = cfg.n_groups * cfg.block_pattern.count("R")
+    want = (n_attn * len(reqs), n_rec * (len(reqs) + len(steps)))
+    check(launches == want,
+          f"launches (flash_attention, rg_lru_scan) {launches}, expected "
+          f"{want} for {len(reqs)} prefills and {len(steps)} decode steps")
+
+
+def check_logits(torch, cfg, params, prompts, last_logits,
+                 max_len=SERVE_LEN) -> float:
+    """The long prompts' last prefill logits against a reference prefill
+    with both kernels swapped for their plain versions."""
+    from repro_torch.models import model
+    served = dict(last_logits)
+    worst = 0.0
+    dev = params["embed"]["w"].device
+    for prompt in prompts[:len(LONG_PROMPTS)]:
+        with plain_kernels(), torch.inference_mode():
+            t = time.perf_counter()
+            want, _ = model.prefill(
+                params, {"inputs": torch.tensor([prompt], device=dev)},
+                cfg=cfg, max_len=max_len)
+            want = want[0].float().cpu()
+            sec = time.perf_counter() - t
+        got = served[len(prompt)]
+        scale = float(want.abs().max())
+        err = float((got - want).abs().max())
+        worst = max(worst, err / scale)
+        print(f"serve: prompt {len(prompt)}: last logits vs the plain "
+              f"reference max abs diff {err:.4e} (scale {scale:.4e}, "
+              f"ratio {err / scale:.3e}, tolerance {LOGIT_TOL}); argmax "
+              f"{int(got.argmax())} vs {int(want.argmax())}; reference "
+              f"prefill {sec:.2f}s")
+        check(err <= LOGIT_TOL * scale,
+              f"prompt {len(prompt)}: served logits differ from the plain "
+              f"reference by {err} (scale {scale})")
+    return worst
+
+
+def profile_decode(torch, eng, steady_s: float) -> None:
+    """One more steady decode step over four short requests, under
+    ``torch.profiler``: the device's busy time, its idle share against
+    the served run's median steady step, and the largest consumers.  A
+    measurement only: the checked run is over."""
+    from torch.profiler import ProfilerActivity, profile
+    rng = np.random.default_rng(5)
+    for _ in range(eng.max_batch):
+        eng.submit(rng.integers(0, eng.cfg.vocab_size, 16).tolist(),
+                   max_new=8)
+    eng.step()                      # admit the four
+    eng.step()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        eng.step()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+    eng.run()
+    on_card = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in on_card) / 1e3
+    if not busy_ms:
+        print("serve: profiled decode step: the profiler saw no device "
+              "time; device busy share not measured")
+        return
+    top = sorted(on_card, key=lambda e: -e.self_device_time_total)[:8]
+    print(f"serve: profiled decode step ({eng.max_batch} active): device "
+          f"busy {busy_ms:.3f} ms against a steady step of "
+          f"{steady_s * 1e3:.3f} ms (idle share "
+          f"{1 - busy_ms / (steady_s * 1e3):.3f}; the profiled step took "
+          f"{wall * 1e3:.3f} ms); largest: "
+          + "; ".join(f"{e.key[:50]} x{e.count} "
+                      f"{e.self_device_time_total / 1e3:.3f} ms"
+                      for e in top))
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--records", type=int, default=10_000_000)
@@ -865,6 +1309,30 @@ def main() -> None:
         torch, args.points, args.seed)
     check_kmeans(k_launches, n_chunks, cents, k_rep, pts, args.seed)
     rows["kmeans_assign"]["launches"] = k_launches
+    del cents, k_rep, pts
+    torch.cuda.empty_cache()
+    print(f"k-means path done at {time.perf_counter() - t0:.1f}s")
+
+    # phase 6: the LM kernels on the full model's activations
+    cfg, params = lm_model(torch, args.seed)
+    prompts = serve_prompts(cfg, args.seed)
+    captured = capture_activations(torch, cfg, params, prompts[0])
+    with torch.inference_mode():
+        rows["flash_attention"] = flash_phase(torch, captured)
+        rows["rg_lru_scan"] = lru_phase(torch, captured)
+    del captured
+    torch.cuda.empty_cache()
+    print(f"LM kernels checked at {time.perf_counter() - t0:.1f}s")
+
+    # phase 7: serving
+    eng, reqs, steps, lm_launches, last_logits, peak = serve_path(
+        torch, cfg, params, prompts)
+    check_serve(cfg, eng, reqs, steps, lm_launches)
+    rows["flash_attention"]["launches"] = lm_launches[0]
+    rows["rg_lru_scan"]["launches"] = lm_launches[1]
+    steady_s = report_serve(reqs, steps, lm_launches, peak)
+    check_logits(torch, cfg, params, prompts, last_logits)
+    profile_decode(torch, eng, steady_s)
     for r in rows.values():
         check(r["launches"] > 0, f"its path never launched {r['name']}")
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t0:.1f}s")

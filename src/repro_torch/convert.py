@@ -1,11 +1,12 @@
 """State conversion: numpy arrays into the port's record, boundary and
 point types.
 
-The system has no weights; its state is record data, the partitioner's
-boundary tables, and for k-means the points and the centroid table.
+The Sphere paths have no weights; their state is record data, the
+partitioner's boundary tables, and for k-means the points and the
+centroid table.  The LM serving path has parameters and decode caches.
 These helpers turn the numpy arrays a test or a script makes from one
-seed into the port's types, so the JAX package and the port can be fed
-identical inputs.
+seed (or from the JAX package's trees, as numpy) into the port's types,
+so the JAX package and the port can be fed identical inputs.
 """
 from __future__ import annotations
 
@@ -60,3 +61,32 @@ def centroids_from_numpy(c: np.ndarray, device=None) -> torch.Tensor:
     """A ``[K, D]`` centroid table as a float32 tensor on ``device``
     (default CUDA)."""
     return points_from_numpy(c, device)
+
+
+def tensor_from_numpy(a: np.ndarray, device=None) -> torch.Tensor:
+    """One numpy array as a tensor of the same type on ``device``
+    (default CUDA).  A bfloat16 array (``ml_dtypes.bfloat16``, what
+    ``np.asarray`` makes of a JAX bfloat16 array) is carried bit for bit
+    through its 16-bit pattern."""
+    a = np.asarray(a)
+    dev = resolve_device(device)
+    if a.dtype.name == "bfloat16":
+        bits = torch.from_numpy(np.ascontiguousarray(a).view(np.int16).copy())
+        return bits.view(torch.bfloat16).to(dev)
+    return torch.from_numpy(np.ascontiguousarray(a).copy()).to(dev)
+
+
+def params_from_jax(tree_of_numpy, device=None):
+    """The JAX package's parameter tree, its leaves as numpy arrays
+    (``jax.tree.map(np.asarray, params)``), as the port's tree of tensors
+    on ``device`` (default CUDA): the same paths, shapes and types."""
+    if isinstance(tree_of_numpy, dict):
+        return {key: params_from_jax(sub, device)
+                for key, sub in tree_of_numpy.items()}
+    return tensor_from_numpy(tree_of_numpy, device)
+
+
+def cache_from_jax(tree_of_numpy, device=None):
+    """The JAX package's decode cache (KV caches, ring ``kpos``, RG-LRU
+    states), as numpy, as the port's cache on ``device`` (default CUDA)."""
+    return params_from_jax(tree_of_numpy, device)

@@ -13,3 +13,5 @@ from repro_torch.kernels.bucket_partition.ops import (  # noqa: F401
 from repro_torch.kernels.bucket_partition.ref import (  # noqa: F401
     bucket_blocks_ref, bucket_dest_ref, dest_from_blocks)
 from repro_torch.kernels.kmeans_assign import kmeans_assign  # noqa: F401
+from repro_torch.kernels.flash_attention import flash_attention  # noqa: F401
+from repro_torch.kernels.rg_lru_scan import rg_lru_scan  # noqa: F401

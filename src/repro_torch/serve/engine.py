@@ -1,0 +1,147 @@
+"""Serving engine with continuous batching over a fixed slot pool.
+
+The port of ``repro.serve.engine``.  Decode runs as one batched step over
+``max_batch`` slots; requests stream in and out of slots (continuous
+batching).  Prefill runs each admitted prompt alone (batch 1) at its own
+length, and its cache is written into the pooled ``[G, B, ...]`` cache at
+the slot index, in place (the JAX package returns a new pool).  Finished
+slots (EOS or token budget) are recycled immediately.
+
+Everything runs under ``torch.inference_mode()``.  Each request carries
+host-clock stamps (``time.perf_counter``): ``t_submit``, ``t_admit``
+(its prefill starts) and ``t_first`` (its first token is on the host).
+"""
+from __future__ import annotations
+
+import time
+from dataclasses import dataclass, field
+from typing import List, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.device import resolve_device
+from repro_torch.models import model
+from repro_torch.parallel.sharding import NO_PARALLEL, ParallelConfig
+from repro_torch.serve.sampler import SamplerConfig, sample
+from repro_torch.utils.pytree import tree_leaves, tree_map
+
+
+@dataclass
+class Request:
+    rid: int
+    prompt: List[int]
+    max_new: int = 32
+    enc_frames: Optional[np.ndarray] = None
+    out: List[int] = field(default_factory=list)
+    done: bool = False
+    t_submit: float = 0.0
+    t_admit: float = 0.0
+    t_first: float = 0.0
+
+
+class ServeEngine:
+    def __init__(self, cfg: ModelConfig, params,
+                 pcfg: ParallelConfig = NO_PARALLEL,
+                 max_batch: int = 4, max_len: int = 256,
+                 eos_id: int = -1,
+                 scfg: SamplerConfig = SamplerConfig(),
+                 device=None):
+        """``params`` must lie on ``device`` (default CUDA); sampling
+        draws from a generator on ``device`` seeded 0 (the JAX package's
+        ``PRNGKey(0)``)."""
+        self.device = resolve_device(device)
+        leaf = tree_leaves(params)[0]
+        if leaf.device.type != self.device.type:
+            raise ValueError(f"params are on {leaf.device}, the engine on "
+                             f"{self.device}")
+        self.cfg = cfg
+        self.params = params
+        self.pcfg = pcfg
+        self.max_batch = max_batch
+        self.max_len = max_len
+        self.eos_id = eos_id
+        self.scfg = scfg
+        self.generator = torch.Generator(device=self.device)
+        self.generator.manual_seed(0)
+        with torch.inference_mode():
+            self.cache = model.init_cache(cfg, max_batch, max_len,
+                                          device=self.device)
+        self.pos = np.zeros(max_batch, np.int32)
+        self.tok = np.zeros(max_batch, np.int32)
+        self.slot_req: List[Optional[Request]] = [None] * max_batch
+        self.queue: List[Request] = []
+        self._rid = 0
+
+    @staticmethod
+    def _insert(pool, new, slot: int) -> None:
+        """Write a batch-1 cache ``new`` ([G, 1, ...] leaves) into the
+        pool's ([G, B, ...] leaves) slot, in place."""
+        tree_map(lambda a, b: a[:, slot:slot + 1].copy_(b), pool, new)
+
+    # ------------------------------------------------------------- requests
+    def submit(self, prompt: List[int], max_new: int = 32,
+               enc_frames: Optional[np.ndarray] = None) -> Request:
+        if enc_frames is not None or self.cfg.is_encoder_decoder:
+            raise NotImplementedError(
+                "encoder-decoder serving is not ported yet (ROADMAP.md "
+                "queue 1)")
+        req = Request(self._rid, [int(t) for t in prompt], max_new,
+                      t_submit=time.perf_counter())
+        self._rid += 1
+        self.queue.append(req)
+        return req
+
+    @torch.inference_mode()
+    def _admit(self) -> None:
+        for slot in range(self.max_batch):
+            if self.slot_req[slot] is not None or not self.queue:
+                continue
+            req = self.queue.pop(0)
+            req.t_admit = time.perf_counter()
+            batch = {"inputs": torch.tensor([req.prompt], dtype=torch.int32,
+                                            device=self.device)}
+            last_logits, cache1 = model.prefill(self.params, batch,
+                                                cfg=self.cfg, pcfg=self.pcfg,
+                                                max_len=self.max_len)
+            self._insert(self.cache, cache1, slot)
+            tok = int(sample(last_logits, self.generator, self.scfg)[0])
+            req.t_first = time.perf_counter()
+            req.out.append(tok)
+            self.slot_req[slot] = req
+            self.pos[slot] = len(req.prompt)
+            self.tok[slot] = tok
+
+    # ----------------------------------------------------------------- step
+    @torch.inference_mode()
+    def step(self) -> int:
+        """One batched decode step. Returns #active slots."""
+        self._admit()
+        active = [i for i, r in enumerate(self.slot_req) if r is not None]
+        if not active:
+            return 0
+        tok = torch.from_numpy(self.tok[:, None].copy()).to(self.device)
+        pos = torch.from_numpy(self.pos.copy()).to(self.device)
+        logits, self.cache = model.decode_step(self.params, self.cache, tok,
+                                               pos, cfg=self.cfg,
+                                               pcfg=self.pcfg)
+        nxt = sample(logits, self.generator, self.scfg).cpu().numpy()
+        for slot in active:
+            req = self.slot_req[slot]
+            t = int(nxt[slot])
+            req.out.append(t)
+            self.pos[slot] += 1
+            self.tok[slot] = t
+            if t == self.eos_id or len(req.out) >= req.max_new or \
+                    self.pos[slot] >= self.max_len - 1:
+                req.done = True
+                self.slot_req[slot] = None  # recycle immediately
+        return len(active)
+
+    def run(self, max_steps: int = 10_000) -> None:
+        steps = 0
+        while (self.queue or any(r is not None for r in self.slot_req)) \
+                and steps < max_steps:
+            self.step()
+            steps += 1

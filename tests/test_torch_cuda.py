@@ -1,8 +1,9 @@
 """The port's CUDA kernels on the card against their plain PyTorch
-versions — ``bucket_dest``, ``bucket_partition`` and ``kmeans_assign`` —
-and the paths built on them (TeraSort through ``SphereEngine``,
-``partition_batch`` / ``shuffle_batch``, k-means through ``kmeans_sphere``)
-against the same calls on the CPU.
+versions — ``bucket_dest``, ``bucket_partition``, ``kmeans_assign``,
+``flash_attention`` and ``rg_lru_scan`` — and the paths built on them
+(TeraSort through ``SphereEngine``, ``partition_batch`` /
+``shuffle_batch``, k-means through ``kmeans_sphere``, LM prefill, decode
+and ``ServeEngine``) against the same calls on the CPU.
 
 Every test here needs a CUDA device and skips itself without one (the
 check runs inside the ``cuda`` fixture, never at import).  The module
@@ -16,6 +17,12 @@ ids equal wherever the plain version's best-to-second d2 gap exceeds
 ``1e-5 * (|x|^2 + |c|^2)``, d2 within ``1e-5 * (|x|^2 + |c|^2) + 1e-6``
 (float32 sums in another order), with float32 matrix products in full
 precision (no TF32); k-means centroids within ``1e-5``.
+``flash_attention``: within 2e-5 in float32 and 2e-2 in bfloat16 (sums in
+another order; the bf16 output rounds once).  ``rg_lru_scan``: exact (the
+kernel multiplies and adds with separate roundings, as the plain loop
+does).  LM prefill / decode logits on the card within 1e-4 of the
+logits' scale of the CPU run in float32, and greedy ``ServeEngine``
+tokens identical.
 """
 import numpy as np
 import pytest
@@ -33,6 +40,13 @@ from repro_torch.kernels.bucket_partition import (bucket_blocks_ref,
 from repro_torch.kernels.bucket_partition import kernel as tkernel
 from repro_torch.kernels.kmeans_assign import kernel as kkernel
 from repro_torch.kernels.kmeans_assign import kmeans_assign_ref
+from repro_torch.kernels.flash_attention import flash_attention_ref
+from repro_torch.kernels.flash_attention import kernel as fkernel
+from repro_torch.kernels.rg_lru_scan import kernel as lkernel
+from repro_torch.kernels.rg_lru_scan import lru_scan_ref
+from repro_torch import configs as tconfigs
+from repro_torch.models import model as tmodel
+from repro_torch.serve import SamplerConfig, ServeEngine
 
 pytestmark = pytest.mark.requires_cuda
 REC = 100
@@ -271,3 +285,116 @@ def test_cuda_kmeans_sphere_through_kernel(cuda, tmp_path):
     assert l_cpu == 0 and l_dev == 4 * n_chunks
     assert r_dev.udf_traces == {"assign": 1, "fold": 1}
     assert r_dev.sim_seconds == r_cpu.sim_seconds
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,T,S,H,K,D,causal,window", [
+    (2, 64, 64, 2, 2, 32, True, 0), (2, 64, 64, 4, 2, 32, True, 24),
+    (2, 50, 70, 2, 2, 32, False, 0), (2, 32, 96, 2, 1, 64, False, 24),
+    (1, 300, 300, 10, 1, 256, True, 128), (1, 257, 257, 16, 2, 128, True, 0),
+    (3, 1, 1, 4, 4, 16, True, 0), (1, 129, 129, 2, 1, 12, True, 0)])
+def test_cuda_flash_attention_matches_plain(cuda, dtype, B, T, S, H, K, D,
+                                            causal, window):
+    g = torch.Generator().manual_seed(T * 7 + D)
+    q, k, v = (torch.randn(shape, generator=g).to(dtype).to(cuda)
+               for shape in ((B, T, H, D), (B, S, K, D), (B, S, K, D)))
+    before = fkernel.launches
+    got = fkernel.flash_attention_fwd(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert fkernel.launches == before + 1
+    want = flash_attention_ref(q, k, v, causal=causal, window=window)
+    tol = 2e-2 if dtype == torch.bfloat16 else 2e-5
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+def test_cuda_flash_attention_refuses_what_it_cannot_take(cuda):
+    q = torch.randn(1, 8, 2, 260, device=cuda)
+    k = torch.randn(1, 8, 1, 260, device=cuda)
+    with pytest.raises(ValueError, match="head dim"):
+        fkernel.flash_attention_fwd(q, k, k, causal=True, window=0)
+    with pytest.raises(ValueError, match="contiguous"):
+        fkernel.flash_attention_fwd(q[..., :256], k[..., :256],
+                                    k[..., :256], causal=True, window=0)
+    q = torch.randn(1, 8, 2, 16, device=cuda, dtype=torch.float16)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        fkernel.flash_attention_fwd(q, q, q, causal=True, window=0)
+
+
+@pytest.mark.parametrize("B,T,W", [(1, 3072, 2560), (4, 1, 2560),
+                                   (2, 33, 64), (3, 8, 48), (1, 13, 1000)])
+def test_cuda_rg_lru_scan_matches_plain_exactly(cuda, B, T, W):
+    g = torch.Generator().manual_seed(B * 100 + T)
+    a = (torch.rand((B, T, W), generator=g) * 0.299 + 0.7).to(cuda)
+    b = (torch.randn((B, T, W), generator=g) * 0.1).to(cuda)
+    h0 = torch.randn((B, W), generator=g).to(cuda)
+    before = lkernel.launches
+    h, hl = lkernel.lru_scan(a, b, h0)
+    torch.cuda.synchronize()
+    assert lkernel.launches == before + 1
+    rh, rhl = lru_scan_ref(a, b, h0)
+    assert torch.equal(h, rh) and torch.equal(hl, rhl)
+
+
+def _lm(name):
+    """A reduced float32 config and its parameters on the CPU."""
+    cfg = tconfigs.get_config(name).reduced().replace(
+        param_dtype="float32", compute_dtype="float32")
+    return cfg, tmodel.init_params(cfg, torch.Generator().manual_seed(0),
+                                   "cpu")
+
+
+def _to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _to(v, device) for k, v in tree.items()}
+    return tree.to(device)
+
+
+@pytest.mark.parametrize("name", ["recurrentgemma-2b", "qwen2.5-3b"])
+def test_cuda_prefill_and_decode_through_kernels(cuda, name):
+    """Prefill (longer than the window) and decode steps on the card
+    against the CPU run, with one flash_attention launch per attention
+    layer of a prefill and one rg_lru_scan launch per R layer of each
+    prefill and decode step."""
+    cfg, p_cpu = _lm(name)
+    p_dev = _to(p_cpu, cuda)
+    n_attn = cfg.n_groups * sum(s in "AL" for s in cfg.block_pattern)
+    n_rec = cfg.n_groups * cfg.block_pattern.count("R")
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (1, 100)).astype(np.int32))
+    out = {}
+    with torch.inference_mode():
+        for dev, params in (("cpu", p_cpu), ("cuda", p_dev)):
+            f0, l0 = fkernel.launches, lkernel.launches
+            logits, cache = tmodel.prefill(
+                params, {"inputs": toks.to(dev)}, cfg=cfg, max_len=128)
+            steps = [logits.cpu()]
+            for i in range(3):
+                lg, cache = tmodel.decode_step(
+                    params, cache,
+                    torch.tensor([[7 + i]], dtype=torch.int32, device=dev),
+                    torch.tensor([100 + i], dtype=torch.int32, device=dev),
+                    cfg=cfg)
+                steps.append(lg.cpu())
+            out[dev] = (steps, fkernel.launches - f0, lkernel.launches - l0)
+    assert out["cpu"][1:] == (0, 0)
+    assert out["cuda"][1:] == (n_attn, n_rec * 4)
+    for got, want in zip(out["cuda"][0], out["cpu"][0]):
+        scale = float(want.abs().max())
+        torch.testing.assert_close(got, want, rtol=0, atol=1e-4 * scale)
+
+
+def test_cuda_serve_engine_matches_cpu(cuda):
+    cfg, p_cpu = _lm("recurrentgemma-2b")
+    rng = np.random.default_rng(3)
+    prompts = [[int(t) for t in rng.integers(0, cfg.vocab_size, n)]
+               for n in (90, 12, 70, 12, 90)]
+    outs = {}
+    for dev, params in (("cpu", p_cpu), ("cuda", _to(p_cpu, cuda))):
+        eng = ServeEngine(cfg, params, max_batch=2, max_len=128,
+                          scfg=SamplerConfig(temperature=0.0), device=dev)
+        reqs = [eng.submit(p, max_new=6) for p in prompts]
+        eng.run()
+        assert all(r.done for r in reqs)
+        assert all(s is None for s in eng.slot_req)
+        outs[dev] = [r.out for r in reqs]
+    assert outs["cuda"] == outs["cpu"]

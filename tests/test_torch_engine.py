@@ -251,7 +251,8 @@ _VERBATIM = ["sector/chunk.py", "sector/acl.py", "sector/events.py",
              "sector/topology.py", "sector/transport.py", "sector/server.py",
              "sector/master.py", "sector/client.py", "sector/__init__.py",
              "sector/replication.py", "core/trace.py", "core/metrics.py",
-             "core/planner.py", "core/job.py"]
+             "core/planner.py", "core/job.py"] + sorted(
+    f"configs/{p.name}" for p in (ROOT / "src/repro/configs").glob("*.py"))
 
 
 def _without_package_imports(path: Path, package: str) -> list:
@@ -284,6 +285,10 @@ def test_port_imports_no_jax_and_no_reference():
             "import repro_torch.kernels.bucket_partition, repro_torch.convert\n"
             "import repro_torch.kernels.kmeans_assign, repro_torch.core.kmeans\n"
             "import repro_torch.sector.replication\n"
+            "import repro_torch.models, repro_torch.serve, repro_torch.launch\n"
+            "import repro_torch.launch.serve, repro_torch.configs\n"
+            "import repro_torch.kernels.flash_attention\n"
+            "import repro_torch.kernels.rg_lru_scan\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'repro' or m.startswith('repro.'))\n"
             "print(bad)\n"

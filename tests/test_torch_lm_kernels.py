@@ -1,0 +1,135 @@
+"""The port's LM kernels, ``flash_attention`` and ``rg_lru_scan``, on the
+CPU route (their plain versions) against the JAX package's Pallas
+kernels in interpret mode and its oracles, on inputs made from one numpy
+seed; and the routes themselves.
+
+Tolerances: attention 2e-5 in float32 and 2e-2 in bfloat16 (the JAX
+package's own kernel-vs-oracle bounds, ``tests/test_kernels.py``); the
+recurrence rtol 1e-5, atol 1e-6.  The Pallas kernel runs with its default
+128-wide tiles (one tile per sequence here): the port's function has no
+tiles to sweep, and the JAX package's own tests sweep the Pallas tiling.
+"""
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+from repro.kernels.flash_attention import attention_ref as j_attention_ref
+from repro.kernels.flash_attention import flash_attention as j_flash
+from repro.kernels.rg_lru_scan import lru_scan_ref as j_lru_scan_ref
+from repro.kernels.rg_lru_scan import rg_lru_scan as j_rg_lru_scan
+from repro_torch.kernels.flash_attention import attention_ref, flash_attention
+from repro_torch.kernels.flash_attention import kernel as fkernel
+from repro_torch.kernels.rg_lru_scan import lru_scan_ref, rg_lru_scan
+from repro_torch.kernels.rg_lru_scan import kernel as lkernel
+from repro_torch.models import attention as tattn
+
+
+def _np(a):
+    return np.asarray(a, np.float32)
+
+
+def _t(a, dtype):
+    return torch.from_numpy(np.array(a, np.float32)).to(dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("T,S,H,K,D", [
+    (64, 64, 2, 2, 32),    # MHA
+    (64, 64, 4, 2, 32),    # GQA
+    (32, 96, 2, 1, 64),    # MQA, cross-length
+    (50, 70, 2, 2, 32),    # non-multiple lengths
+])
+@pytest.mark.parametrize("causal,window", [(True, 0), (True, 24), (False, 0)])
+def test_flash_attention_matches_jax(dtype, T, S, H, K, D, causal, window):
+    if causal and S > T:
+        S = T
+    B = 2
+    rng = np.random.default_rng(T * 1000 + S)
+    # round the inputs to the working type once, so both packages get
+    # the same values
+    jdt = jnp.float32 if dtype == "float32" else jnp.bfloat16
+    q, k, v = (np.asarray(jnp.asarray(rng.standard_normal(shape), jdt))
+               for shape in ((B, T, H, D), (B, S, K, D), (B, S, K, D)))
+    tdt = getattr(torch, dtype)
+    got = flash_attention(_t(q, tdt), _t(k, tdt), _t(v, tdt), causal=causal,
+                          window=window)
+    assert got.dtype == tdt and got.shape == (B, T, H, D)
+    want = j_flash(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                   causal=causal, window=window, interpret=True)
+    qh = q.transpose(0, 2, 1, 3).reshape(B * H, T, D)
+    kh = k.transpose(0, 2, 1, 3).reshape(B * K, S, D)
+    vh = v.transpose(0, 2, 1, 3).reshape(B * K, S, D)
+    oracle = j_attention_ref(jnp.asarray(qh), jnp.asarray(kh),
+                             jnp.asarray(vh), causal=causal, window=window)
+    oracle = _np(oracle).reshape(B, H, T, D).transpose(0, 2, 1, 3)
+    tol = 2e-2 if dtype == "bfloat16" else 2e-5
+    np.testing.assert_allclose(_np(got.float()), _np(want), rtol=tol,
+                               atol=tol)
+    np.testing.assert_allclose(_np(got.float()), oracle, rtol=tol, atol=tol)
+    # the head-major oracle of the port equals the JAX one too
+    ref_h = attention_ref(_t(qh, tdt), _t(kh, tdt), _t(vh, tdt),
+                          causal=causal, window=window)
+    np.testing.assert_allclose(
+        _np(ref_h.float()).reshape(B, H, T, D).transpose(0, 2, 1, 3), oracle,
+        rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("B,T,W", [(1, 16, 32), (2, 33, 64), (3, 8, 48),
+                                   (4, 1, 40)])
+def test_rg_lru_scan_matches_jax(B, T, W):
+    rng = np.random.default_rng(B * 100 + T)
+    a = rng.uniform(0.7, 0.999, (B, T, W)).astype(np.float32)
+    b = (rng.standard_normal((B, T, W)) * 0.1).astype(np.float32)
+    h0 = rng.standard_normal((B, W)).astype(np.float32)
+    h, hl = rg_lru_scan(torch.from_numpy(a), torch.from_numpy(b),
+                        torch.from_numpy(h0))
+    jh, jhl = j_rg_lru_scan(jnp.asarray(a), jnp.asarray(b), jnp.asarray(h0),
+                            interpret=True)
+    rh, rhl = j_lru_scan_ref(jnp.asarray(a), jnp.asarray(b), jnp.asarray(h0))
+    for got, want in ((h, jh), (hl, jhl), (h, rh), (hl, rhl)):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
+                                   atol=1e-6)
+    rh2, rhl2 = lru_scan_ref(torch.from_numpy(a), torch.from_numpy(b),
+                             torch.from_numpy(h0))
+    assert torch.equal(rh2, h) and torch.equal(rhl2, hl)
+
+
+def test_cpu_route_takes_plain_versions():
+    """CPU tensors take the plain versions: no launch is counted, and the
+    kernels' own launchers refuse CPU tensors."""
+    f0, l0 = fkernel.launches, lkernel.launches
+    q = torch.randn(1, 8, 2, 16)
+    k = torch.randn(1, 8, 1, 16)
+    flash_attention(q, k, k)
+    rg_lru_scan(torch.rand(1, 4, 8), torch.randn(1, 4, 8), torch.zeros(1, 8))
+    assert (fkernel.launches, lkernel.launches) == (f0, l0)
+    with pytest.raises(ValueError, match="CUDA"):
+        fkernel.flash_attention_fwd(q, k, k, causal=True, window=0)
+    with pytest.raises(ValueError, match="CUDA"):
+        lkernel.lru_scan(torch.rand(1, 4, 8), torch.randn(1, 4, 8),
+                         torch.zeros(1, 8))
+    assert (fkernel.launches, lkernel.launches) == (f0, l0)
+
+
+def test_bad_shapes_and_options_raise():
+    q = torch.randn(1, 8, 3, 16)
+    k = torch.randn(1, 8, 2, 16)
+    with pytest.raises(ValueError, match="multiple"):
+        flash_attention(q, k, k)            # 3 heads over 2 kv heads
+    with pytest.raises(ValueError):
+        rg_lru_scan(torch.rand(1, 4, 8), torch.rand(1, 4, 8),
+                    torch.zeros(2, 8))
+    q = torch.randn(1, 8, 2, 16)
+    k = torch.randn(1, 8, 1, 16)
+    with pytest.raises(NotImplementedError, match="soft-cap"):
+        tattn.chunked_attention(q, k, k, causal=True, softcap=30.0)
+    with pytest.raises(NotImplementedError, match="q_offset"):
+        tattn.chunked_attention(q, k, k, causal=True, q_offset=4)
+    with pytest.raises(ValueError, match="attn_impl"):
+        tattn.chunked_attention(q, k, k, causal=True, impl="mosaic")
+    for impl in tattn.ATTN_IMPLS:           # every impl is the one function
+        assert torch.equal(
+            tattn.chunked_attention(q, k, k, causal=True, window=3,
+                                    impl=impl),
+            flash_attention(q, k, k, causal=True, window=3))

@@ -1,0 +1,318 @@
+"""The port's LM modules against the JAX package's, on the CPU.
+
+Parameters are made by ``repro.models.model.init_params`` at a seed and
+carried across leaf for leaf (``repro_torch.convert.params_from_jax``);
+other inputs are made from one numpy seed and fed to both packages.  The
+configs are the reduced twins (``cfg.reduced()``: d_model 64, window 64,
+vocab 256) of ``recurrentgemma-2b`` (R and L layers) and ``qwen2.5-3b``
+(A layers).
+
+Tolerances: float32 modules within 1e-5 (the sums run in another order);
+float32 logits within 1e-4 of the logits' scale (the largest |logit|);
+bfloat16 logits within 6e-2 of that scale: the two packages round bf16
+at other places (XLA fuses elementwise chains in float32, torch rounds
+each op; the port's attention keeps p in float32 as the TPU kernel
+does, where the JAX scan rounds it), and 26 layers of bf16 residuals
+carry those one-ulp differences to about 2-4% of the scale.  Integer
+leaves (the ring ``kpos``) match exactly.
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import repro.models.attention as jattn
+import repro.models.common as jcommon
+import repro.models.mlp as jmlp
+import repro.models.rglru as jrglru
+from repro.configs import ARCHS
+from repro.models import model as jmodel
+from repro.parallel.sharding import NO_PARALLEL as J_NOP
+from repro.utils.pytree import tree_flatten_with_paths as j_flatten
+from repro_torch import configs as tconfigs
+from repro_torch.convert import cache_from_jax, params_from_jax
+from repro_torch.models import attention as tattn
+from repro_torch.models import common as tcommon
+from repro_torch.models import mlp as tmlp
+from repro_torch.models import model as tmodel
+from repro_torch.models import rglru as trglru
+from repro_torch.parallel.sharding import NO_PARALLEL as T_NOP
+from repro_torch.parallel.sharding import ParallelConfig
+from repro_torch.utils.pytree import tree_flatten_with_paths
+
+F32_TOL = 1e-5
+_CACHE = {}
+
+
+def _cfgs(name, dtype="float32"):
+    j = ARCHS[name].reduced().replace(param_dtype=dtype, compute_dtype=dtype)
+    t = tconfigs.get_config(name).reduced().replace(param_dtype=dtype,
+                                                    compute_dtype=dtype)
+    return j, t
+
+
+def _params(name, dtype="float32"):
+    """(JAX params, the port's copy), made once per config."""
+    if (name, dtype) not in _CACHE:
+        jcfg, _ = _cfgs(name, dtype)
+        jp = jmodel.init_params(jcfg, jax.random.PRNGKey(0))
+        _CACHE[name, dtype] = jp, params_from_jax(jax.tree.map(np.asarray,
+                                                               jp), "cpu")
+    return _CACHE[name, dtype]
+
+
+def _np(x):
+    if isinstance(x, torch.Tensor):
+        return x.float().numpy()
+    return np.asarray(x, np.float32) if x.dtype != np.int32 \
+        else np.asarray(x)
+
+
+def _close(got, want, tol=F32_TOL):
+    np.testing.assert_allclose(_np(got), _np(want), rtol=tol, atol=tol)
+
+
+def _layer(tree, i, g=0):
+    """Group ``g``'s slice of unit layer ``i`` (either package's tree)."""
+    return _slice(tree["blocks"][f"layer{i}"], g)
+
+
+def _slice(tree, g):
+    if isinstance(tree, dict):
+        return {k: _slice(v, g) for k, v in tree.items()}
+    return tree[g]
+
+
+def _rand(rng, *shape):
+    return rng.standard_normal(shape).astype(np.float32)
+
+
+# ------------------------------------------------------------ primitives
+def test_primitives_match_jax():
+    rng = np.random.default_rng(0)
+    x = _rand(rng, 2, 7, 3, 16)
+    scale = _rand(rng, 16)
+    _close(tcommon.rms_norm(torch.from_numpy(x), torch.from_numpy(scale),
+                            1e-6),
+           jcommon.rms_norm(jnp.asarray(x), jnp.asarray(scale), 1e-6))
+    pos = rng.integers(0, 5000, (2, 7)).astype(np.int32)
+    _close(tcommon.apply_rope(torch.from_numpy(x), torch.from_numpy(pos),
+                              10000.0),
+           jcommon.apply_rope(jnp.asarray(x), jnp.asarray(pos), 10000.0),
+           1e-4)                         # angles up to 5000 rad
+    for name in ("silu", "gelu"):
+        _close(tcommon.activation(name)(torch.from_numpy(x)),
+               jcommon.activation(name)(jnp.asarray(x)))
+    _close(tcommon.soft_cap(torch.from_numpy(x), 2.0),
+           jcommon.soft_cap(jnp.asarray(x), 2.0))
+    xs, w, st = _rand(rng, 2, 9, 12), _rand(rng, 4, 12), _rand(rng, 2, 3, 12)
+    _close(tcommon.causal_conv1d(torch.from_numpy(xs), torch.from_numpy(w)),
+           jcommon.causal_conv1d(jnp.asarray(xs), jnp.asarray(w)))
+    ty, tst = tcommon.causal_conv1d(torch.from_numpy(xs), torch.from_numpy(w),
+                                    torch.from_numpy(st))
+    jy, jst = jcommon.causal_conv1d(jnp.asarray(xs), jnp.asarray(w),
+                                    jnp.asarray(st))
+    _close(ty, jy)
+    _close(tst, jst)
+    bw = _rand(rng, 4, 3, 5)
+    _close(tcommon.block_diag_apply({"w": torch.from_numpy(bw)},
+                                    torch.from_numpy(xs)),
+           jcommon.block_diag_apply({"w": jnp.asarray(bw)}, jnp.asarray(xs)))
+    assert tcommon.round_up(65, 64) == jcommon.round_up(65, 64) == 128
+
+
+def test_init_params_follows_the_jax_rules():
+    jcfg, tcfg = _cfgs("recurrentgemma-2b", "bfloat16")
+    jshapes = j_flatten(jmodel.param_shapes(jcfg))
+    gen = torch.Generator().manual_seed(3)
+    params = tmodel.init_params(tcfg, gen, "cpu")
+    flat = tree_flatten_with_paths(params)
+    assert [p for p, _ in flat] == [p for p, _ in jshapes]
+    for (path, t), (_, spec) in zip(flat, jshapes):
+        assert tuple(t.shape) == spec.shape, path
+        assert str(t.dtype).split(".")[1] == spec.dtype.name, path
+        name = path.rsplit("/", 1)[-1]
+        if name == "scale":
+            assert bool((t == 1).all()), path
+        elif name == "a_param":
+            a = torch.exp(-8.0 * torch.nn.functional.softplus(t))
+            assert 0.89 < float(a.min()) and float(a.max()) < 0.9991, path
+        else:
+            std = float(t.float().std())
+            assert 0.5 < std * np.sqrt(spec.shape[-2]) < 1.5, path
+    again = tmodel.init_params(tcfg, torch.Generator().manual_seed(3), "cpu")
+    assert all(torch.equal(a, b) for (_, a), (_, b) in
+               zip(flat, tree_flatten_with_paths(again)))
+
+
+# --------------------------------------------------------------- modules
+def test_mlp_matches_jax():
+    jcfg, tcfg = _cfgs("recurrentgemma-2b")
+    jp, tp = _params("recurrentgemma-2b")
+    x = _rand(np.random.default_rng(1), 2, 5, jcfg.d_model)
+    _close(tmlp.apply(_layer(tp, 0)["mlp"], torch.from_numpy(x), cfg=tcfg,
+                      pcfg=T_NOP),
+           jmlp.apply(_layer(jp, 0)["mlp"], jnp.asarray(x), cfg=jcfg,
+                      pcfg=J_NOP))
+
+
+def test_rglru_whole_and_streamed_match_jax():
+    jcfg, tcfg = _cfgs("recurrentgemma-2b")
+    jp, tp = _params("recurrentgemma-2b")
+    jl, tl = _layer(jp, 0)["rglru"], _layer(tp, 0)["rglru"]
+    x = _rand(np.random.default_rng(2), 2, 20, jcfg.d_model)
+    ty, _ = trglru.apply(tl, torch.from_numpy(x), cfg=tcfg)
+    jy, _ = jrglru.apply(jl, jnp.asarray(x), cfg=jcfg)
+    _close(ty, jy)
+    # streamed in two halves with the carried state, against the JAX
+    # package streamed the same way
+    w = jcfg.lru_width
+    st_t = {"h": torch.zeros(2, w), "conv": torch.zeros(2, 3, w)}
+    st_j = {"h": jnp.zeros((2, w)), "conv": jnp.zeros((2, 3, w))}
+    outs = []
+    for half in (x[:, :9], x[:, 9:]):
+        ty, st_t = trglru.apply(tl, torch.from_numpy(half), cfg=tcfg,
+                                state=st_t)
+        jy, st_j = jrglru.apply(jl, jnp.asarray(half), cfg=jcfg, state=st_j)
+        _close(ty, jy)
+        outs.append(ty)
+    _close(st_t["h"], st_j["h"])
+    _close(st_t["conv"], st_j["conv"])
+    _close(torch.cat(outs, 1), trglru.apply(tl, torch.from_numpy(x),
+                                            cfg=tcfg)[0])
+
+
+@pytest.mark.parametrize("name,sym,S", [("qwen2.5-3b", "A", 40),
+                                        ("recurrentgemma-2b", "L", 100)])
+def test_attention_prefill_and_decode_match_jax(name, sym, S):
+    """Prefill (an A layer; an L layer with a prompt longer than the
+    window of 64) and then two decode steps against the full or ring
+    cache it built."""
+    jcfg, tcfg = _cfgs(name)
+    jp, tp = _params(name)
+    i = list(jcfg.block_pattern).index(sym)
+    ja, ta = _layer(jp, i)["attn"], _layer(tp, i)["attn"]
+    rng = np.random.default_rng(3)
+    x = _rand(rng, 2, S, jcfg.d_model)
+    pos = np.broadcast_to(np.arange(S, dtype=np.int32), (2, S)).copy()
+    max_len = 128
+    ty, tc = tattn.apply(ta, torch.from_numpy(x), cfg=tcfg, pcfg=T_NOP,
+                         layer_sym=sym, positions=torch.from_numpy(pos),
+                         mode="prefill", max_len=max_len)
+    jy, jc = jattn.apply(ja, jnp.asarray(x), cfg=jcfg, pcfg=J_NOP,
+                         layer_sym=sym, positions=jnp.asarray(pos),
+                         mode="prefill", max_len=max_len)
+    _close(ty, jy)
+    assert sorted(tc) == sorted(jc)
+    assert ("kpos" in tc) == (sym == "L")
+    for key in tc:
+        if key == "kpos":
+            assert np.array_equal(tc[key].numpy(), np.asarray(jc[key]))
+        else:
+            _close(tc[key], jc[key])
+    for step in range(2):
+        xd = _rand(rng, 2, 1, jcfg.d_model)
+        p = np.full((2, 1), S + step, np.int32)
+        for mode in ("masked", "scatter"):
+            ty, tc2 = tattn.apply(
+                ta, torch.from_numpy(xd), cfg=tcfg,
+                pcfg=T_NOP.with_(cache_write=mode), layer_sym=sym,
+                positions=torch.from_numpy(p), mode="decode", cache=tc)
+            jy, jc2 = jattn.apply(
+                ja, jnp.asarray(xd), cfg=jcfg,
+                pcfg=J_NOP.with_(cache_write=mode), layer_sym=sym,
+                positions=jnp.asarray(p), mode="decode", cache=jc)
+            _close(ty, jy)
+            for key in tc2:
+                _close(tc2[key], jc2[key])
+        tc, jc = tc2, jc2
+
+
+def _cache_leaves_match(tcache, jcache, tol):
+    jflat = dict(j_flatten(jcache))
+    tflat = tree_flatten_with_paths(tcache)
+    assert [p for p, _ in tflat] == sorted(jflat)
+    for path, leaf in tflat:
+        want = np.asarray(jflat[path])
+        assert tuple(leaf.shape) == want.shape, path
+        if path.endswith("kpos"):
+            assert np.array_equal(leaf.numpy(), want), path
+        else:
+            scale = max(1.0, float(np.abs(_np(want)).max()))
+            np.testing.assert_allclose(_np(leaf), _np(want), rtol=0,
+                                       atol=tol * scale, err_msg=path)
+
+
+@pytest.mark.parametrize("name", ["recurrentgemma-2b", "qwen2.5-3b"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_prefill_and_decode_match_jax(name, dtype):
+    """model.prefill over a prompt longer than the window, then three
+    decode steps; logits and caches against the JAX package's."""
+    jcfg, tcfg = _cfgs(name, dtype)
+    jp, tp = _params(name, dtype)
+    tol = 1e-4 if dtype == "float32" else 6e-2
+    rng = np.random.default_rng(4)
+    S, max_len = 100, 128
+    toks = rng.integers(0, jcfg.vocab_size, (1, S)).astype(np.int32)
+    jl, jc = jmodel.prefill(jp, {"inputs": jnp.asarray(toks)}, cfg=jcfg,
+                            max_len=max_len)
+    with torch.inference_mode():
+        tl, tc = tmodel.prefill(tp, {"inputs": torch.from_numpy(toks)},
+                                cfg=tcfg, max_len=max_len)
+    scale = float(np.abs(_np(jl)).max())
+    np.testing.assert_allclose(_np(tl), _np(jl), rtol=0, atol=tol * scale)
+    _cache_leaves_match(tc, jc, tol)
+    # decode from the JAX package's own cache, carried across, so each
+    # step compares one step of both packages on identical state
+    tc = cache_from_jax(jax.tree.map(np.asarray, jc), "cpu")
+    for step in range(3):
+        tok = rng.integers(0, jcfg.vocab_size, (1, 1)).astype(np.int32)
+        pos = np.array([S + step], np.int32)
+        jl, jc = jmodel.decode_step(jp, jc, jnp.asarray(tok),
+                                    jnp.asarray(pos), cfg=jcfg)
+        with torch.inference_mode():
+            tl, tc = tmodel.decode_step(tp, tc, torch.from_numpy(tok),
+                                        torch.from_numpy(pos), cfg=tcfg)
+        scale = float(np.abs(_np(jl)).max())
+        np.testing.assert_allclose(_np(tl), _np(jl), rtol=0,
+                                   atol=tol * scale)
+        _cache_leaves_match(tc, jc, tol)
+        tc = cache_from_jax(jax.tree.map(np.asarray, jc), "cpu")
+
+
+def test_forward_matches_prefill_logits():
+    """The training-mode forward's last logits are prefill's."""
+    _, tcfg = _cfgs("recurrentgemma-2b")
+    _, tp = _params("recurrentgemma-2b")
+    toks = torch.from_numpy(np.random.default_rng(5).integers(
+        0, tcfg.vocab_size, (2, 30)).astype(np.int32))
+    with torch.inference_mode():
+        logits, aux = tmodel.forward(tp, {"inputs": toks}, cfg=tcfg)
+        last, _ = tmodel.prefill(tp, {"inputs": toks}, cfg=tcfg)
+    assert float(aux) == 0.0
+    torch.testing.assert_close(logits[:, -1], last, rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("name", ["xlstm-1.3b", "qwen3-moe-30b-a3b",
+                                  "seamless-m4t-large-v2",
+                                  "llava-next-mistral-7b"])
+def test_unported_configs_raise(name):
+    cfg = tconfigs.get_config(name).reduced()
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tmodel.param_shapes(cfg)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tmodel.cache_shapes(cfg, 1, 16)
+
+
+def test_mesh_raises_and_default_device_is_cuda(monkeypatch):
+    with pytest.raises(NotImplementedError, match="mesh"):
+        ParallelConfig(mesh=object())
+    with pytest.raises(NotImplementedError, match="mesh"):
+        T_NOP.with_(mesh=object())
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    _, tcfg = _cfgs("qwen2.5-3b")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tmodel.init_params(tcfg, torch.Generator().manual_seed(0))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tmodel.init_cache(tcfg, 1, 16)

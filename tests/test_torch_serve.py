@@ -1,0 +1,128 @@
+"""The port's serving slice on the CPU: ``ServeEngine`` against the JAX
+package's, the engine's own contracts, and the launcher.
+
+Both engines serve the same greedy requests with the same parameters
+(made by ``repro.models.model.init_params`` and carried across) on the
+reduced float32 configs; the token lists must be identical.  The
+requests include prompts longer than the window of 64 (so the ring
+caches and the window mask carry weight), two slots and more requests
+than slots.  Few distinct prompt lengths keep the JAX side's compiles
+down.
+"""
+import jax
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import ARCHS
+from repro.models import model as jmodel
+from repro.serve import SamplerConfig as JSamplerConfig
+from repro.serve import ServeEngine as JServeEngine
+from repro_torch import configs as tconfigs
+from repro_torch.convert import params_from_jax
+from repro_torch.kernels.flash_attention import kernel as fkernel
+from repro_torch.kernels.rg_lru_scan import kernel as lkernel
+from repro_torch.launch import serve as tlaunch
+from repro_torch.models import model as tmodel
+from repro_torch.serve import SamplerConfig, ServeEngine
+
+
+def _f32(cfg):
+    return cfg.reduced().replace(param_dtype="float32",
+                                 compute_dtype="float32")
+
+
+def _prompts(vocab, lengths, seed=0):
+    rng = np.random.default_rng(seed)
+    return [[int(t) for t in rng.integers(0, vocab, n)] for n in lengths]
+
+
+@pytest.mark.parametrize("name", ["recurrentgemma-2b", "qwen2.5-3b"])
+def test_serve_matches_jax_engine(name):
+    jcfg = _f32(ARCHS[name])
+    tcfg = _f32(tconfigs.get_config(name))
+    jp = jmodel.init_params(jcfg, jax.random.PRNGKey(1))
+    tp = params_from_jax(jax.tree.map(np.asarray, jp), "cpu")
+    prompts = _prompts(jcfg.vocab_size, [90, 12, 70, 12, 90])
+    max_new, max_len = 6, 128
+
+    jeng = JServeEngine(jcfg, jp, max_batch=2, max_len=max_len,
+                        scfg=JSamplerConfig(temperature=0.0))
+    jreqs = [jeng.submit(p, max_new=max_new) for p in prompts]
+    jeng.run()
+    f0, l0 = fkernel.launches, lkernel.launches
+    teng = ServeEngine(tcfg, tp, max_batch=2, max_len=max_len,
+                       scfg=SamplerConfig(temperature=0.0), device="cpu")
+    treqs = [teng.submit(p, max_new=max_new) for p in prompts]
+    teng.run()
+    assert (fkernel.launches, lkernel.launches) == (f0, l0)
+    for tr, jr in zip(treqs, jreqs):
+        assert tr.done and jr.done
+        assert tr.out == [int(t) for t in jr.out], tr.rid
+        assert len(tr.out) == max_new
+        assert tr.t_submit <= tr.t_admit <= tr.t_first
+    assert all(s is None for s in teng.slot_req)
+
+
+def test_continuous_batching_matches_single_stream():
+    """Greedy: each request's output equals its standalone decode."""
+    cfg = _f32(tconfigs.get_config("recurrentgemma-2b"))
+    params = tmodel.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    prompts = _prompts(cfg.vocab_size, [5, 9, 70, 7, 6], seed=2)
+
+    def solo(prompt, n_new=6):
+        with torch.inference_mode():
+            logits, cache = tmodel.prefill(
+                params, {"inputs": torch.tensor([prompt])}, cfg=cfg,
+                max_len=96)
+            out = [int(torch.argmax(logits[0]))]
+            pos = len(prompt)
+            for _ in range(n_new - 1):
+                lg, cache = tmodel.decode_step(
+                    params, cache, torch.tensor([[out[-1]]], dtype=torch.int32),
+                    torch.tensor([pos], dtype=torch.int32), cfg=cfg)
+                out.append(int(torch.argmax(lg[0])))
+                pos += 1
+        return out
+
+    want = [solo(p) for p in prompts]
+    eng = ServeEngine(cfg, params, max_batch=2, max_len=96,
+                      scfg=SamplerConfig(temperature=0.0), device="cpu")
+    reqs = [eng.submit(p, max_new=6) for p in prompts]
+    eng.run()
+    for r, w in zip(reqs, want):
+        assert r.done
+        assert r.out == w, (r.rid, r.out, w)
+
+
+def test_slot_recycling_and_sampling():
+    cfg = tconfigs.get_config("qwen2.5-3b").reduced()
+    params = tmodel.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    eng = ServeEngine(cfg, params, max_batch=2, max_len=32,
+                      scfg=SamplerConfig(temperature=0.8, top_k=40),
+                      device="cpu")
+    reqs = [eng.submit([1, 2, 3], max_new=3) for _ in range(6)]
+    eng.run()
+    assert all(r.done for r in reqs)
+    assert all(len(r.out) == 3 for r in reqs)
+    assert all(0 <= t < cfg.padded_vocab for r in reqs for t in r.out)
+    assert all(s is None for s in eng.slot_req)
+
+
+def test_launcher_smoke_on_cpu(capsys):
+    assert tlaunch.main(["--arch", "recurrentgemma-2b", "--smoke",
+                         "--device", "cpu", "--requests", "3",
+                         "--max-new", "4"]) == 0
+    assert "3 requests, 12 tokens" in capsys.readouterr().out
+
+
+def test_engine_device_rules(monkeypatch):
+    cfg = tconfigs.get_config("qwen2.5-3b").reduced()
+    params = tmodel.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    with pytest.raises(ValueError, match="params are on"):
+        ServeEngine(cfg, params, device="meta")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ServeEngine(cfg, params)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tlaunch.main(["--smoke"])
