@@ -49,6 +49,15 @@ def find_nvcc() -> str:
     return found
 
 
+def sass(lib: Path) -> str:
+    """The SASS of a built library, as ``cuobjdump -sass`` (beside
+    ``nvcc``) prints it."""
+    tool = Path(find_nvcc()).with_name("cuobjdump")
+    proc = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True,
+                          text=True, check=True)
+    return proc.stdout
+
+
 def default_build_dir() -> Path:
     """``$REPRO_TORCH_BUILD_DIR`` when set, else ``build/repro_torch`` of
     the checkout; raises ``RuntimeError`` for a package installed outside

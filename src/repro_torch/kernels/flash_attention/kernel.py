@@ -6,7 +6,9 @@ The port's counterpart of the Pallas ``_kernel`` launch in
 source is built by :mod:`repro_torch.kernels._build` (``nvcc`` for
 ``sm_90a``, cached by the hash of ``csrc/``) and bound here with
 ``ctypes``.  The kernel reads the model's ``[B, T, H, D]`` layout
-directly, so no head-major copy is made.
+directly, so no head-major copy is made.  Bfloat16 tensors take the
+tensor-core kernel (its launcher picks the head width and whether tiles
+come by TMA or by ``cp.async``); float32 tensors take the SIMT kernel.
 
 ``launches`` counts the launches made by :func:`flash_attention_fwd`, and
 nothing else adds to it, so a run can show that its attention went
@@ -41,6 +43,12 @@ def load_library(build_dir: Optional[Path] = None) -> ctypes.CDLL:
                        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8
                        + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p],
                        build_dir)
+
+
+def hgmma_count(build_dir: Optional[Path] = None) -> int:
+    """How many ``HGMMA`` (wgmma) instructions the built library's SASS
+    holds (``cuobjdump -sass``)."""
+    return _build.sass(build(build_dir)).count("HGMMA")
 
 
 def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

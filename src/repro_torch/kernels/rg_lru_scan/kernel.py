@@ -4,7 +4,10 @@
 The port's counterpart of the Pallas ``_kernel`` launch in
 ``repro.kernels.rg_lru_scan.kernel`` (``lru_scan``).  The source is built
 by :mod:`repro_torch.kernels._build` (``nvcc`` for ``sm_90a``, cached by
-the hash of ``csrc/``) and bound here with ``ctypes``.
+the hash of ``csrc/``) and bound here with ``ctypes``.  At prefill the
+kernel streams a and b through a ring in shared memory filled by TMA;
+otherwise (decode, odd widths) one thread a channel loads them directly;
+the launcher chooses.
 
 ``launches`` counts the launches made by :func:`lru_scan`, and nothing
 else adds to it, so a run can show that its recurrence went through the

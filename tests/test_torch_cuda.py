@@ -17,13 +17,21 @@ ids equal wherever the plain version's best-to-second d2 gap exceeds
 ``1e-5 * (|x|^2 + |c|^2)``, d2 within ``1e-5 * (|x|^2 + |c|^2) + 1e-6``
 (float32 sums in another order), with float32 matrix products in full
 precision (no TF32); k-means centroids within ``1e-5``.
-``flash_attention``: within 2e-5 in float32 and 2e-2 in bfloat16 (sums in
-another order; the bf16 output rounds once).  ``rg_lru_scan``: exact (the
-kernel multiplies and adds with separate roundings, as the plain loop
-does).  LM prefill / decode logits on the card within 1e-4 of the
-logits' scale of the CPU run in float32, and greedy ``ServeEngine``
-tokens identical.
+``flash_attention``: within 2e-5 in float32 and 2e-2 in bfloat16 of the
+plain version (sums in another order; the bf16 kernel rounds p to bf16
+before the product with V, the plain version keeps it in float32; the
+bf16 output rounds once); in bfloat16 also within what rounding p allows
+of ``chip_smoke.attention_rounded_p``, which rounds p as the kernel does
+(``chip_smoke.rounded_p_excess``, plus 1e-4), and, where a row's keys lie
+in one kv tile, within rtol 2**-8 (the output's rounding), atol 1e-3.
+``rg_lru_scan``: exact (the kernel multiplies and adds with separate
+roundings, as the plain loop does).  LM prefill / decode logits on the
+card within 1e-4 of the logits' scale of the CPU run in float32, and
+greedy ``ServeEngine`` tokens identical.
 """
+import sys
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -47,6 +55,9 @@ from repro_torch.kernels.rg_lru_scan import lru_scan_ref
 from repro_torch import configs as tconfigs
 from repro_torch.models import model as tmodel
 from repro_torch.serve import SamplerConfig, ServeEngine
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))  # chip_smoke
+import chip_smoke  # noqa: E402
 
 pytestmark = pytest.mark.requires_cuda
 REC = 100
@@ -307,6 +318,90 @@ def test_cuda_flash_attention_matches_plain(cuda, dtype, B, T, S, H, K, D,
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
 
 
+def _close_to_rounded_p(got, q, k, v, causal, window):
+    """The bf16 kernel's output against the oracle that rounds p to bf16:
+    within what the two roundings allow (``chip_smoke.rounded_p_excess``)
+    plus 1e-4."""
+    err, excess = chip_smoke.rounded_p_excess(torch, got, q, k, v, causal,
+                                              window)
+    assert excess <= 1e-4, (err, excess)
+
+
+@pytest.mark.parametrize("B,T,H,K,D,window", [
+    (1, 63, 2, 1, 64, 0), (1, 64, 2, 1, 64, 0), (2, 64, 4, 2, 32, 24),
+    (3, 40, 8, 8, 12, 0), (2, 64, 10, 1, 256, 0), (3, 17, 4, 2, 16, 5)])
+def test_cuda_flash_attention_rounds_p(cuda, B, T, H, K, D, window):
+    """Where all of a row's live keys lie in one 64-key tile, the kernel's
+    running maximum is the row's, so its p are the oracle's: the output
+    is the rounded-p oracle's within the output's own rounding (2**-8 of
+    it) and 1e-3 (a p on a bf16 rounding edge may round the other way:
+    up to 5.2e-4 at D = 256).  Keeping p in float32 leaves 1.45e-3 or
+    more beyond the output's rounding in these cases."""
+    g = torch.Generator().manual_seed(T * 13 + D + window)
+    q, k, v = (torch.randn(shape, generator=g).to(torch.bfloat16).to(cuda)
+               for shape in ((B, T, H, D), (B, T, K, D), (B, T, K, D)))
+    got = fkernel.flash_attention_fwd(q, k, v, causal=True, window=window)
+    want = chip_smoke.attention_rounded_p(torch, q, k, v, True, window)
+    torch.testing.assert_close(got.float(), want, rtol=2 ** -8, atol=1e-3)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,T,S,H,K,D,causal,window", [
+    # T and S at the 64-key tile's and the 128-row block's edges
+    (1, 63, 63, 2, 1, 64, True, 0), (1, 64, 64, 2, 1, 64, True, 0),
+    (1, 65, 65, 2, 1, 64, True, 0), (1, 127, 127, 2, 2, 128, True, 0),
+    (1, 128, 128, 2, 2, 128, True, 0), (1, 129, 129, 2, 2, 128, True, 0),
+    (3, 65, 129, 8, 1, 16, False, 0), (1, 127, 129, 10, 1, 256, False, 0),
+    # across a window edge: the window ends inside a tile, on its edge,
+    # and one past it
+    (1, 200, 200, 10, 1, 256, True, 63), (1, 200, 200, 10, 1, 256, True, 64),
+    (1, 200, 200, 10, 1, 256, True, 65), (2, 129, 129, 4, 2, 12, True, 100),
+    # head dims below the instance's width and GQA groups 1, 2, 8, 10
+    (3, 100, 100, 8, 8, 12, True, 0), (2, 100, 100, 4, 2, 16, True, 30),
+    (3, 70, 70, 8, 1, 64, True, 0), (1, 150, 150, 10, 1, 96, True, 0),
+    (3, 130, 130, 10, 1, 256, True, 50), (1, 90, 90, 2, 1, 40, True, 0)])
+def test_cuda_flash_attention_tile_edges(cuda, dtype, B, T, S, H, K, D,
+                                         causal, window):
+    g = torch.Generator().manual_seed(T * 13 + D + window)
+    q, k, v = (torch.randn(shape, generator=g).to(dtype).to(cuda)
+               for shape in ((B, T, H, D), (B, S, K, D), (B, S, K, D)))
+    got = fkernel.flash_attention_fwd(q, k, v, causal=causal, window=window)
+    want = flash_attention_ref(q, k, v, causal=causal, window=window)
+    tol = 2e-2 if dtype == torch.bfloat16 else 2e-5
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    if dtype == torch.bfloat16:
+        _close_to_rounded_p(got, q, k, v, causal, window)
+
+
+@pytest.mark.parametrize("D", [64, 256])
+def test_cuda_flash_attention_both_load_routes(cuda, D):
+    """The bf16 kernel loads by TMA from 16-byte aligned tensors and by
+    cp.async from 8-byte aligned ones, with the same result."""
+    g = torch.Generator().manual_seed(D)
+    shapes = ((1, 300, 10, D), (1, 300, 1, D), (1, 300, 1, D))
+    dense = [torch.randn(s, generator=g).to(torch.bfloat16).to(cuda)
+             for s in shapes]
+    shifted = []
+    for x in dense:               # the same values 8 bytes past a 16-byte line
+        buf = torch.empty(x.numel() + 4, dtype=x.dtype, device=cuda)
+        y = buf[4:].view(x.shape)
+        y.copy_(x)
+        shifted.append(y)
+    a = fkernel.flash_attention_fwd(*dense, causal=True, window=100)
+    b = fkernel.flash_attention_fwd(*shifted, causal=True, window=100)
+    want = flash_attention_ref(*dense, causal=True, window=100)
+    torch.cuda.synchronize()
+    for got in (a, b):
+        torch.testing.assert_close(got.float(), want.float(), rtol=2e-2,
+                                   atol=2e-2)
+        _close_to_rounded_p(got, *dense, True, 100)
+
+
+def test_cuda_flash_library_runs_on_wgmma(cuda):
+    """The built library's SASS holds the Hopper tensor-core product."""
+    assert fkernel.hgmma_count() > 0
+
+
 def test_cuda_flash_attention_refuses_what_it_cannot_take(cuda):
     q = torch.randn(1, 8, 2, 260, device=cuda)
     k = torch.randn(1, 8, 1, 260, device=cuda)
@@ -320,8 +415,13 @@ def test_cuda_flash_attention_refuses_what_it_cannot_take(cuda):
         fkernel.flash_attention_fwd(q, q, q, causal=True, window=0)
 
 
-@pytest.mark.parametrize("B,T,W", [(1, 3072, 2560), (4, 1, 2560),
-                                   (2, 33, 64), (3, 8, 48), (1, 13, 1000)])
+@pytest.mark.parametrize("B,T,W", [
+    (1, 3072, 2560), (4, 1, 2560), (2, 33, 64), (3, 8, 48), (1, 13, 1000),
+    # T at 1, a stage of 64 steps less one, a stage, one more, and long
+    (4, 1, 48), (2, 63, 48), (3, 64, 1000), (4, 65, 2560), (1, 3072, 48),
+    (4, 3072, 1000), (2, 385, 2560),
+    # W not a multiple of 4: the direct loop
+    (3, 200, 13), (1, 70, 7)])
 def test_cuda_rg_lru_scan_matches_plain_exactly(cuda, B, T, W):
     g = torch.Generator().manual_seed(B * 100 + T)
     a = (torch.rand((B, T, W), generator=g) * 0.299 + 0.7).to(cuda)
@@ -333,6 +433,23 @@ def test_cuda_rg_lru_scan_matches_plain_exactly(cuda, B, T, W):
     assert lkernel.launches == before + 1
     rh, rhl = lru_scan_ref(a, b, h0)
     assert torch.equal(h, rh) and torch.equal(hl, rhl)
+
+
+def test_cuda_rg_lru_scan_unaligned_exactly(cuda):
+    """Tensors 4 bytes past a 16-byte line take the direct loop, not
+    the TMA ring; the same values aligned take the ring, with the same
+    result."""
+    g = torch.Generator().manual_seed(5)
+    B, T, W = 2, 300, 1000
+    bufs = [torch.empty(B * T * W + 1, device=cuda) for _ in range(2)]
+    a, b = (x[1:].view(B, T, W) for x in bufs)
+    a.copy_(torch.rand((B, T, W), generator=g) * 0.299 + 0.7)
+    b.copy_(torch.randn((B, T, W), generator=g) * 0.1)
+    h0 = torch.randn((B, W), generator=g).to(cuda)
+    rh, rhl = lru_scan_ref(a, b, h0)
+    for args in ((a, b, h0), (a.clone(), b.clone(), h0)):
+        h, hl = lkernel.lru_scan(*args)
+        assert torch.equal(h, rh) and torch.equal(hl, rhl)
 
 
 def _lm(name):

@@ -1,14 +1,22 @@
 """The port's LM kernels, ``flash_attention`` and ``rg_lru_scan``, on the
 CPU route (their plain versions) against the JAX package's Pallas
 kernels in interpret mode and its oracles, on inputs made from one numpy
-seed; and the routes themselves.
+seed; and the routes themselves.  The plain oracle the bf16 kernel is held
+to on the card (``chip_smoke.attention_rounded_p``, p rounded to bf16)
+against numpy.
 
 Tolerances: attention 2e-5 in float32 and 2e-2 in bfloat16 (the JAX
 package's own kernel-vs-oracle bounds, ``tests/test_kernels.py``); the
-recurrence rtol 1e-5, atol 1e-6.  The Pallas kernel runs with its default
-128-wide tiles (one tile per sequence here): the port's function has no
-tiles to sweep, and the JAX package's own tests sweep the Pallas tiling.
+rounded-p oracle 2e-4 of numpy (and its bound, ``rounded_p_excess``, <= 0
+on what it must allow); the recurrence rtol 1e-5, atol 1e-6.
+The Pallas kernel runs with its default 128-wide tiles (one tile per
+sequence here): the port's function has no tiles to sweep, and the JAX
+package's own tests sweep the Pallas tiling.
 """
+import sys
+from pathlib import Path
+
+import ml_dtypes
 import numpy as np
 import pytest
 import torch
@@ -18,11 +26,16 @@ from repro.kernels.flash_attention import attention_ref as j_attention_ref
 from repro.kernels.flash_attention import flash_attention as j_flash
 from repro.kernels.rg_lru_scan import lru_scan_ref as j_lru_scan_ref
 from repro.kernels.rg_lru_scan import rg_lru_scan as j_rg_lru_scan
-from repro_torch.kernels.flash_attention import attention_ref, flash_attention
+from repro_torch.kernels.flash_attention import (attention_ref,
+                                                 flash_attention,
+                                                 flash_attention_ref)
 from repro_torch.kernels.flash_attention import kernel as fkernel
 from repro_torch.kernels.rg_lru_scan import lru_scan_ref, rg_lru_scan
 from repro_torch.kernels.rg_lru_scan import kernel as lkernel
 from repro_torch.models import attention as tattn
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))  # chip_smoke
+import chip_smoke  # noqa: E402
 
 
 def _np(a):
@@ -73,6 +86,88 @@ def test_flash_attention_matches_jax(dtype, T, S, H, K, D, causal, window):
     np.testing.assert_allclose(
         _np(ref_h.float()).reshape(B, H, T, D).transpose(0, 2, 1, 3), oracle,
         rtol=tol, atol=tol)
+
+
+def _np_attention_rounded_p(q, k, v, causal, window):
+    """numpy in float64: the unnormalised p, relative to the row maximum,
+    rounded to float32 and then to bf16 (``ml_dtypes``) before the
+    product with v, divided by the sum of the unrounded p."""
+    B, T, H, D = q.shape
+    S, K = k.shape[1], k.shape[2]
+    q, k, v = (x.astype(np.float64) for x in (q, k, v))
+    tpos, spos = np.arange(T)[:, None], np.arange(S)[None, :]
+    mask = np.ones((T, S), bool)
+    if causal:
+        mask &= spos <= tpos
+    if window:
+        mask &= tpos - spos < window
+    out = np.zeros((B, T, H, D))
+    for b in range(B):
+        for h in range(H):
+            kh = h // (H // K)
+            s = np.where(mask, q[b, :, h] @ k[b, :, kh].T / np.sqrt(D), -1e30)
+            p = np.exp(s - s.max(-1, keepdims=True))
+            pr = p.astype(np.float32).astype(ml_dtypes.bfloat16)
+            out[b, :, h] = (pr.astype(np.float64) @ v[b, :, kh]
+                            / p.sum(-1, keepdims=True))
+    return out
+
+
+@pytest.mark.parametrize("B,T,S,H,K,D,causal,window", [
+    (2, 64, 64, 4, 2, 32, True, 0), (2, 64, 64, 4, 2, 32, True, 24),
+    (2, 50, 70, 2, 2, 32, False, 0), (1, 130, 130, 10, 1, 256, True, 50),
+    (3, 100, 100, 8, 8, 12, True, 0)])
+def test_rounded_p_oracle_matches_numpy(B, T, S, H, K, D, causal, window):
+    """``chip_smoke.attention_rounded_p``, the plain oracle the bf16 kernel
+    is held to on the card, rounds p to bf16 before the product with V:
+    it is within 2e-4 of numpy doing so (a p whose float32 value sits on a
+    bf16 rounding edge may round the other way), and 1e-3 or more from
+    numpy keeping p unrounded."""
+    rng = np.random.default_rng(T * 1000 + S + D)
+    q, k, v = (rng.standard_normal(shape).astype(ml_dtypes.bfloat16)
+               for shape in ((B, T, H, D), (B, S, K, D), (B, S, K, D)))
+    got = chip_smoke.attention_rounded_p(
+        torch, *(_t(x, torch.bfloat16) for x in (q, k, v)), causal, window)
+    assert got.dtype == torch.float32 and got.shape == (B, T, H, D)
+    got = got.numpy().astype(np.float64)
+    want = _np_attention_rounded_p(q, k, v, causal, window)
+    np.testing.assert_allclose(got, want, rtol=2e-4, atol=2e-4)
+    p_in_float32 = attention_ref(*(
+        _t(x, torch.float32).transpose(1, 2).reshape(-1, x.shape[1], D)
+        for x in (q, k, v)), causal=causal, window=window)
+    p_in_float32 = p_in_float32.reshape(B, H, T, D).transpose(1, 2).numpy()
+    assert np.abs(got - p_in_float32).max() >= 1e-3
+
+
+def test_rounded_p_oracle_is_the_plain_version_in_float32():
+    """On float32 inputs the rounding is a no-op: the oracle equals
+    ``flash_attention_ref`` within 1e-6."""
+    rng = np.random.default_rng(3)
+    q, k, v = (_t(rng.standard_normal(shape), torch.float32)
+               for shape in ((2, 90, 4, 40), (2, 90, 2, 40), (2, 90, 2, 40)))
+    got = chip_smoke.attention_rounded_p(torch, q, k, v, True, 30)
+    want = flash_attention_ref(q, k, v, causal=True, window=30)
+    torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
+
+
+def test_rounded_p_excess_allows_the_two_roundings():
+    """``chip_smoke.rounded_p_excess`` leaves nothing beyond its bound for
+    the oracle's own output rounded to bf16, nor for the plain version's
+    (p kept in float32, less than a bf16 step of p away), and reports an
+    error of 0.05 in one element."""
+    rng = np.random.default_rng(7)
+    q, k, v = (_t(rng.standard_normal(shape), torch.bfloat16)
+               for shape in ((2, 150, 4, 32), (2, 150, 2, 32), (2, 150, 2, 32)))
+    o = chip_smoke.attention_rounded_p(torch, q, k, v, True, 70)
+    for got in (o.to(torch.bfloat16),
+                flash_attention_ref(q, k, v, causal=True, window=70)):
+        err, excess = chip_smoke.rounded_p_excess(torch, got, q, k, v, True,
+                                                  70)
+        assert err > 0 and excess <= 0
+    bad = o.clone()
+    bad[1, 100, 3, 7] += 0.05
+    _, excess = chip_smoke.rounded_p_excess(torch, bad, q, k, v, True, 70)
+    assert excess > 0.04
 
 
 @pytest.mark.parametrize("B,T,W", [(1, 16, 32), (2, 33, 64), (3, 8, 48),
