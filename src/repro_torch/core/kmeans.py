@@ -22,8 +22,8 @@ at one block shape for the whole chain (``SphereReport.udf_traces == 1``).
 comparison baseline.
 
 On the array backend the assign stage reaches the hand-written CUDA
-kernel through ``kmeans_assign_partials`` when the points are on the
-card.  :func:`kmeans_step` is the single-device half of the reference's
+kernel through ``kmeans_partials`` when the points are on the card: one
+pass over the points gives the task's sums and counts.  :func:`kmeans_step` is the single-device half of the reference's
 ``kmeans_step_jax``; its mesh twin waits for the multi-GPU port.
 """
 from __future__ import annotations
@@ -39,7 +39,7 @@ from repro_torch.core.job import SphereJob, SphereStage
 from repro_torch.core.records import RecordBatch, f32_view
 from repro_torch.core.shuffle import reduce_partitioner
 from repro_torch.core.trace import NULL_TRACER
-from repro_torch.kernels.kmeans_assign import kmeans_assign_partials
+from repro_torch.kernels.kmeans_assign import kmeans_partials
 
 
 # --------------------------- record codecs ---------------------------------
@@ -95,9 +95,8 @@ def make_kmeans_stages(dim: int, k: int, backend: str) -> List[SphereStage]:
     if backend == "array":
         def assign_masked(batch: RecordBatch, mask, c) -> RecordBatch:
             pts = _f32_rows(batch)                       # [n, dim]
-            sums, counts = kmeans_assign_partials(pts, c, mask)
-            row = torch.cat([sums, counts[:, None]], dim=1).reshape(1, -1)
-            return _f32_record(row)
+            table = kmeans_partials(pts, c, mask)        # [k, dim+1]
+            return _f32_record(table.reshape(1, -1))
 
         def fold_masked(batch: RecordBatch, mask, _params) -> RecordBatch:
             arr = _f32_rows(batch)                       # [n, k*(dim+1)]

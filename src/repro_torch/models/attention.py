@@ -26,6 +26,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.device import resolve_device
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.models import common
 from repro_torch.models.common import sds, soft_cap
@@ -140,8 +141,10 @@ def _zero(spec, device) -> torch.Tensor:
     return torch.zeros(spec.shape, dtype=spec.dtype, device=device)
 
 
-def init_cache(cfg, batch, seq, *, ring, window=0, device="cpu"):
+def init_cache(cfg, batch, seq, *, ring, window=0, device=None):
+    """A zeroed cache on ``device`` (default CUDA, raising without it)."""
     tree = cache_shapes(cfg, batch, seq, ring=ring, window=window)
+    device = resolve_device(device)
     return {name: _zero(spec, device) for name, spec in tree.items()}
 
 

@@ -24,6 +24,7 @@ from typing import Optional
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.device import resolve_device
 from repro_torch.models import attention, mlp, rglru
 from repro_torch.models.common import rms_norm, sds, soft_cap
 from repro_torch.parallel.sharding import ParallelConfig, batch_spec, constrain
@@ -118,8 +119,10 @@ def cache_shapes(cfg: ModelConfig, batch: int, seq: int) -> dict:
     return _stack_groups(_unit_cache_shapes(cfg, batch, seq), cfg.n_groups)
 
 
-def init_cache(cfg: ModelConfig, batch: int, seq: int, *, device="cpu"):
-    return _zero_state(cache_shapes(cfg, batch, seq), device)
+def init_cache(cfg: ModelConfig, batch: int, seq: int, *, device=None):
+    """A zeroed decode cache on ``device`` (default CUDA, raising without
+    it)."""
+    return _zero_state(cache_shapes(cfg, batch, seq), resolve_device(device))
 
 
 # ---------------------------------------------------------------------------

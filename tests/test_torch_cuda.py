@@ -16,7 +16,11 @@ Tolerances: exact equality for integer and byte data.  ``kmeans_assign``:
 ids equal wherever the plain version's best-to-second d2 gap exceeds
 ``1e-5 * (|x|^2 + |c|^2)``, d2 within ``1e-5 * (|x|^2 + |c|^2) + 1e-6``
 (float32 sums in another order), with float32 matrix products in full
-precision (no TF32); k-means centroids within ``1e-5``.
+precision (no TF32); its fused partials: counts exactly the masked
+``bincount`` of the ids kernel's ids, sums within ``1e-5 * sum |x| +
+1e-6`` of float64 one-hot sums over those ids (float32 sums in a fixed
+order), the same bits from launch to launch; k-means centroids within
+``1e-5``.
 ``flash_attention``: within 2e-5 in float32 and 2e-2 in bfloat16 of the
 plain version (sums in another order; the bf16 kernel rounds p to bf16
 before the product with V, the plain version keeps it in float32; the
@@ -47,7 +51,8 @@ from repro_torch.kernels.bucket_partition import (bucket_blocks_ref,
                                                   bucket_scatter)
 from repro_torch.kernels.bucket_partition import kernel as tkernel
 from repro_torch.kernels.kmeans_assign import kernel as kkernel
-from repro_torch.kernels.kmeans_assign import kmeans_assign_ref
+from repro_torch.kernels.kmeans_assign import (kmeans_assign_ref,
+                                               kmeans_partials)
 from repro_torch.kernels.flash_attention import flash_attention_ref
 from repro_torch.kernels.flash_attention import kernel as fkernel
 from repro_torch.kernels.rg_lru_scan import kernel as lkernel
@@ -266,9 +271,91 @@ def test_cuda_kmeans_kernel_shared_memory_limit(cuda):
         kkernel.kmeans_assign_ids(x.to(cuda), c.to(cuda), bn=1024)
 
 
+def _check_partials(x, c, valid, table):
+    """The fused partials against the ids kernel's ids: exact counts, sums
+    within the stated bound of float64 one-hot sums."""
+    k, d = c.shape
+    ids, _ = kkernel.kmeans_assign_ids(x, c, bn=1024)
+    v = (torch.ones(x.shape[0], dtype=torch.bool, device=x.device)
+         if valid is None else valid)
+    assert torch.equal(table[:, d], torch.bincount(
+        ids[v].long(), minlength=k).float())
+    oh = torch.nn.functional.one_hot(ids.long(), k).double() \
+        * v.double()[:, None]
+    x64 = x.double()
+    err = (table[:, :d].double() - oh.T @ x64).abs()
+    assert torch.all(err <= 1e-5 * (oh.T @ x64.abs()) + 1e-6)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,d,k", [(0, 8, 10), (1, 1, 1), (777, 3, 5),
+                                   (100003, 8, 10), (65536, 32, 100),
+                                   (5000, 16, 7), (3000, 40, 6),
+                                   (2000, 8, 200)])
+@pytest.mark.parametrize("mask", [None, "random", "none"])
+def test_cuda_kmeans_partials_match_ids_kernel(cuda, dtype, n, d, k, mask):
+    """Every route of the fused kernel (private columns at small tables,
+    a warp a block with the row in shared or device memory at wide ones,
+    vector and element loads): one launch a call, deterministic, and in
+    agreement with the ids kernel."""
+    x, c = _assign_case(n, d, k, dtype, seed=n + d + k)
+    x, c = x.to(cuda), c.to(cuda)
+    g = torch.Generator().manual_seed(n + 1)
+    valid = {None: None, "none": torch.zeros(n, dtype=torch.bool),
+             "random": torch.rand(n, generator=g) < 0.7}[mask]
+    valid = None if valid is None else valid.to(cuda)
+    before = kkernel.partials_launches
+    first = kkernel.kmeans_partials(x, c, valid)
+    second = kkernel.kmeans_partials(x, c, valid)
+    torch.cuda.synchronize()
+    assert kkernel.partials_launches == before + (2 if n else 0)
+    assert first.shape == (k, d + 1) and torch.equal(first, second)
+    _check_partials(x, c, valid, first)
+    if mask == "none" or n == 0:
+        assert not first.any()
+    assert torch.equal(kmeans_partials(x, c, valid), first)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_kmeans_kernels_unaligned_points(cuda, dtype):
+    """Points 4 or 2 bytes off the 16-byte grid take the element-wise
+    load route: the same ids and d2 as an aligned copy, the same counts,
+    and sums within the stated bound (the route walks the points in
+    another order)."""
+    x, c = _assign_case(100001, 8, 10, dtype, seed=5)
+    flat = torch.empty(x.numel() + 1, dtype=dtype, device=cuda)
+    odd = flat[1:].view(x.shape)
+    odd.copy_(x.to(cuda))
+    assert odd.data_ptr() % 16 != 0
+    x, c = x.to(cuda), c.to(cuda)
+    for got, want in zip(kkernel.kmeans_assign_ids(odd, c, bn=1024),
+                         kkernel.kmeans_assign_ids(x, c, bn=1024)):
+        assert torch.equal(got, want)
+    table = kkernel.kmeans_partials(odd, c)
+    assert torch.equal(table[:, 8], kkernel.kmeans_partials(x, c)[:, 8])
+    _check_partials(odd, c, None, table)
+
+
+def test_cuda_kmeans_partials_shared_memory_limit(cuda):
+    """The fused kernel takes every table the ids kernel takes, the full
+    one with its row in device memory, and refuses one float more."""
+    k, d = 256, 226
+    x, c = _assign_case(4096, d, k, torch.float32, seed=1)
+    x, c = x.to(cuda), c.to(cuda)
+    valid = (torch.rand(4096, generator=torch.Generator().manual_seed(3))
+             < 0.7).to(cuda)
+    table = kkernel.kmeans_partials(x, c, valid)
+    assert torch.equal(table, kkernel.kmeans_partials(x, c, valid))
+    _check_partials(x, c, valid, table)
+    x, c = _assign_case(64, d + 1, k, torch.float32, seed=2)
+    with pytest.raises(ValueError, match="shared memory"):
+        kkernel.kmeans_partials(x.to(cuda), c.to(cuda))
+
+
 def test_cuda_kmeans_sphere_through_kernel(cuda, tmp_path):
     """k-means through the port's engine on the card: centroids of the CPU
-    run, and one kernel launch per assign task."""
+    run, one fused partials launch per assign task and no ids kernel
+    launch."""
     rng = np.random.default_rng(0)
     pts = np.concatenate([rng.normal(c, 0.5, (3000, 8)) for c in
                           (np.zeros(8), np.full(8, 6.0), np.full(8, -5.0))]) \
@@ -284,16 +371,18 @@ def test_cuda_kmeans_sphere_through_kernel(cuda, tmp_path):
         master.acl.grant_write("a")
         client = tsector.SectorClient(master, "a", "chicago")
         client.upload("pts", tkm.encode_points(pts), replication=2)
-        before = kkernel.launches
+        before = kkernel.partials_launches, kkernel.launches
         cents, rep = tkm.kmeans_sphere(
             tcore.SphereEngine(master, client, device=device), "pts",
             dim=8, k=3, iters=4, backend="array")
-        results[name] = (cents, rep, kkernel.launches - before)
-    (c_cpu, r_cpu, l_cpu), (c_dev, r_dev, l_dev) = (results["cpu"],
-                                                    results["cuda"])
+        results[name] = (cents, rep, kkernel.partials_launches - before[0],
+                         kkernel.launches - before[1])
+    (c_cpu, r_cpu, l_cpu, i_cpu), (c_dev, r_dev, l_dev, i_dev) = (
+        results["cpu"], results["cuda"])
     np.testing.assert_allclose(c_dev, c_cpu, rtol=1e-5, atol=1e-5)
     n_chunks = -(-pts.nbytes // (4096 * 32))
     assert l_cpu == 0 and l_dev == 4 * n_chunks
+    assert i_cpu == i_dev == 0
     assert r_dev.udf_traces == {"assign": 1, "fold": 1}
     assert r_dev.sim_seconds == r_cpu.sim_seconds
 

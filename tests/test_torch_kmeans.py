@@ -13,7 +13,8 @@ oracle.  Tolerances, each with its reason:
   centroids (the lowest index wins an exact tie);
 * d2: ``rtol = atol = 1e-4`` for float32 inputs, ``5e-2`` for bfloat16
   (``tests/test_kernels.py``'s bounds);
-* partial sums and counts: ``1e-5`` (the summation order differs);
+* partial sums and counts: ``1e-5`` (the summation order differs); counts
+  of ``kmeans_partials_ref`` exact, on inputs whose every id is decided;
 * centroids through Sphere: ``1e-5`` on the array backend, equal on the
   bytes backend (the same numpy UDFs on the same records);
 * record bytes, ``udf_traces`` and ``SphereReport`` fields: equal.
@@ -45,7 +46,9 @@ from repro_torch.core import kmeans as tkm
 from repro_torch.core.records import RecordBatch
 from repro_torch.kernels.kmeans_assign import (kernel as tkernel,
                                                kmeans_assign,
-                                               kmeans_assign_partials)
+                                               kmeans_assign_partials,
+                                               kmeans_partials,
+                                               kmeans_partials_ref)
 
 # report fields that are wall clock, or count each lowering's own
 # device dispatches
@@ -164,6 +167,77 @@ def test_kmeans_kernel_build_without_nvcc_raises(tmp_path, monkeypatch):
     monkeypatch.setenv("PATH", str(tmp_path / "no-bin"))
     with pytest.raises(RuntimeError, match="nvcc"):
         tkernel.build(tmp_path / "build")
+    assert not any((tmp_path / "build").rglob("*.so"))
+
+
+@pytest.mark.parametrize("N,D,K,dtype,mask", [
+    (700, 8, 10, jnp.float32, None), (700, 8, 10, jnp.float32, "random"),
+    (1001, 8, 10, jnp.float32, "random"), (513, 16, 7, jnp.bfloat16, "random"),
+    (300, 3, 5, jnp.bfloat16, None), (257, 4, 1, jnp.float32, "random"),
+    (300, 8, 10, jnp.float32, "none")])
+def test_kmeans_partials_ref_matches_jax(N, D, K, dtype, mask):
+    """The plain fused partials ``[K, D + 1]`` against the JAX package's
+    ``kmeans_assign_partials``, with its Pallas kernel in interpret mode
+    (``block_n=128``: N = 1001 and 513 leave a ragged last block) and with
+    its oracle: masked and unmasked, an all-false mask, K = 1, bfloat16
+    points.  Every id is decided here, so counts agree exactly."""
+    jx, jc, tx, tc, x32, c32 = _inputs(N, D, K, dtype, seed=N + 7 * K)
+    assert _decided(x32, c32).all()
+    valid = {None: None, "none": np.zeros(N, bool),
+             "random": np.random.default_rng(N).random(N) < 0.7}[mask]
+    tv = None if valid is None else torch.from_numpy(valid)
+    jv = None if valid is None else jnp.asarray(valid)
+    table = kmeans_partials_ref(tx, tc, tv)
+    assert table.shape == (K, D + 1) and table.dtype == torch.float32
+    assert torch.equal(kmeans_partials(tx, tc, tv), table)
+    sums, counts = kmeans_assign_partials(tx, tc, tv)
+    assert torch.equal(sums, table[:, :D]) and torch.equal(counts,
+                                                           table[:, D])
+    for use_kernel in (True, False):
+        j_sums, j_counts = j_partials(jx, jc, jv, block_n=128,
+                                      use_kernel=use_kernel)
+        np.testing.assert_allclose(table[:, :D].numpy(), np.asarray(j_sums),
+                                   rtol=1e-5, atol=1e-5)
+        np.testing.assert_array_equal(table[:, D].numpy(),
+                                      np.asarray(j_counts))
+    n_valid = N if valid is None else int(valid.sum())
+    assert float(table[:, D].sum()) == n_valid
+    if mask == "none":
+        assert not table.any()
+
+
+def test_kmeans_partials_kernel_refuses_what_it_cannot_take():
+    """The fused wrapper raises ``ValueError`` before any launch on CPU
+    tensors, non-contiguous or mismatched inputs, a bad mask and a table
+    over the shared memory."""
+    x = torch.zeros((6, 4))
+    c = torch.zeros((3, 4))
+    before = tkernel.partials_launches
+    bad = [((x, c, None), "CUDA tensors"),
+           ((torch.zeros((4, 6)).T, c, None), "contiguous"),
+           ((x, torch.zeros((3, 5)), None), "dimensions"),
+           ((x.to(torch.float64), c, None), "float32 or bfloat16"),
+           ((x, c.to(torch.bfloat16), None), "float32 tensor"),
+           ((x, c, torch.ones(5, dtype=torch.bool)), "valid"),
+           ((x, c, torch.ones(6, dtype=torch.uint8)), "valid"),
+           ((x, c, torch.ones(12, dtype=torch.bool)[::2]), "valid"),
+           ((torch.zeros((6, 227)), torch.zeros((256, 227)), None),
+            "shared memory")]
+    for args, match in bad:
+        with pytest.raises(ValueError, match=match):
+            tkernel.kmeans_partials(*args)
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        kmeans_partials(x.to("meta"), c.to("meta"), use_kernel=True)
+    assert tkernel.partials_launches == before
+
+
+def test_kmeans_partials_build_without_nvcc_raises(tmp_path, monkeypatch):
+    """The fused entry lives in the same source: without ``nvcc`` its
+    library cannot be built or loaded, and nothing falls back."""
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path / "no-cuda"))
+    monkeypatch.setenv("PATH", str(tmp_path / "no-bin"))
+    with pytest.raises(RuntimeError, match="nvcc"):
+        tkernel.load_library(tmp_path / "build")
     assert not any((tmp_path / "build").rglob("*.so"))
 
 

@@ -316,3 +316,22 @@ def test_mesh_raises_and_default_device_is_cuda(monkeypatch):
         tmodel.init_params(tcfg, torch.Generator().manual_seed(0))
     with pytest.raises(RuntimeError, match="CUDA"):
         tmodel.init_cache(tcfg, 1, 16)
+
+
+@pytest.mark.parametrize("which", ["attention", "transformer"])
+def test_init_cache_without_a_device_is_cuda(monkeypatch, which):
+    """``attention.init_cache`` and ``transformer.init_cache`` resolve a
+    missing device to CUDA, as ``model.init_cache`` does: without CUDA
+    they raise, and ``device="cpu"`` still gives a CPU cache."""
+    from repro_torch.models import transformer as ttransformer
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    _, tcfg = _cfgs("recurrentgemma-2b")
+    if which == "attention":
+        make = lambda **kw: tattn.init_cache(tcfg, 1, 16, ring=True,  # noqa: E731
+                                             window=8, **kw)
+    else:
+        make = lambda **kw: ttransformer.init_cache(tcfg, 1, 16, **kw)  # noqa: E731
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make()
+    leaves = tree_flatten_with_paths(make(device="cpu"))
+    assert leaves and all(v.device.type == "cpu" for _, v in leaves)
