@@ -21,8 +21,16 @@ and passed over.
    - ``bucket_dest`` (and the ``bucket_dest`` / ``bucket_scatter`` entry
      points on it), exact, at the TeraSort stack ``[16, 655360]``, k=3,
      6 buckets;
-   - ``bucket_partition``, exact ids and histogram, at ``[10000000, 3]``,
-     6 buckets;
+   - ``bucket_partition``'s two entries, exact ids and histogram: the
+     words entry at ``[10000000, 3]`` int64 words, 6 buckets; the rows
+     entry, which reads the keys out of the records, over every key layout
+     (range keys of 1-5 words with and without the length word, a key
+     longer than the record, hash keys of 4, 8 and 10 bytes), widths 100,
+     13 and 7, a storage offset that is not 4-aligned, N = 0, 1 and a
+     ragged N, and timed at 10,000,000 records of 100 bytes (10-byte keys,
+     k = 3, 6 buckets) beside the bound, the floors of the 32-byte sectors
+     and 64-byte memory atoms its keys touch, and the route it replaced
+     (the key rows built by plain torch, then the words entry);
    - ``kmeans_assign``, ids exact where the plain version's best-to-second
      gap exceeds ``1e-5 * (|x|^2 + |c|^2)`` and d2 within
      ``1e-5 * (|x|^2 + |c|^2) + 1e-6``, at ``[2097152, 8]``, K=10.  The
@@ -50,8 +58,11 @@ and passed over.
    partitioner of the same boundaries: ids must equal a numpy oracle of
    ``#{bounds < key}``, the histogram the per-bucket record counts of the
    TeraSort outputs, and ``shuffle_batch``'s pieces, each sorted by key
-   and concatenated, the oracle order; ``bucket_partition`` must launch
-   exactly once per call.
+   and concatenated, the oracle order; the rows entry of
+   ``bucket_partition`` must launch exactly once per call and the words
+   entry never.  One more ``partition_batch`` and the words route it
+   replaced run under ``torch.profiler`` (device busy time and idle
+   share), and ``shuffle_batch``'s host steps are timed one by one.
 5. **k-means**, the paper's Table 2 workload (§5.3) at its largest scale:
    ``--points`` float32 points (default 100,000,000), D=8, K=10, 5
    iterations, a mixture of K Gaussian clusters from ``--seed``, uploaded
@@ -148,6 +159,11 @@ KERNELS = {
                     "src/repro/kernels/bucket_partition/kernel.py:138"),
     "bucket_partition": (f"{PKG}/bucket_partition/csrc/bucket_partition.cu",
                          "src/repro/kernels/bucket_partition/kernel.py:70"),
+    # the same source's rows entry: the TPU kernel and the key extraction
+    # XLA fuses in front of it (src/repro/core/shuffle.py _extract_keys)
+    "bucket_partition_rows": (
+        f"{PKG}/bucket_partition/csrc/bucket_partition.cu",
+        "src/repro/kernels/bucket_partition/kernel.py:70"),
     "kmeans_assign": (f"{PKG}/kmeans_assign/csrc/kmeans_assign.cu",
                       "src/repro/kernels/kmeans_assign/kernel.py:19"),
     # the same source's fused entry: the TPU kernel and the one-hot
@@ -279,6 +295,7 @@ def build_all(build_dir: Path) -> None:
 def dest_phase(torch):
     from repro_torch.convert import bounds_from_numpy
     from repro_torch.core import shuffle
+    from repro_torch.core.records import extract_keys
     from repro_torch.kernels.bucket_partition import kernel, ops, ref
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(1234)
@@ -367,7 +384,7 @@ def dest_phase(torch):
         bytes(r) for r in np.random.default_rng(5).integers(
             0, 256, (63, KEY), dtype=np.uint8))).scatter_spec(
         shuffle.RecordBatch.empty(RECORD, dev), 64)
-    keys = shuffle._extract_keys(data, spec).contiguous()
+    keys = extract_keys(data, spec).contiguous()
     bounds = bounds_from_numpy(bwords).to(dev)
     counts = torch.full((MAIN_SLOTS,), 60_000, dtype=torch.int32, device=dev)
     compare(keys, bounds, counts, None, 64, ops.ACCEL_BLOCK_N, data)
@@ -381,7 +398,7 @@ def dest_phase(torch):
         shuffle.sample_boundaries(sample, N_BUCKETS, KEY))
     spec, bwords = part.scatter_spec(shuffle.RecordBatch.empty(RECORD, dev),
                                      N_BUCKETS)
-    keys = shuffle._extract_keys(data, spec).contiguous()
+    keys = extract_keys(data, spec).contiguous()
     bounds = bounds_from_numpy(bwords).to(dev)
     counts = torch.tensor([640_000] * 15 + [400_000], dtype=torch.int32,
                           device=dev)
@@ -435,34 +452,107 @@ def dest_phase(torch):
     return row("bucket_dest", worst, kernel_ms, plain_ms, k_bound, k_by)
 
 
+def key_floor_bytes(ptr: int, n: int, width: int, kb: int, grain: int
+                    ) -> int:
+    """Bytes of the ``grain``-byte blocks of device memory that the first
+    ``kb`` bytes of ``n`` records of ``width`` bytes from address ``ptr``
+    touch: what the memory must move to read the keys alone."""
+    first = ptr % grain + np.arange(n, dtype=np.int64) * width
+    return int(((first + kb - 1) // grain - first // grain + 1).sum()) * grain
+
+
+def rows_cases(torch, dev, gen):
+    """``(data, key_spec, bounds, n_buckets)`` cases of the rows entry:
+    range keys of k = 1..5 words with and without the length word, a key
+    longer than the record (clipped), hash keys of 4, 8 and 10 bytes;
+    widths 100, 13 and 7; a view whose storage offset is not 4-aligned;
+    N = 0, 1 and a ragged N.  Low-entropy bytes and boundaries taken from
+    the records' own keys give boundary ties and multi-word ties."""
+    from repro_torch.core.records import extract_keys, uniform_hash_bounds
+    from repro_torch.kernels.bucket_partition.kernel import key_layout
+
+    def sampled_bounds(data, spec, nb):
+        keys = extract_keys(data, spec)
+        if not len(keys):
+            return torch.zeros((nb - 1, key_layout(spec, data.shape[1])[3]),
+                               dtype=torch.int64)
+        pick = keys[torch.randint(0, len(keys), (nb - 1,), generator=gen)]
+        return pick[torch.from_numpy(np.lexsort(pick.numpy().T[::-1]))]
+
+    specs = [("range", 4, 1, None), ("range", 4, 1, 4),
+             ("range", 8, 2, None), ("range", 10, 3, None),
+             ("range", 10, 3, 10), ("range", 6, 3, None),
+             ("range", 16, 4, 16), ("range", 20, 5, None),
+             ("range", 12, 3, 12),         # longer than a 7-byte record
+             ("hash", 4), ("hash", 8), ("hash", 10)]
+    for width in (100, 13, 7):
+        for offset in ((0, 1) if width == 100 else (0,)):
+            for n in (3001, 1, 0):
+                flat = torch.randint(0, 2, (n * width + offset,),
+                                     generator=gen, dtype=torch.uint8)
+                host = flat[offset:].view(n, width)
+                data = flat.to(dev)[offset:].view(n, width)
+                for spec in specs:
+                    for nb in (2, 6, 16):
+                        if spec[0] == "hash":
+                            bounds = torch.from_numpy(uniform_hash_bounds(
+                                nb).astype(np.int64))[:, None]
+                        else:
+                            bounds = sampled_bounds(host, spec, nb)
+                        yield data, spec, bounds.to(dev), nb
+
+
 def partition_phase(torch):
+    """Both entries of bucket_partition.cu against their plain versions;
+    returns their two rows."""
     from repro_torch.convert import bounds_from_numpy
     from repro_torch.core import shuffle
-    from repro_torch.core.records import key_rows_of
+    from repro_torch.core.records import extract_keys
     from repro_torch.kernels.bucket_partition import kernel, ops, ref
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(99)
-    worst = 0
-    n_cases = 0
+    worst = worst_rows = 0
+    n_cases = n_rows = 0
+
+    def differ(name, got, want, what):
+        err = 0
+        for g, w in zip(got, want):
+            if g.numel():
+                err = max(err, int((g.long() - w.long()).abs().max()))
+        check(err == 0, f"{name} {what} differs from the plain version (max "
+                        f"err {err})")
+        return err
 
     def compare(keys, bounds, n_buckets, bn, entry=True):
         nonlocal worst, n_cases
         got = kernel.bucket_partition_ids(keys, bounds, n_buckets=n_buckets,
                                           bn=bn)
         want = ref.bucket_partition_ref(keys, bounds, n_buckets)
-        for name, g, w in zip(("ids", "hist"), got, want):
-            err = int((g.long() - w.long()).abs().max()) if g.numel() else 0
-            worst = max(worst, err)
-            check(err == 0, f"bucket_partition {name} differs from the "
-                            f"plain version (n={keys.shape[0]}, k="
-                            f"{keys.shape[1]}, nb={n_buckets}, bn={bn}, "
-                            f"max err {err})")
+        worst = max(worst, differ(
+            "bucket_partition", got, want, f"(n={keys.shape[0]}, k="
+            f"{keys.shape[1]}, nb={n_buckets}, bn={bn})"))
         if entry:
             ids, hist = ops.bucket_partition(keys, bounds,
                                              n_buckets=n_buckets, block_n=bn)
             check(torch.equal(ids, want[0]) and torch.equal(hist, want[1]),
                   f"ops.bucket_partition differs (nb={n_buckets})")
         n_cases += 1
+
+    def compare_rows(data, spec, bounds, n_buckets, bn=None):
+        nonlocal worst_rows, n_rows
+        got = kernel.bucket_partition_rows(data, spec, bounds,
+                                           n_buckets=n_buckets, bn=bn)
+        want = ref.bucket_partition_rows_ref(data, spec, bounds, n_buckets)
+        worst_rows = max(worst_rows, differ(
+            "bucket_partition_rows", got, want, f"(shape "
+            f"{tuple(data.shape)}, offset {data.storage_offset()}, "
+            f"spec {spec}, nb={n_buckets}, bn={bn})"))
+        ids, hist = ops.bucket_partition_rows(data, spec, bounds,
+                                              n_buckets=n_buckets,
+                                              block_n=bn)
+        check(torch.equal(ids, want[0]) and torch.equal(hist, want[1]),
+              f"ops.bucket_partition_rows differs ({spec}, nb={n_buckets})")
+        n_rows += 1
 
     def rand(shape, high):
         return torch.randint(0, high, shape, generator=gen,
@@ -487,36 +577,76 @@ def partition_phase(torch):
         compare(keys, bounds, nb, 128, entry=False)
     # full-range 32-bit words
     compare(rand((70_001, 3), 2 ** 32), rand((5, 3), 2 ** 32), 6, 2048)
+    # the rows entry: every key layout, width, alignment and size above
+    for data, spec, bounds, nb in rows_cases(torch, dev, gen):
+        compare_rows(data, spec, bounds, nb)
     torch.cuda.synchronize()
 
-    # the path's shape: 10,000,000 records' 10-byte keys, k=3, 6 buckets
+    # the path's shape: 10,000,000 records of 100 bytes, their 10-byte
+    # keys as k = 3 words, 6 buckets
     dgen = torch.Generator(device=dev).manual_seed(77)
-    raw = torch.randint(0, 256, (PART_ROWS, KEY), generator=dgen,
-                        dtype=torch.uint8, device=dev)
-    sample = sorted(bytes(r) for r in raw[:100_000].cpu().numpy())
+    data = torch.randint(0, 256, (PART_ROWS, RECORD), generator=dgen,
+                         dtype=torch.uint8, device=dev)
+    sample = sorted(bytes(r) for r in data[:100_000, :KEY].cpu().numpy())
     part = shuffle.range_partitioner(
         shuffle.sample_boundaries(sample, N_BUCKETS, KEY))
-    keys = key_rows_of(raw, KEY, n_words=3).contiguous()
-    _, bwords = part.kernel_inputs(shuffle.RecordBatch(raw), N_BUCKETS)
+    spec, bwords = part.scatter_spec(shuffle.RecordBatch(data), N_BUCKETS)
     bounds = bounds_from_numpy(bwords).to(dev)
-    compare(keys, bounds, N_BUCKETS, ops.ACCEL_BLOCK_N)
+    keys = extract_keys(data, spec).contiguous()
     bn = ops.ACCEL_BLOCK_N
-    kernel_ms = timed_ms(torch, lambda: kernel.bucket_partition_ids(
+    compare(keys, bounds, N_BUCKETS, bn)
+    compare_rows(data, spec, bounds, N_BUCKETS)
+    # a storage offset that is not 4-aligned takes the byte loads
+    compare_rows(data.view(-1)[1:1 + (PART_ROWS - 1) * RECORD].view(
+        PART_ROWS - 1, RECORD), spec, bounds, N_BUCKETS)
+    words_ms = timed_ms(torch, lambda: kernel.bucket_partition_ids(
         keys, bounds, n_buckets=N_BUCKETS, bn=bn))
-    plain_ms = timed_ms(torch, lambda: ref.bucket_partition_ref(
+    words_plain_ms = timed_ms(torch, lambda: ref.bucket_partition_ref(
         keys, bounds, N_BUCKETS))
+    rows_ms = timed_ms(torch, lambda: kernel.bucket_partition_rows(
+        data, spec, bounds, n_buckets=N_BUCKETS))
+    rows_plain_ms = timed_ms(torch, lambda: ref.bucket_partition_rows_ref(
+        data, spec, bounds, N_BUCKETS))
+    # the route the partition path took before the rows entry: the key
+    # rows built by plain torch, then the words entry
+    old_ms = timed_ms(torch, lambda: ops.bucket_partition(
+        extract_keys(data, spec), bounds, n_buckets=N_BUCKETS))
     n_bounds, k = bounds.shape
-    # 32-bit key words in, ids out, the histogram and the boundary words
-    p_bytes = PART_ROWS * (4 * k + 4) + 4 * (N_BUCKETS + n_bounds * k)
+    small = 4 * (N_BUCKETS + n_bounds * k)
     p_ops = PART_ROWS * n_bounds * k * 2
+    # words: 32-bit key words in, ids out, the histogram and the bounds
+    p_bytes = PART_ROWS * (4 * k + 4) + small
     p_bound, p_by = bound_ms(p_bytes, p_ops)
     carried = PART_ROWS * (8 * k + 4)
+    # rows: the 10 key bytes of each record in, ids out; and the floors
+    # of the 32-byte sectors and the 64-byte memory atoms the keys touch
+    r_bytes = PART_ROWS * (KEY + 4) + small
+    r_bound, r_by = bound_ms(r_bytes, p_ops)
+    sector = key_floor_bytes(data.data_ptr(), PART_ROWS, RECORD, KEY, 32) \
+        + PART_ROWS * 4 + small
+    atom = key_floor_bytes(data.data_ptr(), PART_ROWS, RECORD, KEY, 64) \
+        + PART_ROWS * 4 + small
+    sector_ms, atom_ms = bound_ms(sector, p_ops)[0], bound_ms(atom, p_ops)[0]
     print(f"kernel bucket_partition [{PART_ROWS}, {k}] n_buckets="
-          f"{N_BUCKETS}: kernel_ms={kernel_ms:.4f} bound_ms={p_bound:.4f} "
+          f"{N_BUCKETS}: kernel_ms={words_ms:.4f} bound_ms={p_bound:.4f} "
           f"({p_bytes} bytes, 32-bit key words) carried_bytes={carried} "
-          f"({carried / (kernel_ms * 1e-3) / 1e12:.3f} TB/s) "
-          f"plain_ms={plain_ms:.4f} cases={n_cases} max_abs_err={worst}")
-    return row("bucket_partition", worst, kernel_ms, plain_ms, p_bound, p_by)
+          f"({carried / (words_ms * 1e-3) / 1e12:.3f} TB/s) "
+          f"plain_ms={words_plain_ms:.4f} cases={n_cases} "
+          f"max_abs_err={worst}")
+    print(f"kernel bucket_partition_rows [{PART_ROWS}, {RECORD}] B k={k} "
+          f"n_buckets={N_BUCKETS}: kernel_ms={rows_ms:.4f} "
+          f"bound_ms={r_bound:.4f} ({r_bytes} bytes) "
+          f"sector_floor_ms={sector_ms:.4f} ({sector} bytes) "
+          f"atom_floor_ms={atom_ms:.4f} ({atom} bytes, "
+          f"{atom / (rows_ms * 1e-3) / 1e12:.3f} TB/s, "
+          f"{rows_ms / atom_ms:.2f}x the atom floor) "
+          f"old_route_ms={old_ms:.4f} (key rows + words entry) "
+          f"words_ms={words_ms:.4f} plain_ms={rows_plain_ms:.4f} "
+          f"cases={n_rows} max_abs_err={worst_rows}")
+    return (row("bucket_partition", worst, words_ms, words_plain_ms, p_bound,
+                p_by),
+            row("bucket_partition_rows", worst_rows, rows_ms, rows_plain_ms,
+                r_bound, r_by))
 
 
 def assign_phase(torch):
@@ -782,7 +912,8 @@ def check_terasort(launches, rep, outs, data, order) -> bytes:
 # ------------------------------------------------------------ phase 4
 def partition_path(torch, data, bounds, device="cuda"):
     """partition_batch and shuffle_batch on the TeraSort records.  Returns
-    (bucket_partition launches, calls, ids, hist, pieces' sorted bytes)."""
+    ((rows entry, words entry) launches, calls, ids, hist, pieces' sorted
+    bytes)."""
     from repro_torch.core.records import RecordBatch
     from repro_torch.core.shuffle import (partition_batch, range_partitioner,
                                           shuffle_batch)
@@ -792,26 +923,93 @@ def partition_path(torch, data, bounds, device="cuda"):
     part = range_partitioner(bounds)
     if device == "cuda":
         torch.cuda.synchronize()
-    kernel.partition_launches = 0
+    kernel.rows_launches = kernel.partition_launches = 0
     t = time.perf_counter()
     ids, hist = partition_batch(batch, part, N_BUCKETS)
     pieces = shuffle_batch(batch, part, N_BUCKETS)
     if device == "cuda":
         torch.cuda.synchronize()
     wall_s = time.perf_counter() - t
-    launches = kernel.partition_launches
+    launches = (kernel.rows_launches, kernel.partition_launches)
     t = time.perf_counter()
     sorted_bytes = b"".join(p.sort_by_key(KEY).to_bytes() for p in pieces)
     print(f"partition_batch + shuffle_batch: {batch.num_records} records: "
           f"wall_s={wall_s:.4f} hist={hist.tolist()} launches={launches} "
           f"(sort check {time.perf_counter() - t:.2f}s)")
+    del pieces
+    if device == "cuda":
+        profile_partition(torch, batch, part)
     return launches, 2, ids.cpu().numpy(), hist.cpu().numpy(), sorted_bytes
+
+
+def profile_partition(torch, batch, part) -> None:
+    """One partition_batch under ``torch.profiler`` beside the route it
+    replaced (the key rows built by plain torch, then the words entry),
+    each after a warm call: device busy time against the host clock of
+    the call, and the largest device consumers; then shuffle_batch's host
+    steps (``records.scatter_by_ids``) timed one by one.  A measurement
+    only: the checked run is over."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core.records import extract_keys
+    from repro_torch.core.shuffle import _bounds_tensor, partition_batch
+    from repro_torch.kernels.bucket_partition import ops
+
+    def words_route():
+        spec, bwords = part.scatter_spec(batch, N_BUCKETS)
+        return ops.bucket_partition(extract_keys(batch.data, spec),
+                                    _bounds_tensor(bwords, batch.device),
+                                    n_buckets=N_BUCKETS)
+
+    for name, fn in (("words route (key rows + words entry)", words_route),
+                     ("partition_batch (rows entry)",
+                      lambda: partition_batch(batch, part, N_BUCKETS))):
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t) * 1e3
+        on_card = [e for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA]
+        busy_ms = sum(e.self_device_time_total for e in on_card) / 1e3
+        if not busy_ms:
+            print(f"partition: profiled {name}: the profiler saw no device "
+                  f"time; device busy share not measured")
+            continue
+        top = sorted(on_card, key=lambda e: -e.self_device_time_total)[:6]
+        print(f"partition: profiled {name}: {wall_ms:.3f} ms on the host "
+              f"clock, device busy {busy_ms:.3f} ms (idle share "
+              f"{1 - busy_ms / wall_ms:.3f}) in "
+              f"{sum(e.count for e in on_card)} device ops; largest: "
+              + "; ".join(f"{e.key[:50]} x{e.count} "
+                          f"{e.self_device_time_total / 1e3:.3f} ms"
+                          for e in top))
+
+    ids, hist = partition_batch(batch, part, N_BUCKETS)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ids_np, hist_np = ids.cpu().numpy(), hist.cpu().numpy()
+    t1 = time.perf_counter()
+    order = np.argsort(ids_np, kind="stable")
+    t2 = time.perf_counter()
+    pieces = [batch.take(p)
+              for p in np.split(order, np.cumsum(hist_np)[:-1])]
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    print(f"partition: shuffle_batch's host steps: ids and hist to the host "
+          f"{t1 - t0:.4f} s, stable argsort of {len(ids_np)} ids "
+          f"{t2 - t1:.4f} s, {len(pieces)} takes {t3 - t2:.4f} s")
 
 
 def check_partition(launches, calls, ids, hist, sorted_bytes, data, bounds,
                     outs, want) -> None:
-    check(launches == calls, f"bucket_partition launched {launches} times "
-                             f"for {calls} calls")
+    check(launches[0] == calls, f"bucket_partition_rows launched "
+                                f"{launches[0]} times for {calls} calls")
+    check(launches[1] == 0, f"the partition path launched the words entry "
+                            f"{launches[1]} times")
     key_hi = data[:, :8].copy().view(">u8")[:, 0]
     key_lo = data[:, 8:10].copy().view(">u2")[:, 0]
     oracle = np.zeros(len(data), np.int64)
@@ -1524,7 +1722,7 @@ def main() -> None:
     build_all(ROOT / "build" / "repro_torch")
 
     # phase 2: every kernel against its plain version on the card
-    rows = {r["name"]: r for r in (dest_phase(torch), partition_phase(torch),
+    rows = {r["name"]: r for r in (dest_phase(torch), *partition_phase(torch),
                                    *assign_phase(torch))}
     print(f"kernels checked at {time.perf_counter() - t0:.1f}s")
 
@@ -1538,7 +1736,8 @@ def main() -> None:
                                                                 bounds)
     check_partition(p_launches, calls, ids, hist, sorted_bytes, data, bounds,
                     outs, want)
-    rows["bucket_partition"]["launches"] = p_launches
+    rows["bucket_partition_rows"]["launches"], \
+        rows["bucket_partition"]["launches"] = p_launches
     del data, outs, want, ids, sorted_bytes
     print(f"terasort and partition paths done at "
           f"{time.perf_counter() - t0:.1f}s")
@@ -1572,10 +1771,12 @@ def main() -> None:
     check_logits(torch, cfg, params, prompts, last_logits)
     profile_decode(torch, eng, steady_s)
     profile_prefill(torch, cfg, params, prompts[0])
-    # the k-means path runs the fused entry; the ids entry, held and
-    # timed in phase 2, is on no path
+    # the k-means path runs the fused entry and the partition path the
+    # rows entry; the ids and words entries, held and timed in phase 2,
+    # are on no path
     for r in rows.values():
-        check(r["launches"] > 0 or r["name"] == "kmeans_assign",
+        check(r["launches"] > 0
+              or r["name"] in ("kmeans_assign", "bucket_partition"),
               f"its path never launched {r['name']}")
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t0:.1f}s")
 

@@ -106,6 +106,17 @@ def hash_keys_of(data: torch.Tensor, key_bytes: int) -> torch.Tensor:
     return h
 
 
+def extract_keys(data: torch.Tensor, key_spec) -> torch.Tensor:
+    """``[..., k]`` int64 key rows of ``data [..., width]`` for the static
+    ``key_spec`` — ``("hash", key_bytes)`` or ``("range", key_len,
+    n_words, length_word)``."""
+    if key_spec[0] == "hash":
+        return hash_keys_of(data, key_spec[1])[..., None]
+    _, key_len, n_words, length_word = key_spec
+    return key_rows_of(data, key_len, n_words=n_words,
+                       length_word=length_word)
+
+
 @dataclass(frozen=True)
 class RecordBatch:
     """Fixed-width records packed as a uint8 [rows, record_size] tensor.

@@ -6,8 +6,9 @@ engine protocol) and additionally exposes
 
 * ``kernel_inputs(batch, n)`` — the (keys, bounds) word rows the bucket
   kernels compare;
-* ``bucket_ids(batch, n)`` — ids + histogram via the ``bucket_partition``
-  kernel (the analysis path: :func:`partition_batch` /
+* ``bucket_ids(batch, n)`` — ids + histogram via the
+  ``bucket_partition_rows`` kernel, which reads the key bytes out of the
+  records (the analysis path: :func:`partition_batch` /
   :func:`shuffle_batch`, where the ids come back to the caller);
 * ``scatter_spec(batch, n)`` — the static key spec and boundary words the
   device scatter compares.
@@ -40,10 +41,10 @@ import numpy as np
 import torch
 
 from repro_torch.core.records import (RecordBatch, StackedBatch,  # noqa: F401
-                                      _pow2_rows, _quarter_rows, fnv1a32,
-                                      hash_keys_of, key_rows_of,
+                                      _pow2_rows, _quarter_rows, extract_keys,
+                                      fnv1a32, hash_keys_of, key_rows_of,
                                       scatter_by_ids, uniform_hash_bounds)
-from repro_torch.kernels.bucket_partition import (bucket_partition,
+from repro_torch.kernels.bucket_partition import (bucket_partition_rows,
                                                   bucket_scatter)
 
 
@@ -56,26 +57,27 @@ def _all_in_bucket0(nrec: int, n: int, device
     return ids, hist
 
 
-def _kernel_partition(keys: torch.Tensor, bounds_u32: np.ndarray, n: int,
-                      *, block_n: Optional[int] = None
+def _kernel_partition(data: torch.Tensor, key_spec, bounds_u32: np.ndarray,
+                      n: int, *, block_n: Optional[int] = None
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """bucket_partition over key words with degenerate-shape handling.
+    """bucket_partition_rows over the records ``data [N, width]`` with
+    degenerate-shape handling.
 
-    ``keys`` is [N] (single-word) or [N, k] (multi-word rows) int64 with
-    ``bounds_u32`` shaped to match.  The kernel needs at least one
-    boundary; n == 1 (or an empty boundary list) means every record lands
-    in bucket 0.  When there are more boundaries than n - 1 the tail
-    buckets are clamped onto n - 1, mirroring the ``min(lo, n - 1)`` in
-    the bytes reference.  Returns ``(ids [N] int32, hist [n] int32)`` on
-    the keys' device.
+    ``key_spec`` is the partitioner's static key spec and ``bounds_u32``
+    its boundary words, ``[n_bounds]`` or ``[n_bounds, k]``.  The kernel
+    needs at least one boundary; n == 1 (or an empty boundary list) means
+    every record lands in bucket 0.  When there are more boundaries than
+    n - 1 the tail buckets are clamped onto n - 1, mirroring the
+    ``min(lo, n - 1)`` in the bytes reference.  Returns ``(ids [N] int32,
+    hist [n] int32)`` on the records' device.
     """
-    nrec = keys.shape[0]
+    nrec = data.shape[0]
     if nrec == 0 or n <= 1 or len(bounds_u32) == 0:
-        return _all_in_bucket0(nrec, n, keys.device)
+        return _all_in_bucket0(nrec, n, data.device)
     nb = len(bounds_u32) + 1
-    ids, hist = bucket_partition(keys, _bounds_tensor(bounds_u32,
-                                                      keys.device),
-                                 n_buckets=nb, block_n=block_n)
+    ids, hist = bucket_partition_rows(
+        data, key_spec, _bounds_tensor(bounds_u32, data.device),
+        n_buckets=nb, block_n=block_n)
     if nb > n:  # clamp overflow buckets, fold their histogram tail
         ids = ids.clamp_max(n - 1)
         tail = hist[n - 1:].sum().to(torch.int32)
@@ -115,8 +117,8 @@ class HashPartitioner:
     def bucket_ids(self, batch: RecordBatch, n: int, *,
                    block_n: Optional[int] = None
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
-        keys, bounds = self.kernel_inputs(batch, n)
-        return _kernel_partition(keys, bounds, n, block_n=block_n)
+        return _kernel_partition(batch.data, ("hash", self.key_bytes),
+                                 uniform_hash_bounds(n), n, block_n=block_n)
 
 
 class RangePartitioner:
@@ -173,13 +175,16 @@ class RangePartitioner:
         if not self.bnd:
             return batch.keys_u32(4), np.empty(0)
         key_spec, bounds = self._word_spec(batch.record_size)
-        return _extract_keys(batch.data, key_spec), bounds
+        return extract_keys(batch.data, key_spec), bounds
 
     def bucket_ids(self, batch: RecordBatch, n: int, *,
                    block_n: Optional[int] = None
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
-        keys, bounds = self.kernel_inputs(batch, n)
-        return _kernel_partition(keys, bounds, n, block_n=block_n)
+        if not self.bnd:
+            return _all_in_bucket0(batch.num_records, n, batch.device)
+        key_spec, bounds = self._word_spec(batch.record_size)
+        return _kernel_partition(batch.data, key_spec, bounds, n,
+                                 block_n=block_n)
 
     def scatter_spec(self, batch: RecordBatch, n: int):
         """(static key spec, bounds) for the device scatter, or None when
@@ -231,11 +236,12 @@ def partition_batch(batch: RecordBatch, partitioner, n: int, *,
     """``(ids [N] int32, hist [n] int32)`` on the batch's device for a
     batch under any engine partitioner.
 
-    Array-aware partitioners go through the ``bucket_partition`` kernel
-    (one launch on the card); arbitrary ``(record, n) -> int`` callables
+    Array-aware partitioners go through the ``bucket_partition_rows``
+    kernel (one launch on the card, no key rows built); arbitrary ``(record, n) -> int`` callables
     take the per-record host loop, so the array backend stays correct for
-    custom partitioners.  ``block_n`` is the kernel's rows per thread
-    block (default: the kernel's own).
+    custom partitioners.  ``block_n`` caps the kernel's thread blocks at
+    ``ceil(N / block_n)`` (default: as many blocks as the card holds at
+    once).
     """
     batch = batch.compact()  # analysis keys are host-visible: no junk rows
     if hasattr(partitioner, "bucket_ids"):
@@ -258,17 +264,6 @@ def shuffle_batch(batch: RecordBatch, partitioner, n: int, *,
 def _single_bucket_pieces(batch: RecordBatch, n: int) -> List[RecordBatch]:
     return [batch] + [RecordBatch.empty(batch.record_size, batch.device)
                       for _ in range(max(n, 1) - 1)]
-
-
-def _extract_keys(data: torch.Tensor, key_spec) -> torch.Tensor:
-    """``[..., k]`` int64 key rows of ``data [..., width]`` for the static
-    ``key_spec`` — ``("hash", key_bytes)`` or ``("range", key_len,
-    n_words, length_word)``."""
-    if key_spec[0] == "hash":
-        return hash_keys_of(data, key_spec[1])[..., None]
-    _, key_len, n_words, length_word = key_spec
-    return key_rows_of(data, key_len, n_words=n_words,
-                       length_word=length_word)
 
 
 def _bounds_tensor(bounds: np.ndarray, device) -> torch.Tensor:
@@ -351,7 +346,7 @@ def scatter_dispatch(batch: RecordBatch, partitioner, n: int, *,
         return ScatterDispatch(n, pieces=_single_bucket_pieces(batch, n))
     key_spec, bounds = spec
     data = batch.block(_pow2_rows(nrec, min(pad_block, 1 << 20)))
-    out, hist = bucket_scatter(data, _extract_keys(data, key_spec),
+    out, hist = bucket_scatter(data, extract_keys(data, key_spec),
                                _bounds_tensor(bounds, data.device), nrec,
                                n_buckets=n, block_n=block_n)
     return ScatterDispatch(n, out=out, hist=hist)
@@ -555,7 +550,7 @@ def scatter_round_dispatch(stacked: StackedBatch, partitioner, n: int, *,
         slot_workers = np.asarray(slot_workers, dtype=np.int64)
     n_valid = torch.from_numpy(stacked.n_valid).to(device)
     src, hist = bucket_scatter(stacked.data,
-                               _extract_keys(stacked.data, key_spec),
+                               extract_keys(stacked.data, key_spec),
                                bounds_dev, n_valid, n_buckets=n,
                                block_n=block_n)
     return StackedRoundDispatch(

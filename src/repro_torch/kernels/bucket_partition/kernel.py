@@ -3,14 +3,18 @@
 The port's counterparts of the two Pallas launches in
 ``repro.kernels.bucket_partition.kernel``: ``bucket_dest.cu`` for
 ``_scatter_kernel`` (the shuffle's stable counting scatter) and
-``bucket_partition.cu`` for ``_kernel`` (the ids-visible partition pass).
-Both include the compare of ``csrc/compare.cuh``.  Each source is built
+``bucket_partition.cu`` for ``_kernel`` (the ids-visible partition pass),
+with two entries: one over int64 key words, the TPU kernel's contract
+(:func:`bucket_partition_ids`), and one that reads the key bytes straight
+out of the records (:func:`bucket_partition_rows`).  Both sources include
+the compare of ``csrc/compare.cuh``.  Each source is built
 by :mod:`repro_torch.kernels._build` (``nvcc`` for ``sm_90a``, cached by
 the hash of ``csrc/``) into a library of its own, bound here with
 ``ctypes``.
 
-``launches`` counts the launches made by :func:`bucket_dest_blocks` and
-``partition_launches`` those made by :func:`bucket_partition_ids`; nothing
+``launches`` counts the launches made by :func:`bucket_dest_blocks`,
+``partition_launches`` those made by :func:`bucket_partition_ids` and
+``rows_launches`` those made by :func:`bucket_partition_rows`; nothing
 else adds to them, so a run can show which path went through which
 kernel.
 """
@@ -36,6 +40,7 @@ _WARPS = 8               # kThreads / 32 in bucket_dest.cu
 
 launches = 0
 partition_launches = 0
+rows_launches = 0
 
 
 def build(build_dir: Optional[Path] = None) -> Path:
@@ -57,11 +62,38 @@ def load_library(build_dir: Optional[Path] = None) -> ctypes.CDLL:
 
 
 def load_partition_library(build_dir: Optional[Path] = None) -> ctypes.CDLL:
-    """The bucket_partition library, built into ``build_dir`` on first
-    use."""
-    return _build.load(PARTITION_SOURCE, "bucket_partition_launch",
-                       [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
-                       + [ctypes.c_void_p], build_dir)
+    """The bucket_partition library (both entries), built into
+    ``build_dir`` on first use."""
+    lib = _build.load(PARTITION_SOURCE, "bucket_partition_launch",
+                      [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
+                      + [ctypes.c_void_p], build_dir)
+    rows = lib.bucket_partition_rows_launch
+    if rows.argtypes is None:
+        rows.argtypes = ([ctypes.c_void_p] + [ctypes.c_int] * 6
+                         + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4
+                         + [ctypes.c_void_p])
+        rows.restype = ctypes.c_int
+    return lib
+
+
+def key_layout(key_spec, width: int):
+    """``(hash, kb, nkw, k, length word)`` of a static key spec over
+    records of ``width`` bytes, as ``records.key_rows_of`` /
+    ``hash_keys_of`` lay the key out: ``("hash", key_bytes)`` is one FNV-1a
+    word over ``kb = min(key_bytes, width)`` bytes; ``("range", key_len,
+    n_words, length_word)`` is ``nkw`` big-endian words over the first
+    ``kb = min(key_len, width)`` bytes, zero-padded, then the length word
+    when it is not None (``k = nkw + 1``)."""
+    if key_spec[0] == "hash":
+        return 1, min(key_spec[1], width), 1, 1, 0
+    if key_spec[0] != "range":
+        raise ValueError(f"unknown key spec {key_spec!r}")
+    _, key_len, n_words, length_word = key_spec
+    kb = min(key_len, width)
+    nkw = max(-(-kb // 4), n_words or 0, 1)
+    if length_word is None:
+        return 0, kb, nkw, nkw, 0
+    return 0, kb, nkw, nkw + 1, length_word
 
 
 def _check(t: torch.Tensor, name: str, dtype: torch.dtype, ndim: int,
@@ -142,12 +174,30 @@ def bucket_dest_blocks(keys: torch.Tensor, bounds: torch.Tensor,
     return ids, rank, bhist
 
 
+def _partition_checks(n: int, k: int, bounds: torch.Tensor, n_buckets: int,
+                      bn: Optional[int]) -> None:
+    if bounds.shape[1] != k:
+        raise ValueError(f"keys have {k} words per row but bounds have "
+                         f"{bounds.shape[1]}")
+    if not 1 <= k <= MAX_WORDS:
+        raise ValueError(f"the CUDA kernel takes 1..{MAX_WORDS} key words, "
+                         f"got {k}")
+    if n_buckets < 1 or n >= 2 ** 31 or (bn is not None and bn < 1):
+        raise ValueError(f"unsupported shape: {n} rows, {n_buckets} "
+                         f"buckets, block {bn}")
+    smem = 4 * (bounds.shape[0] * k + n_buckets)
+    if smem > MAX_SHARED:
+        raise ValueError(f"boundary table and histogram too large for "
+                         f"shared memory ({smem} bytes)")
+
+
 def bucket_partition_ids(keys: torch.Tensor, bounds: torch.Tensor, *,
                          n_buckets: int, bn: int):
-    """Launch the partition kernel: ``(ids [n] int32, hist [n_buckets]
-    int32)`` for ``keys [n, k]`` and ``bounds [n_bounds, k]`` int64 words
-    on one CUDA device.  ``ids`` are not clamped; ``hist`` counts only the
-    ids below ``n_buckets``.  ``bn`` is the rows each thread block walks."""
+    """Launch the partition kernel's words entry: ``(ids [n] int32, hist
+    [n_buckets] int32)`` for ``keys [n, k]`` and ``bounds [n_bounds, k]``
+    int64 words on one CUDA device.  ``ids`` are not clamped; ``hist``
+    counts only the ids below ``n_buckets``.  At most ``ceil(n / bn)``
+    thread blocks walk the rows."""
     global partition_launches
     if keys.device.type != "cuda":
         raise ValueError(f"the CUDA kernel needs CUDA tensors, got "
@@ -156,19 +206,7 @@ def bucket_partition_ids(keys: torch.Tensor, bounds: torch.Tensor, *,
     _check(keys, "keys", torch.int64, 2, dev)
     n, k = keys.shape
     _check(bounds, "bounds", torch.int64, 2, dev)
-    if bounds.shape[1] != k:
-        raise ValueError(f"keys have {k} words per row but bounds have "
-                         f"{bounds.shape[1]}")
-    if not 1 <= k <= MAX_WORDS:
-        raise ValueError(f"the CUDA kernel takes 1..{MAX_WORDS} key words, "
-                         f"got {k}")
-    if n_buckets < 1 or n >= 2 ** 31 or bn < 1:
-        raise ValueError(f"unsupported shape: {n} rows, {n_buckets} "
-                         f"buckets, block {bn}")
-    smem = 4 * (bounds.shape[0] * k + n_buckets)
-    if smem > MAX_SHARED:
-        raise ValueError(f"boundary table and histogram too large for "
-                         f"shared memory ({smem} bytes)")
+    _partition_checks(n, k, bounds, n_buckets, bn)
     ids = torch.empty((n,), dtype=torch.int32, device=dev)
     if n == 0:
         return ids, torch.zeros((n_buckets,), dtype=torch.int32, device=dev)
@@ -178,9 +216,52 @@ def bucket_partition_ids(keys: torch.Tensor, bounds: torch.Tensor, *,
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.bucket_partition_launch(
             keys.data_ptr(), bounds.data_ptr(), ids.data_ptr(),
-            hist.data_ptr(), n, k, bounds.shape[0], n_buckets, bn, stream)
+            hist.data_ptr(), n, k, bounds.shape[0], n_buckets, -(-n // bn),
+            stream)
     if err != 0:
         raise RuntimeError(f"bucket_partition kernel launch failed: "
                            f"cudaError_t {err}")
     partition_launches += 1
+    return ids, hist
+
+
+def bucket_partition_rows(data: torch.Tensor, key_spec, bounds: torch.Tensor,
+                          *, n_buckets: int, bn: Optional[int] = None):
+    """Launch the partition kernel's rows entry: ``(ids [n] int32, hist
+    [n_buckets] int32)`` for records ``data [n, width]`` uint8 (contiguous,
+    at any storage offset) under a static ``key_spec`` (see
+    :func:`key_layout`) and ``bounds [n_bounds, k]`` int64 words on one
+    CUDA device.  The key words are built from the record bytes inside the
+    kernel.  ``ids`` and ``hist`` as :func:`bucket_partition_ids`; at most
+    ``ceil(n / bn)`` thread blocks walk the rows when ``bn`` is given,
+    else as many as the card holds at once."""
+    global rows_launches
+    if data.device.type != "cuda":
+        raise ValueError(f"the CUDA kernel needs CUDA tensors, got "
+                         f"{data.device}")
+    dev = data.device
+    _check(data, "data", torch.uint8, 2, dev)
+    n, width = data.shape
+    _check(bounds, "bounds", torch.int64, 2, dev)
+    hash_, kb, nkw, k, length_word = key_layout(key_spec, width)
+    if width >= 2 ** 31 or not 0 <= length_word < 2 ** 31:
+        raise ValueError(f"unsupported record width {width} or length "
+                         f"word {length_word}")
+    _partition_checks(n, k, bounds, n_buckets, bn)
+    ids = torch.empty((n,), dtype=torch.int32, device=dev)
+    if n == 0:
+        return ids, torch.zeros((n_buckets,), dtype=torch.int32, device=dev)
+    hist = torch.empty((n_buckets,), dtype=torch.int32, device=dev)
+    lib = load_partition_library()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.bucket_partition_rows_launch(
+            data.data_ptr(), width, hash_, kb, nkw, k, length_word,
+            bounds.data_ptr(), ids.data_ptr(), hist.data_ptr(), n,
+            bounds.shape[0], n_buckets, 0 if bn is None else -(-n // bn),
+            stream)
+    if err != 0:
+        raise RuntimeError(f"bucket_partition_rows kernel launch failed: "
+                           f"cudaError_t {err}")
+    rows_launches += 1
     return ids, hist

@@ -1,12 +1,12 @@
-"""Entry points of the bucket kernels: ``bucket_partition``, ``bucket_dest``
-and ``bucket_scatter``.
+"""Entry points of the bucket kernels: ``bucket_partition``,
+``bucket_partition_rows``, ``bucket_dest`` and ``bucket_scatter``.
 
 The port of ``repro.kernels.bucket_partition.ops`` (and of the epilogue in
 its ``kernel.py``); the scatter is stacked over an optional leading slot
 axis so one call serves a whole shuffle round.  The route follows the
 tensors' device: CUDA tensors go through the hand-written kernels
-(:func:`.kernel.bucket_partition_ids`, :func:`.kernel.bucket_dest_blocks`)
-or raise; CPU tensors take the plain versions (:mod:`.ref`); any other
+(:func:`.kernel.bucket_partition_ids`, :func:`.kernel.bucket_partition_rows`,
+:func:`.kernel.bucket_dest_blocks`) or raise; CPU tensors take the plain versions (:mod:`.ref`); any other
 device raises.
 
 **Contract** (as in the JAX package).  Keys and boundaries are rows of
@@ -26,9 +26,9 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.kernels.bucket_partition import kernel as _kernel
-from repro_torch.kernels.bucket_partition.ref import (bucket_blocks_ref,
-                                                      bucket_partition_ref,
-                                                      dest_from_blocks)
+from repro_torch.kernels.bucket_partition.ref import (
+    bucket_blocks_ref, bucket_partition_ref, bucket_partition_rows_ref,
+    dest_from_blocks)
 
 # rows per thread block on the card (the TPU kernel's accelerator block)
 ACCEL_BLOCK_N = 2048
@@ -46,8 +46,9 @@ def bucket_partition(keys: torch.Tensor, bounds, *, n_buckets: int,
     part (the TPU kernel's boundary block); fewer rows than that, or
     ``n_buckets < 2``, raise ``ValueError`` (the TPU kernel would read past
     the table).  ``block_n`` is the rows a thread block walks on the card
-    (default 2048); the plain version has no blocks.  No rows give empty
-    ids and a zero histogram.
+    (default 2048; at most ``ceil(N / block_n)`` blocks walk the rows); the
+    plain version has no blocks.  No rows give empty ids and a zero
+    histogram.
     """
     if keys.ndim not in (1, 2):
         raise ValueError(f"keys must be [N] or [N, k], got "
@@ -73,6 +74,48 @@ def bucket_partition(keys: torch.Tensor, bounds, *, n_buckets: int,
     if dev != "cpu":
         raise ValueError(f"bucket_partition runs on cuda or cpu, not {dev}")
     return bucket_partition_ref(keys, bounds, n_buckets)
+
+
+def bucket_partition_rows(data: torch.Tensor, key_spec, bounds, *,
+                          n_buckets: int, block_n: Optional[int] = None
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(ids [N] int32, hist [n_buckets] int32)`` for records ``data [N,
+    width]`` uint8 under the static ``key_spec`` — ``("hash", key_bytes)``
+    or ``("range", key_len, n_words, length_word)``, the specs of the
+    partitioners' ``scatter_spec`` — against boundary word rows ``bounds
+    [n_buckets - 1(, k)]``.
+
+    The same ids and histogram as :func:`bucket_partition` over
+    ``records.extract_keys(data, key_spec)``, but on the card the kernel
+    reads the key bytes out of the records itself: no key rows are built.
+    The same boundary rules; ``block_n`` caps the thread blocks on the
+    card at ``ceil(N / block_n)`` (default: as many as the card holds at
+    once); the plain version has no blocks.
+    """
+    if data.ndim != 2 or data.dtype != torch.uint8:
+        raise ValueError(f"data must be [N, width] uint8, got "
+                         f"{tuple(data.shape)} {data.dtype}")
+    k = _kernel.key_layout(key_spec, data.shape[1])[3]
+    bounds = torch.as_tensor(bounds, device=data.device).to(torch.int64)
+    if bounds.ndim == 1:
+        bounds = bounds[:, None]
+    if bounds.shape[1] != k:
+        raise ValueError(f"the key spec gives {k} words per row but bounds "
+                         f"have {bounds.shape[1]}")
+    if n_buckets < 2 or bounds.shape[0] < n_buckets - 1:
+        raise ValueError(f"{n_buckets} buckets need {n_buckets - 1} "
+                         f"boundary rows (at least one), got "
+                         f"{bounds.shape[0]}")
+    bounds = bounds[:n_buckets - 1].contiguous()
+    dev = data.device.type
+    if dev == "cuda":
+        return _kernel.bucket_partition_rows(
+            data.contiguous(), key_spec, bounds, n_buckets=n_buckets,
+            bn=block_n)
+    if dev != "cpu":
+        raise ValueError(f"bucket_partition_rows runs on cuda or cpu, not "
+                         f"{dev}")
+    return bucket_partition_rows_ref(data, key_spec, bounds, n_buckets)
 
 
 def _stacked_inputs(keys, bounds, n_valid):

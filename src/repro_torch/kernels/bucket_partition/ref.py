@@ -5,7 +5,9 @@
 ordinary tensor ops: a word-by-word lexicographic compare against every
 boundary, and a one-hot running count (cumsum) for the rank.
 :func:`bucket_partition_ref` computes what ``csrc/bucket_partition.cu``
-computes — unclamped ids and one histogram — with the same compare.  The
+computes — unclamped ids and one histogram — with the same compare, and
+:func:`bucket_partition_rows_ref` what its rows entry computes: the key
+words extracted from the records by ``core/records.py``, then the same.  The
 wrappers in :mod:`.ops` use them for tensors on the CPU; on the card they
 are the yardsticks the kernels are held to.  :func:`dest_from_blocks` is
 the epilogue both routes of the scatter share.
@@ -53,6 +55,20 @@ def bucket_partition_ref(keys: torch.Tensor, bounds: torch.Tensor,
     kept = ids[ids < n_buckets]
     hist = torch.bincount(kept, minlength=n_buckets)
     return ids.to(torch.int32), hist.to(torch.int32)
+
+
+def bucket_partition_rows_ref(data: torch.Tensor, key_spec,
+                              bounds: torch.Tensor, n_buckets: int):
+    """``(ids [n] int32, hist [n_buckets] int32)`` — what the rows entry of
+    ``csrc/bucket_partition.cu`` computes for records ``data [n, width]``
+    uint8 under the static ``key_spec`` (``("hash", key_bytes)`` or
+    ``("range", key_len, n_words, length_word)``): the key words of
+    ``records.extract_keys``, then :func:`bucket_partition_ref`."""
+    # imported here: core.shuffle imports this package, so a module-level
+    # import of repro_torch.core would close a cycle
+    from repro_torch.core.records import extract_keys
+    return bucket_partition_ref(extract_keys(data, key_spec), bounds,
+                                n_buckets)
 
 
 def bucket_blocks_ref(keys: torch.Tensor, bounds: torch.Tensor,

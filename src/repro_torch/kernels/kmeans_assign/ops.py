@@ -70,11 +70,13 @@ def kmeans_partials(x: torch.Tensor, c: torch.Tensor,
 
 def kmeans_assign_partials(x: torch.Tensor, c: torch.Tensor,
                            valid: Optional[torch.Tensor] = None, *,
+                           block_n: int = 1024,
                            use_kernel: Optional[bool] = None
                            ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Per-centroid ``(sums [K, D] float32, counts [K] float32)``: views
-    of :func:`kmeans_partials`' table.  The JAX package's ``block_n`` is
-    gone: the fused kernel sizes its own grid."""
+    of :func:`kmeans_partials`' table.  ``block_n`` is accepted so that a
+    call written against the JAX package runs, and is ignored: the fused
+    kernel sizes its own grid from the card's occupancy."""
     table = kmeans_partials(x, c, valid, use_kernel=use_kernel)
     d = x.shape[1]
     return table[:, :d], table[:, d]

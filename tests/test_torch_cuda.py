@@ -1,5 +1,6 @@
 """The port's CUDA kernels on the card against their plain PyTorch
-versions — ``bucket_dest``, ``bucket_partition``, ``kmeans_assign``,
+versions — ``bucket_dest``, ``bucket_partition`` (its words and rows
+entries), ``kmeans_assign``,
 ``flash_attention`` and ``rg_lru_scan`` — and the paths built on them
 (TeraSort through ``SphereEngine``, ``partition_batch`` /
 ``shuffle_batch``, k-means through ``kmeans_sphere``, LM prefill, decode
@@ -48,10 +49,13 @@ from repro_torch.core.records import RecordBatch
 from repro_torch.kernels.bucket_partition import (bucket_blocks_ref,
                                                   bucket_partition,
                                                   bucket_partition_ref,
+                                                  bucket_partition_rows,
+                                                  bucket_partition_rows_ref,
                                                   bucket_scatter)
 from repro_torch.kernels.bucket_partition import kernel as tkernel
 from repro_torch.kernels.kmeans_assign import kernel as kkernel
-from repro_torch.kernels.kmeans_assign import (kmeans_assign_ref,
+from repro_torch.kernels.kmeans_assign import (kmeans_assign_partials,
+                                               kmeans_assign_ref,
                                                kmeans_partials)
 from repro_torch.kernels.flash_attention import flash_attention_ref
 from repro_torch.kernels.flash_attention import kernel as fkernel
@@ -194,6 +198,88 @@ def test_cuda_partition_kernel_overflow_ids(cuda):
     assert int(want[0].max()) == 4 and int(want[1].sum()) == 5
 
 
+ROW_SPECS = [("range", 4, 1, None), ("range", 4, 1, 4), ("range", 8, 2, None),
+             ("range", 10, 3, None), ("range", 10, 3, 10),
+             ("range", 6, 3, None), ("range", 16, 4, 16),
+             ("range", 20, 5, None), ("range", 12, 3, 12),
+             ("hash", 4), ("hash", 8), ("hash", 10)]
+
+
+def _rows_case(n, width, offset, spec, nb, seed, high=2):
+    """(flat bytes, records [n, width] viewed at ``offset`` into them,
+    boundary rows): low-entropy bytes, and ``nb - 1`` boundaries taken from
+    the records' own keys (uniform hash bounds for a hash spec)."""
+    from repro_torch.core.records import extract_keys, uniform_hash_bounds
+    g = torch.Generator().manual_seed(seed)
+    flat = torch.randint(0, high, (n * width + offset,), generator=g,
+                         dtype=torch.uint8)
+    host = flat[offset:].view(n, width)
+    if spec[0] == "hash":
+        bounds = torch.from_numpy(
+            uniform_hash_bounds(nb).astype(np.int64))[:, None]
+    else:
+        keys = extract_keys(host, spec)
+        if n == 0:
+            keys = torch.zeros((1, tkernel.key_layout(spec, width)[3]),
+                               dtype=torch.int64)
+        pick = keys[torch.randint(0, len(keys), (nb - 1,), generator=g)]
+        bounds = pick[torch.from_numpy(np.lexsort(pick.numpy().T[::-1]))]
+    return flat, host, bounds
+
+
+@pytest.mark.parametrize("spec", ROW_SPECS, ids=str)
+@pytest.mark.parametrize("width,offset", [(100, 0), (100, 1), (13, 0),
+                                          (7, 0)])
+def test_cuda_partition_rows_match_plain(cuda, spec, width, offset):
+    """The rows entry over every key layout, 4-byte and byte loads (an odd
+    width, a storage offset that is not 4-aligned), N = 0, 1 and a ragged
+    N, exactly against its plain version."""
+    for n in (0, 1, 3001):
+        for nb in (2, 6, 16):
+            flat, host, bounds = _rows_case(n, width, offset, spec, nb,
+                                            seed=n + nb + width + offset)
+            data = flat.to(cuda)[offset:].view(n, width)
+            assert data.storage_offset() == offset
+            before = tkernel.rows_launches
+            got = tkernel.bucket_partition_rows(data, spec, bounds.to(cuda),
+                                                n_buckets=nb)
+            torch.cuda.synchronize()
+            assert tkernel.rows_launches == before + (n > 0)
+            want = bucket_partition_rows_ref(host, spec, bounds, nb)
+            assert torch.equal(got[0].cpu(), want[0])
+            assert torch.equal(got[1].cpu(), want[1])
+
+
+@pytest.mark.parametrize("bn", [None, 1, 7, 256, 100_000])
+def test_cuda_partition_rows_block_cap(cuda, bn):
+    """Any cap on the thread blocks gives the same ids, on full-range
+    bytes and a ragged N, through the entry point as on the CPU."""
+    spec = ("range", 10, 3, None)
+    flat, host, bounds = _rows_case(70_001, REC, 0, spec, 6, seed=8,
+                                    high=256)
+    want = bucket_partition_rows(host, spec, bounds, n_buckets=6)
+    got = bucket_partition_rows(host.to(cuda), spec, bounds.to(cuda),
+                                n_buckets=6, block_n=bn)
+    assert torch.equal(got[0].cpu(), want[0])
+    assert torch.equal(got[1].cpu(), want[1])
+
+
+def test_cuda_partition_rows_refuses_what_it_cannot_take(cuda):
+    spec = ("range", 10, 3, None)
+    data = torch.zeros((64, REC), dtype=torch.uint8, device=cuda)
+    bounds = torch.zeros((5, 3), dtype=torch.int64, device=cuda)
+    with pytest.raises(ValueError, match="contiguous"):
+        tkernel.bucket_partition_rows(data[:, ::2], spec, bounds,
+                                      n_buckets=6)
+    with pytest.raises(ValueError, match="words per row"):
+        tkernel.bucket_partition_rows(data, ("range", 10, 3, 10), bounds,
+                                      n_buckets=6)
+    with pytest.raises(ValueError, match="shared memory"):
+        tkernel.bucket_partition_rows(
+            data, spec, torch.zeros((20_000, 3), dtype=torch.int64,
+                                    device=cuda), n_buckets=6)
+
+
 def test_cuda_partition_batch_matches_cpu(cuda):
     data = np.random.default_rng(6).bytes(4000 * REC)
     records = [data[i:i + REC] for i in range(0, len(data), REC)]
@@ -201,14 +287,32 @@ def test_cuda_partition_batch_matches_cpu(cuda):
     cpu = RecordBatch.from_bytes(data, REC, device="cpu")
     dev = RecordBatch.from_bytes(data, REC, device=cuda)
     ids, hist = tsh.partition_batch(cpu, part, 6)
-    before = tkernel.partition_launches
+    before = (tkernel.rows_launches, tkernel.partition_launches)
     c_ids, c_hist = tsh.partition_batch(dev, part, 6)
     pieces = tsh.shuffle_batch(dev, part, 6)
-    assert tkernel.partition_launches == before + 2
+    assert (tkernel.rows_launches, tkernel.partition_launches) == \
+        (before[0] + 2, before[1])
     assert c_ids.device.type == "cuda"
     assert torch.equal(c_ids.cpu(), ids) and torch.equal(c_hist.cpu(), hist)
     assert [p.to_bytes() for p in pieces] == \
         [p.to_bytes() for p in tsh.shuffle_batch(cpu, part, 6)]
+
+
+def test_cuda_hash_partition_batch_matches_cpu(cuda):
+    """The hash partitioner's route: one rows launch, no key rows, the
+    CPU's ids; records at an odd width take the byte loads."""
+    for width in (REC, 13):
+        data = np.random.default_rng(width).bytes(5000 * width)
+        part = tsh.hash_partitioner(10)
+        ids, hist = tsh.partition_batch(
+            RecordBatch.from_bytes(data, width, device="cpu"), part, 7)
+        before = (tkernel.rows_launches, tkernel.partition_launches)
+        c_ids, c_hist = tsh.partition_batch(
+            RecordBatch.from_bytes(data, width, device=cuda), part, 7)
+        assert (tkernel.rows_launches, tkernel.partition_launches) == \
+            (before[0] + 1, before[1])
+        assert torch.equal(c_ids.cpu(), ids)
+        assert torch.equal(c_hist.cpu(), hist)
 
 
 def _assign_case(n, d, k, dtype, seed, dup=False):
@@ -334,6 +438,20 @@ def test_cuda_kmeans_kernels_unaligned_points(cuda, dtype):
     table = kkernel.kmeans_partials(odd, c)
     assert torch.equal(table[:, 8], kkernel.kmeans_partials(x, c)[:, 8])
     _check_partials(odd, c, None, table)
+
+
+@pytest.mark.parametrize("block_n", [1, 1024])
+def test_cuda_kmeans_assign_partials_accept_block_n(cuda, block_n):
+    """The JAX package's ``block_n`` is accepted on the card's route and
+    changes nothing: the fused kernel sizes its own grid."""
+    x, c = _assign_case(5000, 8, 10, torch.float32, seed=12)
+    x, c = x.to(cuda), c.to(cuda)
+    before = kkernel.partials_launches
+    got = kmeans_assign_partials(x, c, block_n=block_n)
+    want = kmeans_partials(x, c)
+    assert kkernel.partials_launches == before + 2
+    assert torch.equal(got[0], want[:, :8]) and torch.equal(got[1],
+                                                            want[:, 8])
 
 
 def test_cuda_kmeans_partials_shared_memory_limit(cuda):

@@ -148,6 +148,28 @@ def test_kmeans_assign_partials_match_jax(masked):
     assert torch.equal(k_sums, p_sums)
 
 
+@pytest.mark.parametrize("block_n", [1, 128, 1024])
+def test_kmeans_assign_partials_accept_block_n(block_n):
+    """A call written against the JAX package, ``block_n`` included, runs
+    and gives the same partials as without it, the JAX function's too
+    (its Pallas kernel in interpret mode at that block)."""
+    jx, jc, tx, tc, x32, c32 = _inputs(300, 8, 10, jnp.float32, seed=5)
+    valid = np.random.default_rng(6).random(300) < 0.8
+    tv = torch.from_numpy(valid)
+    sums, counts = kmeans_assign_partials(tx, tc, tv, block_n=block_n)
+    want = kmeans_assign_partials(tx, tc, tv)
+    assert torch.equal(sums, want[0]) and torch.equal(counts, want[1])
+    for use_kernel in (True, False):
+        got = kmeans_assign_partials(tx, tc, tv, block_n=block_n,
+                                     use_kernel=use_kernel)
+        assert torch.equal(got[0], sums) and torch.equal(got[1], counts)
+    j_sums, j_counts = j_partials(jx, jc, jnp.asarray(valid),
+                                  block_n=block_n, use_kernel=True)
+    np.testing.assert_allclose(sums.numpy(), np.asarray(j_sums),
+                               rtol=1e-5, atol=1e-5)
+    np.testing.assert_array_equal(counts.numpy(), np.asarray(j_counts))
+
+
 def test_kmeans_assign_refuses_other_devices():
     x = torch.zeros((4, 2), device="meta")
     with pytest.raises(ValueError, match="cuda or cpu"):

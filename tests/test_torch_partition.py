@@ -8,7 +8,10 @@ the JAX package's own tests run it) and the big-integer oracle
 ``bucket_partition_ref`` over the sweeps of ``tests/test_kernels.py``.
 ``partition_batch`` and ``shuffle_batch`` are held against the JAX
 functions and the per-record bytes partitioners on the cases of
-``tests/test_shuffle_parity.py``.  Inputs come from numpy seeds; the
+``tests/test_shuffle_parity.py``.  The rows entry
+``bucket_partition_rows`` (the key bytes read out of the records) is held
+against the JAX ``bucket_partition`` fed by the JAX package's own key
+extraction, over every key layout.  Inputs come from numpy seeds; the
 tolerance is exact equality (integer and byte data).  The CUDA kernel is
 held against the plain version on the card in ``tests/test_torch_cuda.py``.
 """
@@ -25,8 +28,11 @@ from repro.kernels.bucket_partition import bucket_partition_ref as j_oracle
 from repro_torch.convert import bounds_from_numpy, record_batch_from_numpy
 from repro_torch.core import shuffle as tsh
 from repro_torch.core.records import RecordBatch, scatter_by_ids
+from repro_torch.core.records import extract_keys
 from repro_torch.kernels.bucket_partition import (bucket_partition,
-                                                  bucket_partition_ref)
+                                                  bucket_partition_ref,
+                                                  bucket_partition_rows,
+                                                  bucket_partition_rows_ref)
 from repro_torch.kernels.bucket_partition import kernel as tkernel
 
 
@@ -159,6 +165,120 @@ def test_partition_kernel_build_without_nvcc_raises(tmp_path, monkeypatch):
     assert not any((tmp_path / "build").rglob("*.so"))
 
 
+# ------------------------------------------------------ the rows entry
+ROW_SPECS = [("range", 4, 1, None), ("range", 4, 1, 4), ("range", 8, 2, None),
+             ("range", 10, 3, None), ("range", 10, 3, 10),
+             ("range", 6, 3, None), ("range", 16, 4, 16),
+             ("range", 20, 5, None), ("range", 12, 3, 12)]
+
+
+def _rows_both(data, spec, nb, bounds=None):
+    """(port ids, port hist) of ``bucket_partition_rows`` on the CPU, and
+    the JAX ``bucket_partition`` (interpret mode) over the JAX package's
+    own key extraction, with its oracle, as int64 numpy arrays; the bounds
+    default to ``nb - 1`` of the records' own keys, sorted."""
+    j_keys = np.asarray(jsh._extract_keys(jnp.asarray(data), spec))
+    if bounds is None:
+        rng = np.random.default_rng(nb)
+        pick = j_keys[rng.integers(0, len(j_keys), nb - 1)]
+        bounds = pick[np.lexsort(pick.reshape(nb - 1, -1).T[::-1])]
+    ids, hist = bucket_partition_rows(torch.from_numpy(data), spec,
+                                      bounds_from_numpy(bounds),
+                                      n_buckets=nb)
+    assert ids.dtype == hist.dtype == torch.int32
+    j_ids, j_hist = j_partition(jnp.asarray(j_keys), jnp.asarray(bounds),
+                                n_buckets=nb, block_n=128, interpret=True)
+    r_ids, r_hist = j_oracle(j_keys, bounds, nb)
+    for port, *others in ((ids, j_ids, r_ids), (hist, j_hist, r_hist)):
+        for other in others:
+            np.testing.assert_array_equal(port.numpy().astype(np.int64),
+                                          np.asarray(other, np.int64))
+    return ids, hist, bounds
+
+
+@pytest.mark.parametrize("spec", ROW_SPECS, ids=str)
+@pytest.mark.parametrize("width", [100, 13, 7])
+def test_bucket_partition_rows_range_parity(spec, width):
+    """Range keys of 1-5 words, with and without the length word, a key
+    longer than the record (clipped to it), low-entropy bytes so that
+    boundaries tie with keys."""
+    data = np.random.default_rng(width).integers(0, 2, (301, width),
+                                                 dtype=np.uint8)
+    for nb in (2, 6):
+        ids, hist, bounds = _rows_both(data, spec, nb)
+        want = bucket_partition_ref(extract_keys(torch.from_numpy(data),
+                                                 spec),
+                                    bounds_from_numpy(bounds), nb)
+        assert torch.equal(ids, want[0]) and torch.equal(hist, want[1])
+
+
+@pytest.mark.parametrize("key_bytes", [4, 8, 10])
+@pytest.mark.parametrize("width", [100, 13, 7])
+def test_bucket_partition_rows_hash_parity(key_bytes, width):
+    data = np.random.default_rng(key_bytes).integers(0, 256, (301, width),
+                                                     dtype=np.uint8)
+    from repro_torch.core.records import uniform_hash_bounds
+    for nb in (2, 7):
+        ids, hist, _ = _rows_both(data, ("hash", key_bytes), nb,
+                                  uniform_hash_bounds(nb))
+        assert int(hist.sum()) == len(data)
+
+
+def test_bucket_partition_rows_plain_version_and_views():
+    """The entry point equals its plain version, also on a view whose
+    storage offset is not 4-aligned; no rows give empty ids and a zero
+    histogram; one row works."""
+    spec = ("range", 10, 3, 10)
+    flat = torch.from_numpy(np.random.default_rng(3).integers(
+        0, 3, 1 + 200 * 100, dtype=np.uint8))
+    view = flat[1:].view(200, 100)
+    assert view.storage_offset() == 1
+    bounds = extract_keys(view, spec)[::40].contiguous()
+    got = bucket_partition_rows(view, spec, bounds, n_buckets=6)
+    want = bucket_partition_rows_ref(view.contiguous(), spec, bounds, 6)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    ids, hist = bucket_partition_rows(view[:0], spec, bounds, n_buckets=6)
+    assert ids.shape == (0,) and hist.tolist() == [0] * 6
+    ids, hist = bucket_partition_rows(view[:1], spec, bounds, n_buckets=6)
+    assert ids.tolist() == bucket_partition_ref(
+        extract_keys(view[:1], spec), bounds[:5], 6)[0].tolist()
+
+
+def test_bucket_partition_rows_refusals():
+    data = torch.zeros((8, 12), dtype=torch.uint8)
+    with pytest.raises(ValueError, match="words per row"):
+        bucket_partition_rows(data, ("range", 10, 3, 10),
+                              torch.zeros((3, 3), dtype=torch.int64),
+                              n_buckets=4)
+    with pytest.raises(ValueError, match="boundary rows"):
+        bucket_partition_rows(data, ("hash", 4), torch.tensor([3, 5]),
+                              n_buckets=6)
+    with pytest.raises(ValueError, match="uint8"):
+        bucket_partition_rows(data.to(torch.int32), ("hash", 4),
+                              torch.tensor([3]), n_buckets=2)
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        bucket_partition_rows(data.to("meta"), ("hash", 4),
+                              torch.tensor([3], device="meta"), n_buckets=2)
+    before = tkernel.rows_launches
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        tkernel.bucket_partition_rows(data, ("hash", 4),
+                                      torch.zeros((1, 1), dtype=torch.int64),
+                                      n_buckets=2)
+    assert tkernel.rows_launches == before
+
+
+@pytest.mark.parametrize("spec", ROW_SPECS + [("hash", 4), ("hash", 0)],
+                         ids=str)
+@pytest.mark.parametrize("width", [100, 13, 7])
+def test_key_layout_matches_the_key_rows(spec, width):
+    """The layout the rows kernel builds in registers has as many words as
+    the key rows of ``records.extract_keys``."""
+    data = torch.zeros((2, width), dtype=torch.uint8)
+    hash_, kb, nkw, k, length = tkernel.key_layout(spec, width)
+    assert k == extract_keys(data, spec).shape[1]
+    assert kb <= width and nkw * 4 >= kb and hash_ == (spec[0] == "hash")
+
+
 # ------------------------------------------- partition_batch / shuffle_batch
 def _random_records(n, rec, seed=0):
     rng = np.random.default_rng(seed)
@@ -241,14 +361,16 @@ def test_padded_tail_blocks(key_bytes):
 def test_single_bucket_short_circuits():
     blob, records = _random_records(50, 10, seed=5)
     batch = RecordBatch.from_bytes(blob, 10, device="cpu")
-    before = tkernel.partition_launches
+    before = tkernel.partition_launches, tkernel.rows_launches
     for part in (tsh.hash_partitioner(4), tsh.range_partitioner([]),
                  tsh.reduce_partitioner()):
         ids, hist = tsh.partition_batch(batch, part, 1)
         assert ids.tolist() == [0] * 50 and hist.tolist() == [50]
     ids, hist = tsh.partition_batch(batch, tsh.reduce_partitioner(), 4)
     assert ids.tolist() == [0] * 50 and hist.tolist() == [50, 0, 0, 0]
-    assert tkernel.partition_launches == before
+    ids, hist = tsh.partition_batch(batch, tsh.range_partitioner([]), 4)
+    assert ids.tolist() == [0] * 50 and hist.tolist() == [50, 0, 0, 0]
+    assert (tkernel.partition_launches, tkernel.rows_launches) == before
 
 
 def test_duplicate_and_boundary_keys():
