@@ -113,6 +113,32 @@ and passed over.
    share), and one prefill of the 3,072-token prompt under
    ``torch.profiler`` (device time by kernel: where the time to first
    token goes).
+8. **Training** the full ``recurrentgemma-2b`` through the port's
+   ``Trainer`` (fresh parameters from ``--seed``: the serving tensors
+   were made for inference; fp32 AdamW state on the card), with full
+   remat and the fused head (chunks of 512 tokens), at batch 2 x 3,072
+   tokens (past the 2,048 window), on a synthetic corpus from ``--seed``
+   of exactly one batch written to Sector, so the ``SectorTokenDataset``
+   / ``DataPipeline`` feed that batch every step.  Checks: (a) one
+   step's loss and every gradient leaf by the kernel route against the
+   same step under ``plain_kernels()`` (loss within 1e-2; each leaf a
+   relative error of at most 0.1 and a cosine of at least 0.99); (b) the
+   scan's time-reversed backward through the kernel against autograd
+   through the plain loop on the captured first RG-LRU layer ``[1, 3072,
+   2560]``, within 1e-5 of the gradients' scale, both timed; (c) over 4
+   steps at the JAX package's default learning rate and warm-up the loss
+   falls and stays finite; (d) a Sector checkpoint round trip at
+   ``cfg.reduced()`` on the card: saved at step 2, restored into a new
+   ``Trainer`` bit for bit, its step-3 loss within 1e-3 of an
+   uninterrupted run's; (e) the launches of the 4 steps exactly: under
+   full remat 16 ``flash_attention`` a step (8 local layers, forward and
+   recompute), 36 ``rg_lru_scan`` forward (18 R layers twice) and 18
+   backward (``kernel.backward_launches``).  Prints each step's loss,
+   grad norm, seconds (host clock, synchronised) and tokens/s, the peak
+   device memory, the plain flash backward's time a step, one more step
+   under ``torch.profiler`` (device busy, idle share, device time by
+   class of kernel, by launching op and by kernel), and the AdamW
+   update's device time (CUDA events, one more step).
 
 The line before the last is one JSON object describing every kernel; the
 last line is
@@ -174,11 +200,30 @@ KERNELS = {
                         "src/repro/kernels/flash_attention/kernel.py:29"),
     "rg_lru_scan": (f"{PKG}/rg_lru_scan/csrc/rg_lru_scan.cu",
                     "src/repro/kernels/rg_lru_scan/kernel.py:23"),
+    # the same kernel on the gradient's time-reversed recurrence (the
+    # JAX package differentiates an associative scan; the Pallas kernel
+    # has no gradient)
+    "rg_lru_scan_backward": (f"{PKG}/rg_lru_scan/csrc/rg_lru_scan.cu",
+                             "src/repro/kernels/rg_lru_scan/kernel.py:23"),
 }
 LM_ARCH = "recurrentgemma-2b"
 LONG_PROMPTS = (3072, 2500)             # longer than the 2,048 window
 N_REQUESTS, MAX_NEW, SERVE_SLOTS, SERVE_LEN = 8, 32, 4, 4096
 LOGIT_TOL = 5e-2                        # of the reference's largest |logit|
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 2, 3072, 4
+HEAD_CHUNK = 512
+# (a): the kernel route against plain_kernels() on one batch.  Only the
+# attention forward differs (the bf16 kernel rounds p to bf16, the plain
+# version keeps it in float32), in 8 of 26 layers: the loss within 1e-2
+# (the bf16 logits round by 2**-9 of themselves; a loss near 12.5 moves
+# by up to about 0.02 at worst), and each gradient leaf within a relative
+# (Frobenius) error of 0.1 and a cosine of at least 0.99
+TRAIN_LOSS_TOL, GRAD_REL_TOL, GRAD_COS_MIN = 1e-2, 0.1, 0.99
+# (b): the scan's backward against autograd through the plain loop, of
+# the gradients' largest magnitude (the same multiplies and adds; autograd
+# adds a step's two contributions in its own order)
+SCAN_GRAD_TOL = 1e-5
+RESUME_LOSS_TOL = 1e-3                  # (d): the resumed step-3 loss
 
 
 def fail(msg: str) -> None:
@@ -1200,8 +1245,9 @@ def patched(module, name: str, fn):
 
 @contextlib.contextmanager
 def plain_kernels():
-    """Both LM kernels' launchers swapped for their plain versions: the
-    reference run of the logit check, set up here and nowhere else."""
+    """Both LM kernels' launchers swapped for their plain versions (the
+    scan's backward launcher too): the reference runs of the logit check
+    and of the gradient check, set up here and nowhere else."""
     from repro_torch.kernels.flash_attention import kernel as fkernel
     from repro_torch.kernels.flash_attention.ref import flash_attention_ref
     from repro_torch.kernels.rg_lru_scan import kernel as lkernel
@@ -1211,7 +1257,8 @@ def plain_kernels():
         return flash_attention_ref(q, k, v, causal=causal, window=window)
 
     with patched(fkernel, "flash_attention_fwd", attn), \
-            patched(lkernel, "lru_scan", lru_scan_ref):
+            patched(lkernel, "lru_scan", lru_scan_ref), \
+            patched(lkernel, "lru_scan_backward", lru_scan_ref):
         yield
 
 
@@ -1697,6 +1744,326 @@ def profile_prefill(torch, cfg, params, prompt, max_len=SERVE_LEN) -> None:
                       for e in top))
 
 
+# ------------------------------------------------------------ phase 8
+def train_pcfg():
+    """The training knobs of phase 8: full remat, the fused head."""
+    from repro_torch.parallel.sharding import ParallelConfig
+    return ParallelConfig(mesh=None, remat="full", fused_head=True,
+                          head_chunk=HEAD_CHUNK)
+
+
+def train_data(torch, tmp: Path, cfg, seed: int, batch=TRAIN_BATCH,
+               seq=TRAIN_SEQ, n_tokens=None, device="cuda"):
+    """A Sector cloud holding a synthetic corpus from ``seed`` (default:
+    exactly one batch of ``batch`` x (``seq`` + 1) tokens, so every epoch
+    is that batch); returns (client, dataset, pipeline)."""
+    from repro_torch.data import (DataPipeline, SectorTokenDataset,
+                                  write_synthetic_corpus)
+    master, client = cloud(tmp)
+    write_synthetic_corpus(client, "corpus/train.u32",
+                           n_tokens or batch * (seq + 1), cfg.vocab_size,
+                           seed=seed)
+    ds = SectorTokenDataset(master, client, "corpus/train.u32", seq_len=seq)
+    return client, ds, DataPipeline(ds, batch=batch, pcfg=train_pcfg(),
+                                    device=device)
+
+
+def scan_backward_phase(torch, captured):
+    """(b): the scan's gradient through the kernel (the time-reversed
+    recurrence) against autograd through the plain loop, on the captured
+    first RG-LRU layer's ``a, b, h0`` with upstream gradients from a fixed
+    seed; both timed."""
+    from repro_torch.kernels.rg_lru_scan import ops, ref
+    a, b, h0 = captured["scan"]
+    gen = torch.Generator().manual_seed(19)
+    up = torch.randn(a.shape, generator=gen).to(a.device)
+    up_last = torch.randn(h0.shape, generator=gen).to(a.device)
+    graphs = {}
+    for name, fn in (("kernel", ops.rg_lru_scan), ("plain", ref.lru_scan_ref)):
+        ins = [t.clone().requires_grad_() for t in (a, b, h0)]
+        h, h_last = fn(*ins)
+        graphs[name] = (h, h_last, ins)
+    got, want = (torch.autograd.grad(graphs[n][:2], graphs[n][2],
+                                     (up, up_last), retain_graph=True)
+                 for n in ("kernel", "plain"))
+    scale = max(float(w.abs().max()) for w in want)
+    worst = max(float((g - w).abs().max()) for g, w in zip(got, want))
+    check(worst <= SCAN_GRAD_TOL * scale,
+          f"rg_lru_scan backward differs from autograd through the plain "
+          f"loop by {worst} (scale {scale})")
+    h = graphs["kernel"][0].detach()
+    ms = timed_ms(torch, lambda: ops.rg_lru_scan_backward(a, h, h0, up,
+                                                          up_last))
+    h_p, hl_p, ins_p = graphs["plain"]
+    plain = timed_ms(torch, lambda: torch.autograd.grad(
+        (h_p, hl_p), ins_p, (up, up_last), retain_graph=True),
+        warmup=1, runs=3)
+    # reads a, h, g and h0, g_last; writes da, db and dh0
+    n_bytes = 5 * a.nbytes + 3 * h0.nbytes
+    bnd, by = bound_ms(n_bytes, 3 * a.numel())
+    print(f"kernel rg_lru_scan backward {list(a.shape)}: time-reversed "
+          f"kernel + elementwise ms={ms:.4f} bound_ms={bnd:.6f} ({n_bytes} "
+          f"bytes; {ms / bnd:.2f}x the bound) plain autograd ms={plain:.4f} "
+          f"max_abs_err={worst:.3e} (gradient scale {scale:.3e}, tolerance "
+          f"{SCAN_GRAD_TOL} of it)")
+    return row("rg_lru_scan_backward", worst, ms, plain, bnd, by)
+
+
+def grad_check(torch, cfg, seed: int, batch, device="cuda") -> None:
+    """(a): one step's loss and gradients by the kernel route against the
+    same step with ``plain_kernels()``, on the same batch and
+    parameters."""
+    from repro_torch.models import model
+    from repro_torch.train import step
+    from repro_torch.utils.pytree import tree_flatten_with_paths
+    params = model.init_params(cfg, torch.Generator().manual_seed(seed),
+                               device)
+    out = {}
+    for route in ("kernel", "plain"):
+        t = time.perf_counter()
+        with (plain_kernels() if route == "plain"
+              else contextlib.nullcontext()):
+            (loss, _), grads = step._value_and_grad_accum(
+                params, batch, cfg=cfg, pcfg=train_pcfg())
+        out[route] = (float(loss), tree_flatten_with_paths(grads))
+        print(f"train: gradient check, {route} route: loss "
+              f"{out[route][0]:.6f} in {time.perf_counter() - t:.2f}s")
+    worst_rel, worst_cos, worst_leaf = 0.0, 1.0, ""
+    for (path, g), (_, w) in zip(out["kernel"][1], out["plain"][1]):
+        g, w = g.double(), w.double()
+        rel = float((g - w).norm() / w.norm().clamp_min(1e-30))
+        cos = float((g * w).sum() / (g.norm() * w.norm()).clamp_min(1e-30))
+        if rel > worst_rel:
+            worst_rel, worst_leaf = rel, path
+        worst_cos = min(worst_cos, cos)
+        check(rel <= GRAD_REL_TOL and cos >= GRAD_COS_MIN,
+              f"gradient of {path}: kernel route against plain route "
+              f"relative error {rel}, cosine {cos}")
+    d_loss = abs(out["kernel"][0] - out["plain"][0])
+    print(f"train: gradient check over {len(out['kernel'][1])} leaves: loss "
+          f"diff {d_loss:.3e} (tolerance {TRAIN_LOSS_TOL}); worst relative "
+          f"error {worst_rel:.3e} ({worst_leaf}; tolerance {GRAD_REL_TOL}), "
+          f"worst cosine {worst_cos:.6f} (at least {GRAD_COS_MIN})")
+    check(d_loss <= TRAIN_LOSS_TOL, f"loss by the kernel route "
+          f"{out['kernel'][0]} against the plain route {out['plain'][0]}")
+
+
+def train_path(torch, cfg, seed: int, tmp: Path, seq=TRAIN_SEQ,
+               device="cuda"):
+    """The port's ``Trainer`` on one batch repeated (a one-batch corpus in
+    Sector): ``TRAIN_STEPS`` AdamW steps at the JAX package's default
+    learning rate and warm-up.  Returns (trainer, history, (flash, scan,
+    scan backward) launches, peak device memory)."""
+    from repro_torch.kernels.flash_attention import kernel as fkernel
+    from repro_torch.kernels.rg_lru_scan import kernel as lkernel
+    from repro_torch.train import SectorCheckpointer, Trainer, TrainerConfig
+    client, _, pipe = train_data(torch, tmp, cfg, seed, seq=seq,
+                                 device=device)
+    t = time.perf_counter()
+    # the checkpointer restores nothing here and never saves: zlib over
+    # the 43 GB of full-width state would take minutes (check (d) makes
+    # the round trip at the reduced config)
+    trainer = Trainer(cfg, train_pcfg(),
+                      TrainerConfig(steps=TRAIN_STEPS, ckpt_every=2 ** 62,
+                                    log_every=1, seed=seed),
+                      pipe, SectorCheckpointer(client, "train"),
+                      device=device)
+    on_card = device == "cuda"
+    if on_card:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    print(f"train: Trainer built (parameters from --seed and the AdamW "
+          f"state on {device}) in {time.perf_counter() - t:.2f}s")
+    fkernel.launches = lkernel.launches = lkernel.backward_launches = 0
+    hist = trainer.run(TRAIN_STEPS)
+    launches = (fkernel.launches, lkernel.launches,
+                lkernel.backward_launches)
+    peak = torch.cuda.max_memory_allocated() if on_card else 0
+    return trainer, hist, launches, peak
+
+
+def report_train(cfg, hist, launches, peak, seq=TRAIN_SEQ) -> float:
+    """Print each step's loss, grad norm, seconds and tokens/s; returns
+    the median step's seconds."""
+    tokens = TRAIN_BATCH * seq
+    prev, secs = 0.0, []
+    for rec in hist:
+        secs.append(rec["wall_s"] - prev)
+        prev = rec["wall_s"]
+        print(f"train: step {rec['step']}: loss={rec['loss']:.6f} "
+              f"nll={rec['nll']:.6f} grad_norm={rec['grad_norm']:.4f} "
+              f"lr={rec['lr']:.3e} step_s={secs[-1]:.4f} "
+              f"tokens_per_s={tokens / secs[-1]:.1f}")
+    print(f"train: {cfg.name}, batch {TRAIN_BATCH} x "
+          f"{seq}, remat full, fused head (chunk {HEAD_CHUNK}): "
+          f"median step {statistics.median(secs):.4f}s "
+          f"({tokens / statistics.median(secs):.1f} tokens/s), steps after "
+          f"the first {[round(s, 4) for s in secs[1:]]}; "
+          f"max_memory_allocated={peak}; launches a run of {len(hist)} "
+          f"steps: flash_attention={launches[0]} rg_lru_scan={launches[1]} "
+          f"rg_lru_scan backward={launches[2]}")
+    return statistics.median(secs)
+
+
+def check_train(cfg, hist, launches) -> None:
+    """(c) the loss falls on the repeated batch, finite; (e) the exact
+    launches: under full remat each attention layer's forward runs twice
+    a step (forward, recompute) and each R layer's scan twice forward and
+    once backward."""
+    losses = [rec["loss"] for rec in hist]
+    check(all(math.isfinite(x) for x in losses)
+          and all(math.isfinite(rec["grad_norm"]) for rec in hist),
+          f"training losses or grad norms not finite: {losses}")
+    check(losses[-1] < losses[0],
+          f"the loss did not fall on the repeated batch: {losses}")
+    n_attn = cfg.n_groups * sum(s in "AL" for s in cfg.block_pattern)
+    n_rec = cfg.n_groups * cfg.block_pattern.count("R")
+    want = (2 * n_attn * len(hist), 2 * n_rec * len(hist),
+            n_rec * len(hist))
+    check(launches == want,
+          f"training launches (flash_attention, rg_lru_scan, rg_lru_scan "
+          f"backward) {launches}, expected {want}")
+
+
+def profile_train_step(torch, trainer, step_s: float) -> None:
+    """One more training step under ``torch.profiler``: device busy time,
+    idle share against the median unprofiled step, device time by kernel.
+    A measurement only: the checked run is over."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        trainer.run(1)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+    on_card = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in on_card) / 1e3
+    if not busy_ms:
+        print("train: profiled step: the profiler saw no device time; "
+              "breakdown not measured")
+        return
+    top = sorted(on_card, key=lambda e: -e.self_device_time_total)[:12]
+    # device time by class of kernel, read from the kernels' names: the
+    # first class whose tags a name holds takes it
+    classes = (("flash_attention", ("flash_tc_kernel",)),
+               ("rg_lru_scan", ("lru_ring_kernel", "lru_direct_kernel")),
+               ("bf16 products (cuBLAS)", ("nvjet",)),
+               ("float32 products", ("sgemm", "gemm_f32")),
+               ("elementwise", ("elementwise_kernel",)),
+               ("reductions", ("reduce_kernel",)),
+               ("other", ("",)))
+    by_class = dict.fromkeys((name for name, _ in classes), 0.0)
+    for e in on_card:
+        name = next(n for n, tags in classes if any(t in e.key for t in tags))
+        by_class[name] += e.self_device_time_total / 1e3
+    print(f"train: profiled step: {wall * 1e3:.3f} ms on the host clock, "
+          f"device busy {busy_ms:.3f} ms (idle share "
+          f"{1 - busy_ms / (wall * 1e3):.3f}; against the median step "
+          f"{1 - busy_ms / (step_s * 1e3):.3f}); by class: "
+          + "; ".join(f"{name} {ms:.3f} ms ({ms / busy_ms:.4f})"
+                      for name, ms in by_class.items())
+          + "; largest: "
+          + "; ".join(f"{e.key[:60]} x{e.count} "
+                      f"{e.self_device_time_total / 1e3:.3f} ms "
+                      f"({e.self_device_time_total / 1e3 / busy_ms:.3f})"
+                      for e in top))
+    # the same device time by the host-side op that launched it
+    ops = sorted((e for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CPU
+                  and e.self_device_time_total > 0),
+                 key=lambda e: -e.self_device_time_total)[:12]
+    print("train: profiled step: device time by launching op: "
+          + "; ".join(f"{e.key} x{e.count} "
+                      f"{e.self_device_time_total / 1e3:.3f} ms "
+                      f"({e.self_device_time_total / 1e3 / busy_ms:.3f})"
+                      for e in ops))
+
+
+def time_adamw(torch, trainer) -> None:
+    """The AdamW update alone on the full model's state, with CUDA events,
+    from the gradients of one more forward and backward.  A measurement
+    only: it takes one more optimizer step."""
+    from repro_torch.train import optim, step
+    from repro_torch.utils.pytree import tree_leaves
+    _, grads = step._value_and_grad_accum(
+        trainer.params, next(iter(trainer.pipeline)), cfg=trainer.cfg,
+        pcfg=trainer.pcfg)
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    t = time.perf_counter()
+    start.record()
+    optim.apply_updates(trainer.params, grads, trainer.opt, trainer.ocfg,
+                        trainer.lr_fn)
+    stop.record()
+    stop.synchronize()
+    n = sum(p.numel() for p in tree_leaves(trainer.params))
+    print(f"train: AdamW update of {n} parameters: "
+          f"{start.elapsed_time(stop):.3f} ms on the device, "
+          f"{(time.perf_counter() - t) * 1e3:.3f} ms on the host clock")
+
+
+def time_flash_backward(torch, cfg) -> None:
+    """The flash Function's backward (the plain version recomputed row by
+    row) at the training shape, once per attention layer a step."""
+    from repro_torch.kernels.flash_attention import ops
+    gen = torch.Generator().manual_seed(23)
+    B, T = TRAIN_BATCH, TRAIN_SEQ
+    q, g = (torch.randn((B, T, cfg.n_heads, cfg.d_head), generator=gen)
+            .to(torch.bfloat16).cuda() for _ in range(2))
+    k, v = (torch.randn((B, T, cfg.n_kv_heads, cfg.d_head), generator=gen)
+            .to(torch.bfloat16).cuda() for _ in range(2))
+    ms = timed_ms(torch, lambda: ops.flash_attention_backward(
+        q, k, v, g, causal=True, window=cfg.local_window), warmup=1, runs=5)
+    n_attn = cfg.n_groups * sum(s in "AL" for s in cfg.block_pattern)
+    print(f"train: flash_attention backward (plain recompute, row by row) "
+          f"q {list(q.shape)} window {cfg.local_window}: {ms:.4f} ms a call, "
+          f"{n_attn} a step: {n_attn * ms:.3f} ms a step")
+
+
+def resume_check(torch, cfg, seed: int, tmp: Path, device="cuda") -> None:
+    """(d): a Sector checkpoint round trip at ``cfg.reduced()`` on the
+    card: a run saves at step 2, a new ``Trainer`` restores it (the tree
+    bit-identical) and takes step 3, whose loss must equal step 3 of an
+    uninterrupted run."""
+    from repro_torch.train import SectorCheckpointer, Trainer, TrainerConfig
+    from repro_torch.utils.pytree import tree_leaves
+    small = cfg.reduced()
+    tcfg = TrainerConfig(steps=3, ckpt_every=2, log_every=1, lr=1e-3,
+                         warmup=1, seed=seed)
+
+    def trainer(sub, ckpt: bool):
+        client, _, pipe = train_data(torch, tmp / sub, small, seed, seq=128,
+                                     n_tokens=20_000, device=device)
+        return Trainer(small, train_pcfg(), tcfg, pipe,
+                       SectorCheckpointer(client, "r") if ckpt else None,
+                       device=device), client
+
+    whole, _ = trainer("whole", False)
+    want = whole.run(3)[-1]["loss"]
+    first, client = trainer("resume", True)
+    first.run(2)
+    again = Trainer(small, train_pcfg(), tcfg,
+                    train_data(torch, tmp / "again", small, seed, seq=128,
+                               n_tokens=20_000, device=device)[2],
+                    SectorCheckpointer(client, "r"), device=device)
+    check(again.step_idx == 2, f"restored step {again.step_idx}, not 2")
+    check(again.pipeline.state_dict() == first.pipeline.state_dict(),
+          "the restored data cursor differs")
+    same = all(torch.equal(x, y) for x, y in zip(
+        tree_leaves({"p": first.params, "o": first.opt}),
+        tree_leaves({"p": again.params, "o": again.opt})))
+    check(same, "the restored tree is not bit-identical to the saved one")
+    got = again.run(1)[-1]["loss"]
+    print(f"train: checkpoint round trip ({small.name}, step 2 through "
+          f"Sector): tree bit-identical; step-3 loss {got:.6f} against "
+          f"{want:.6f} uninterrupted (diff {abs(got - want):.3e}, "
+          f"tolerance {RESUME_LOSS_TOL})")
+    check(abs(got - want) <= RESUME_LOSS_TOL,
+          f"resumed step-3 loss {got} against {want}")
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--records", type=int, default=10_000_000)
@@ -1757,6 +2124,7 @@ def main() -> None:
     with torch.inference_mode():
         rows["flash_attention"] = flash_phase(torch, captured)
         rows["rg_lru_scan"] = lru_phase(torch, captured)
+    scan_inputs = {"scan": captured["scan"]}     # phase 8's (b)
     del captured
     torch.cuda.empty_cache()
     print(f"LM kernels checked at {time.perf_counter() - t0:.1f}s")
@@ -1765,12 +2133,44 @@ def main() -> None:
     eng, reqs, steps, lm_launches, last_logits, peak = serve_path(
         torch, cfg, params, prompts)
     check_serve(cfg, eng, reqs, steps, lm_launches)
-    rows["flash_attention"]["launches"] = lm_launches[0]
-    rows["rg_lru_scan"]["launches"] = lm_launches[1]
     steady_s = report_serve(reqs, steps, lm_launches, peak)
     check_logits(torch, cfg, params, prompts, last_logits)
     profile_decode(torch, eng, steady_s)
     profile_prefill(torch, cfg, params, prompts[0])
+    # the serving tensors were made for inference: training builds its own
+    del eng, reqs, steps, last_logits, params
+    torch.cuda.empty_cache()
+    print(f"serving done at {time.perf_counter() - t0:.1f}s")
+
+    # phase 8: training
+    from repro_torch.data.dataset import Cursor
+    rows["rg_lru_scan_backward"] = scan_backward_phase(torch, scan_inputs)
+    del scan_inputs
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as tmp:
+        tmp = Path(tmp)
+        _, ds, _ = train_data(torch, tmp / "grad", cfg, args.seed)
+        host, _ = next(ds.batches(TRAIN_BATCH, Cursor()))
+        grad_check(torch, cfg, args.seed,
+                   {k: torch.from_numpy(v).cuda() for k, v in host.items()})
+        torch.cuda.empty_cache()
+        time_flash_backward(torch, cfg)
+        trainer, hist, t_launches, t_peak = train_path(torch, cfg, args.seed,
+                                                       tmp / "train")
+        check_train(cfg, hist, t_launches)
+        step_s = report_train(cfg, hist, t_launches, t_peak)
+        profile_train_step(torch, trainer, step_s)
+        time_adamw(torch, trainer)
+        del trainer
+        torch.cuda.empty_cache()
+        resume_check(torch, cfg, args.seed, tmp / "resume")
+    for name, by_path in (
+            ("flash_attention", {"serve": lm_launches[0],
+                                 "train": t_launches[0]}),
+            ("rg_lru_scan", {"serve": lm_launches[1],
+                             "train": t_launches[1]}),
+            ("rg_lru_scan_backward", {"train": t_launches[2]})):
+        rows[name]["launches"] = sum(by_path.values())
+        rows[name]["launches_by_path"] = by_path
     # the k-means path runs the fused entry and the partition path the
     # rows entry; the ids and words entries, held and timed in phase 2,
     # are on no path

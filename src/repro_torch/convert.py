@@ -3,7 +3,8 @@ point types.
 
 The Sphere paths have no weights; their state is record data, the
 partitioner's boundary tables, and for k-means the points and the
-centroid table.  The LM serving path has parameters and decode caches.
+centroid table.  The LM serving path has parameters and decode caches;
+the training path adds the AdamW state.
 These helpers turn the numpy arrays a test or a script makes from one
 seed (or from the JAX package's trees, as numpy) into the port's types,
 so the JAX package and the port can be fed identical inputs.
@@ -64,16 +65,16 @@ def centroids_from_numpy(c: np.ndarray, device=None) -> torch.Tensor:
 
 
 def tensor_from_numpy(a: np.ndarray, device=None) -> torch.Tensor:
-    """One numpy array as a tensor of the same type on ``device``
-    (default CUDA).  A bfloat16 array (``ml_dtypes.bfloat16``, what
-    ``np.asarray`` makes of a JAX bfloat16 array) is carried bit for bit
-    through its 16-bit pattern."""
-    a = np.asarray(a)
+    """One numpy array as a tensor of the same type and shape (0-d
+    included) on ``device`` (default CUDA).  A bfloat16 array
+    (``ml_dtypes.bfloat16``, what ``np.asarray`` makes of a JAX bfloat16
+    array) is carried bit for bit through its 16-bit pattern."""
+    a = np.array(a, order="C")           # a copy, of the same shape
     dev = resolve_device(device)
     if a.dtype.name == "bfloat16":
-        bits = torch.from_numpy(np.ascontiguousarray(a).view(np.int16).copy())
-        return bits.view(torch.bfloat16).to(dev)
-    return torch.from_numpy(np.ascontiguousarray(a).copy()).to(dev)
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16) \
+            .to(dev)
+    return torch.from_numpy(a).to(dev)
 
 
 def params_from_jax(tree_of_numpy, device=None):
@@ -89,4 +90,17 @@ def params_from_jax(tree_of_numpy, device=None):
 def cache_from_jax(tree_of_numpy, device=None):
     """The JAX package's decode cache (KV caches, ring ``kpos``, RG-LRU
     states), as numpy, as the port's cache on ``device`` (default CUDA)."""
+    return params_from_jax(tree_of_numpy, device)
+
+
+def opt_state_from_jax(tree_of_numpy, device=None):
+    """The JAX package's AdamW state (``step``, ``m``, ``v``, ``master``),
+    as numpy, as the port's (``repro_torch.train.optim``) on ``device``
+    (default CUDA), by the rule of :func:`params_from_jax`.  The
+    ``int8_ef`` residual (``ef``) belongs to the podwise mode, which the
+    port has not reached: a state that holds one raises."""
+    keys = set(tree_of_numpy)
+    if keys != {"step", "m", "v", "master"}:
+        raise ValueError(f"an AdamW state holds step, m, v and master; got "
+                         f"{sorted(keys)}")
     return params_from_jax(tree_of_numpy, device)

@@ -9,9 +9,11 @@ kernel streams a and b through a ring in shared memory filled by TMA;
 otherwise (decode, odd widths) one thread a channel loads them directly;
 the launcher chooses.
 
-``launches`` counts the launches made by :func:`lru_scan`, and nothing
-else adds to it, so a run can show that its recurrence went through the
-kernel.
+``launches`` counts the launches made by :func:`lru_scan` (the
+forward), ``backward_launches`` those made by :func:`lru_scan_backward`
+(the same kernel on the time-reversed recurrence of the gradient), and
+nothing else adds to either, so a run can show that its recurrence and
+its gradient went through the kernel.
 """
 from __future__ import annotations
 
@@ -26,6 +28,7 @@ from repro_torch.kernels import _build
 SOURCE = Path(__file__).resolve().parent / "csrc" / "rg_lru_scan.cu"
 
 launches = 0
+backward_launches = 0
 
 
 def build(build_dir: Optional[Path] = None) -> Path:
@@ -41,11 +44,9 @@ def load_library(build_dir: Optional[Path] = None) -> ctypes.CDLL:
                        + [ctypes.c_void_p], build_dir)
 
 
-def lru_scan(a: torch.Tensor, b: torch.Tensor, h0: torch.Tensor):
-    """Launch the kernel: ``(h [B, T, W], h_last [B, W])`` float32 for
-    ``a, b [B, T, W]`` and ``h0 [B, W]``, contiguous float32 tensors on
-    one CUDA device."""
-    global launches
+def _run(a: torch.Tensor, b: torch.Tensor, h0: torch.Tensor):
+    """Check the inputs and launch the kernel; returns ``(h, h_last,
+    launched)``."""
     if a.device.type != "cuda":
         raise ValueError(f"the CUDA kernel needs CUDA tensors, got "
                          f"{a.device}")
@@ -65,7 +66,7 @@ def lru_scan(a: torch.Tensor, b: torch.Tensor, h0: torch.Tensor):
     h = torch.empty_like(a)
     h_last = torch.empty_like(h0)
     if a.numel() == 0:
-        return h, h_last.copy_(h0)
+        return h, h_last.copy_(h0), False
     lib = load_library()
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream(a.device).cuda_stream
@@ -75,5 +76,24 @@ def lru_scan(a: torch.Tensor, b: torch.Tensor, h0: torch.Tensor):
     if err != 0:
         raise RuntimeError(f"rg_lru_scan kernel launch failed: "
                            f"cudaError_t {err}")
-    launches += 1
+    return h, h_last, True
+
+
+def lru_scan(a: torch.Tensor, b: torch.Tensor, h0: torch.Tensor):
+    """Launch the kernel: ``(h [B, T, W], h_last [B, W])`` float32 for
+    ``a, b [B, T, W]`` and ``h0 [B, W]``, contiguous float32 tensors on
+    one CUDA device."""
+    global launches
+    h, h_last, launched = _run(a, b, h0)
+    launches += launched
+    return h, h_last
+
+
+def lru_scan_backward(a: torch.Tensor, b: torch.Tensor, h0: torch.Tensor):
+    """:func:`lru_scan` for the gradient's recurrence: the caller passes
+    the time-reversed coefficients and upstream gradients
+    (:func:`.ops.rg_lru_scan_backward`); counted in ``backward_launches``."""
+    global backward_launches
+    h, h_last, launched = _run(a, b, h0)
+    backward_launches += launched
     return h, h_last

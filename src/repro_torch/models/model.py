@@ -2,13 +2,15 @@
 
     param_shapes(cfg)                   -> TensorSpec tree
     init_params(cfg, generator, device) -> concrete params
+    loss_fn(params, batch, ...)         -> (loss, metrics)     [training]
     prefill(params, batch, ...)         -> (last_logits, cache)
     decode_step(params, cache, token, pos, ...) -> (logits, cache)
     init_cache(cfg, batch, seq, ...)    -> zeroed decode cache
     forward(params, batch, ...)         -> (logits, aux_loss)
 
 Parameters are a nested dict of tensors with the JAX tree's paths and
-leaf shapes.  ``loss_fn`` belongs to the training slice, not ported yet.
+leaf shapes.  ``loss_fn`` is differentiable with autograd: the training
+step (``repro_torch.train.step``) takes its gradient.
 """
 from __future__ import annotations
 
@@ -17,6 +19,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import common, transformer
+from repro_torch.models.losses import cross_entropy, fused_cross_entropy
 from repro_torch.parallel.sharding import NO_PARALLEL, ParallelConfig
 
 
@@ -46,15 +49,47 @@ def _positions(tokens: torch.Tensor) -> torch.Tensor:
                         device=tokens.device)[None].expand(B, S)
 
 
+def _backbone(params, batch: dict, *, cfg: ModelConfig,
+              pcfg: ParallelConfig, mode: str):
+    """Embed + stack. Returns (pre-head hiddens, aux)."""
+    tokens = batch["inputs"]
+    x = transformer.embed(params, tokens, cfg=cfg, pcfg=pcfg)
+    x, _, aux = transformer.stack_apply(
+        params["blocks"], x, cfg=cfg, pcfg=pcfg,
+        positions=_positions(tokens), mode=mode)
+    return x, aux
+
+
 def forward(params, batch: dict, *, cfg: ModelConfig,
             pcfg: ParallelConfig = NO_PARALLEL, mode: str = "train"):
     """Full-sequence forward. Returns (logits, aux_loss)."""
-    tokens = batch["inputs"]
-    x = transformer.embed(params, tokens, cfg=cfg, pcfg=pcfg)
-    x, _ = transformer.stack_apply(params["blocks"], x, cfg=cfg, pcfg=pcfg,
-                                   positions=_positions(tokens), mode=mode)
+    x, aux = _backbone(params, batch, cfg=cfg, pcfg=pcfg, mode=mode)
     logits = transformer.lm_logits(params, x, cfg=cfg, pcfg=pcfg)
-    return logits, torch.zeros((), dtype=torch.float32, device=x.device)
+    return logits, aux
+
+
+def loss_fn(params, batch: dict, *, cfg: ModelConfig,
+            pcfg: ParallelConfig = NO_PARALLEL):
+    """Training loss of ``batch`` (``inputs``, ``labels`` [B, T] int32,
+    -1 = ignore). Returns (loss, metrics).  With ``pcfg.fused_head`` (and
+    no logit soft-cap) the head and the cross-entropy run chunk by chunk
+    (``fused_cross_entropy``); otherwise over materialised logits."""
+    if pcfg.fused_head and not cfg.logit_softcap:
+        x, aux = _backbone(params, batch, cfg=cfg, pcfg=pcfg, mode="train")
+        x = common.rms_norm(x, params["final_norm"]["scale"], cfg.norm_eps)
+        tied = cfg.tie_embeddings
+        w = params["embed"]["w"] if tied else params["lm_head"]["w"]
+        loss, metrics = fused_cross_entropy(
+            x, w, batch["labels"], real_vocab=cfg.vocab_size,
+            transpose_w=tied, chunk=pcfg.head_chunk,
+            unroll=pcfg.unroll_scans)
+    else:
+        logits, aux = forward(params, batch, cfg=cfg, pcfg=pcfg,
+                              mode="train")
+        loss, metrics = cross_entropy(logits, batch["labels"],
+                                      real_vocab=cfg.vocab_size)
+    metrics["aux_loss"] = aux
+    return loss + aux, metrics
 
 
 def prefill(params, batch: dict, *, cfg: ModelConfig,
@@ -66,7 +101,7 @@ def prefill(params, batch: dict, *, cfg: ModelConfig,
     S = tokens.shape[1]
     max_len = max_len or S
     x = transformer.embed(params, tokens, cfg=cfg, pcfg=pcfg)
-    x, new_caches = transformer.stack_apply(
+    x, new_caches, _ = transformer.stack_apply(
         params["blocks"], x, cfg=cfg, pcfg=pcfg,
         positions=_positions(tokens), mode="prefill", max_len=max_len)
     logits = transformer.lm_logits(params, x[:, -1:, :], cfg=cfg, pcfg=pcfg)
@@ -80,7 +115,7 @@ def decode_step(params, cache, token, pos, *, cfg: ModelConfig,
     Returns (logits [B, Vp], new_cache).
     """
     x = transformer.embed(params, token, cfg=cfg, pcfg=pcfg)
-    x, new_caches = transformer.stack_apply(
+    x, new_caches, _ = transformer.stack_apply(
         params["blocks"], x, cfg=cfg, pcfg=pcfg, positions=pos[:, None],
         mode="decode", caches=cache)
     logits = transformer.lm_logits(params, x, cfg=cfg, pcfg=pcfg)

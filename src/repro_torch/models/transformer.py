@@ -10,7 +10,8 @@ vision / audio frontends raise ``NotImplementedError``: they wait in
 Parameters (and decode caches / recurrent states) for the unit are
 stacked with a leading group dim, as in the JAX package, so the two
 trees match path for path; the stack runs as a Python loop over the
-groups (the JAX package's ``lax.scan``).
+groups (the JAX package's ``lax.scan``), each unit under the config's
+remat policy when autograd records (``_remat_wrap``).
 
 Cache tree mirrors the param tree: ``{"layer<i>": {...}}`` per unit
 position, leaves stacked over groups. Attention layers hold KV (full or
@@ -19,9 +20,12 @@ ring) caches; recurrent layers hold their O(1) state.
 from __future__ import annotations
 
 import math
+from functools import partial
 from typing import Optional
 
 import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
@@ -142,9 +146,11 @@ def _zero_state(shape_tree, device):
 
 def _unit_apply(unit_params, x, *, cfg: ModelConfig, pcfg: ParallelConfig,
                 positions, mode: str, unit_cache=None, max_len: int = 0):
-    """Apply one pattern unit. Returns (x, new_cache)."""
+    """Apply one pattern unit. Returns (x, new_cache, aux_loss); the aux
+    loss is zero: it comes from MoE FFNs, not ported yet."""
     eps = cfg.norm_eps
     B = x.shape[0]
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     collect = mode == "prefill" or unit_cache is not None
     new_cache = {} if collect else None
 
@@ -183,36 +189,80 @@ def _unit_apply(unit_params, x, *, cfg: ModelConfig, pcfg: ParallelConfig,
             if new_cache is not None:
                 new_cache[f"layer{i}"] = {"rec": st}
         x = constrain(x, pcfg, batch_spec(pcfg, None, None))
-    return x, new_cache
+    return x, new_cache, aux
 
 
 # ---------------------------------------------------------------------------
 # Stack application (a loop over groups)
 # ---------------------------------------------------------------------------
 
+# matrix products without batch dims: what JAX's
+# ``dots_with_no_batch_dims_saveable`` keeps (``x @ W`` lowers to ``mm``;
+# the batched products of attention and the block-diagonal gates do not)
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat_wrap(fn, pcfg: ParallelConfig, mode: str):
+    """``fn`` under the remat policy: ``"none"`` keeps every activation;
+    ``"full"`` keeps only the unit's inputs and recomputes the rest in
+    backward (non-reentrant ``torch.utils.checkpoint``, the JAX package's
+    ``nothing_saveable``); ``"dots"`` keeps the outputs of matrix products
+    as well (selective checkpointing).  As ``jax.checkpoint`` only acts on
+    differentiated code, the wrapper runs ``fn`` plainly when autograd
+    does not record (inference, ``no_grad``)."""
+    if pcfg.remat == "none":
+        return fn
+    if pcfg.remat == "full":
+        kw = {}
+    elif pcfg.remat == "dots":
+        kw = {"context_fn": partial(create_selective_checkpoint_contexts,
+                                    _save_dots)}
+    else:
+        raise ValueError(pcfg.remat)
+
+    def wrapped(*args):
+        if not torch.is_grad_enabled():
+            return fn(*args)
+        return checkpoint(fn, *args, use_reentrant=False, **kw)
+    return wrapped
+
+
 def stack_apply(blocks_params, x, *, cfg: ModelConfig, pcfg: ParallelConfig,
                 positions, mode: str, caches=None,
                 n_groups: Optional[int] = None, max_len: int = 0):
-    """Run the full stack. Returns (x, new_caches).
+    """Run the full stack. Returns (x, new_caches, aux).
 
     ``caches`` is required for decode, ignored for train, and unused for
     prefill (prefill builds fresh caches of capacity ``max_len``).  The
     new caches are stacked over groups, as the JAX package's scan emits
-    them.
+    them; ``aux`` sums the units' aux losses (zero without MoE).
     """
     n_groups = n_groups or cfg.n_groups
     emit_cache = mode == "prefill" or caches is not None
+
+    def body(h, unit_params, unit_cache):
+        return _unit_apply(unit_params, h, cfg=cfg, pcfg=pcfg,
+                           positions=positions, mode=mode,
+                           unit_cache=unit_cache, max_len=max_len)
+
+    body = _remat_wrap(body, pcfg, mode)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     outs = []
     for g in range(n_groups):
         unit = tree_map(lambda a: a[g], blocks_params)
         unit_cache = (None if caches is None
                       else tree_map(lambda a: a[g], caches))
-        x, nc = _unit_apply(unit, x, cfg=cfg, pcfg=pcfg, positions=positions,
-                            mode=mode, unit_cache=unit_cache, max_len=max_len)
+        x, nc, aux_g = body(x, unit, unit_cache)
+        aux = aux + aux_g
         outs.append(nc)
     if not emit_cache:
-        return x, None
-    return x, tree_map(lambda *ys: torch.stack(ys), *outs)
+        return x, None, aux
+    return x, tree_map(lambda *ys: torch.stack(ys), *outs), aux
 
 
 # ---------------------------------------------------------------------------

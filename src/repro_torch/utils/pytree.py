@@ -41,3 +41,19 @@ def tree_map(fn: Callable, tree, *rest):
 
 def tree_leaves(tree) -> list:
     return [leaf for _, leaf in tree_flatten_with_paths(tree)]
+
+
+def tree_unflatten(tree, leaves):
+    """A nested dict shaped like ``tree`` whose leaves, in
+    :func:`tree_flatten_with_paths` order, are ``leaves``."""
+    it = iter(leaves)
+
+    def build(sub):
+        if not isinstance(sub, dict):
+            return next(it)
+        return {key: build(sub[key]) for key in sorted(sub)}
+
+    out = build(tree)
+    if next(it, None) is not None:
+        raise ValueError("more leaves than the tree holds")
+    return out

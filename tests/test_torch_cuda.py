@@ -3,8 +3,10 @@ versions — ``bucket_dest``, ``bucket_partition`` (its words and rows
 entries), ``kmeans_assign``,
 ``flash_attention`` and ``rg_lru_scan`` — and the paths built on them
 (TeraSort through ``SphereEngine``, ``partition_batch`` /
-``shuffle_batch``, k-means through ``kmeans_sphere``, LM prefill, decode
-and ``ServeEngine``) against the same calls on the CPU.
+``shuffle_batch``, k-means through ``kmeans_sphere``, LM prefill, decode,
+``ServeEngine`` and a training step) against the same calls on the CPU;
+the two LM kernels' gradients against autograd through their plain
+versions on the card.
 
 Every test here needs a CUDA device and skips itself without one (the
 check runs inside the ``cuda`` fixture, never at import).  The module
@@ -30,7 +32,11 @@ of ``chip_smoke.attention_rounded_p``, which rounds p as the kernel does
 (``chip_smoke.rounded_p_excess``, plus 1e-4), and, where a row's keys lie
 in one kv tile, within rtol 2**-8 (the output's rounding), atol 1e-3.
 ``rg_lru_scan``: exact (the kernel multiplies and adds with separate
-roundings, as the plain loop does).  LM prefill / decode logits on the
+roundings, as the plain loop does); its gradient within 1e-5 of the
+gradients' scale of autograd through the loop, the flash gradient within
+1e-5 (float32) / 1e-2 (bf16) of autograd through the plain version, and
+a training step's loss within rtol 1e-5 and gradients within 1e-4 of
+each leaf's scale of the CPU's.  LM prefill / decode logits on the
 card within 1e-4 of the logits' scale of the CPU run in float32, and
 greedy ``ServeEngine`` tokens identical.
 """
@@ -722,3 +728,106 @@ def test_cuda_serve_engine_matches_cpu(cuda):
         assert all(s is None for s in eng.slot_req)
         outs[dev] = [r.out for r in reqs]
     assert outs["cuda"] == outs["cpu"]
+
+
+# --------------------------------------------------------------- training
+@pytest.mark.parametrize("B,T,W", [(1, 3072, 2560), (2, 65, 48), (3, 1, 13),
+                                   (2, 200, 1000)])
+def test_cuda_rg_lru_scan_backward_matches_plain(cuda, B, T, W):
+    """The Function's backward on the card (the kernel on the
+    time-reversed recurrence, one ``backward_launches`` a backward)
+    against autograd through the plain loop on the card: within 1e-5 of
+    the gradients' scale (the kernel's multiplies and adds are the loop's;
+    autograd sums two contributions per step in its own order)."""
+    from repro_torch.kernels.rg_lru_scan import ops as lru_ops
+    g = torch.Generator().manual_seed(T + W)
+    a = (torch.rand((B, T, W), generator=g) * 0.299 + 0.7).to(cuda)
+    b, up = ((torch.randn((B, T, W), generator=g) * 0.1).to(cuda)
+             for _ in range(2))
+    h0, up_last = (torch.randn((B, W), generator=g).to(cuda)
+                   for _ in range(2))
+    grads = {}
+    for fn in (lru_ops.rg_lru_scan, lru_scan_ref):
+        ins = [t.clone().requires_grad_() for t in (a, b, h0)]
+        f0, b0 = lkernel.launches, lkernel.backward_launches
+        h, hl = fn(*ins)
+        grads[fn] = torch.autograd.grad((h * up).sum() + (hl * up_last).sum(),
+                                        ins)
+        torch.cuda.synchronize()
+        kernel_route = fn is lru_ops.rg_lru_scan
+        assert (lkernel.launches - f0, lkernel.backward_launches - b0) == \
+            ((1, 1) if kernel_route else (0, 0))
+    for got, want in zip(grads[lru_ops.rg_lru_scan], grads[lru_scan_ref]):
+        scale = float(want.abs().max())
+        torch.testing.assert_close(got, want, rtol=0, atol=1e-5 * scale)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,T,H,K,D,window", [
+    (2, 200, 4, 2, 64, 0), (2, 300, 10, 1, 256, 100), (1, 129, 2, 1, 12, 0)])
+def test_cuda_flash_attention_backward_matches_plain(cuda, dtype, B, T, H,
+                                                     K, D, window):
+    """The Function's gradient on the card (the kernel forward, the plain
+    version recomputed row by row in backward) against autograd through
+    the whole-batch plain version: within 1e-5 (float32) / 1e-2 (bf16,
+    the gradients round to bf16) of the gradients' scale."""
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    g = torch.Generator().manual_seed(T + D)
+    q = torch.randn((B, T, H, D), generator=g).to(dtype).to(cuda)
+    k, v = (torch.randn((B, T, K, D), generator=g).to(dtype).to(cuda)
+            for _ in range(2))
+    up = torch.randn((B, T, H, D), generator=g).to(dtype).to(cuda)
+    grads = {}
+    for fn in (flash_ops.flash_attention, flash_attention_ref):
+        ins = [t.clone().requires_grad_() for t in (q, k, v)]
+        f0 = fkernel.launches
+        out = fn(*ins, causal=True, window=window)
+        grads[fn] = torch.autograd.grad(out, ins, up)
+        assert fkernel.launches - f0 == (fn is flash_ops.flash_attention)
+    tol = 1e-5 if dtype == torch.float32 else 1e-2
+    for got, want in zip(grads[flash_ops.flash_attention],
+                         grads[flash_attention_ref]):
+        scale = float(want.float().abs().max())
+        torch.testing.assert_close(got.float(), want.float(), rtol=0,
+                                   atol=tol * scale)
+
+
+@pytest.mark.parametrize("remat", ["none", "full", "dots"])
+def test_cuda_train_step_through_kernels(cuda, remat):
+    """Loss and every gradient of reduced recurrentgemma-2b (float32) on
+    the card against the CPU, within 1e-4 of each leaf's scale, with the
+    launches a step makes: one flash_attention forward per attention
+    layer and one rg_lru_scan forward and one backward per R layer, and
+    under full or selective ("dots") remat the forwards again for the
+    recompute."""
+    from repro_torch.parallel.sharding import ParallelConfig
+    from repro_torch.train import step as tstep
+    from repro_torch.utils.pytree import tree_flatten_with_paths
+    cfg, p_cpu = _lm("recurrentgemma-2b")
+    pcfg = ParallelConfig(mesh=None, remat=remat, fused_head=True,
+                          head_chunk=32)
+    toks = np.random.default_rng(1).integers(0, cfg.vocab_size, (2, 97))
+    out = {}
+    for dev, params in (("cpu", p_cpu), ("cuda", _to(p_cpu, cuda))):
+        batch = {"inputs": torch.from_numpy(toks[:, :-1].astype(np.int32)),
+                 "labels": torch.from_numpy(toks[:, 1:].astype(np.int32))}
+        counts = (fkernel.launches, lkernel.launches,
+                  lkernel.backward_launches)
+        (loss, _), grads = tstep._value_and_grad_accum(
+            params, _to(batch, dev), cfg=cfg, pcfg=pcfg)
+        torch.cuda.synchronize()
+        out[dev] = (loss.cpu(), [g.cpu() for _, g in
+                                 tree_flatten_with_paths(grads)],
+                    tuple(now - then for now, then in zip(
+                        (fkernel.launches, lkernel.launches,
+                         lkernel.backward_launches), counts)))
+    n_attn = cfg.n_groups * sum(s in "AL" for s in cfg.block_pattern)
+    n_rec = cfg.n_groups * cfg.block_pattern.count("R")
+    passes = 1 if remat == "none" else 2
+    assert out["cpu"][2] == (0, 0, 0)
+    assert out["cuda"][2] == (n_attn * passes, n_rec * passes, n_rec)
+    torch.testing.assert_close(out["cuda"][0], out["cpu"][0], rtol=1e-5,
+                               atol=0)
+    for got, want in zip(out["cuda"][1], out["cpu"][1]):
+        scale = float(want.abs().max())
+        torch.testing.assert_close(got, want, rtol=0, atol=1e-4 * scale)

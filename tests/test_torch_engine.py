@@ -251,7 +251,8 @@ _VERBATIM = ["sector/chunk.py", "sector/acl.py", "sector/events.py",
              "sector/topology.py", "sector/transport.py", "sector/server.py",
              "sector/master.py", "sector/client.py", "sector/__init__.py",
              "sector/replication.py", "core/trace.py", "core/metrics.py",
-             "core/planner.py", "core/job.py"] + sorted(
+             "core/planner.py", "core/job.py", "data/dataset.py",
+             "data/synth.py"] + sorted(
     f"configs/{p.name}" for p in (ROOT / "src/repro/configs").glob("*.py"))
 
 
@@ -289,6 +290,8 @@ def test_port_imports_no_jax_and_no_reference():
             "import repro_torch.launch.serve, repro_torch.configs\n"
             "import repro_torch.kernels.flash_attention\n"
             "import repro_torch.kernels.rg_lru_scan\n"
+            "import repro_torch.train, repro_torch.data\n"
+            "import repro_torch.launch.train, repro_torch.models.losses\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'repro' or m.startswith('repro.'))\n"
             "print(bad)\n"
