@@ -139,6 +139,30 @@ and passed over.
    under ``torch.profiler`` (device busy, idle share, device time by
    class of kernel, by launching op and by kernel), and the AdamW
    update's device time (CUDA events, one more step).
+9. **The mesh data plane** (``core/spmd.py``, ``SphereEngine(mesh=)``).
+   (a) A one-rank NCCL group in this process (a ``file://`` store in a
+   temporary directory; the communicator set up with the group) and
+   phase 3's TeraSort again through ``SphereEngine(..., mesh=
+   make_flat_mesh())``: the same cloud, records and boundaries.  The
+   outputs must be byte-identical to the oracle, the report's simulated
+   fields equal to phase 3's, one host sync per round, the shuffle the
+   mesh round (``path="mesh"``), ``bucket_partition_rows`` launched once
+   per round and ``bucket_dest`` never.  Prints the wall and records/s
+   beside phase 3's, the rows kernel held exactly against its plain
+   version on the round's input and timed, and one
+   ``fused_scatter_round`` timed beside phase 3's single-device round
+   (``scatter_round_dispatch`` and its harvest) on the same stage-0
+   stack.  (b) 3 and then 4 ranks sharing the card over gloo (NCCL
+   refuses two ranks on one GPU; gloo's collectives copy through the
+   host), started by ``launch.mesh.run_ranks``; each rank builds its own
+   cloud of 2,000,000 records (6 chunk servers, replication 3) from
+   ``--seed`` and must pass: TeraSort byte-identical to a numpy oracle,
+   through the mesh round at 3 ranks (the rows kernel once a round) and
+   the gathered route at 4 (6 workers do not divide over 4 ranks;
+   ``bucket_dest`` once a round); ``distributed_sort`` and
+   ``barrier_sort`` of 1,000,000 uint32 keys a rank equal to ``np.sort``;
+   ``kmeans_step(mesh=)`` on 2,097,152 points within ``rtol = atol =
+   1e-5`` of the meshless step.  Any rank's failure fails the script.
 
 The line before the last is one JSON object describing every kernel; the
 last line is
@@ -874,27 +898,36 @@ def assign_phase(torch):
 
 
 # ------------------------------------------------------------ phase 3
-def terasort_path(torch, n_records: int, seed: int, device="cuda"):
-    """TeraSort through the port's engine.  Returns (bucket_dest launches,
-    report, outputs, data, oracle order, boundaries, tracer)."""
-    from repro_torch.core import SphereEngine, SphereJob
-    from repro_torch.core.shuffle import sample_boundaries, terasort_stages
-    from repro_torch.core.trace import Tracer
-    from repro_torch.kernels.bucket_partition import kernel
-
+def terasort_data(n_records: int, seed: int):
+    """(records [n, 100] uint8 from ``seed``, oracle order): the oracle is
+    a stable lexsort of the 10-byte keys, which must have no ties (so the
+    sorted order is unique)."""
     rng = np.random.default_rng(seed)
-    t = time.perf_counter()
     data = np.frombuffer(rng.bytes(n_records * RECORD), np.uint8) \
         .reshape(n_records, RECORD)
-    # the oracle: a stable lexsort of the 10-byte keys, which must have
-    # no ties (so the sorted order is unique)
     k_hi = data[:, :8].copy().view(">u8")[:, 0]
     k_lo = data[:, 8:10].copy().view(">u2")[:, 0]
     order = np.lexsort((k_lo, k_hi))
     ties = (k_hi[order][1:] == k_hi[order][:-1]) \
         & (k_lo[order][1:] == k_lo[order][:-1])
     check(not ties.any(), "random keys have ties; pick another --seed")
-    print(f"terasort: data + oracle {time.perf_counter() - t:.2f}s")
+    return data, order
+
+
+def terasort_path(torch, n_records: int, seed: int, device="cuda", mesh=None,
+                  label="terasort", verbose=True):
+    """TeraSort through the port's engine (on ``mesh`` when given).
+    Returns (launches {kernel name: count} of the run, report, outputs,
+    data, oracle order, boundaries, run wall seconds, shuffle paths)."""
+    say = print if verbose else (lambda *a, **k: None)
+    from repro_torch.core import SphereEngine, SphereJob
+    from repro_torch.core.shuffle import sample_boundaries, terasort_stages
+    from repro_torch.core.trace import Tracer
+    from repro_torch.kernels.bucket_partition import kernel
+
+    t = time.perf_counter()
+    data, order = terasort_data(n_records, seed)
+    say(f"{label}: data + oracle {time.perf_counter() - t:.2f}s")
 
     tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_"))
     try:
@@ -909,22 +942,27 @@ def terasort_path(torch, n_records: int, seed: int, device="cuda"):
                         terasort_stages(bounds, "array", N_BUCKETS, KEY),
                         record_size=RECORD, backend="array")
         tracer = Tracer()
-        engine = SphereEngine(master, client, device=device,
-                              timing_sync=True, tracer=tracer)
-        if device == "cuda":
+        engine = SphereEngine(master, client,
+                              device=None if mesh is not None else device,
+                              timing_sync=True, tracer=tracer, mesh=mesh)
+        on_card = engine.device.type == "cuda"
+        if on_card:
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
-        kernel.launches = 0
+        kernel.launches = kernel.rows_launches = 0
         t = time.perf_counter()
         outs, rep = engine.run(job)
-        if device == "cuda":
+        if on_card:
             torch.cuda.synchronize()
         wall_s = time.perf_counter() - t
-        launches = kernel.launches
+        launches = {"bucket_dest": kernel.launches,
+                    "bucket_partition_rows": kernel.rows_launches}
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    peak = torch.cuda.max_memory_allocated() if device == "cuda" else 0
-    print(f"terasort: {n_records} records x {RECORD} B: "
+    peak = torch.cuda.max_memory_allocated() if on_card else 0
+    paths = sorted({sp.attrs.get("path") for sp in tracer.snapshot()
+                    if sp.name == "shuffle-round"})
+    say(f"{label}: {n_records} records x {RECORD} B: "
           f"upload_s={upload_s:.3f} run_wall_s={wall_s:.3f} "
           f"partition_seconds={rep.partition_seconds:.4f} "
           f"rec_per_s={n_records / wall_s:.0f} "
@@ -932,9 +970,10 @@ def terasort_path(torch, n_records: int, seed: int, device="cuda"):
           f"max_memory_allocated={peak} "
           f"shuffle_rounds={rep.shuffle_rounds} host_syncs={rep.host_syncs} "
           f"device_dispatches={rep.device_dispatches} "
-          f"udf_traces={rep.udf_traces} launches={launches}")
-    print(f"terasort: host-clock spans (s): {spans_line(tracer)}")
-    return launches, rep, outs, data, order, bounds
+          f"udf_traces={rep.udf_traces} launches={launches} "
+          f"shuffle paths={paths}")
+    say(f"{label}: host-clock spans (s): {spans_line(tracer)}")
+    return launches, rep, outs, data, order, bounds, wall_s, paths
 
 
 def check_terasort(launches, rep, outs, data, order) -> bytes:
@@ -2063,6 +2102,239 @@ def resume_check(torch, cfg, seed: int, tmp: Path, device="cuda") -> None:
     check(abs(got - want) <= RESUME_LOSS_TOL,
           f"resumed step-3 loss {got} against {want}")
 
+# ------------------------------------------------------------ phase 9
+# report fields that do not depend on how a round was lowered
+SIM_FIELDS = ("sim_seconds", "bytes_moved", "bytes_local", "tasks",
+              "speculated", "speculation_wins", "retried",
+              "locality_fraction", "stage_seconds", "planned_tasks",
+              "reused_tasks", "shuffle_rounds", "partitioned_records",
+              "udf_traces")
+MESH_WORLDS = (3, 4)            # 6 workers: the mesh round; the gathered route
+MESH_RECORDS = 2_000_000        # (b): each rank's TeraSort cloud
+MESH_KEYS = 1_000_000           # (b): uint32 keys a rank for the sorts
+# (b): kmeans_step(mesh=) against the meshless step, the tolerance of the
+# CPU test of the meshless step (tests/test_torch_kmeans.py)
+STEP_RTOL = STEP_ATOL = 1e-5
+
+
+def sim_fields(rep) -> dict:
+    return {f: getattr(rep, f) for f in SIM_FIELDS}
+
+
+def stage0_stack(torch, data):
+    """Phase 3's stage-0 stack of ``data`` on the card: a slot a 64 MB
+    chunk, padded to ``MAIN_ROWS`` rows."""
+    from repro_torch.core.records import StackedBatch
+    s = -(-len(data) // CHUNK_RECORDS)
+    stack = torch.zeros((s, MAIN_ROWS, RECORD), dtype=torch.uint8,
+                        device="cuda")
+    n_valid = np.zeros(s, np.int32)
+    for i in range(s):
+        piece = data[i * CHUNK_RECORDS:(i + 1) * CHUNK_RECORDS]
+        stack[i, :len(piece)] = torch.tensor(piece, device="cuda")
+        n_valid[i] = len(piece)
+    return StackedBatch(stack, n_valid)
+
+
+def time_rounds(torch, mesh, data, bounds) -> None:
+    """The rows kernel against its plain version on the mesh round's input
+    (the stage-0 stack of the same records, padding rows included), then
+    one ``fused_scatter_round`` on the world-1 mesh beside phase 3's
+    single-device round (``scatter_round_dispatch`` and its harvest, whose
+    histogram copy to the host it includes), CUDA events, median of 20
+    after 3 warm-ups.  After the checked run: these launches count for no
+    path."""
+    from repro_torch.core import spmd
+    from repro_torch.core.records import RecordBatch
+    from repro_torch.core.shuffle import (_bounds_tensor, range_partitioner,
+                                          scatter_round_dispatch)
+    from repro_torch.kernels.bucket_partition import kernel, ref
+    stacked = stage0_stack(torch, data)
+    part = range_partitioner(bounds)
+    key_spec, words = part.scatter_spec(RecordBatch.empty(RECORD, "cuda"),
+                                        N_BUCKETS)
+    flat = stacked.data.reshape(-1, RECORD)
+    bwords = _bounds_tensor(words, flat.device)
+    got = kernel.bucket_partition_rows(flat, key_spec, bwords,
+                                       n_buckets=N_BUCKETS)
+    want = ref.bucket_partition_rows_ref(flat, key_spec, bwords, N_BUCKETS)
+    check(all(torch.equal(g, w) for g, w in zip(got, want)),
+          "bucket_partition_rows differs from its plain version on the mesh "
+          "round's input")
+    rows_ms = timed_ms(torch, lambda: kernel.bucket_partition_rows(
+        flat, key_spec, bwords, n_buckets=N_BUCKETS))
+    print(f"mesh: bucket_partition_rows on the round's input "
+          f"{list(flat.shape)}: exact against its plain version, "
+          f"{rows_ms:.4f} ms")
+    workers = [f"s{i}" for i in range(N_BUCKETS)]
+    slot_workers = np.sort(np.arange(stacked.n_slots) % N_BUCKETS)
+
+    def mesh_round():
+        return spmd.fused_scatter_round(
+            stacked.data, stacked.n_valid, words, key_spec=key_spec,
+            n_buckets=N_BUCKETS, n_workers=N_BUCKETS, mesh=mesh)
+
+    def single_round():
+        return scatter_round_dispatch(
+            stacked, part, N_BUCKETS, worker_names=workers,
+            slot_workers=slot_workers).harvest()
+
+    mesh_ms = timed_ms(torch, mesh_round)
+    single_ms = timed_ms(torch, single_round)
+    print(f"mesh: one round on the stage-0 stack {list(stacked.data.shape)}: "
+          f"fused_scatter_round (world 1, nccl) {mesh_ms:.4f} ms; phase 3's "
+          f"single-device round (scatter_round_dispatch + harvest) "
+          f"{single_ms:.4f} ms; regroup buffer "
+          f"{N_BUCKETS * stacked.n_slots * MAIN_ROWS * RECORD} bytes "
+          f"([{N_BUCKETS}, {stacked.n_slots * MAIN_ROWS}, {RECORD}])")
+
+
+def mesh_world1(torch, n_records: int, seed: int, tera: dict):
+    """(a): phase 3's TeraSort again on a one-rank mesh (NCCL on the
+    card).  Returns the path's launches."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_flat_mesh
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
+    t = time.perf_counter()
+    # device_id makes NCCL set up its communicator here (timed and
+    # printed), not inside the run's first collective
+    dist.init_process_group("nccl", init_method=f"file://{tmp}/store",
+                            rank=0, world_size=1,
+                            device_id=torch.device("cuda", 0))
+    print(f"mesh: nccl group of one rank set up in "
+          f"{time.perf_counter() - t:.3f} s")
+    try:
+        t = time.perf_counter()
+        mesh = make_flat_mesh()
+        print(f"mesh: make_flat_mesh (with its gloo host group) "
+              f"{time.perf_counter() - t:.3f} s")
+        launches, rep, outs, data, order, bounds, wall_s, paths = \
+            terasort_path(torch, n_records, seed, mesh=mesh,
+                          label="mesh terasort (world 1, nccl)")
+        check_terasort(launches["bucket_partition_rows"], rep, outs, data,
+                       order)
+        check(launches["bucket_dest"] == 0,
+              f"the mesh path launched bucket_dest {launches['bucket_dest']} "
+              f"times")
+        check(paths == ["mesh"], f"the mesh run's shuffle took {paths}")
+        check(sim_fields(rep) == tera["report"],
+              f"the mesh run's report {sim_fields(rep)} differs from phase "
+              f"3's {tera['report']}")
+        print(f"mesh: world-1 TeraSort {wall_s:.3f} s, "
+              f"{n_records / wall_s:.0f} records/s, shuffle round "
+              f"{rep.partition_seconds:.4f} s; phase 3 {tera['wall_s']:.3f} s, "
+              f"{n_records / tera['wall_s']:.0f} records/s, shuffle round "
+              f"{tera['round_s']:.4f} s (host clock, this call)")
+        del outs, order, rep
+        time_rounds(torch, mesh, data, bounds)
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return launches
+
+
+def mesh_rank(rank: int, world: int, seed: int, n_records: int,
+              n_keys: int, n_points: int) -> dict:
+    """(b): one of ``world`` ranks sharing the card over gloo (started by
+    ``launch.mesh.run_ranks``).  TeraSort of its own cloud (the mesh round
+    when ``world`` divides the 6 workers, else the gathered route), the
+    two sorts, and ``kmeans_step(mesh=)``; every check here, nothing
+    caught.  Returns what rank 0 prints."""
+    import torch
+
+    from repro_torch.core import spmd
+    from repro_torch.core.kmeans import kmeans_step
+    from repro_torch.launch.mesh import make_flat_mesh
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    mesh = make_flat_mesh()
+    check(mesh.host_staged,
+          f"rank {rank} is on {mesh.device} over {mesh.backend}")
+    out = {"device": str(mesh.device),
+           "transport": "gloo (host-staged)" if mesh.host_staged
+           else mesh.backend}
+    route = "mesh" if N_BUCKETS % world == 0 else "mesh-gathered"
+    kernel_on, other = (("bucket_partition_rows", "bucket_dest")
+                        if route == "mesh" else
+                        ("bucket_dest", "bucket_partition_rows"))
+    launches, rep, outs, data, order, _, wall_s, paths = terasort_path(
+        torch, n_records, seed, mesh=mesh, verbose=False)
+    check(paths == [route], f"rank {rank}/{world}: shuffle took {paths}")
+    check(launches[kernel_on] == rep.shuffle_rounds
+          and launches[other] == 0,
+          f"rank {rank}/{world}: launches {launches} for "
+          f"{rep.shuffle_rounds} rounds on the {route} route")
+    check(rep.host_syncs == rep.shuffle_rounds,
+          f"rank {rank}/{world}: host_syncs {rep.host_syncs}")
+    check(b"".join(outs) == data[order].tobytes(),
+          f"rank {rank}/{world}: sorted output differs from the oracle")
+    out["terasort"] = {"route": route, "wall_s": wall_s,
+                       "round_s": rep.partition_seconds,
+                       "launches": launches}
+    del outs, data, order
+    # the sorts: this rank's block of world x n_keys keys from the seed
+    keys = np.random.default_rng([seed, 9]).integers(
+        0, 2 ** 32, world * n_keys, dtype=np.uint32)
+    mine = torch.from_numpy(keys[rank * n_keys:(rank + 1) * n_keys]
+                            .view(np.int32)).to(mesh.device) \
+        .view(torch.uint32)
+    t = time.perf_counter()
+    srt, valid = spmd.distributed_sort(mine, mesh)
+    bar = spmd.barrier_sort(mine, mesh)
+    valid = valid.cpu()                  # waits for the device
+    out["sorts_s"] = time.perf_counter() - t
+    every = spmd.gather_blocks(srt, mesh).view(torch.int32).cpu().numpy() \
+        .view(np.uint32).reshape(world, -1)
+    counts = spmd.gather_blocks(valid, mesh).cpu().numpy()
+    want = np.sort(keys)
+    got = np.concatenate([every[r, :counts[r]] for r in range(world)])
+    check(np.array_equal(got, want),
+          f"rank {rank}/{world}: distributed_sort differs from np.sort")
+    got = spmd.gather_blocks(bar, mesh).view(torch.int32).cpu().numpy() \
+        .view(np.uint32)
+    check(np.array_equal(got, want),
+          f"rank {rank}/{world}: barrier_sort differs from np.sort")
+    # kmeans_step on the rank's slice of the points (slices may differ by
+    # one point: the step takes any block)
+    pts = torch.from_numpy(make_points(n_points, seed)).to(mesh.device)
+    cents = torch.from_numpy(np.random.default_rng([seed, 3]).normal(
+        size=(K, DIM)).astype(np.float32) * 4).to(mesh.device)
+    lo, hi = (n_points * rank // world, n_points * (rank + 1) // world)
+    new_c, inertia = kmeans_step(pts[lo:hi], cents, mesh=mesh)
+    ref_c, ref_i = kmeans_step(pts, cents)
+    err = float((new_c - ref_c).abs().max())
+    check(torch.allclose(new_c, ref_c, rtol=STEP_RTOL, atol=STEP_ATOL)
+          and math.isclose(float(inertia), float(ref_i), rel_tol=STEP_RTOL),
+          f"rank {rank}/{world}: kmeans_step(mesh=) off the meshless step by "
+          f"{err} (inertia {float(inertia)} against {float(ref_i)})")
+    out["kmeans_err"] = err
+    return out
+
+
+def mesh_ranks(seed: int, n_records: int) -> None:
+    """(b): 3 and 4 ranks sharing the card over gloo."""
+    from repro_torch.launch.mesh import run_ranks
+    for world in MESH_WORLDS:
+        t = time.perf_counter()
+        res = run_ranks(mesh_rank, world,
+                        (seed, n_records, MESH_KEYS, ASSIGN_ROWS),
+                        timeout_s=300, join_timeout_s=600)
+        r0 = res[0]
+        ts = [r["terasort"] for r in res]
+        print(f"mesh: {world} ranks on {r0['device']} over "
+              f"{r0['transport']}, {n_records} records each: TeraSort "
+              f"route {ts[0]['route']}, wall "
+              + ", ".join(f"{x['wall_s']:.3f}" for x in ts) + " s, round "
+              + ", ".join(f"{x['round_s']:.4f}" for x in ts)
+              + f" s, launches {[x['launches'] for x in ts]}; sorts of "
+              f"{MESH_KEYS} keys a rank "
+              + ", ".join(f"{r['sorts_s']:.3f}" for r in res)
+              + f" s; kmeans_step(mesh=) on {ASSIGN_ROWS} points within "
+              f"{max(r['kmeans_err'] for r in res):.3e} of the meshless "
+              f"step; {time.perf_counter() - t:.1f} s with the spawn")
+
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -2094,10 +2366,12 @@ def main() -> None:
     print(f"kernels checked at {time.perf_counter() - t0:.1f}s")
 
     # phases 3-5: the paths, each counting only its own launches
-    launches, rep, outs, data, order, bounds = terasort_path(
+    launches, rep, outs, data, order, bounds, tera_wall, _ = terasort_path(
         torch, args.records, args.seed)
-    want = check_terasort(launches, rep, outs, data, order)
-    rows["bucket_dest"]["launches"] = launches
+    want = check_terasort(launches["bucket_dest"], rep, outs, data, order)
+    rows["bucket_dest"]["launches"] = launches["bucket_dest"]
+    tera = {"wall_s": tera_wall, "report": sim_fields(rep),
+            "round_s": rep.partition_seconds}
     del order, rep
     p_launches, calls, ids, hist, sorted_bytes = partition_path(torch, data,
                                                                 bounds)
@@ -2163,7 +2437,17 @@ def main() -> None:
         del trainer
         torch.cuda.empty_cache()
         resume_check(torch, cfg, args.seed, tmp / "resume")
+    print(f"training done at {time.perf_counter() - t0:.1f}s")
+
+    # phase 9: the mesh data plane, world 1 over NCCL, then 3 and 4 ranks
+    # sharing the card over gloo
+    m_launches = mesh_world1(torch, args.records, args.seed, tera)
+    mesh_ranks(args.seed, min(args.records, MESH_RECORDS))
+    print(f"mesh done at {time.perf_counter() - t0:.1f}s")
     for name, by_path in (
+            ("bucket_partition_rows", {
+                "partition": p_launches[0],
+                "mesh": m_launches["bucket_partition_rows"]}),
             ("flash_attention", {"serve": lm_launches[0],
                                  "train": t_launches[0]}),
             ("rg_lru_scan", {"serve": lm_launches[1],
@@ -2178,7 +2462,8 @@ def main() -> None:
         check(r["launches"] > 0
               or r["name"] in ("kmeans_assign", "bucket_partition"),
               f"its path never launched {r['name']}")
-    print(f"chip_smoke: all phases passed in {time.perf_counter() - t0:.1f}s")
+    print(f"chip_smoke: all phases passed in {time.perf_counter() - t0:.1f}s "
+          f"on {card_line()}")
 
     print(json.dumps({"kernels": list(rows.values())}))
     print(json.dumps({"ok": True, "device": {

@@ -50,15 +50,17 @@ second agrees across the two backends for the same job.
 """
 from __future__ import annotations
 
+import hashlib
 import warnings
 from typing import Dict, List, Optional, Tuple
 
 from repro_torch.core.job import SphereJob
 from repro_torch.core.metrics import MetricsRegistry
 from repro_torch.core.planner import (PROCESS_RATE, SphereReport, TaskSpec)
+from repro_torch.core.spmd import host_gather
 from repro_torch.core.stream import SphereStream, WindowPolicy
 from repro_torch.core.trace import NULL_TRACER, Tracer
-from repro_torch.device import resolve_device
+from repro_torch.device import mesh_device
 from repro_torch.sector.client import SectorClient
 from repro_torch.sector.master import SectorMaster
 from repro_torch.sector.transport import simulate_transfer
@@ -77,12 +79,10 @@ class SphereEngine:
                  contention_aware: bool = True, offload: bool = False,
                  tracer=None, metrics: Optional[MetricsRegistry] = None,
                  device=None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "the multi-GPU mesh round is not ported yet (core/spmd.py)")
         # the torch device every array-backend executor keeps records on;
-        # None means CUDA, and raises when no CUDA device is present
-        self.device = resolve_device(device)
+        # None means CUDA (or the mesh's device), and raises when no CUDA
+        # device is present
+        self.device = mesh_device(mesh, device)
         self.master = master
         self.client = client
         # observability plane: a recording Tracer threads spans through
@@ -121,10 +121,12 @@ class SphereEngine:
         self.timing_sync = timing_sync
         # fused_rounds: run each array-backend round (UDF applies +
         # scatter + regrouping) over a stacked worker axis in O(1)
-        # compiled dispatches; with ``mesh`` the stacked round lowers
-        # through shard_map with an all_to_all exchange (spmd module).
+        # dispatches; with ``mesh`` this engine is one rank of a
+        # torch.distributed group: every rank runs the same program, and
+        # the stacked round exchanges rows between ranks (spmd module).
         self.fused_rounds = fused_rounds
         self.mesh = mesh
+        self._agreed_plans: set = set()   # plan digests every rank shares
 
     # ------------------------------------------------------------- helpers
     def _workers(self) -> List[str]:
@@ -143,6 +145,32 @@ class SphereEngine:
         key, so their transfers queue on the one wide-area wave."""
         return self.master.topology.link_key(self.master.servers[src].site,
                                              self.master.servers[dst].site)
+
+    def _check_plan(self, stage: str, plan) -> None:
+        """With a mesh, hold every rank to the same stage plan before the
+        stage touches data: a 64-bit digest of the plan's tasks (keys,
+        sizes, executors, in plan order, which fixes the slot order) is
+        gathered from every rank over the mesh's host group, on the host,
+        so the check never waits on the device.  Plans follow Python's
+        string hash, so ranks started without a common ``PYTHONHASHSEED``
+        could otherwise exchange misplaced rows or wait on each other
+        forever.  A digest the ranks agreed on is not exchanged again
+        (the steady state of a session or stream re-runs its plans)."""
+        if self.mesh is None or self.mesh.group is None:
+            return
+        h = hashlib.blake2b(stage.encode(), digest_size=8)
+        for t in plan.tasks:
+            h.update(f"\0{t.key}\0{t.nbytes}\0{t.executor}".encode())
+        mine = int.from_bytes(h.digest(), "little", signed=True)
+        if mine in self._agreed_plans:
+            return
+        every = [d[0] for d in host_gather([mine], self.mesh)]
+        if len(set(every)) != 1:
+            raise RuntimeError(
+                f"stage {stage!r}: the ranks planned differently (plan "
+                f"digests {every}); start every rank with the same "
+                f"PYTHONHASHSEED, cloud and job")
+        self._agreed_plans.add(mine)
 
     # ------------------------------------------------- benchmark hooks
     def _schedule_view(self, tasks: List[TaskSpec]) -> List[TaskSpec]:

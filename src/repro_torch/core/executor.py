@@ -19,6 +19,11 @@ makes a placement decision.
   ``torch.func.vmap`` call over a stacked slot axis), every worker's
   bucket scatter (one kernel launch) and the regrouping onto destination
   workers (one gather) — is O(1) device dispatches with one host sync.
+  With a ``mesh`` (:mod:`repro_torch.core.spmd`) every rank runs the same
+  executor: stage 0 is decoded whole on every rank, a fused stage's
+  UDF runs on the rank's block of the stacked slots, and the shuffle
+  round exchanges rows between ranks (``spmd.fused_scatter_round``);
+  a round the mesh cannot carry is gathered and runs replicated.
 
 Both executors report identical shuffle flows (per-bucket origin bytes),
 so the planner charges movement from each bucket's *actual* origin
@@ -38,11 +43,14 @@ from torch.func import vmap
 from repro_torch.core.job import SphereJob, SphereStage
 from repro_torch.core.planner import SphereReport, StagePlan
 from repro_torch.core.records import RecordBatch, StackedBatch
-from repro_torch.core.shuffle import (FusedRoundResult, _quarter_rows,
-                                      _sync, scatter_pieces_dispatch,
+from repro_torch.core.shuffle import (FusedRoundResult, ReducePartitioner,
+                                      _quarter_rows, _sync,
+                                      scatter_pieces_dispatch,
                                       scatter_round_dispatch)
+from repro_torch.core.spmd import (ShardedStackedBatch, fused_scatter_round,
+                                   local_block)
 from repro_torch.core.trace import NULL_TRACER
-from repro_torch.device import resolve_device
+from repro_torch.device import mesh_device
 from repro_torch.sector.server import ServerDown
 
 # per-bucket origin accounting: origins[i][worker] = bytes of bucket i
@@ -250,14 +258,18 @@ class _TracedUDF:
     ``torch.func.vmap``, so user UDFs keep the one-``RecordBatch``
     contract; vmap's per-slot loop fallback is switched off for the
     call, so an op without a batching rule raises instead of silently
-    running slot by slot."""
+    running slot by slot.  With a ``mesh`` they take the round's
+    valid counts for every slot and run the rank's block of slots (the
+    reference's ``shard_map`` over the ``data`` axis); the trace
+    signature is the whole round's, as the reference's jit sees it."""
 
     def __init__(self, name: str, udf, *, masked: bool = False,
-                 pad_value: int = 0):
+                 pad_value: int = 0, mesh=None):
         self.name = name
         self.udf = udf
         self.masked = masked
         self.pad_value = pad_value
+        self.mesh = mesh
         self.traces = 0
         self._seen: set = set()
 
@@ -286,19 +298,24 @@ class _TracedUDF:
 
     def _vmapped(self, data3: torch.Tensor, n_valids) -> torch.Tensor:
         n_valids = torch.as_tensor(n_valids, device=data3.device)
+        fn = vmap(self._call_padded)
         enabled = torch._C._functorch._is_vmap_fallback_enabled()
         torch._C._functorch._set_vmap_fallback_enabled(False)
         try:
-            return vmap(self._call_padded)(data3, n_valids)
+            return fn(data3, n_valids)
         finally:
             torch._C._functorch._set_vmap_fallback_enabled(enabled)
 
     def stacked(self, data3: torch.Tensor, n_valids, target: int
                 ) -> torch.Tensor:
         """Stacked [s, rows, width] input (a previous fused round's
-        resident partitions); rows are sliced or zero-grown to
-        ``target`` before the vmapped body."""
-        self._note(("stacked", tuple(data3.shape), target))
+        resident partitions: the rank's block with a mesh, ``n_valids``
+        the whole round's); rows are sliced or zero-grown to ``target``
+        before the vmapped body."""
+        self._note(("stacked", (len(n_valids),) + tuple(data3.shape[1:]),
+                    target))
+        if self.mesh is not None:
+            n_valids = local_block(np.asarray(n_valids), self.mesh)
         s, rows, width = data3.shape
         if rows > target:
             data3 = data3[:, :target]
@@ -311,9 +328,13 @@ class _TracedUDF:
                      target: int) -> torch.Tensor:
         """Per-task 2-D pieces (stage-0 decoded chunks) stacked into one
         [s, target, width] block — each piece sliced or zero-grown to
-        ``target`` rows — before the vmapped body."""
+        ``target`` rows — before the vmapped body.  With a mesh, every
+        slot's piece comes in and the rank's block is stacked."""
         self._note(("pieces", tuple(tuple(p.shape) for p in pieces),
                     target))
+        if self.mesh is not None:
+            pieces = local_block(list(pieces), self.mesh)
+            n_valids = local_block(np.asarray(n_valids), self.mesh)
         width = pieces[0].shape[1]
         data3 = pieces[0].new_zeros((len(pieces), target, width))
         for i, p in enumerate(pieces):
@@ -390,20 +411,22 @@ class _StackedOut:
 
 class ArrayExecutor(_ExecutorBase):
     """Device-resident data plane: one RecordBatch per worker partition,
-    on ``device`` (default CUDA; raises without it)."""
+    on ``device`` (default CUDA, or the mesh's device; raises without
+    it).  With a ``mesh`` (:class:`repro_torch.parallel.mesh_utils.Mesh`)
+    this executor is one rank's: fused stage outputs and mesh-round
+    partitions hold the rank's block of slots, and every rank must run
+    the same calls in the same order."""
 
     def __init__(self, client, workers: Sequence[str], max_retries: int = 3,
                  pad_block: int = 4096, cache_chunks: bool = False,
                  prefetch: bool = True, timing_sync: bool = False,
                  fused_rounds: bool = True, mesh=None,
                  prefetch_depth: int = 1, tracer=None, device=None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "the multi-GPU mesh round is not ported yet (core/spmd.py)")
         super().__init__(client, workers, max_retries,
                          cache_chunks=cache_chunks, prefetch=prefetch,
                          prefetch_depth=prefetch_depth, tracer=tracer)
-        self.device = resolve_device(device)
+        self.device = mesh_device(mesh, device)
+        self.mesh = mesh
         self.pad_block = pad_block
         self.fused_rounds = fused_rounds
         # benchmark honesty knob: synchronise the device before starting
@@ -435,9 +458,10 @@ class ArrayExecutor(_ExecutorBase):
         # keeps its trace accounting
         traced = getattr(stage, "_traced", None)
         if traced is None or traced.udf is not udf \
-                or traced.pad_value != pad_value:
+                or traced.pad_value != pad_value \
+                or traced.mesh is not self.mesh:
             traced = _TracedUDF(stage.name, udf, masked=masked,
-                                pad_value=pad_value)
+                                pad_value=pad_value, mesh=self.mesh)
             stage._traced = traced
         return traced
 
@@ -549,6 +573,22 @@ class ArrayExecutor(_ExecutorBase):
                 f"changed the row count ({target} -> {out.shape[1]}); "
                 f"pad-stable UDFs must map padding rows to tail padding")
 
+    @property
+    def _ranks(self) -> int:
+        """Ranks on the mesh's data axis (1 without a mesh)."""
+        return 1 if self.mesh is None else self.mesh.shape.get("data", 1)
+
+    def _mesh_slots(self, n: int) -> int:
+        """Slot count padded up to a multiple of the mesh's data axis (the
+        block rule); extra slots ride through with zero valid rows."""
+        return -(-n // self._ranks) * self._ranks
+
+    def _stack(self, data: torch.Tensor, n_valid) -> StackedBatch:
+        """A fused stage's output: the rank's block with a mesh."""
+        if self.mesh is None:
+            return StackedBatch(data, n_valid)
+        return ShardedStackedBatch(data, n_valid, self.mesh)
+
     def _aligned_stacked(self, parts) -> Optional[StackedBatch]:
         """The previous fused round's StackedBatch, when every worker's
         resident part is exactly its slot of ONE stack (the steady state
@@ -582,19 +622,24 @@ class ArrayExecutor(_ExecutorBase):
         traced = self._traced_for(stage, stage.batch_udf)
         if not first_stage:
             stacked = self._aligned_stacked(parts)
-            if stacked is not None:
-                # steady state: the resident stack IS the stage input
+            if stacked is not None \
+                    and stacked.n_slots == self._mesh_slots(stacked.n_slots):
+                # steady state: the resident stack IS the stage input (the
+                # rank's block of it with a mesh)
+                data = stacked.data
+                if self.mesh is not None \
+                        and not isinstance(stacked, ShardedStackedBatch):
+                    data = local_block(data, self.mesh)
                 with self.tracer.span("dispatch:udf-fused", track="dispatch",
                                       attrs={"stage": stage.name,
                                              "slots": stacked.n_slots,
                                              "rows": target}):
-                    out = traced.stacked(stacked.data, stacked.n_valid,
-                                         target)
+                    out = traced.stacked(data, stacked.n_valid, target)
                 rep.device_dispatches += 1
                 self._note_traces(stage, traced, rep)
-                self._check_stacked(stage, out, stacked.n_slots, target)
+                self._check_stacked(stage, out, data.shape[0], target)
                 return _StackedOut(
-                    StackedBatch(out, stacked.n_valid),
+                    self._stack(out, stacked.n_valid),
                     np.arange(stacked.n_slots, dtype=np.int64))
         items: List[Tuple[int, RecordBatch]] = []
         if first_stage:
@@ -616,42 +661,108 @@ class ArrayExecutor(_ExecutorBase):
         slot_workers = np.fromiter((i for i, _ in items), np.int64,
                                    count=len(items))
         pieces = [b.data for _, b in items]
+        pad_slots = self._mesh_slots(len(items)) - len(items)
+        if pad_slots:
+            zero = pieces[0].new_zeros((target, pieces[0].shape[1]))
+            pieces.extend([zero] * pad_slots)
+            n_valid = np.concatenate([n_valid,
+                                      np.zeros(pad_slots, np.int32)])
+            slot_workers = np.concatenate(
+                [slot_workers, np.zeros(pad_slots, np.int64)])
         with self.tracer.span("dispatch:udf-fused", track="dispatch",
                               attrs={"stage": stage.name,
                                      "slots": len(pieces), "rows": target}):
             out = traced.stack_pieces(pieces, n_valid, target)
         rep.device_dispatches += 1
         self._note_traces(stage, traced, rep)
-        self._check_stacked(stage, out, len(pieces), target)
-        return _StackedOut(StackedBatch(out, n_valid), slot_workers)
+        self._check_stacked(stage, out, len(pieces) // self._ranks, target)
+        return _StackedOut(self._stack(out, n_valid), slot_workers)
 
     # ----------------------------------------------------------- shuffle
+    def _bucketize_mesh(self, stage: SphereStage, out: _StackedOut, n: int,
+                        rep: SphereReport):
+        """The fused round across the mesh's ranks (see
+        ``core.spmd.fused_scatter_round``).  Returns None when the round
+        cannot ride the mesh (workers indivisible by the ranks, one
+        bucket, a reduce or host-loop partitioner) — the caller gathers the
+        round and runs the single-device fused round on every rank."""
+        stacked = out.stacked
+        W, S = len(self.workers), stacked.n_slots
+        if W % self._ranks or n <= 1 \
+                or isinstance(stage.partitioner, ReducePartitioner) \
+                or getattr(stage.partitioner, "scatter_spec", None) is None:
+            return None
+        spec = stage.partitioner.scatter_spec(
+            RecordBatch.empty(stacked.record_size, self.device), n)
+        if spec is None:
+            return None
+        key_spec, bounds = spec
+        rep.shuffle_rounds += 1
+        with self.tracer.span("shuffle-round", track="shuffle",
+                              attrs={"backend": "array", "path": "mesh",
+                                     "buckets": n}) as sp:
+            parts_dev, counts_dev, hist_dev = fused_scatter_round(
+                stacked.data, stacked.local_n_valid, bounds,
+                key_spec=key_spec, n_buckets=n, n_workers=W, mesh=self.mesh)
+            rep.device_dispatches += 1
+            synced = _sync(torch.cat([counts_dev, hist_dev.reshape(-1)]))
+            rep.host_syncs += 1                      # the round's ONE sync
+            if self.tracer.enabled:
+                self.tracer.instant("host-sync", track="host-sync",
+                                    attrs={"where": "mesh-harvest"})
+            counts, hist_sb = synced[:W], synced[W:].reshape(S, n)
+            origin_counts = np.zeros((n, W), np.int64)
+            for s in range(S):
+                origin_counts[:, int(out.slot_workers[s])] += hist_sb[s]
+            origins: Origins = [
+                {self.workers[w]:
+                 int(origin_counts[b, w]) * stacked.record_size
+                 for w in np.nonzero(origin_counts[b])[0]}
+                for b in range(n)]
+            result = FusedRoundResult(parts_dev, counts.astype(np.int64),
+                                      origins, 1, mesh=self.mesh)
+            rep.partitioned_records += stacked.num_records
+            self._timing_barrier()
+        rep.partition_seconds += sp.wall_seconds
+        return result, origins
+
     def _bucketize_fused(self, stage: SphereStage, out: _StackedOut, n: int,
                          rep: SphereReport):
         """One fused shuffle round: one stacked scatter, one host sync of
         the [s, n] histogram, one regrouping gather — regardless of task
-        or worker count.  Returns None when the round cannot stay on the
-        fused kernel path (the caller downgrades to the per-worker
-        loop)."""
-        rd = scatter_round_dispatch(out.stacked, stage.partitioner, n,
+        or worker count.  A mesh's round goes through
+        :meth:`_bucketize_mesh`; a round the mesh cannot carry is gathered
+        (every rank then holds the whole stack) and runs here, its gather
+        counted with the harvest as the round's one host sync.  Returns
+        None when the round cannot stay on the fused kernel path (the
+        caller downgrades to the per-worker loop)."""
+        stacked = out.stacked
+        gathered = isinstance(stacked, ShardedStackedBatch)
+        if gathered:
+            mesh_res = self._bucketize_mesh(stage, out, n, rep)
+            if mesh_res is not None:
+                return mesh_res
+            stacked = stacked.replicated()
+        rd = scatter_round_dispatch(stacked, stage.partitioner, n,
                                     worker_names=self.workers,
                                     slot_workers=out.slot_workers,
                                     pad_block=self.pad_block)
         if rd is None:
             return None
         rep.shuffle_rounds += 1
+        path = "mesh-gathered" if gathered else "fused"
         with self.tracer.span("shuffle-round", track="shuffle",
-                              attrs={"backend": "array", "path": "fused",
+                              attrs={"backend": "array", "path": path,
                                      "buckets": n}) as sp:
             rep.device_dispatches += rd.dispatches
             synced = _sync(rd.hist)                  # the round's ONE sync
             rep.host_syncs += 1
             if self.tracer.enabled:
                 self.tracer.instant("host-sync", track="host-sync",
-                                    attrs={"where": "fused-harvest"})
+                                    attrs={"where": f"{path}-harvest"})
             result = rd.harvest(synced)
             rep.device_dispatches += result.dispatches
-            rep.partitioned_records += out.stacked.num_records
+            rep.partitioned_records += stacked.num_records
             self._timing_barrier()
         rep.partition_seconds += sp.wall_seconds
         return result, result.origins
@@ -661,7 +772,8 @@ class ArrayExecutor(_ExecutorBase):
         """Dispatch-then-sync array shuffle.
 
         With ``fused_rounds`` the stage output arrives stacked and the
-        whole round runs through :func:`scatter_round_dispatch`.
+        whole round runs through :func:`scatter_round_dispatch` (or
+        ``spmd.fused_scatter_round`` on a mesh).
         Otherwise phase 1 enqueues each worker's scatter without
         blocking (:func:`scatter_pieces_dispatch`), and phase 2 fetches
         every pending histogram behind ONE barrier and slices each
@@ -678,7 +790,8 @@ class ArrayExecutor(_ExecutorBase):
             if fused is not None:
                 return fused
             # ineligible round (reduce partitioner, single bucket):
-            # downgrade to the per-worker loop
+            # downgrade to the per-worker loop (a mesh's stack is read
+            # replicated)
             out = out.to_worker_dict(self.workers)
         buckets: List[List[RecordBatch]] = [[] for _ in range(n)]
         origins: Origins = [{} for _ in range(n)]
@@ -731,7 +844,8 @@ class ArrayExecutor(_ExecutorBase):
         if isinstance(buckets, FusedRoundResult):
             # the fused round already regrouped on the device: slot i of
             # the stacked result IS worker i's merged partition — parts
-            # hold zero-copy views into the stack
+            # hold zero-copy views into the stack (a mesh round's data is
+            # the rank's block of workers)
             if buckets.groups is not None:
                 for w0, arr in buckets.groups:
                     g = StackedBatch(arr,
@@ -744,7 +858,10 @@ class ArrayExecutor(_ExecutorBase):
                 for w in self.workers:
                     parts[w] = None
                 return
-            stacked = StackedBatch(buckets.data, buckets.counts)
+            stacked = (StackedBatch(buckets.data, buckets.counts)
+                       if buckets.mesh is None else
+                       ShardedStackedBatch(buckets.data, buckets.counts,
+                                           buckets.mesh))
             for i, w in enumerate(self.workers):
                 parts[w] = (_SlotRef(stacked, i)
                             if int(stacked.n_valid[i]) else None)
@@ -777,7 +894,8 @@ class ArrayExecutor(_ExecutorBase):
             parts[w] = RecordBatch.concat(out[w]) if out[w] else None
 
     def outputs(self, parts) -> List[bytes]:
-        # the ONLY host materialisation of record data after stage 0
+        # the ONLY host materialisation of record data after stage 0 (a
+        # mesh's partitions are gathered first: every rank returns all)
         return [_as_batch(parts[w]).to_bytes() for w in self.workers
                 if parts[w] is not None and parts[w].num_records]
 

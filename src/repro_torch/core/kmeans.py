@@ -23,8 +23,11 @@ comparison baseline.
 
 On the array backend the assign stage reaches the hand-written CUDA
 kernel through ``kmeans_partials`` when the points are on the card: one
-pass over the points gives the task's sums and counts.  :func:`kmeans_step` is the single-device half of the reference's
-``kmeans_step_jax``; its mesh twin waits for the multi-GPU port.
+pass over the points gives the task's sums and counts.
+:func:`kmeans_step` is the reference's ``kmeans_step_jax``, on one device
+or, with a ``mesh``, over the ranks' blocks of points.  On a mesh engine
+``kmeans_sphere`` and ``StreamingKMeans`` need nothing of their own: the
+masked assign and the reduce fold run replicated on every rank.
 """
 from __future__ import annotations
 
@@ -38,8 +41,10 @@ from repro_torch.core.engine import SphereEngine, SphereReport, SphereSession
 from repro_torch.core.job import SphereJob, SphereStage
 from repro_torch.core.records import RecordBatch, f32_view
 from repro_torch.core.shuffle import reduce_partitioner
+from repro_torch.core.spmd import psum
 from repro_torch.core.trace import NULL_TRACER
 from repro_torch.kernels.kmeans_assign import kmeans_partials
+from repro_torch.parallel.mesh_utils import Mesh
 
 
 # --------------------------- record codecs ---------------------------------
@@ -301,17 +306,19 @@ class StreamingKMeans:
         return self.centroids.copy()
 
 
-# --------------------------- single-device step ------------------------------
+# --------------------------- the step ---------------------------------------
 
-def kmeans_step(points: torch.Tensor, centroids: torch.Tensor, mesh=None
+def kmeans_step(points: torch.Tensor, centroids: torch.Tensor,
+                mesh: Optional[Mesh] = None, axis: str = "data"
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """One k-means step on one device: points [N, D], centroids [K, D].
-    Returns (new_centroids, inertia); an empty centroid keeps its place.
-    The reference's ``kmeans_step_jax`` also runs over a mesh; that twin
-    waits for the multi-GPU port, so ``mesh`` raises."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "the multi-GPU k-means step is not ported yet (core/spmd.py)")
+    """One k-means step: points [N, D] (this rank's block when ``mesh`` is
+    given), centroids [K, D] replicated.  Returns (new_centroids,
+    inertia), replicated; an empty centroid keeps its place.  With a mesh
+    the per-centroid sums, counts and inertia are summed over the ranks
+    (``kmeans_step_jax``'s ``psum``)."""
+    if mesh is not None and not isinstance(mesh, Mesh):
+        raise TypeError(f"mesh must be a repro_torch Mesh, got "
+                        f"{type(mesh).__name__}")
     d2 = ((points ** 2).sum(1)[:, None] - 2 * points @ centroids.T
           + (centroids ** 2).sum(1)[None])
     a = d2.argmin(1)
@@ -319,6 +326,9 @@ def kmeans_step(points: torch.Tensor, centroids: torch.Tensor, mesh=None
     sums = oh.T @ points
     counts = oh.sum(0)
     inertia = d2.gather(1, a[:, None]).sum()
+    if mesh is not None:
+        sums, counts = psum(sums, mesh, axis), psum(counts, mesh, axis)
+        inertia = psum(inertia.reshape(1), mesh, axis)[0]
     new_c = torch.where(counts[:, None] > 0,
                         sums / counts[:, None].clamp_min(1), centroids)
     return new_c, inertia

@@ -414,7 +414,9 @@ class FusedRoundResult:
     consecutive worker ranges (with ``data`` None); the port's harvest
     always returns one stack, and ``place_buckets`` takes either form.
     ``data is None`` with no ``groups`` means the round carried no
-    records.
+    records.  A mesh round (``spmd.fused_scatter_round``) sets ``mesh``:
+    its ``data`` is then the rank's block of workers, ``counts`` still
+    every worker's.
     """
 
     data: Optional[torch.Tensor]
@@ -422,6 +424,7 @@ class FusedRoundResult:
     origins: List[Dict[str, int]]
     dispatches: int = 0
     groups: Optional[List[Tuple[int, torch.Tensor]]] = None
+    mesh: Optional[object] = None
 
     @property
     def record_size(self) -> int:

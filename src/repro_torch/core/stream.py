@@ -515,6 +515,7 @@ class SphereStream:
                 else:
                     plan = planner.plan_stage(
                         self.engine._schedule_view(tasks), workers)
+                self.engine._check_plan(stage.name, plan)
             rep.tasks += len(plan.tasks)
             rep.bytes_local += plan.bytes_local
             rep.bytes_moved += plan.bytes_moved

@@ -3,9 +3,10 @@
 The port of the part of ``repro.parallel.sharding`` that the serving path
 reaches: ``ParallelConfig`` with the JAX package's fields and defaults,
 ``NO_PARALLEL``, and the sharding hints ``constrain`` / ``batch_spec`` /
-``heads_spec``, which do nothing on one device.  A mesh is not ported
-yet (``ROADMAP.md`` queue 1): a ``ParallelConfig`` given one raises, as
-``SphereEngine(mesh=)`` does.
+``heads_spec``, which do nothing on one device.  The LM path's mesh is
+not ported yet (``ROADMAP.md`` item 1.3c): a ``ParallelConfig`` given one
+raises.  (The Sphere data plane runs on a mesh: ``SphereEngine(mesh=)``,
+:mod:`repro_torch.core.spmd`.)
 """
 from __future__ import annotations
 

@@ -2,7 +2,8 @@
 versions — ``bucket_dest``, ``bucket_partition`` (its words and rows
 entries), ``kmeans_assign``,
 ``flash_attention`` and ``rg_lru_scan`` — and the paths built on them
-(TeraSort through ``SphereEngine``, ``partition_batch`` /
+(TeraSort through ``SphereEngine``, on one device and on a one-rank
+NCCL mesh, ``partition_batch`` /
 ``shuffle_batch``, k-means through ``kmeans_sphere``, LM prefill, decode,
 ``ServeEngine`` and a training step) against the same calls on the CPU;
 the two LM kernels' gradients against autograd through their plain
@@ -145,7 +146,7 @@ def test_cuda_scatter_matches_cpu(cuda):
     assert torch.equal(c_out.cpu(), out) and torch.equal(c_hist.cpu(), hist)
 
 
-def _terasort(tmp_path, data, device):
+def _terasort(tmp_path, data, device, mesh=None):
     master = tsector.SectorMaster(chunk_size=300 * REC)
     for i, site in enumerate(master.topology.sites):
         master.register(tsector.ChunkServer(f"s{i}", site, tmp_path))
@@ -157,8 +158,8 @@ def _terasort(tmp_path, data, device):
     job = tcore.SphereJob("sort", "f", tsh.terasort_stages(
         tsh.sample_boundaries(sample, 6), "array", 6), record_size=REC,
         backend="array")
-    return tcore.SphereEngine(master, client, pad_block=64,
-                              device=device).run(job)
+    return tcore.SphereEngine(master, client, pad_block=64, device=device,
+                              mesh=mesh).run(job)
 
 
 def test_cuda_terasort_through_kernel(cuda, tmp_path):
@@ -171,6 +172,58 @@ def test_cuda_terasort_through_kernel(cuda, tmp_path):
     assert outs == cpu_outs
     assert tkernel.launches - before == rep.shuffle_rounds == rep.host_syncs
     assert rep.sim_seconds == cpu_rep.sim_seconds
+
+
+def test_cuda_mesh_round_on_one_rank_nccl(cuda, tmp_path):
+    """``spmd.fused_scatter_round`` on a one-rank NCCL mesh: one launch of
+    the rows kernel, and the single-device round's bytes, counts and
+    histogram; then TeraSort through ``SphereEngine(mesh=)`` gives the
+    CPU run's bytes."""
+    import torch.distributed as dist
+
+    from repro_torch.core import spmd
+    from repro_torch.core.records import StackedBatch
+    from repro_torch.launch.mesh import make_flat_mesh
+
+    rng = np.random.default_rng(8)
+    loads = [37, 0, 250, 9, 128, 1]
+    recs = [[rng.bytes(REC) for _ in range(k)] for k in loads]
+    stacked = StackedBatch.pack(
+        [RecordBatch.from_records(r, device=cuda) if r
+         else RecordBatch.empty(REC, cuda) for r in recs], pad_block=64)
+    part = tsh.range_partitioner(tsh.sample_boundaries(
+        [r for rs in recs for r in rs], 6))
+    key_spec, bounds = part.scatter_spec(RecordBatch.empty(REC, cuda), 6)
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/store",
+                            rank=0, world_size=1)
+    try:
+        mesh = make_flat_mesh()
+        before = tkernel.rows_launches
+        parts, counts, hist = spmd.fused_scatter_round(
+            stacked.data, stacked.n_valid, bounds, key_spec=key_spec,
+            n_buckets=6, n_workers=6, mesh=mesh)
+        torch.cuda.synchronize()
+        assert tkernel.rows_launches == before + 1
+        rd = tsh.scatter_round_dispatch(
+            stacked, part, 6, worker_names=[f"s{i}" for i in range(6)],
+            slot_workers=np.arange(6), pad_block=64)
+        want_hist = rd.hist.cpu().tolist()
+        res = rd.harvest()
+        assert counts.cpu().tolist() == res.counts.tolist()
+        assert hist.cpu().tolist() == want_hist
+        for w, c in enumerate(res.counts.tolist()):
+            assert torch.equal(parts[w, :c].cpu(), res.data[w, :c].cpu())
+        data = np.random.default_rng(4).bytes(3000 * REC)
+        (tmp_path / "cpu").mkdir()
+        (tmp_path / "mesh").mkdir()
+        cpu_outs, _ = _terasort(tmp_path / "cpu", data, "cpu")
+        before = tkernel.rows_launches
+        outs, rep = _terasort(tmp_path / "mesh", data, None, mesh=mesh)
+        assert outs == cpu_outs
+        assert tkernel.rows_launches - before == rep.shuffle_rounds \
+            == rep.host_syncs
+    finally:
+        dist.destroy_process_group()
 
 
 @pytest.mark.parametrize("n,k,nb,high,bn", [

@@ -242,7 +242,8 @@ def test_default_device_raises_without_cuda(tmp_path, monkeypatch):
     master, client = _cloud(tsector, tmp_path)
     with pytest.raises(RuntimeError, match="CUDA"):
         tcore.SphereEngine(master, client)
-    with pytest.raises(NotImplementedError):
+    # a mesh is a repro_torch Mesh (launch.mesh.make_flat_mesh)
+    with pytest.raises(TypeError, match="Mesh"):
         tcore.SphereEngine(master, client, device="cpu", mesh=object())
 
 
@@ -292,6 +293,8 @@ def test_port_imports_no_jax_and_no_reference():
             "import repro_torch.kernels.rg_lru_scan\n"
             "import repro_torch.train, repro_torch.data\n"
             "import repro_torch.launch.train, repro_torch.models.losses\n"
+            "import repro_torch.core.spmd, repro_torch.launch.mesh\n"
+            "import repro_torch.parallel.mesh_utils\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'repro' or m.startswith('repro.'))\n"
             "print(bad)\n"

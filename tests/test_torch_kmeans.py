@@ -550,6 +550,6 @@ def test_kmeans_step_matches_jax():
     np.testing.assert_allclose(new_c.numpy(), np.asarray(j_new),
                                rtol=1e-5, atol=1e-5)
     np.testing.assert_allclose(float(inertia), float(j_inertia), rtol=1e-5)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError, match="Mesh"):
         tkm.kmeans_step(torch.from_numpy(pts), torch.from_numpy(c),
                         mesh=object())

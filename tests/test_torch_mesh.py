@@ -1,0 +1,174 @@
+"""``SphereEngine(mesh=)`` end to end over gloo ranks on the CPU, against
+the meshless port and the JAX package; the mesh builders and guards.
+
+Each rank (``torch_mesh_ranks.engine_suite``) builds the same Sector
+cloud from one seed under its own directory and runs every job twice in
+one process, once without a mesh and once on a ``make_flat_mesh()``
+engine; the test process holds the mesh run's bytes against the JAX
+package's meshless array backend.  TeraSort has 6 workers, so at D = 2
+the shuffle is the mesh round (``path="mesh"``) and at D = 4 it is
+gathered and runs replicated (``path="mesh-gathered"``).  Required: the
+outputs byte-identical, the ``SphereReport`` fields equal to the meshless
+run's in the same process (but the wall clock and the dispatch count),
+``host_syncs == shuffle_rounds`` and no more dispatches than the meshless
+round.  At D = 2 also a chained session, a sliding-window stream and
+``kmeans_sphere`` (centroids bit for bit).  Two ranks with different
+plans raise ``RuntimeError`` rather than hang.
+"""
+import numpy as np
+import pytest
+import torch
+
+import repro.core as jcore
+import repro.sector as jsector
+import torch_mesh_ranks as ranks
+from repro.core import shuffle as jsh
+from repro_torch.core import SphereEngine
+from repro_torch.core.kmeans import kmeans_step
+from repro_torch.launch import mesh as lmesh
+from repro_torch.launch.mesh import run_ranks
+from repro_torch.parallel import mesh_utils
+
+
+@pytest.fixture(scope="module")
+def suite(tmp_path_factory):
+    runs = {}
+
+    def get(world):
+        if world not in runs:
+            tmp = tmp_path_factory.mktemp(f"mesh{world}")
+            runs[world] = run_ranks(ranks.engine_suite, world,
+                                    (str(tmp), world == 2),
+                                    join_timeout_s=300)
+        return runs[world]
+    return get
+
+
+def _jax_terasort(tmp_path):
+    """The JAX package's meshless array-backend TeraSort of the same
+    cloud and data."""
+    data = ranks.tera_data()
+    master = jsector.SectorMaster(chunk_size=300 * ranks.REC)
+    sites = master.topology.sites
+    for i in range(6):
+        master.register(jsector.ChunkServer(f"s{i}", sites[i % len(sites)],
+                                            tmp_path))
+    master.acl.add_member("alice")
+    master.acl.grant_write("alice")
+    client = jsector.SectorClient(master, "alice", "chicago")
+    client.upload("f", data, replication=3)
+    job = jcore.SphereJob("sort", "f",
+                          jsh.terasort_stages(ranks.tera_bounds(data, jsh),
+                                              "array", 6),
+                          record_size=ranks.REC, backend="array")
+    return jcore.SphereEngine(master, client, pad_block=64).run(job)[0]
+
+
+@pytest.mark.parametrize("world,path", [(2, "mesh"), (4, "mesh-gathered")])
+def test_mesh_terasort_matches_meshless_and_jax(suite, world, path,
+                                                tmp_path):
+    want = _jax_terasort(tmp_path)
+    assert b"".join(want) == b"".join(sorted(
+        ranks.tera_data()[i:i + ranks.REC]
+        for i in range(0, len(ranks.tera_data()), ranks.REC)))
+    for rank, res in enumerate(suite(world)):
+        t = res["terasort"]
+        assert t["same"], f"rank {rank}: mesh outputs differ from meshless"
+        assert t["outs"] == want
+        assert t["paths"] == (["fused"], [path])
+        assert t["diff"] == {}, f"rank {rank}: report fields {t['diff']}"
+        syncs, rounds = t["syncs"]
+        assert syncs == rounds == 1
+        meshless, mesh = t["dispatches"]
+        assert mesh <= meshless
+
+
+def test_mesh_session_chains_like_meshless(suite):
+    for res in suite(2):
+        s = res["session"]
+        assert s["same"] and s["paths"] == ["mesh"]
+        assert s["diff"] == [{}, {}]
+        assert s["syncs"] == [(1, 1), (1, 1)]
+        # two stages a run; the chained run repeats the sort stage's plan,
+        # which the ranks agreed on already and do not exchange again
+        assert s["plans"] == {"checked": 4, "exchanged": 3}
+        blob = b"".join(s["outs"])
+        recs = [blob[i:i + ranks.REC] for i in range(0, len(blob), ranks.REC)]
+        assert recs == sorted(recs)
+
+
+def test_mesh_stream_windows_like_meshless(suite):
+    for res in suite(2):
+        s = res["stream"]
+        assert s["same"] and s["n"] == 4     # 2 windows x 2 jobs
+        assert s["diff"] == [{}] * 4
+
+
+def test_mesh_kmeans_sphere_bit_identical(suite):
+    for res in suite(2):
+        cents, m_cents = res["kmeans"]
+        np.testing.assert_array_equal(cents, m_cents)
+
+
+def test_ranks_with_different_plans_raise(tmp_path):
+    with pytest.raises(RuntimeError, match="planned differently"):
+        run_ranks(ranks.mismatched_plans, 2, (str(tmp_path),),
+                  timeout_s=30, join_timeout_s=120)
+
+
+def test_run_ranks_reports_a_rank_error(tmp_path):
+    """A rank that raises is reported with its traceback; the others are
+    stopped, not left waiting."""
+    with pytest.raises(RuntimeError, match=r"rank \d of 2 failed"):
+        run_ranks(ranks.mismatched_plans, 2, ("/dev/null/x",),
+                  timeout_s=20, join_timeout_s=120)
+
+
+# ------------------------------------------------------ builders, guards
+def test_mesh_builders_need_a_group_and_name_the_queue():
+    with pytest.raises(RuntimeError, match="process group"):
+        lmesh.make_flat_mesh(device="cpu")
+    with pytest.raises(NotImplementedError, match="1.3c"):
+        lmesh.make_debug_mesh(multi_pod=True)
+    for multi in (False, True):
+        with pytest.raises(NotImplementedError, match="1.3c"):
+            lmesh.make_production_mesh(multi_pod=multi)
+
+
+def test_mesh_utils():
+    if torch.cuda.is_available():
+        assert mesh_utils.single_device_mesh().device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            mesh_utils.single_device_mesh()
+    m = mesh_utils.single_device_mesh(device="cpu")
+    assert m.shape["data"] == m.shape.get("model") == 1
+    assert mesh_utils.mesh_axis_sizes(m) == {"data": 1, "model": 1}
+    mesh_utils.validate_mesh(m, 1)
+    with pytest.raises(ValueError):
+        mesh_utils.validate_mesh(m, 2)
+    grid = mesh_utils.Mesh(("data", "model"), {"data": 2, "model": 3},
+                           object(), 4, 6, "cpu", "gloo")
+    assert (grid.axis_index("data"), grid.axis_index("model")) == (1, 1)
+    assert not grid.host_staged and grid.host_group is grid.group
+    with pytest.raises(ValueError):
+        mesh_utils.Mesh(("data",), {"data": 2}, None, 0, 2, "cpu", None)
+    with pytest.raises(ValueError, match="host_group"):
+        mesh_utils.Mesh(("data",), {"data": 2}, object(), 0, 2, "cuda:0",
+                        "nccl")
+
+
+def test_engine_and_step_take_a_mesh(tmp_path):
+    master, client = ranks.cloud(tmp_path)
+    one = mesh_utils.single_device_mesh(("data",), device="cpu")
+    eng = SphereEngine(master, client, mesh=one)
+    assert eng.mesh is one and eng.device == torch.device("cpu")
+    with pytest.raises(ValueError, match="mesh's device"):
+        SphereEngine(master, client, mesh=one, device="cuda")
+    with pytest.raises(TypeError):
+        SphereEngine(master, client, device="cpu", mesh=object())
+    pts = torch.randn(20, 3, generator=torch.Generator().manual_seed(0))
+    c = pts[:2].clone()
+    a, ia = kmeans_step(pts, c)
+    b, ib = kmeans_step(pts, c, mesh=one)
+    assert torch.equal(a, b) and torch.equal(ia, ib)
