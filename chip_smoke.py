@@ -163,6 +163,49 @@ and passed over.
    ``barrier_sort`` of 1,000,000 uint32 keys a rank equal to ``np.sort``;
    ``kmeans_step(mesh=)`` on 2,097,152 points within ``rtol = atol =
    1e-5`` of the meshless step.  Any rank's failure fails the script.
+10. **Serving ``xlstm-1.3b``** (arXiv:2405.04517, xLSTM[7:1]: 48 layers,
+   ``d_model`` 2048, 4 heads, the pattern ``m`` x 7, ``s``; vocab 50,304;
+   1,499,863,376 parameters (3,008,083,264 bytes: bf16 and the float32
+   gate weights) from ``--seed``, nothing cut) through
+   phase 7's harness, on a card freed of the earlier phases: (a) every
+   request ends with 32 in-vocabulary tokens, every slot is recycled,
+   and neither LM kernel launches (the path has none); (b) the first
+   mLSTM layer's input, captured from the 3,072-token prefill, through
+   the chunkwise form (chunks of 256) and the sequential oracle in
+   float32 agree within 1e-3 of the output's largest magnitude; (c) the
+   model's first pattern unit (8 layers) in float32 at full width on a
+   512-token prompt: a prefill of 511 tokens (chunks of one token: 511
+   is odd) and a decode of the 512th match the full forward's last two
+   logit rows within 0.02 and 0.05 of their largest magnitude (the JAX
+   package's ``tests/test_models.py`` bounds; at 48 layers the random
+   weights make the float32 stack chaotic, in the JAX package too, see
+   ``decode_consistency``).  Prints phase 7's serving lines, the peak device memory,
+   the two long prefills' seconds (2,500 = 4 x 625: chunks of 4), one
+   profiled decode step and one profiled 3,072-token prefill.
+11. **Serving ``qwen3-moe-30b-a3b``** (hf:Qwen/Qwen3-30B-A3B: 48 layers,
+   ``d_model`` 2048, GQA 32 / 4 heads of 128 with ``qk_norm``, rope
+   theta 1e6, 128 experts of width 768, top-8; vocab 151,936;
+   30,532,122,624 parameters, 61,089,411,072 bytes, from ``--seed``,
+   nothing cut; the experts drawn a slice at a time) through the same
+   harness: (a) as phase 10, with exactly 48 ``flash_attention`` launches
+   a prefill and no ``rg_lru_scan``; (b) the two long prompts, layer by
+   layer: each of the 48 layers' updates (attention plus MoE FFN) by the
+   kernel route, recorded in a prefill whose logits must be the served
+   ones, against the same layer under ``plain_kernels()`` from the same
+   input with the routing pinned, within ``5e-2`` of the update's
+   largest magnitude (end to end the two routes' logits are printed, not
+   held: the random-weight 48-layer bf16 stack is chaotic, see
+   ``check_moe_layers``); (c) the first MoE layer's input,
+   captured from the 3,072-token prefill, through the ``einsum`` and the
+   ``gather`` dispatch at the default capacity: the same tokens dropped
+   whole and outputs within 2e-2 of the scale, both timed (CUDA events)
+   beside the one-hot transport's FLOPs and the experts'; (d)
+   ``flash_attention`` at this path's shape (the first attention layer's
+   q ``[1, 3072, 32, 128]``, k / v ``[1, 3072, 4, 128]``, causal), held
+   to its plain version as in phase 6 and timed beside SDPA and its
+   bound (the kernels line's ``flash_attention`` row carries it under
+   ``"qwen3-moe-30b-a3b"``).  Prints the serving lines and the peak
+   device memory.
 
 The line before the last is one JSON object describing every kernel; the
 last line is
@@ -174,6 +217,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import gc
 import json
 import math
 import os
@@ -258,6 +302,13 @@ def fail(msg: str) -> None:
 def check(cond: bool, msg: str) -> None:
     if not cond:
         fail(msg)
+
+
+def sync(torch, device) -> None:
+    """Wait for ``device``'s queued work (nothing to wait for on the
+    CPU)."""
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
 
 
 def card_line() -> str:
@@ -1330,36 +1381,48 @@ def serve_prompts(cfg, seed: int, long=LONG_PROMPTS, short=(16, 513)):
     return [rng.integers(0, cfg.vocab_size, n).tolist() for n in lengths]
 
 
-def capture_activations(torch, cfg, params, prompt, max_len=SERVE_LEN):
-    """One prefill of ``prompt``; returns the inputs of its first
-    ``flash_attention`` and first ``rg_lru_scan`` launch (the first L and
-    the first R layer) and the prefill's seconds."""
-    from repro_torch.kernels.flash_attention import kernel as fkernel
-    from repro_torch.kernels.rg_lru_scan import kernel as lkernel
+def capture_calls(torch, cfg, params, prompt, hooks, max_len=SERVE_LEN):
+    """One prefill of ``prompt``; ``hooks`` maps a label to ``(module,
+    name)``.  Returns ``{label: (args, kwargs)}`` of each hooked
+    function's first call, its tensors cloned, and prints the prefill's
+    seconds."""
     from repro_torch.models import model
     got = {}
-    real_attn, real_scan = fkernel.flash_attention_fwd, lkernel.lru_scan
 
-    def attn(q, k, v, *, causal, window):
-        got.setdefault("attn", (q.clone(), k.clone(), v.clone(), causal,
-                                window))
-        return real_attn(q, k, v, causal=causal, window=window)
-
-    def scan(a, b, h0):
-        got.setdefault("scan", (a.clone(), b.clone(), h0.clone()))
-        return real_scan(a, b, h0)
+    def spy(label, real):
+        def call(*args, **kw):
+            got.setdefault(label, (
+                tuple(a.clone() if isinstance(a, torch.Tensor) else a
+                      for a in args), kw))
+            return real(*args, **kw)
+        return call
 
     dev = params["embed"]["w"].device
-    with patched(fkernel, "flash_attention_fwd", attn), \
-            patched(lkernel, "lru_scan", scan), torch.inference_mode():
+    with contextlib.ExitStack() as stack, torch.inference_mode():
+        for label, (module, name) in hooks.items():
+            stack.enter_context(patched(module, name,
+                                        spy(label, getattr(module, name))))
         t = time.perf_counter()
         model.prefill(params, {"inputs": torch.tensor([prompt], device=dev)},
                       cfg=cfg, max_len=max_len)
-        if dev.type == "cuda":
-            torch.cuda.synchronize()
-    print(f"lm: capture prefill of {len(prompt)} tokens (the first, cold) "
-          f"{time.perf_counter() - t:.3f}s")
+        sync(torch, dev)
+    print(f"lm: {cfg.name}: capture prefill of {len(prompt)} tokens (the "
+          f"first, cold) {time.perf_counter() - t:.3f}s")
     return got
+
+
+def capture_activations(torch, cfg, params, prompt, max_len=SERVE_LEN):
+    """One prefill of ``prompt``; returns the inputs of its first
+    ``flash_attention`` and first ``rg_lru_scan`` launch (the first L and
+    the first R layer)."""
+    from repro_torch.kernels.flash_attention import kernel as fkernel
+    from repro_torch.kernels.rg_lru_scan import kernel as lkernel
+    got = capture_calls(torch, cfg, params, prompt, {
+        "attn": (fkernel, "flash_attention_fwd"),
+        "scan": (lkernel, "lru_scan")}, max_len)
+    (q, k, v), kw = got["attn"]
+    return {"attn": (q, k, v, kw["causal"], kw["window"]),
+            "scan": got["scan"][0]}
 
 
 def _sdpa_mask(torch, T, S, window, dev):
@@ -1421,13 +1484,72 @@ def rounded_p_excess(torch, got, q, k, v, causal, window):
             float((diff - 2 ** -8 * (o.abs() + w)).max()))
 
 
+def check_attention(torch, q, k, v, causal, window):
+    """The flash kernel against its plain version on (q, k, v): within
+    2e-2 (bf16) / 2e-5 (float32), in bf16 also within what rounding p
+    allows of ``attention_rounded_p``; ``ops.flash_attention`` is the
+    kernel.  Returns (max error, bf16 max error against the rounded-p
+    oracle, its excess beyond what rounding allows) (0, -1 in float32)."""
+    from repro_torch.kernels.flash_attention import kernel, ops, ref
+    got = kernel.flash_attention_fwd(q, k, v, causal=causal, window=window)
+    want = ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+    err = float((got.float() - want.float()).abs().max())
+    tol = 2e-2 if q.dtype == torch.bfloat16 else 2e-5
+    check(bool(torch.allclose(got.float(), want.float(), rtol=tol,
+                              atol=tol)),
+          f"flash_attention beyond tolerance {tuple(q.shape)} "
+          f"{tuple(k.shape)} {q.dtype} causal={causal} window={window}: "
+          f"max err {err}")
+    err_r, excess = 0.0, -1.0
+    if q.dtype == torch.bfloat16:
+        err_r, excess = rounded_p_excess(torch, got, q, k, v, causal, window)
+        check(excess <= 1e-4,
+              f"flash_attention beyond what rounding p allows of the "
+              f"rounded-p oracle {tuple(q.shape)} {tuple(k.shape)} "
+              f"causal={causal} window={window}: max err {err_r}, "
+              f"{excess} beyond")
+    check(torch.equal(ops.flash_attention(q, k, v, causal=causal,
+                                          window=window), got),
+          "ops.flash_attention differs from the kernel")
+    return err, err_r, excess
+
+
+def live_pairs(T: int, window: int) -> int:
+    """Query-key pairs a causal (windowed) attention over T tokens
+    computes."""
+    return sum(min(t + 1, window) if window else t + 1 for t in range(T))
+
+
+def attention_times(torch, q, k, v, window):
+    """(kernel ms, plain ms, SDPA ms, SDPA's max error against the
+    plain version) of causal attention over (q, k, v), timed as in
+    phase 2."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import kernel, ref
+    ms = timed_ms(torch, lambda: kernel.flash_attention_fwd(
+        q, k, v, causal=True, window=window))
+    plain = timed_ms(torch, lambda: ref.flash_attention_ref(
+        q, k, v, causal=True, window=window))
+    qs, ks, vs = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    mask = (_sdpa_mask(torch, q.shape[1], k.shape[1], window, q.device)
+            if window else None)
+
+    def lib():
+        if mask is None:
+            return F.scaled_dot_product_attention(
+                qs, ks, vs, is_causal=True, enable_gqa=True)
+        return F.scaled_dot_product_attention(
+            qs, ks, vs, attn_mask=mask, enable_gqa=True)
+    lib_err = float((lib().transpose(1, 2).float() - ref.flash_attention_ref(
+        q, k, v, causal=True, window=window).float()).abs().max())
+    return ms, plain, timed_ms(torch, lib), lib_err
+
+
 def flash_phase(torch, captured):
     """flash_attention against its plain version: a sweep of small cases,
     the captured local layer, random inputs at the local and the global
     shape; timings at both shapes."""
-    import torch.nn.functional as F
-
-    from repro_torch.kernels.flash_attention import kernel, ops, ref
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(13)
     worst = worst_rounded = 0.0
@@ -1436,32 +1558,11 @@ def flash_phase(torch, captured):
 
     def compare(q, k, v, causal, window):
         nonlocal worst, worst_rounded, worst_excess, n_cases
-        got = kernel.flash_attention_fwd(q, k, v, causal=causal,
-                                         window=window)
-        want = ref.flash_attention_ref(q, k, v, causal=causal, window=window)
-        err = float((got.float() - want.float()).abs().max())
-        tol = 2e-2 if q.dtype == torch.bfloat16 else 2e-5
-        check(bool(torch.allclose(got.float(), want.float(), rtol=tol,
-                                  atol=tol)),
-              f"flash_attention beyond tolerance {tuple(q.shape)} "
-              f"{tuple(k.shape)} {q.dtype} causal={causal} window={window}: "
-              f"max err {err}")
-        if q.dtype == torch.bfloat16:
-            err_r, excess = rounded_p_excess(torch, got, q, k, v, causal,
-                                             window)
-            check(excess <= 1e-4,
-                  f"flash_attention beyond what rounding p allows of the "
-                  f"rounded-p oracle {tuple(q.shape)} {tuple(k.shape)} "
-                  f"causal={causal} window={window}: max err {err_r}, "
-                  f"{excess} beyond")
-            worst_rounded = max(worst_rounded, err_r)
-            worst_excess = max(worst_excess, excess)
-        check(torch.equal(ops.flash_attention(q, k, v, causal=causal,
-                                              window=window), got),
-              "ops.flash_attention differs from the kernel")
+        err, err_r, excess = check_attention(torch, q, k, v, causal, window)
         worst = max(worst, err)
+        worst_rounded = max(worst_rounded, err_r)
+        worst_excess = max(worst_excess, excess)
         n_cases += 1
-        return got
 
     def rand(shape, dtype):
         return torch.randn(shape, generator=gen).to(dtype).to(dev)
@@ -1480,32 +1581,10 @@ def flash_phase(torch, captured):
     compare(q, k, v, causal, window)
     torch.cuda.synchronize()
     B, T, H, D = q.shape
-    S, K = k.shape[1], k.shape[2]
-
-    def times(q, k, v, window, mask):
-        ms = timed_ms(torch, lambda: kernel.flash_attention_fwd(
-            q, k, v, causal=True, window=window))
-        plain = timed_ms(torch, lambda: ref.flash_attention_ref(
-            q, k, v, causal=True, window=window))
-        qs, ks, vs = (x.transpose(1, 2).contiguous() for x in (q, k, v))
-
-        def lib():
-            if mask is None:
-                return F.scaled_dot_product_attention(
-                    qs, ks, vs, is_causal=True, enable_gqa=True)
-            return F.scaled_dot_product_attention(
-                qs, ks, vs, attn_mask=mask, enable_gqa=True)
-        lib_err = float((lib().transpose(1, 2).float() - ref.flash_attention_ref(
-            q, k, v, causal=True, window=window).float()).abs().max())
-        return ms, plain, timed_ms(torch, lib), lib_err
-
-    def pairs(T, window):
-        return sum(min(t + 1, window) if window else t + 1 for t in range(T))
 
     # the path's local layer: the captured activations
-    mask = _sdpa_mask(torch, T, S, window, dev)
-    ms, plain, lib, lib_err = times(q, k, v, window, mask)
-    live = pairs(T, window)
+    ms, plain, lib, lib_err = attention_times(torch, q, k, v, window)
+    live = live_pairs(T, window)
     f_ops = 4 * D * H * live
     f_bytes = 2 * q.nbytes + k.nbytes + v.nbytes
     f_bound, f_by = bound_ms(f_bytes, f_ops, PEAK_BF16_PER_S)
@@ -1525,8 +1604,8 @@ def flash_phase(torch, captured):
     gq, gk, gv = (rand(shape, torch.bfloat16) for shape in (
         (1, T, 16, 128), (1, T, 2, 128), (1, T, 2, 128)))
     compare(gq, gk, gv, True, 0)
-    g_ms, g_plain, g_lib, g_lib_err = times(gq, gk, gv, 0, None)
-    g_ops = 4 * 128 * 16 * pairs(T, 0)
+    g_ms, g_plain, g_lib, g_lib_err = attention_times(torch, gq, gk, gv, 0)
+    g_ops = 4 * 128 * 16 * live_pairs(T, 0)
     g_bound, _ = bound_ms(2 * gq.nbytes + gk.nbytes + gv.nbytes, g_ops,
                           PEAK_BF16_PER_S)
     print(f"kernel flash_attention global q {list(gq.shape)} k/v "
@@ -1704,6 +1783,20 @@ def check_logits(torch, cfg, params, prompts, last_logits,
     return worst
 
 
+def kernel_times(torch, prof):
+    """[(name, launches, device ms)] of a finished ``torch.profiler`` run,
+    largest first, summed from its raw events: a prefill of the xLSTM
+    launches about a million kernels, and building ``key_averages()``'s
+    per-event objects for them took minutes."""
+    totals: dict = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == torch.autograd.DeviceType.CUDA:
+            n, ns = totals.get(e.name(), (0, 0))
+            totals[e.name()] = (n + 1, ns + e.duration_ns())
+    return sorted(((name, n, ns / 1e6) for name, (n, ns) in totals.items()),
+                  key=lambda t: -t[2])
+
+
 def profile_decode(torch, eng, steady_s: float) -> None:
     """One more steady decode step over four short requests, under
     ``torch.profiler``: the device's busy time, its idle share against
@@ -1716,29 +1809,25 @@ def profile_decode(torch, eng, steady_s: float) -> None:
                    max_new=8)
     eng.step()                      # admit the four
     eng.step()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t = time.perf_counter()
         eng.step()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t
     eng.run()
-    on_card = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy_ms = sum(e.self_device_time_total for e in on_card) / 1e3
+    on_card = kernel_times(torch, prof)
+    busy_ms = sum(ms for _, _, ms in on_card)
     if not busy_ms:
         print("serve: profiled decode step: the profiler saw no device "
               "time; device busy share not measured")
         return
-    top = sorted(on_card, key=lambda e: -e.self_device_time_total)[:8]
     print(f"serve: profiled decode step ({eng.max_batch} active): device "
           f"busy {busy_ms:.3f} ms against a steady step of "
           f"{steady_s * 1e3:.3f} ms (idle share "
           f"{1 - busy_ms / (steady_s * 1e3):.3f}; the profiled step took "
           f"{wall * 1e3:.3f} ms); largest: "
-          + "; ".join(f"{e.key[:50]} x{e.count} "
-                      f"{e.self_device_time_total / 1e3:.3f} ms"
-                      for e in top))
+          + "; ".join(f"{name[:50]} x{n} {ms:.3f} ms"
+                      for name, n, ms in on_card[:8]))
 
 
 def profile_prefill(torch, cfg, params, prompt, max_len=SERVE_LEN) -> None:
@@ -1753,34 +1842,28 @@ def profile_prefill(torch, cfg, params, prompt, max_len=SERVE_LEN) -> None:
     with torch.inference_mode():
         model.prefill(params, batch, cfg=cfg, max_len=max_len)
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
             t = time.perf_counter()
             model.prefill(params, batch, cfg=cfg, max_len=max_len)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t
-    on_card = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy_ms = sum(e.self_device_time_total for e in on_card) / 1e3
+    on_card = kernel_times(torch, prof)
+    busy_ms = sum(ms for _, _, ms in on_card)
     if not busy_ms:
         print("lm: profiled prefill: the profiler saw no device time; "
               "breakdown not measured")
         return
-    top = sorted(on_card, key=lambda e: -e.self_device_time_total)[:10]
-    ours = {name: sum(e.self_device_time_total for e in on_card
-                      if tag in e.key) / 1e3
-            for name, tag in (("flash_attention", "flash_tc_kernel"),
-                              ("rg_lru_scan", "lru_ring_kernel"))}
+    ours = {label: sum(ms for name, _, ms in on_card if tag in name)
+            for label, tag in (("flash_attention", "flash_tc_kernel"),
+                               ("rg_lru_scan", "lru_ring_kernel"))}
     print(f"lm: profiled prefill of {len(prompt)} tokens: {wall * 1e3:.3f} "
           f"ms on the host clock, device busy {busy_ms:.3f} ms (idle share "
           f"{1 - busy_ms / (wall * 1e3):.3f}); "
           + " ".join(f"{name} {ms:.3f} ms ({ms / busy_ms:.3f})"
                      for name, ms in ours.items())
           + "; largest: "
-          + "; ".join(f"{e.key[:60]} x{e.count} "
-                      f"{e.self_device_time_total / 1e3:.3f} ms "
-                      f"({e.self_device_time_total / 1e3 / busy_ms:.3f})"
-                      for e in top))
+          + "; ".join(f"{name[:60]} x{n} {ms:.3f} ms ({ms / busy_ms:.3f})"
+                      for name, n, ms in on_card[:10]))
 
 
 # ------------------------------------------------------------ phase 8
@@ -2336,6 +2419,332 @@ def mesh_ranks(seed: int, n_records: int) -> None:
               f"step; {time.perf_counter() - t:.1f} s with the spawn")
 
 
+# ------------------------------------------------------------ phases 10-11
+XLSTM_ARCH, MOE_ARCH = "xlstm-1.3b", "qwen3-moe-30b-a3b"
+MLSTM_TOL = 1e-3                # (10b): of the chunkwise output's |max|
+DECODE_TOLS = (0.02, 0.05)      # (10c): tests/test_models.py's bounds
+CONSISTENCY_LEN = 512           # (10c): the float32 prompt
+DISPATCH_TOL = 2e-2             # (11c): einsum vs gather, of the scale
+
+
+def serve_family(torch, cfg, params, prompts):
+    """Phase 7's harness on another family: serve, check (tokens, slots,
+    the launches a prefill and a step make), report.  Returns (engine,
+    requests, launches, last logits, median steady step seconds)."""
+    eng, reqs, steps, launches, last_logits, peak = serve_path(
+        torch, cfg, params, prompts, device=params["embed"]["w"].device.type)
+    check_serve(cfg, eng, reqs, steps, launches)
+    steady_s = report_serve(reqs, steps, launches, peak)
+    long_s = {len(r.prompt): r.t_first - r.t_admit for r in reqs
+              if len(r.prompt) in LONG_PROMPTS}
+    print(f"serve: {cfg.name}: prefill seconds "
+          + " ".join(f"{n} tokens {sec:.4f}" for n, sec in long_s.items()))
+    return eng, reqs, launches, last_logits, steady_s
+
+
+def mlstm_check(torch, cfg, captured) -> None:
+    """(10b): the first mLSTM layer's captured input, in float32: the
+    chunkwise form (CHUNK 256) against the sequential oracle."""
+    from repro_torch.models import xlstm
+    from repro_torch.utils.pytree import tree_map
+    (p, x), _ = captured
+    cfg32 = cfg.replace(param_dtype="float32", compute_dtype="float32")
+    p32 = tree_map(lambda a: a.float(), p)
+    x32 = x.float()
+    with torch.inference_mode():
+        t = time.perf_counter()
+        got, _ = xlstm.mlstm_apply(p32, x32, cfg=cfg32)
+        sync(torch, x.device)
+        t_chunk = time.perf_counter() - t
+        t = time.perf_counter()
+        want = xlstm.mlstm_sequential_oracle(p32, x32, cfg=cfg32)
+        sync(torch, x.device)
+        t_seq = time.perf_counter() - t
+    scale = float(got.abs().max())
+    err = float((got - want).abs().max())
+    print(f"xlstm: first mLSTM layer {list(x.shape)} float32: chunkwise "
+          f"(L={xlstm.CHUNK}) vs sequential oracle max abs err {err:.4e} "
+          f"(scale {scale:.4e}, ratio {err / scale:.3e}, tolerance "
+          f"{MLSTM_TOL}); chunkwise {t_chunk:.3f}s, sequential {t_seq:.3f}s")
+    check(bool(torch.isfinite(got).all()) and err <= MLSTM_TOL * scale,
+          f"chunkwise mLSTM differs from the sequential oracle by {err} "
+          f"(scale {scale})")
+
+
+def decode_consistency(torch, cfg, params, seed: int,
+                       S: int = CONSISTENCY_LEN) -> None:
+    """(10c): the model's first pattern unit (8 layers: 7 mLSTM, 1 sLSTM)
+    in float32 at full width, with the model's embedding and head: a
+    prefill of 511 tokens and a decode of the 512th against the full
+    forward's last two logit rows.  One unit, not 48 layers:
+    at random weights the deep stack is chaotic in float32 (the port's
+    forward and prefill part by 0.145 of the scale at 48 layers, d_model
+    256, against 7.2e-5 at 8: ``scripts/depth_divergence.py``; the JAX
+    package's part as far), so at full depth the check would measure the
+    weights, not the decode path."""
+    from repro_torch.models import model
+    from repro_torch.utils.pytree import tree_map
+    cfg32 = cfg.replace(param_dtype="float32", compute_dtype="float32",
+                        n_layers=cfg.pattern_len)
+    p32 = dict(tree_map(lambda a: a.float(), {
+        k: v for k, v in params.items() if k != "blocks"}),
+        blocks=tree_map(lambda a: a[:1].float(), params["blocks"]))
+    dev = params["embed"]["w"].device
+    toks = torch.from_numpy(np.random.default_rng([seed, 10]).integers(
+        0, cfg.vocab_size, (1, S)).astype(np.int32)).to(dev)
+    with torch.inference_mode():
+        t = time.perf_counter()
+        full, _ = model.forward(p32, {"inputs": toks}, cfg=cfg32)
+        last, cache = model.prefill(p32, {"inputs": toks[:, :S - 1]},
+                                    cfg=cfg32, max_len=S + 4)
+        dec, _ = model.decode_step(
+            p32, cache, toks[:, S - 1:],
+            torch.full((1,), S - 1, dtype=torch.int32, device=dev),
+            cfg=cfg32)
+        sync(torch, dev)
+    sec = time.perf_counter() - t
+    for label, got, want, tol in (
+            ("prefill", last, full[:, S - 2], DECODE_TOLS[0]),
+            ("decode", dec, full[:, S - 1], DECODE_TOLS[1])):
+        scale = float(want.abs().max())
+        err = float((got - want).abs().max())
+        print(f"xlstm: float32 {label} vs forward row: max abs err "
+              f"{err:.4e} (scale {scale:.4e}, ratio {err / scale:.3e}, "
+              f"tolerance {tol})")
+        check(bool(torch.isfinite(got).all()) and err < tol * scale,
+              f"float32 {label} differs from the forward by {err} "
+              f"(scale {scale})")
+    print(f"xlstm: float32 consistency ({cfg32.n_layers} layers, d_model "
+          f"{cfg32.d_model}) at {S} tokens {sec:.2f}s (forward, a prefill "
+          f"of {S - 1} in chunks of 1, one decode)")
+
+
+def fresh_card(torch, phase: int) -> float:
+    """Release what earlier phases left cached; print what is still
+    allocated.  Returns the phase's start on the host clock."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"phase {phase}: {torch.cuda.memory_allocated()} bytes allocated "
+          f"on the card before it")
+    return time.perf_counter()
+
+
+def xlstm_phase(torch, seed: int) -> None:
+    """Phase 10: ``xlstm-1.3b`` at its full config in bf16, served (no
+    kernel launch: ``check_serve`` wants 0 and 0); the chunkwise mLSTM
+    against the oracle; the float32 decode consistency."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import xlstm
+    cfg, params = lm_model(torch, seed, get_config(XLSTM_ARCH))
+    prompts = serve_prompts(cfg, seed)
+    captured = capture_calls(torch, cfg, params, prompts[0],
+                             {"mlstm": (xlstm, "mlstm_apply")})
+    mlstm_check(torch, cfg, captured["mlstm"])
+    del captured
+    eng, reqs, _, _, steady_s = serve_family(torch, cfg, params, prompts)
+    profile_decode(torch, eng, steady_s)
+    profile_prefill(torch, cfg, params, prompts[0])
+    del eng, reqs
+    torch.cuda.empty_cache()
+    decode_consistency(torch, cfg, params, seed)
+
+
+def dispatch_check(torch, cfg, captured) -> None:
+    """(11c): the first MoE layer's captured input through both dispatch
+    modes at the default capacity: the same tokens dropped (all slots
+    past capacity: a zero output in both), outputs within DISPATCH_TOL
+    of the scale; both timed, beside the FLOPs each spends."""
+    from repro_torch.models import moe
+    from repro_torch.parallel.sharding import ParallelConfig
+    (p, x), _ = captured
+    modes = {m: ParallelConfig(mesh=None, moe_dispatch=m)
+             for m in ("einsum", "gather")}
+    with torch.inference_mode():
+        outs = {m: moe.apply(p, x, cfg=cfg, pcfg=pc)[0]
+                for m, pc in modes.items()}
+        B, T, d = x.shape
+        xg = x.reshape(1, B * T, d)
+        _, _, pos, _ = moe._route(p, xg, cfg)
+        C = moe.capacity(B * T, cfg)
+        kept = int((pos < C).sum())
+        dropped_tokens = int((pos >= C).all(-1).sum())
+        ms = {m: timed_ms(torch, lambda pc=pc: moe.apply(p, x, cfg=cfg,
+                                                         pcfg=pc))
+              for m, pc in modes.items()}
+    e, g = outs["einsum"].float(), outs["gather"].float()
+    scale = float(g.abs().max())
+    err = float((e - g).abs().max())
+    zero_e, zero_g = (o.abs().amax(-1) == 0 for o in (e, g))
+    E, k, f = cfg.n_experts, cfg.top_k, cfg.moe_d_ff
+    transport = 2 * 2 * B * T * E * C * d          # dispatch + combine
+    experts = 3 * 2 * E * C * d * f
+    print(f"moe: first MoE layer {list(x.shape)} bf16, group {B * T}, "
+          f"capacity {C}: {kept} of {B * T * k} slots kept, "
+          f"{dropped_tokens} tokens dropped whole; einsum vs gather max abs "
+          f"diff {err:.4e} (scale {scale:.4e}, ratio {err / scale:.3e}, "
+          f"tolerance {DISPATCH_TOL}); einsum_ms={ms['einsum']:.4f} "
+          f"gather_ms={ms['gather']:.4f} (einsum/gather "
+          f"{ms['einsum'] / ms['gather']:.3f}); one-hot transport "
+          f"{transport / 1e9:.1f} GFLOP beside the experts' "
+          f"{experts / 1e9:.1f} GFLOP a layer")
+    check(bool(torch.equal(zero_e, zero_g)),
+          "einsum and gather dispatch dropped different tokens")
+    check(err <= DISPATCH_TOL * scale,
+          f"einsum and gather dispatch differ by {err} (scale {scale})")
+
+
+def moe_flash_times(torch, captured) -> dict:
+    """(11d): flash_attention at the MoE path's global shape (the first
+    attention layer's captured q / k / v): held to its plain version and
+    timed beside SDPA and its bound."""
+    (q, k, v), kw = captured
+    err, err_r, excess = check_attention(torch, q, k, v, kw["causal"],
+                                         kw["window"])
+    ms, plain, lib, lib_err = attention_times(torch, q, k, v, kw["window"])
+    B, T, H, D = q.shape
+    ops = 4 * D * H * live_pairs(T, kw["window"])
+    n_bytes = 2 * q.nbytes + k.nbytes + v.nbytes
+    bnd, by = bound_ms(n_bytes, ops, PEAK_BF16_PER_S)
+    print(f"kernel flash_attention {MOE_ARCH} global q {list(q.shape)} k/v "
+          f"{list(k.shape)} {q.dtype} causal: kernel_ms={ms:.4f} "
+          f"bound_ms={bnd:.4f} ({ops} operations; {n_bytes} bytes) "
+          f"({ops / (ms * 1e-3) / 1e12:.2f} TFLOP/s, {ms / bnd:.2f}x the "
+          f"bound) plain_ms={plain:.4f} sdpa_ms={lib:.4f} (max err vs "
+          f"plain {lib_err:.3e}; {lib / ms:.3f}x the kernel's speed) "
+          f"max_abs_err={err:.3e} bf16_max_abs_err_vs_rounded_p={err_r:.3e} "
+          f"(beyond what rounding p allows: {excess:.3e})")
+    return {"shape": f"q {list(q.shape)} k/v {list(k.shape)}",
+            "max_abs_err": err, "ms": ms, "plain_ms": plain, "bound_ms": bnd,
+            "bound_by": by, "library_ms": lib}
+
+
+@contextlib.contextmanager
+def rounded_p_attention(torch):
+    """The flash launcher swapped for ``attention_rounded_p``: the bf16
+    kernel's numerics in plain PyTorch (p rounded to bf16), float32 sums
+    in another order."""
+    from repro_torch.kernels.flash_attention import kernel as fkernel
+
+    def attn(q, k, v, *, causal, window):
+        return attention_rounded_p(torch, q, k, v, causal, window).to(q.dtype)
+
+    with patched(fkernel, "flash_attention_fwd", attn):
+        yield
+
+
+def check_moe_layers(torch, cfg, params, prompts, last_logits) -> None:
+    """(11b): the long prompts through the kernel route against the plain
+    route, layer by layer.  One more kernel-route prefill (its logits
+    must be the served ones) records every layer's input, output and MoE
+    routing; each layer then runs again under ``plain_kernels()`` from
+    the recorded input with its routing pinned to the recorded one, and
+    its update (output minus input: attention plus MoE FFN) must lie
+    within ``LOGIT_TOL`` of the update's largest magnitude.  The last
+    logits of whole plain-route prefills are printed beside them: at
+    random weights the 48-layer bf16 stack is chaotic (a router's top-8
+    jumps across near ties, and the hidden states part further each
+    layer), so end to end the routes part by more than the scale."""
+    from repro_torch.models import model, moe, transformer
+    served = dict(last_logits)
+    dev = params["embed"]["w"].device
+    real_route, real_unit = moe._route, transformer._unit_apply
+
+    def prefill(prompt):
+        with torch.inference_mode():
+            logits, _ = model.prefill(
+                params, {"inputs": torch.tensor([prompt], device=dev)},
+                cfg=cfg, max_len=SERVE_LEN)
+        return logits[0].float().cpu()
+
+    for prompt in prompts[:len(LONG_PROMPTS)]:
+        routes, layers = [], []
+
+        def record_route(p, xg, cfg_):
+            out = real_route(p, xg, cfg_)
+            routes.append((out[1].clone(), out[2].clone()))
+            return out
+
+        def record_unit(unit, x, **kw):
+            first = len(routes)
+            out = real_unit(unit, x, **kw)
+            layers.append((unit, x.clone(), out[0].clone(), first, kw))
+            return out
+
+        with patched(moe, "_route", record_route), \
+                patched(transformer, "_unit_apply", record_unit):
+            got = prefill(prompt)
+        check(torch.equal(got, served[len(prompt)]),
+              f"prompt {len(prompt)}: a second kernel-route prefill gave "
+              f"other logits than the served one")
+        check(len(layers) == len(routes) == cfg.n_layers,
+              f"{len(layers)} layers and {len(routes)} routings recorded")
+        with plain_kernels():
+            plain = prefill(prompt)
+        with rounded_p_attention(torch):
+            rounded = prefill(prompt)
+        worst, flips = 0.0, []
+        for unit, x, y, first, kw in layers:
+            pending = iter(routes[first:first + 1])
+
+            def pinned(p, xg, cfg_):
+                _, eids, _, aux = real_route(p, xg, cfg_)
+                eids_k, pos_k = next(pending)
+                flips.append(int((eids.sort(-1).values
+                                  != eids_k.sort(-1).values).any(-1).sum()))
+                probs = torch.softmax(xg.float() @ p["router"], dim=-1)
+                gates = probs.gather(-1, eids_k)
+                return (gates / torch.clamp(gates.sum(-1, keepdim=True),
+                                            min=1e-9), eids_k, pos_k, aux)
+
+            with plain_kernels(), patched(moe, "_route", pinned), \
+                    torch.inference_mode():
+                want = real_unit(unit, x, **kw)[0]
+            upd, upd_want = (y.float() - x.float()), (want.float() - x.float())
+            worst = max(worst, float((upd - upd_want).abs().max())
+                        / float(upd_want.abs().max()))
+        ends = {name: float((got - o).abs().max()) / float(o.abs().max())
+                for name, o in (("plain", plain), ("rounded_p", rounded))}
+        print(f"serve: {cfg.name}: prompt {len(prompt)}: each of "
+              f"{len(layers)} layers from the kernel route's input, its "
+              f"update by the plain route with the routing pinned: worst "
+              f"max abs diff {worst:.3e} of the update's scale (tolerance "
+              f"{LOGIT_TOL}); tokens whose top-{cfg.top_k} the plain route "
+              f"would change there: first layer {flips[0]}, worst "
+              f"{max(flips)} of {len(prompt)}; end to end, last logits vs "
+              f"the plain route {ends['plain']:.3e} and vs the rounded-p "
+              f"attention {ends['rounded_p']:.3e} of their scale (argmax "
+              f"{int(got.argmax())}, {int(plain.argmax())}, "
+              f"{int(rounded.argmax())})")
+        check(worst <= LOGIT_TOL,
+              f"prompt {len(prompt)}: a layer's update by the kernel route "
+              f"differs from the plain route's by {worst} of its scale")
+
+
+def moe_phase(torch, seed: int):
+    """Phase 11: ``qwen3-moe-30b-a3b`` at its full config in bf16,
+    served; its logits against a plain-kernel reference; the two
+    dispatch modes on the first MoE layer; flash_attention at its shape.
+    Returns (serving launches, the flash timings at its shape)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import kernel as fkernel
+    from repro_torch.models import moe
+    cfg, params = lm_model(torch, seed, get_config(MOE_ARCH))
+    prompts = serve_prompts(cfg, seed)
+    captured = capture_calls(torch, cfg, params, prompts[0], {
+        "moe": (moe, "apply"), "attn": (fkernel, "flash_attention_fwd")})
+    dispatch_check(torch, cfg, captured["moe"])
+    with torch.inference_mode():
+        flash = moe_flash_times(torch, captured["attn"])
+    del captured
+    torch.cuda.empty_cache()
+    eng, reqs, launches, last_logits, steady_s = serve_family(
+        torch, cfg, params, prompts)
+    check_moe_layers(torch, cfg, params, prompts, last_logits)
+    profile_decode(torch, eng, steady_s)
+    profile_prefill(torch, cfg, params, prompts[0])
+    return launches, flash
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--records", type=int, default=10_000_000)
@@ -2444,12 +2853,25 @@ def main() -> None:
     m_launches = mesh_world1(torch, args.records, args.seed, tera)
     mesh_ranks(args.seed, min(args.records, MESH_RECORDS))
     print(f"mesh done at {time.perf_counter() - t0:.1f}s")
+
+    # phases 10-11: the xLSTM and MoE families served at full width, each
+    # on a card holding nothing of the earlier phases
+    t = fresh_card(torch, 10)
+    xlstm_phase(torch, args.seed)
+    print(f"phase 10 done in {time.perf_counter() - t:.1f}s (at "
+          f"{time.perf_counter() - t0:.1f}s)")
+    t = fresh_card(torch, 11)
+    moe_launches, rows["flash_attention"][MOE_ARCH] = moe_phase(torch,
+                                                                args.seed)
+    print(f"phase 11 done in {time.perf_counter() - t:.1f}s (at "
+          f"{time.perf_counter() - t0:.1f}s)")
     for name, by_path in (
             ("bucket_partition_rows", {
                 "partition": p_launches[0],
                 "mesh": m_launches["bucket_partition_rows"]}),
             ("flash_attention", {"serve": lm_launches[0],
-                                 "train": t_launches[0]}),
+                                 "train": t_launches[0],
+                                 "serve_" + MOE_ARCH: moe_launches[0]}),
             ("rg_lru_scan", {"serve": lm_launches[1],
                              "train": t_launches[1]}),
             ("rg_lru_scan_backward", {"train": t_launches[2]})):

@@ -80,7 +80,9 @@ def tensor_from_numpy(a: np.ndarray, device=None) -> torch.Tensor:
 def params_from_jax(tree_of_numpy, device=None):
     """The JAX package's parameter tree, its leaves as numpy arrays
     (``jax.tree.map(np.asarray, params)``), as the port's tree of tensors
-    on ``device`` (default CUDA): the same paths, shapes and types."""
+    on ``device`` (default CUDA): the same paths, shapes and types, a bf16
+    tree's float32 leaves included (the mLSTM's gate weights, the sLSTM's
+    biases, the MoE router) and the stacked ``[G, E, d, f]`` experts."""
     if isinstance(tree_of_numpy, dict):
         return {key: params_from_jax(sub, device)
                 for key, sub in tree_of_numpy.items()}
@@ -88,8 +90,9 @@ def params_from_jax(tree_of_numpy, device=None):
 
 
 def cache_from_jax(tree_of_numpy, device=None):
-    """The JAX package's decode cache (KV caches, ring ``kpos``, RG-LRU
-    states), as numpy, as the port's cache on ``device`` (default CUDA)."""
+    """The JAX package's decode cache (KV caches, ring ``kpos``, the
+    RG-LRU, mLSTM and sLSTM states, float32 beside the bf16 conv tails),
+    as numpy, as the port's cache on ``device`` (default CUDA)."""
     return params_from_jax(tree_of_numpy, device)
 
 

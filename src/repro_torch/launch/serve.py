@@ -1,8 +1,12 @@
 """Serving launcher: continuous-batching engine over a slot pool.
 
     python -m repro_torch.launch.serve --arch recurrentgemma-2b --smoke --device cpu
+    python -m repro_torch.launch.serve --arch xlstm-1.3b --smoke --device cpu
+    python -m repro_torch.launch.serve --arch qwen3-moe-30b-a3b
 
-The port of ``repro.launch.serve``, with the same flags plus
+Every decoder-only config runs (the ``A`` / ``L`` / ``R`` / ``m`` / ``s``
+layers, dense or MoE FFNs); the encoder-decoder and vision configs
+raise.  The port of ``repro.launch.serve``, with the same flags plus
 ``--device`` (default CUDA, which raises without a card).  ``--smoke``
 runs the config's reduced twin; without it the full config runs on one
 device, with no mesh.  Parameters are random from seed 0, as the JAX

@@ -228,11 +228,11 @@ def apply(
 ):
     """Returns (out [B,T,d_model], new_cache).  Cross-attention
     (``memory_kv``) belongs to the encoder-decoder stack, not ported yet
-    (``ROADMAP.md`` queue 1)."""
+    (``ROADMAP.md`` item 1.3b)."""
     if memory_kv is not None:
         raise NotImplementedError(
             "cross-attention: encoder-decoder models are not ported yet "
-            "(ROADMAP.md queue 1)")
+            "(ROADMAP.md item 1.3b)")
     is_local = layer_sym == "L"
     window = cfg.local_window if is_local else 0
     theta = cfg.rope_theta

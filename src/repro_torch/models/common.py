@@ -46,9 +46,20 @@ def sds(shape, dtype) -> TensorSpec:
 # Parameter materialization
 # ---------------------------------------------------------------------------
 
+# elements drawn at once when a leaf is filled slice by slice: 64 MiB of
+# float32 (a bigger slice of the leading axis is drawn alone)
+DRAW_ELEMS = 2 ** 24
+
+
 def _init_leaf(path: str, spec: TensorSpec, gen: torch.Generator,
                device) -> torch.Tensor:
-    """Fan-in-scaled normal init; norms/scales init to 1, biases/gates to 0."""
+    """Fan-in-scaled normal init; norms/scales init to 1, biases/gates to 0.
+
+    A leaf of more than one dimension is allocated in its own dtype and
+    filled a block of its leading axis at a time (as many slices as fit in
+    ``DRAW_ELEMS``, at least one), each block drawn in float32 and scaled,
+    so no leaf is ever held whole in float32: the MoE experts' ``[48, 128,
+    2048, 768]`` leaf alone would take 38.65 GB so."""
     name = path.rsplit("/", 1)[-1]
     shape, dtype = spec.shape, spec.dtype
     if name in ("scale",) or name.endswith("_norm"):
@@ -65,8 +76,18 @@ def _init_leaf(path: str, spec: TensorSpec, gen: torch.Generator,
         return torch.zeros(shape, dtype=dtype, device=device)
     fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
     std = 1.0 / math.sqrt(max(fan_in, 1))
-    return (torch.randn(shape, generator=gen, dtype=torch.float32,
-                        device=device) * std).to(dtype)
+    if len(shape) == 1:
+        return (torch.randn(shape, generator=gen, dtype=torch.float32,
+                            device=device) * std).to(dtype)
+    out = torch.empty(shape, dtype=dtype, device=device)
+    rows = max(1, DRAW_ELEMS // math.prod(shape[1:]))
+    for i in range(0, shape[0], rows):
+        # one float32 block alive at a time: drawn, scaled in place and
+        # copied into the leaf's dtype within one statement
+        out[i:i + rows].copy_(torch.randn(
+            (min(rows, shape[0] - i),) + shape[1:], generator=gen,
+            dtype=torch.float32, device=device).mul_(std))
+    return out
 
 
 def materialize(shape_tree, generator: torch.Generator, device):

@@ -94,7 +94,9 @@ def loss_fn(params, batch: dict, *, cfg: ModelConfig,
 
 def prefill(params, batch: dict, *, cfg: ModelConfig,
             pcfg: ParallelConfig = NO_PARALLEL, max_len: int = 0):
-    """Run the prompt, build the decode cache (capacity ``max_len``).
+    """Run the prompt, build the decode cache (capacity ``max_len``; a
+    stack without attention layers, as the xLSTM's, holds O(1) recurrent
+    state and leaves ``max_len`` unused).
 
     Returns (last_logits, cache)."""
     tokens = batch["inputs"]

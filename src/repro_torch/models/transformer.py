@@ -1,11 +1,13 @@
 """The layer stack: ``n_groups`` repetitions of the config's pattern unit.
 
-The port of ``repro.models.transformer`` for the layer kinds the serving
-path runs: ``A`` (global attention + FFN), ``L`` (sliding-window
-attention + FFN) and ``R`` (RG-LRU recurrent block + FFN).  The mLSTM /
-sLSTM blocks (``m``, ``s``), MoE FFNs, encoder-decoder stacks and the
-vision / audio frontends raise ``NotImplementedError``: they wait in
-``ROADMAP.md`` queue 1 (the rest of the LM stack).
+The port of ``repro.models.transformer`` for the decoder-only stacks:
+``A`` (global attention + FFN), ``L`` (sliding-window attention + FFN),
+``R`` (RG-LRU recurrent block + FFN), ``m`` (mLSTM block) and ``s``
+(sLSTM block); in the ``moe`` family every ``A`` / ``L`` layer's FFN is
+the MoE FFN (``models/moe.py``), whose load-balancing losses the stack
+sums into ``aux``.  Encoder-decoder stacks and the vision / audio
+frontends raise ``NotImplementedError``: they wait in ``ROADMAP.md``
+item 1.3b.
 
 Parameters (and decode caches / recurrent states) for the unit are
 stacked with a leading group dim, as in the JAX package, so the two
@@ -29,12 +31,12 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
-from repro_torch.models import attention, mlp, rglru
+from repro_torch.models import attention, mlp, moe, rglru, xlstm
 from repro_torch.models.common import rms_norm, sds, soft_cap
 from repro_torch.parallel.sharding import ParallelConfig, batch_spec, constrain
 from repro_torch.utils.pytree import tree_map, tree_map_with_path
 
-SUPPORTED_LAYERS = ("A", "L", "R")
+SUPPORTED_LAYERS = ("A", "L", "R", "m", "s")
 
 
 def check_supported(cfg: ModelConfig) -> None:
@@ -43,8 +45,6 @@ def check_supported(cfg: ModelConfig) -> None:
     missing = []
     if any(sym not in SUPPORTED_LAYERS for sym in cfg.block_pattern):
         missing.append(f"layer kinds {sorted(set(cfg.block_pattern))}")
-    if cfg.family == "moe":
-        missing.append("MoE FFNs")
     if cfg.is_encoder_decoder:
         missing.append("encoder-decoder stacks")
     if cfg.frontend:
@@ -52,7 +52,8 @@ def check_supported(cfg: ModelConfig) -> None:
     if missing:
         raise NotImplementedError(
             f"{cfg.name}: {', '.join(missing)} are not ported yet; the port "
-            f"runs {'/'.join(SUPPORTED_LAYERS)} layers (ROADMAP.md queue 1)")
+            f"runs decoder-only {'/'.join(SUPPORTED_LAYERS)} stacks "
+            f"(ROADMAP.md item 1.3b)")
 
 
 # ---------------------------------------------------------------------------
@@ -69,15 +70,24 @@ def _unit_shapes(cfg: ModelConfig) -> dict:
                 "norm1": {"scale": sds((d,), pd)},
                 "attn": attention.shapes(cfg),
                 "norm2": {"scale": sds((d,), pd)},
-                "mlp": mlp.shapes(cfg),
             }
-        else:  # "R"
+            if cfg.family == "moe":
+                layer["moe"] = moe.shapes(cfg)
+            else:
+                layer["mlp"] = mlp.shapes(cfg)
+        elif sym == "R":
             layer = {
                 "norm1": {"scale": sds((d,), pd)},
                 "rglru": rglru.shapes(cfg),
                 "norm2": {"scale": sds((d,), pd)},
                 "mlp": mlp.shapes(cfg),
             }
+        elif sym == "m":
+            layer = {"norm1": {"scale": sds((d,), pd)},
+                     "mlstm": xlstm.mlstm_shapes(cfg)}
+        else:  # "s"
+            layer = {"norm1": {"scale": sds((d,), pd)},
+                     "slstm": xlstm.slstm_shapes(cfg)}
         unit[f"layer{i}"] = layer
     return unit
 
@@ -105,6 +115,10 @@ def shapes(cfg: ModelConfig) -> dict:
 # Decode cache / recurrent state shapes
 # ---------------------------------------------------------------------------
 
+_STATE_SHAPES = {"R": rglru.state_shapes, "m": xlstm.mlstm_state_shapes,
+                 "s": xlstm.slstm_state_shapes}
+
+
 def _unit_cache_shapes(cfg: ModelConfig, batch: int, seq: int) -> dict:
     unit = {}
     for i, sym in enumerate(cfg.block_pattern):
@@ -112,8 +126,8 @@ def _unit_cache_shapes(cfg: ModelConfig, batch: int, seq: int) -> dict:
             ring = sym == "L" and cfg.local_window and cfg.local_window < seq
             layer = {"attn": attention.cache_shapes(
                 cfg, batch, seq, ring=ring, window=cfg.local_window)}
-        else:  # "R"
-            layer = {"rec": rglru.state_shapes(cfg, batch)}
+        else:  # "R", "m", "s"
+            layer = {"rec": _STATE_SHAPES[sym](cfg, batch)}
         unit[f"layer{i}"] = layer
     return unit
 
@@ -147,19 +161,19 @@ def _zero_state(shape_tree, device):
 def _unit_apply(unit_params, x, *, cfg: ModelConfig, pcfg: ParallelConfig,
                 positions, mode: str, unit_cache=None, max_len: int = 0):
     """Apply one pattern unit. Returns (x, new_cache, aux_loss); the aux
-    loss is zero: it comes from MoE FFNs, not ported yet."""
+    loss sums the unit's MoE layers' (zero without MoE)."""
     eps = cfg.norm_eps
     B = x.shape[0]
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     collect = mode == "prefill" or unit_cache is not None
     new_cache = {} if collect else None
 
-    def rec_state(i):
+    def rec_state(i, sym):
         if unit_cache is not None:
             return unit_cache[f"layer{i}"]["rec"]
         if mode != "prefill":
             return None
-        return _zero_state(rglru.state_shapes(cfg, B), x.device)
+        return _zero_state(_STATE_SHAPES[sym](cfg, B), x.device)
 
     for i, sym in enumerate(cfg.block_pattern):
         lp = unit_params[f"layer{i}"]
@@ -172,20 +186,37 @@ def _unit_apply(unit_params, x, *, cfg: ModelConfig, pcfg: ParallelConfig,
                 cache=lc["attn"] if lc is not None else None)
             x = x + out
             h = rms_norm(x, lp["norm2"]["scale"], eps)
-            x = x + mlp.apply(lp["mlp"], h, cfg=cfg, pcfg=pcfg)
+            if cfg.family == "moe":
+                ffn, aux_i = moe.apply(lp["moe"], h, cfg=cfg, pcfg=pcfg)
+                aux = aux + aux_i
+            else:
+                ffn = mlp.apply(lp["mlp"], h, cfg=cfg, pcfg=pcfg)
+            x = x + ffn
             if new_cache is not None:
                 new_cache[f"layer{i}"] = {
                     "attn": attn_cache if attn_cache is not None
                     else lc["attn"]}
-        else:  # "R"
+        elif sym == "R":
             h = rms_norm(x, lp["norm1"]["scale"], eps)
             out, st = rglru.apply(lp["rglru"], h, cfg=cfg,
-                                  state=rec_state(i),
+                                  state=rec_state(i, sym),
                                   chunk=pcfg.lru_chunk,
                                   unroll=pcfg.unroll_scans)
             x = x + out
             h = rms_norm(x, lp["norm2"]["scale"], eps)
             x = x + mlp.apply(lp["mlp"], h, cfg=cfg, pcfg=pcfg)
+            if new_cache is not None:
+                new_cache[f"layer{i}"] = {"rec": st}
+        else:  # "m", "s": one residual branch, no FFN of the stack's
+            h = rms_norm(x, lp["norm1"]["scale"], eps)
+            if sym == "m":
+                out, st = xlstm.mlstm_apply(lp["mlstm"], h, cfg=cfg,
+                                            state=rec_state(i, sym),
+                                            unroll=pcfg.unroll_scans)
+            else:
+                out, st = xlstm.slstm_apply(lp["slstm"], h, cfg=cfg,
+                                            state=rec_state(i, sym))
+            x = x + out
             if new_cache is not None:
                 new_cache[f"layer{i}"] = {"rec": st}
         x = constrain(x, pcfg, batch_spec(pcfg, None, None))

@@ -1,7 +1,9 @@
 """The parallel configuration the LM path reads, on one device.
 
 The port of the part of ``repro.parallel.sharding`` that the serving path
-reaches: ``ParallelConfig`` with the JAX package's fields and defaults,
+reaches: ``ParallelConfig`` with the JAX package's fields and defaults
+(``moe_dispatch`` ``"einsum"``, ``"gather"`` or ``"a2a"``, which runs
+``"gather"`` without a mesh, as in the JAX package),
 ``NO_PARALLEL``, and the sharding hints ``constrain`` / ``batch_spec`` /
 ``heads_spec``, which do nothing on one device.  The LM path's mesh is
 not ported yet (``ROADMAP.md`` item 1.3c): a ``ParallelConfig`` given one
@@ -23,7 +25,7 @@ class ParallelConfig:
     # --- optimization knobs (baseline values are paper-faithful) -----------
     mode: str = "pjit"                 # "pjit" | "podwise" (manual pod axis)
     remat: str = "full"                # "none" | "full" | "dots"
-    moe_dispatch: str = "einsum"       # "einsum" (GShard one-hot) | "gather"
+    moe_dispatch: str = "einsum"       # "einsum" (GShard) | "gather" | "a2a"
     compress_pod: str = "none"         # "none" | "bf16" | "int8_ef"
     attn_impl: str = "scan"            # "scan" | "rect" | "triangular" | "pallas"
     q_chunk: int = 2048
@@ -45,7 +47,7 @@ class ParallelConfig:
         if self.mesh is not None:
             raise NotImplementedError(
                 "the port runs the LM path on one device: a mesh is not "
-                "ported yet (ROADMAP.md queue 1)")
+                "ported yet (ROADMAP.md item 1.3c)")
 
     @property
     def data_axes(self) -> Tuple[str, ...]:

@@ -4,8 +4,11 @@ The port of ``repro.serve.engine``.  Decode runs as one batched step over
 ``max_batch`` slots; requests stream in and out of slots (continuous
 batching).  Prefill runs each admitted prompt alone (batch 1) at its own
 length, and its cache is written into the pooled ``[G, B, ...]`` cache at
-the slot index, in place (the JAX package returns a new pool).  Finished
-slots (EOS or token budget) are recycled immediately.
+the slot index, in place (the JAX package returns a new pool): every
+leaf of the slot, whatever its type (the bf16 KV caches, the float32
+RG-LRU / mLSTM / sLSTM states), is overwritten whole, so a recycled slot
+keeps nothing of its last request.  Finished slots (EOS or token budget)
+are recycled immediately.
 
 Everything runs under ``torch.inference_mode()``.  Each request carries
 host-clock stamps (``time.perf_counter``): ``t_submit``, ``t_admit``
@@ -86,7 +89,7 @@ class ServeEngine:
         if enc_frames is not None or self.cfg.is_encoder_decoder:
             raise NotImplementedError(
                 "encoder-decoder serving is not ported yet (ROADMAP.md "
-                "queue 1)")
+                "item 1.3b)")
         req = Request(self._rid, [int(t) for t in prompt], max_new,
                       t_submit=time.perf_counter())
         self._rid += 1

@@ -39,7 +39,13 @@ gradients' scale of autograd through the loop, the flash gradient within
 a training step's loss within rtol 1e-5 and gradients within 1e-4 of
 each leaf's scale of the CPU's.  LM prefill / decode logits on the
 card within 1e-4 of the logits' scale of the CPU run in float32, and
-greedy ``ServeEngine`` tokens identical.
+greedy ``ServeEngine`` tokens identical.  The reduced xLSTM and MoE
+stacks: logits on the card within 1e-4 of the scale plus three times
+what the CPU run's own logits move under a one-ulp change of the
+embeddings; the chunkwise mLSTM within rtol 1e-4 / atol 1e-5 of the
+sequential oracle and the two MoE dispatch modes within the same of each
+other (the JAX package's own tests' tolerances), the MoE routing equal to
+the CPU's, the gather combine the same bits from run to run.
 """
 import sys
 from pathlib import Path
@@ -884,3 +890,151 @@ def test_cuda_train_step_through_kernels(cuda, remat):
     for got, want in zip(out["cuda"][1], out["cpu"][1]):
         scale = float(want.abs().max())
         torch.testing.assert_close(got, want, rtol=0, atol=1e-4 * scale)
+
+
+# ------------------------------------------- the xLSTM and MoE families
+def _one_ulp(params):
+    """``params`` with every embedding entry moved by one float32 ulp (a
+    sign drawn from a seed)."""
+    e = params["embed"]["w"]
+    sign = torch.from_numpy(np.random.default_rng(0).choice(
+        [-1.0, 1.0], tuple(e.shape)).astype(np.float32))
+    return dict(params, embed={"w": e * (1 + 2.0 ** -23 * sign)})
+
+
+@pytest.mark.parametrize("name", ["xlstm-1.3b", "qwen3-moe-30b-a3b"])
+def test_cuda_new_families_prefill_and_decode(cuda, name):
+    """Reduced ``xlstm-1.3b`` / ``qwen3-moe-30b-a3b`` (float32): a
+    prefill and three decode steps on the card against the CPU, within
+    1e-4 of the logits' scale plus three times the CPU run's own spread
+    (what its logits move when the embeddings move by one ulp: the
+    reduced xLSTM stack at random weights amplifies float32 rounding to
+    about 1e-3 of the scale); a prefill launches ``flash_attention`` once
+    per attention layer (the MoE stack's 2, the xLSTM's 0) and
+    ``rg_lru_scan`` never."""
+    cfg, p_cpu = _lm(name)
+    n_attn = cfg.n_groups * sum(s in "AL" for s in cfg.block_pattern)
+    assert n_attn == (2 if name == "qwen3-moe-30b-a3b" else 0)
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (1, 100)).astype(np.int32))
+    out = {}
+    with torch.inference_mode():
+        for dev, params in (("cpu", p_cpu), ("ulp", _one_ulp(p_cpu)),
+                            ("cuda", _to(p_cpu, cuda))):
+            where = "cpu" if dev == "ulp" else dev
+            f0, l0 = fkernel.launches, lkernel.launches
+            logits, cache = tmodel.prefill(
+                params, {"inputs": toks.to(where)}, cfg=cfg, max_len=128)
+            prefill_launches = (fkernel.launches - f0, lkernel.launches - l0)
+            steps = [logits.cpu()]
+            for i in range(3):
+                lg, cache = tmodel.decode_step(
+                    params, cache,
+                    torch.tensor([[7 + i]], dtype=torch.int32, device=where),
+                    torch.tensor([100 + i], dtype=torch.int32,
+                                 device=where), cfg=cfg)
+                steps.append(lg.cpu())
+            out[dev] = (steps, prefill_launches,
+                        (fkernel.launches - f0, lkernel.launches - l0))
+    assert out["cpu"][1:] == ((0, 0), (0, 0))
+    assert out["cuda"][1:] == ((n_attn, 0), (n_attn, 0))
+    for got, want, ulp in zip(out["cuda"][0], out["cpu"][0], out["ulp"][0]):
+        spread = float((ulp - want).abs().max())
+        torch.testing.assert_close(
+            got, want, rtol=0,
+            atol=1e-4 * float(want.abs().max()) + 3 * spread)
+
+
+@pytest.mark.parametrize("T,chunk", [(64, 16), (96, 256), (33, 256)])
+def test_cuda_mlstm_chunkwise_matches_sequential(cuda, T, chunk,
+                                                 monkeypatch):
+    """The chunkwise mLSTM on the card against the port's sequential
+    oracle on the card (float32, the reduced config's block), within the
+    JAX test's rtol 1e-4 / atol 1e-5: chunks of 16, of 32 (96 halved
+    from 256) and of one token (an odd T)."""
+    from repro_torch.models import common as tcommon
+    from repro_torch.models import xlstm as txlstm
+    monkeypatch.setattr(txlstm, "CHUNK", chunk)
+    cfg, _ = _lm("xlstm-1.3b")
+    p = tcommon.materialize(txlstm.mlstm_shapes(cfg),
+                            torch.Generator().manual_seed(1), cuda)
+    x = torch.randn((2, T, cfg.d_model),
+                    generator=torch.Generator().manual_seed(2)).to(cuda)
+    with torch.inference_mode():
+        got, _ = txlstm.mlstm_apply(p, x, cfg=cfg)
+        want = txlstm.mlstm_sequential_oracle(p, x, cfg=cfg)
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5)
+
+
+def _moe_case(cuda, dtype, d=256, E=16, k=4, f=128, tokens=(2, 256)):
+    from repro_torch.models import common as tcommon
+    from repro_torch.models import moe as tmoe
+    cfg = tconfigs.get_config("qwen3-moe-30b-a3b").replace(
+        d_model=d, n_experts=E, top_k=k, moe_d_ff=f, param_dtype=dtype,
+        compute_dtype=dtype)
+    p = tcommon.materialize(tmoe.shapes(cfg), torch.Generator().manual_seed(3),
+                            cuda)
+    x = torch.randn(tokens + (d,), generator=torch.Generator().manual_seed(4)
+                    ).to(getattr(torch, dtype)).to(cuda)
+    return cfg, p, x
+
+
+@pytest.mark.parametrize("factor", [8.0, 1.25])
+def test_cuda_moe_einsum_matches_gather(cuda, factor, monkeypatch):
+    """The two dispatch modes on the card (float32) agree with no drops
+    and at the default capacity (the same tokens dropped), within the
+    JAX test's rtol 1e-4 / atol 1e-5; the routing equals the CPU's."""
+    from repro_torch.models import moe as tmoe
+    from repro_torch.parallel.sharding import ParallelConfig
+    monkeypatch.setattr(tmoe, "CAPACITY_FACTOR", factor)
+    cfg, p, x = _moe_case(cuda, "float32")
+    with torch.inference_mode():
+        oe, ae = tmoe.apply(p, x, cfg=cfg,
+                            pcfg=ParallelConfig(moe_dispatch="einsum"))
+        og, ag = tmoe.apply(p, x, cfg=cfg,
+                            pcfg=ParallelConfig(moe_dispatch="gather"))
+        xg = x.reshape(1, -1, cfg.d_model)
+        route = tmoe._route(p, xg, cfg)
+        route_cpu = tmoe._route(_to(p, "cpu"), xg.cpu(), cfg)
+    torch.testing.assert_close(oe, og, rtol=1e-4, atol=1e-5)
+    torch.testing.assert_close(ae, ag, rtol=1e-6, atol=0)
+    for got, want in zip(route[1:3], route_cpu[1:3]):   # eids, pos
+        assert torch.equal(got.cpu(), want)
+
+
+def test_cuda_moe_gather_combine_is_deterministic(cuda):
+    """The gather route's combine sums each token's own slots (no atomic
+    adds): two runs on the card give the same bits, in bf16 and
+    float32."""
+    from repro_torch.models import moe as tmoe
+    from repro_torch.parallel.sharding import ParallelConfig
+    for dtype in ("bfloat16", "float32"):
+        cfg, p, x = _moe_case(cuda, dtype, tokens=(4, 1024))
+        pcfg = ParallelConfig(moe_dispatch="gather")
+        with torch.inference_mode():
+            runs = [tmoe.apply(p, x, cfg=cfg, pcfg=pcfg)[0]
+                    for _ in range(2)]
+        assert torch.equal(runs[0], runs[1]), dtype
+
+
+def test_cuda_materialize_holds_no_float32_copy_of_a_leaf(cuda):
+    """An expert leaf ``[4, 16, 2048, 768]`` in bf16 (201 MB; 403 MB in
+    float32) is drawn a slice of its leading axis at a time: the peak
+    above the start is the leaf and one float32 slice (101 MB), never
+    the leaf in float32; the values are the fan-in-scaled normal's."""
+    from repro_torch.models import common as tcommon
+    spec = {"moe": {"wi": tcommon.sds((4, 16, 2048, 768), torch.bfloat16)}}
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    leaf = tcommon.materialize(spec, torch.Generator().manual_seed(5),
+                               cuda)["moe"]["wi"]
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    slice_f32 = 16 * 2048 * 768 * 4
+    assert leaf.dtype == torch.bfloat16
+    assert peak <= leaf.nbytes + slice_f32 + (1 << 20), peak
+    assert peak < 2 * leaf.nbytes, peak
+    std = float(leaf.float().std())
+    assert abs(std * 2048 ** 0.5 - 1.0) < 0.01, std

@@ -25,6 +25,7 @@ from repro_torch.kernels.rg_lru_scan import kernel as lkernel
 from repro_torch.launch import serve as tlaunch
 from repro_torch.models import model as tmodel
 from repro_torch.serve import SamplerConfig, ServeEngine
+from repro_torch.utils.pytree import tree_flatten_with_paths
 
 
 def _f32(cfg):
@@ -37,7 +38,8 @@ def _prompts(vocab, lengths, seed=0):
     return [[int(t) for t in rng.integers(0, vocab, n)] for n in lengths]
 
 
-@pytest.mark.parametrize("name", ["recurrentgemma-2b", "qwen2.5-3b"])
+@pytest.mark.parametrize("name", ["recurrentgemma-2b", "qwen2.5-3b",
+                                  "xlstm-1.3b", "qwen3-moe-30b-a3b"])
 def test_serve_matches_jax_engine(name):
     jcfg = _f32(ARCHS[name])
     tcfg = _f32(tconfigs.get_config(name))
@@ -114,6 +116,41 @@ def test_launcher_smoke_on_cpu(capsys):
                          "--device", "cpu", "--requests", "3",
                          "--max-new", "4"]) == 0
     assert "3 requests, 12 tokens" in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("name", ["xlstm-1.3b", "qwen3-moe-30b-a3b"])
+def test_launcher_serves_the_xlstm_and_moe_families(name, capsys):
+    """``--arch xlstm-1.3b`` / ``qwen3-moe-30b-a3b`` with ``--smoke
+    --device cpu``: the reduced configs, sampled, 3 requests over 4
+    slots; the engine's pool holds the float32 recurrent states beside
+    the bf16 caches."""
+    assert tlaunch.main(["--arch", name, "--smoke", "--device", "cpu",
+                         "--requests", "3", "--max-new", "4"]) == 0
+    assert "3 requests, 12 tokens" in capsys.readouterr().out
+
+
+def test_slot_pool_overwrites_a_recycled_xlstm_slot():
+    """A recycled slot keeps nothing of its last request: each float32
+    state leaf and bf16 conv tail of the slot equals a fresh prefill's
+    cache for the new prompt."""
+    cfg = tconfigs.get_config("xlstm-1.3b").reduced()
+    params = tmodel.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    eng = ServeEngine(cfg, params, max_batch=1, max_len=32,
+                      scfg=SamplerConfig(temperature=0.0), device="cpu")
+    prompts = _prompts(cfg.vocab_size, [9, 5], seed=4)
+    eng.submit(prompts[0], max_new=3)
+    eng.run()
+    eng.submit(prompts[1], max_new=3)
+    eng._admit()
+    with torch.inference_mode():
+        _, want = tmodel.prefill(params, {"inputs": torch.tensor(
+            [prompts[1]], dtype=torch.int32)}, cfg=cfg, max_len=32)
+    dtypes = set()
+    for (path, got), (_, w) in zip(tree_flatten_with_paths(eng.cache),
+                                   tree_flatten_with_paths(want)):
+        dtypes.add(got.dtype)
+        assert torch.equal(got, w), path
+    assert dtypes == {torch.float32, torch.bfloat16}
 
 
 def test_engine_device_rules(monkeypatch):
