@@ -206,6 +206,40 @@ and passed over.
    bound (the kernels line's ``flash_attention`` row carries it under
    ``"qwen3-moe-30b-a3b"``).  Prints the serving lines and the peak
    device memory.
+12. **Serving ``seamless-m4t-large-v2``** (arXiv:2308.11596: 24 encoder
+   and 24 decoder layers, ``d_model`` 1024, 16 heads of 64, d_ff 8192,
+   vocab 256,206; 2,035,935,232 parameters, 4,071,870,464 bytes, from
+   ``--seed``, nothing cut) on a fresh card: (b) ``flash_attention`` at
+   its three routes on the first
+   layers' activations, captured from the 3,072-token prefill over 4,096
+   frames (the encoder's non-causal self-attention ``[1, 4096, 16, 64]``,
+   the decoder's causal one ``[1, 3072, 16, 64]``, the cross-attention
+   of 3,072 queries over the 4,096 memory rows), each held as in phase 6
+   and timed beside SDPA and its bound; (a) phase 7's requests, each with
+   ``[1, 4096, 1024]`` frames from ``--seed``, with exactly 72
+   ``flash_attention`` launches a request (24 encoder, 24 decoder self,
+   24 cross); (c) every encoder and decoder layer of the long prompt's
+   prefill from the kernel route's input against the plain route, as
+   phase 11 (b) holds its layers; (d) the cross cache's plumbing in
+   float32 at full width on one encoder and one decoder layer: a prefill
+   of 511 tokens over 4,096 frames and one ``decode_step`` over the
+   cached ``xk`` / ``xv`` match the forward's last two logit rows within
+   1e-4 of their scale.  Prints the serving lines, one profiled decode
+   step and one profiled prefill.
+13. **Serving ``llava-next-mistral-7b``** (hf:llava-hf/llava-v1.6-mistral-
+   7b-hf: 32 layers, ``d_model`` 4096, GQA 32 / 8 heads of 128, d_ff
+   14,336, vocab 32,000, the vision projector; 7,275,286,528 parameters,
+   14,550,573,056 bytes, from ``--seed``, nothing cut) on a fresh card:
+   (b) one image prompt of 3,072 tokens with 2,880 anyres patch
+   positions at 5..2884 and patch embeddings from ``--seed`` through
+   ``model.prefill`` (32 ``flash_attention`` launches) and 31 greedy
+   ``decode_step``s (none): ``splice_patches``
+   equals a plain scatter of the projector's output exactly; prints its
+   time to first token and decode tokens/s; (c) ``flash_attention`` at
+   its first layer's captured shape (q ``[1, 3072, 32, 128]``, k / v
+   ``[1, 3072, 8, 128]``, causal), held and timed as in 12 (b); (a)
+   phase 7's text requests, 32 launches a prefill.  Prints the serving
+   lines and the profiles.
 
 The line before the last is one JSON object describing every kernel; the
 last line is
@@ -1381,30 +1415,33 @@ def serve_prompts(cfg, seed: int, long=LONG_PROMPTS, short=(16, 513)):
     return [rng.integers(0, cfg.vocab_size, n).tolist() for n in lengths]
 
 
-def capture_calls(torch, cfg, params, prompt, hooks, max_len=SERVE_LEN):
-    """One prefill of ``prompt``; ``hooks`` maps a label to ``(module,
-    name)``.  Returns ``{label: (args, kwargs)}`` of each hooked
-    function's first call, its tensors cloned, and prints the prefill's
-    seconds."""
+def capture_calls(torch, cfg, params, prompt, hooks, max_len=SERVE_LEN,
+                  extra=None):
+    """One prefill of ``prompt`` (and the batch entries ``extra``: frames
+    or patches); ``hooks`` maps a label to ``(module, name)``, or to
+    ``(module, name, n)`` for that function's call numbered n (from 0).
+    Returns ``{label: (args, kwargs)}`` of each hooked call, its tensors
+    cloned, and prints the prefill's seconds."""
     from repro_torch.models import model
-    got = {}
+    got, seen = {}, {}
 
-    def spy(label, real):
+    def spy(label, real, n):
         def call(*args, **kw):
-            got.setdefault(label, (
-                tuple(a.clone() if isinstance(a, torch.Tensor) else a
-                      for a in args), kw))
+            if seen.setdefault(label, 0) == n:
+                got[label] = (tuple(a.clone() if isinstance(a, torch.Tensor)
+                                    else a for a in args), kw)
+            seen[label] += 1
             return real(*args, **kw)
         return call
 
     dev = params["embed"]["w"].device
     with contextlib.ExitStack() as stack, torch.inference_mode():
-        for label, (module, name) in hooks.items():
-            stack.enter_context(patched(module, name,
-                                        spy(label, getattr(module, name))))
+        for label, (module, name, *n) in hooks.items():
+            stack.enter_context(patched(module, name, spy(
+                label, getattr(module, name), n[0] if n else 0)))
         t = time.perf_counter()
-        model.prefill(params, {"inputs": torch.tensor([prompt], device=dev)},
-                      cfg=cfg, max_len=max_len)
+        model.prefill(params, {"inputs": torch.tensor([prompt], device=dev),
+                               **(extra or {})}, cfg=cfg, max_len=max_len)
         sync(torch, dev)
     print(f"lm: {cfg.name}: capture prefill of {len(prompt)} tokens (the "
           f"first, cold) {time.perf_counter() - t:.3f}s")
@@ -1514,23 +1551,29 @@ def check_attention(torch, q, k, v, causal, window):
     return err, err_r, excess
 
 
-def live_pairs(T: int, window: int) -> int:
-    """Query-key pairs a causal (windowed) attention over T tokens
-    computes."""
-    return sum(min(t + 1, window) if window else t + 1 for t in range(T))
+def live_pairs(T: int, S: int, causal: bool, window: int) -> int:
+    """Query-key pairs an attention of T queries over S keys computes:
+    key s is live for query t when s <= t (causal) and t - s < window
+    (a window)."""
+    n = 0
+    for t in range(T):
+        hi = min(t + 1, S) if causal else S
+        lo = max(0, t - window + 1) if window else 0
+        n += max(0, hi - lo)
+    return n
 
 
-def attention_times(torch, q, k, v, window):
+def attention_times(torch, q, k, v, causal, window):
     """(kernel ms, plain ms, SDPA ms, SDPA's max error against the
-    plain version) of causal attention over (q, k, v), timed as in
-    phase 2."""
+    plain version) of attention over (q, k, v), timed as in phase 2;
+    SDPA is told ``is_causal`` or given the window's mask."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention import kernel, ref
     ms = timed_ms(torch, lambda: kernel.flash_attention_fwd(
-        q, k, v, causal=True, window=window))
+        q, k, v, causal=causal, window=window))
     plain = timed_ms(torch, lambda: ref.flash_attention_ref(
-        q, k, v, causal=True, window=window))
+        q, k, v, causal=causal, window=window))
     qs, ks, vs = (x.transpose(1, 2).contiguous() for x in (q, k, v))
     mask = (_sdpa_mask(torch, q.shape[1], k.shape[1], window, q.device)
             if window else None)
@@ -1538,11 +1581,11 @@ def attention_times(torch, q, k, v, window):
     def lib():
         if mask is None:
             return F.scaled_dot_product_attention(
-                qs, ks, vs, is_causal=True, enable_gqa=True)
+                qs, ks, vs, is_causal=causal, enable_gqa=True)
         return F.scaled_dot_product_attention(
             qs, ks, vs, attn_mask=mask, enable_gqa=True)
     lib_err = float((lib().transpose(1, 2).float() - ref.flash_attention_ref(
-        q, k, v, causal=True, window=window).float()).abs().max())
+        q, k, v, causal=causal, window=window).float()).abs().max())
     return ms, plain, timed_ms(torch, lib), lib_err
 
 
@@ -1583,8 +1626,8 @@ def flash_phase(torch, captured):
     B, T, H, D = q.shape
 
     # the path's local layer: the captured activations
-    ms, plain, lib, lib_err = attention_times(torch, q, k, v, window)
-    live = live_pairs(T, window)
+    ms, plain, lib, lib_err = attention_times(torch, q, k, v, causal, window)
+    live = live_pairs(T, T, causal, window)
     f_ops = 4 * D * H * live
     f_bytes = 2 * q.nbytes + k.nbytes + v.nbytes
     f_bound, f_by = bound_ms(f_bytes, f_ops, PEAK_BF16_PER_S)
@@ -1604,8 +1647,9 @@ def flash_phase(torch, captured):
     gq, gk, gv = (rand(shape, torch.bfloat16) for shape in (
         (1, T, 16, 128), (1, T, 2, 128), (1, T, 2, 128)))
     compare(gq, gk, gv, True, 0)
-    g_ms, g_plain, g_lib, g_lib_err = attention_times(torch, gq, gk, gv, 0)
-    g_ops = 4 * 128 * 16 * live_pairs(T, 0)
+    g_ms, g_plain, g_lib, g_lib_err = attention_times(torch, gq, gk, gv,
+                                                      True, 0)
+    g_ops = 4 * 128 * 16 * live_pairs(T, T, True, 0)
     g_bound, _ = bound_ms(2 * gq.nbytes + gk.nbytes + gv.nbytes, g_ops,
                           PEAK_BF16_PER_S)
     print(f"kernel flash_attention global q {list(gq.shape)} k/v "
@@ -1675,9 +1719,11 @@ def lru_phase(torch, captured):
 
 
 def serve_path(torch, cfg, params, prompts, max_len=SERVE_LEN,
-               max_new=MAX_NEW, slots=SERVE_SLOTS, device="cuda"):
-    """The requests through the port's ServeEngine, one host-clock time
-    per step.  Returns (engine, requests, [(seconds, admitted, active)],
+               max_new=MAX_NEW, slots=SERVE_SLOTS, device="cuda",
+               frames=None):
+    """The requests through the port's ServeEngine (an encoder-decoder's
+    with ``frames``, one array a request), one host-clock time per step.
+    Returns (engine, requests, [(seconds, admitted, active)],
     (flash_attention, rg_lru_scan) launches, [(prompt length, last
     prefill logits)], peak device memory)."""
     from repro_torch.kernels.flash_attention import kernel as fkernel
@@ -1703,7 +1749,8 @@ def serve_path(torch, cfg, params, prompts, max_len=SERVE_LEN,
     fkernel.launches = 0
     lkernel.launches = 0
     with patched(model, "prefill", prefill):
-        reqs = [eng.submit(p, max_new=max_new) for p in prompts]
+        reqs = [eng.submit(p, max_new=max_new, enc_frames=f) for p, f in
+                zip(prompts, frames or [None] * len(prompts))]
         while eng.queue or any(r is not None for r in eng.slot_req):
             queued = len(eng.queue)
             t = time.perf_counter()
@@ -1737,6 +1784,17 @@ def report_serve(reqs, steps, launches, peak) -> float:
     return statistics.median(sec for sec, _ in steady)
 
 
+def flash_per_prefill(cfg) -> int:
+    """``flash_attention`` launches of one prefill: one per attention
+    layer, and for an encoder-decoder one per encoder layer and two per
+    decoder layer (self and cross)."""
+    per_unit = sum(s in "AL" for s in cfg.block_pattern)
+    n = cfg.n_groups * per_unit
+    if cfg.is_encoder_decoder:
+        n = 2 * n + cfg.n_enc_layers // cfg.pattern_len * per_unit
+    return n
+
+
 def check_serve(cfg, eng, reqs, steps, launches, max_new=MAX_NEW) -> None:
     for r in reqs:
         check(r.done and len(r.out) == max_new,
@@ -1744,9 +1802,9 @@ def check_serve(cfg, eng, reqs, steps, launches, max_new=MAX_NEW) -> None:
         check(all(0 <= t < cfg.vocab_size for t in r.out),
               f"request {r.rid} has tokens outside the vocabulary")
     check(all(s is None for s in eng.slot_req), "a slot was not recycled")
-    n_attn = cfg.n_groups * sum(s in "AL" for s in cfg.block_pattern)
     n_rec = cfg.n_groups * cfg.block_pattern.count("R")
-    want = (n_attn * len(reqs), n_rec * (len(reqs) + len(steps)))
+    want = (flash_per_prefill(cfg) * len(reqs),
+            n_rec * (len(reqs) + len(steps)))
     check(launches == want,
           f"launches (flash_attention, rg_lru_scan) {launches}, expected "
           f"{want} for {len(reqs)} prefills and {len(steps)} decode steps")
@@ -1830,15 +1888,16 @@ def profile_decode(torch, eng, steady_s: float) -> None:
                       for name, n, ms in on_card[:8]))
 
 
-def profile_prefill(torch, cfg, params, prompt, max_len=SERVE_LEN) -> None:
-    """One more prefill of ``prompt`` (after a warm one) under
-    ``torch.profiler``: the device's busy time against the host clock,
-    and the device time of the largest kernels.  A measurement only: the
-    checked run is over."""
+def profile_prefill(torch, cfg, params, prompt, max_len=SERVE_LEN,
+                    extra=None) -> None:
+    """One more prefill of ``prompt`` (with the batch entries ``extra``,
+    after a warm one) under ``torch.profiler``: the device's busy time
+    against the host clock, and the device time of the largest kernels.
+    A measurement only: the checked run is over."""
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.models import model
     dev = params["embed"]["w"].device
-    batch = {"inputs": torch.tensor([prompt], device=dev)}
+    batch = {"inputs": torch.tensor([prompt], device=dev), **(extra or {})}
     with torch.inference_mode():
         model.prefill(params, batch, cfg=cfg, max_len=max_len)
         torch.cuda.synchronize()
@@ -2427,12 +2486,14 @@ CONSISTENCY_LEN = 512           # (10c): the float32 prompt
 DISPATCH_TOL = 2e-2             # (11c): einsum vs gather, of the scale
 
 
-def serve_family(torch, cfg, params, prompts):
-    """Phase 7's harness on another family: serve, check (tokens, slots,
-    the launches a prefill and a step make), report.  Returns (engine,
-    requests, launches, last logits, median steady step seconds)."""
+def serve_family(torch, cfg, params, prompts, frames=None):
+    """Phase 7's harness on another family (with an encoder-decoder's
+    ``frames``): serve, check (tokens, slots, the launches a prefill and
+    a step make), report.  Returns (engine, requests, launches, last
+    logits, median steady step seconds)."""
     eng, reqs, steps, launches, last_logits, peak = serve_path(
-        torch, cfg, params, prompts, device=params["embed"]["w"].device.type)
+        torch, cfg, params, prompts, device=params["embed"]["w"].device.type,
+        frames=frames)
     check_serve(cfg, eng, reqs, steps, launches)
     steady_s = report_serve(reqs, steps, launches, peak)
     long_s = {len(r.prompt): r.t_first - r.t_admit for r in reqs
@@ -2593,20 +2654,20 @@ def dispatch_check(torch, cfg, captured) -> None:
           f"einsum and gather dispatch differ by {err} (scale {scale})")
 
 
-def moe_flash_times(torch, captured) -> dict:
-    """(11d): flash_attention at the MoE path's global shape (the first
-    attention layer's captured q / k / v): held to its plain version and
-    timed beside SDPA and its bound."""
+def path_flash_times(torch, label, captured) -> dict:
+    """(11d, 12b, 13c): flash_attention at a serving path's shape (a
+    captured launch's q / k / v): held to its plain version and the
+    rounded-p oracle, and timed beside SDPA and its bound."""
     (q, k, v), kw = captured
-    err, err_r, excess = check_attention(torch, q, k, v, kw["causal"],
-                                         kw["window"])
-    ms, plain, lib, lib_err = attention_times(torch, q, k, v, kw["window"])
+    causal, window = kw["causal"], kw["window"]
+    err, err_r, excess = check_attention(torch, q, k, v, causal, window)
+    ms, plain, lib, lib_err = attention_times(torch, q, k, v, causal, window)
     B, T, H, D = q.shape
-    ops = 4 * D * H * live_pairs(T, kw["window"])
+    ops = 4 * D * H * live_pairs(T, k.shape[1], causal, window)
     n_bytes = 2 * q.nbytes + k.nbytes + v.nbytes
     bnd, by = bound_ms(n_bytes, ops, PEAK_BF16_PER_S)
-    print(f"kernel flash_attention {MOE_ARCH} global q {list(q.shape)} k/v "
-          f"{list(k.shape)} {q.dtype} causal: kernel_ms={ms:.4f} "
+    print(f"kernel flash_attention {label} q {list(q.shape)} k/v "
+          f"{list(k.shape)} {q.dtype} causal={causal}: kernel_ms={ms:.4f} "
           f"bound_ms={bnd:.4f} ({ops} operations; {n_bytes} bytes) "
           f"({ops / (ms * 1e-3) / 1e12:.2f} TFLOP/s, {ms / bnd:.2f}x the "
           f"bound) plain_ms={plain:.4f} sdpa_ms={lib:.4f} (max err vs "
@@ -2614,8 +2675,9 @@ def moe_flash_times(torch, captured) -> dict:
           f"max_abs_err={err:.3e} bf16_max_abs_err_vs_rounded_p={err_r:.3e} "
           f"(beyond what rounding p allows: {excess:.3e})")
     return {"shape": f"q {list(q.shape)} k/v {list(k.shape)}",
-            "max_abs_err": err, "ms": ms, "plain_ms": plain, "bound_ms": bnd,
-            "bound_by": by, "library_ms": lib}
+            "causal": causal, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain, "bound_ms": bnd, "bound_by": by,
+            "library_ms": lib}
 
 
 @contextlib.contextmanager
@@ -2734,7 +2796,8 @@ def moe_phase(torch, seed: int):
         "moe": (moe, "apply"), "attn": (fkernel, "flash_attention_fwd")})
     dispatch_check(torch, cfg, captured["moe"])
     with torch.inference_mode():
-        flash = moe_flash_times(torch, captured["attn"])
+        flash = path_flash_times(torch, f"{MOE_ARCH} global",
+                                 captured["attn"])
     del captured
     torch.cuda.empty_cache()
     eng, reqs, launches, last_logits, steady_s = serve_family(
@@ -2743,6 +2806,256 @@ def moe_phase(torch, seed: int):
     profile_decode(torch, eng, steady_s)
     profile_prefill(torch, cfg, params, prompts[0])
     return launches, flash
+
+
+# ------------------------------------------------------------ phases 12-13
+ENCDEC_ARCH, VLM_ARCH = "seamless-m4t-large-v2", "llava-next-mistral-7b"
+PLUMBING_TOL = 1e-4             # (12d): of the forward's last logits' |max|
+PATCH_START = 5                 # (13b): the anyres patches' first position
+
+
+def serve_frames(cfg, seed: int, n: int = N_REQUESTS, rows: int = SERVE_LEN):
+    """One float32 ``[1, rows, d_model]`` array of encoder frames a
+    request, drawn from ``seed``."""
+    rng = np.random.default_rng([seed, 12])
+    return [rng.standard_normal((1, rows, cfg.d_model), dtype=np.float32)
+            for _ in range(n)]
+
+
+def check_unit_layers(torch, cfg, params, batch, served=None) -> None:
+    """(12c): every layer of one kernel-route prefill of ``batch`` (the
+    encoder's units, then the decoder's with the memory), each run again
+    under ``plain_kernels()`` from its recorded input (and the same
+    memory): its update, output minus input, within ``LOGIT_TOL`` of the
+    update's largest magnitude, as phase 11 (b) holds its layers.  The
+    prefill's logits must be ``served`` (the served run's), where
+    given."""
+    from repro_torch.models import model, transformer
+    real_unit = transformer._unit_apply
+    layers = []
+
+    def record_unit(unit, x, **kw):
+        out = real_unit(unit, x, **kw)
+        layers.append((unit, x.clone(), out[0].clone(), kw))
+        return out
+
+    with patched(transformer, "_unit_apply", record_unit), \
+            torch.inference_mode():
+        got, _ = model.prefill(params, batch, cfg=cfg, max_len=SERVE_LEN)
+    if served is not None:
+        check(torch.equal(got[0].float().cpu(), served),
+              "a second kernel-route prefill gave other logits than the "
+              "served one")
+    n_enc = cfg.n_enc_layers // cfg.pattern_len
+    check(len(layers) == n_enc + cfg.n_groups,
+          f"{len(layers)} units recorded, expected {n_enc + cfg.n_groups}")
+    worst = {"encode": 0.0, "prefill": 0.0}
+    with plain_kernels(), torch.inference_mode():
+        for unit, x, y, kw in layers:
+            want = real_unit(unit, x, **kw)[0]
+            upd, upd_want = y.float() - x.float(), want.float() - x.float()
+            worst[kw["mode"]] = max(
+                worst[kw["mode"]], float((upd - upd_want).abs().max())
+                / float(upd_want.abs().max()))
+    print(f"serve: {cfg.name}: prompt {batch['inputs'].shape[1]}, "
+          f"{n_enc} encoder and {cfg.n_groups} decoder layers, each from the "
+          f"kernel route's input, its update by the plain route: worst max "
+          f"abs diff {worst['encode']:.3e} (encoder) / {worst['prefill']:.3e}"
+          f" (decoder) of the update's scale (tolerance {LOGIT_TOL})")
+    check(max(worst.values()) <= LOGIT_TOL,
+          f"a layer's update by the kernel route differs from the plain "
+          f"route's by {worst} of its scale")
+
+
+def cross_cache_check(torch, cfg, params, seed: int,
+                      S: int = CONSISTENCY_LEN) -> None:
+    """(12d): the cross-cache plumbing in float32 at full width on a cut
+    of one encoder and one decoder layer: a prefill of S - 1 tokens over
+    ``SERVE_LEN`` frames, then one ``decode_step`` over the cached ``xk``
+    / ``xv``, against the full forward's last two logit rows within
+    ``PLUMBING_TOL`` of their scale."""
+    from repro_torch.models import model
+    from repro_torch.utils.pytree import tree_map
+    cfg32 = cfg.replace(param_dtype="float32", compute_dtype="float32",
+                        n_layers=cfg.pattern_len, n_enc_layers=cfg.pattern_len)
+
+    def one(tree):                  # the first group, in float32
+        return tree_map(lambda a: a[:1].float(), tree)
+
+    p32 = dict(tree_map(lambda a: a.float(), {
+        k: v for k, v in params.items() if k not in ("blocks", "encoder")}),
+        blocks=one(params["blocks"]),
+        encoder={"blocks": one(params["encoder"]["blocks"]),
+                 "final_norm": tree_map(lambda a: a.float(),
+                                        params["encoder"]["final_norm"])})
+    dev = params["embed"]["w"].device
+    rng = np.random.default_rng([seed, 13])
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, S))
+                            .astype(np.int32)).to(dev)
+    frames = torch.from_numpy(serve_frames(cfg, seed, 1)[0]).to(dev)
+    with torch.inference_mode():
+        t = time.perf_counter()
+        full, _ = model.forward(p32, {"inputs": toks, "enc_frames": frames},
+                                cfg=cfg32)
+        last, cache = model.prefill(
+            p32, {"inputs": toks[:, :S - 1], "enc_frames": frames},
+            cfg=cfg32, max_len=S + 4)
+        dec, _ = model.decode_step(
+            p32, cache, toks[:, S - 1:],
+            torch.full((1,), S - 1, dtype=torch.int32, device=dev),
+            cfg=cfg32)
+        sync(torch, dev)
+    sec = time.perf_counter() - t
+    check(tuple(cache["layer0"]["xk"].shape)
+          == (1, 1, frames.shape[1], cfg.n_kv_heads, cfg.d_head),
+          f"cross cache {tuple(cache['layer0']['xk'].shape)}")
+    for label, got, want in (("prefill", last, full[:, S - 2]),
+                             ("decode", dec, full[:, S - 1])):
+        scale = float(want.abs().max())
+        err = float((got - want).abs().max())
+        print(f"encdec: float32 {label} over the cached cross K/V vs "
+              f"forward row: max abs err {err:.4e} (scale {scale:.4e}, "
+              f"ratio {err / scale:.3e}, tolerance {PLUMBING_TOL})")
+        check(bool(torch.isfinite(got).all()) and err <= PLUMBING_TOL * scale,
+              f"float32 {label} differs from the forward by {err} "
+              f"(scale {scale})")
+    print(f"encdec: float32 cross-cache plumbing (1 encoder + 1 decoder "
+          f"layer, d_model {cfg.d_model}, {frames.shape[1]} frames) at {S} "
+          f"tokens {sec:.2f}s")
+
+
+def encdec_phase(torch, seed: int):
+    """Phase 12: ``seamless-m4t-large-v2`` at its full config in bf16:
+    flash_attention at its three routes on the first layers' captured
+    activations, every layer against the plain route, served with frames
+    (72 launches a request), and the float32 cross-cache plumbing.
+    Returns (serving launches, the flash timings by route)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import kernel as fkernel
+    cfg, params = lm_model(torch, seed, get_config(ENCDEC_ARCH))
+    prompts = serve_prompts(cfg, seed)
+    frames = serve_frames(cfg, seed)
+    dev = params["embed"]["w"].device
+    first = {"enc_frames": torch.from_numpy(frames[0]).to(dev).to(
+        torch.bfloat16)}
+    n_enc = cfg.n_enc_layers // cfg.pattern_len
+    launch = (fkernel, "flash_attention_fwd")
+    captured = capture_calls(torch, cfg, params, prompts[0], {
+        "encoder": (*launch, 0), "decoder": (*launch, n_enc),
+        "cross": (*launch, n_enc + 1)}, extra=first)
+    with torch.inference_mode():
+        flash = {route: path_flash_times(torch, f"{ENCDEC_ARCH} {route}",
+                                         captured[route])
+                 for route in ("encoder", "decoder", "cross")}
+    del captured
+    torch.cuda.empty_cache()
+    eng, reqs, launches, last_logits, steady_s = serve_family(
+        torch, cfg, params, prompts, frames)
+    check_unit_layers(torch, cfg, params, {
+        "inputs": torch.tensor([prompts[0]], device=dev), **first},
+        dict(last_logits)[len(prompts[0])])
+    profile_decode(torch, eng, steady_s)
+    profile_prefill(torch, cfg, params, prompts[0], extra=first)
+    del eng, reqs, last_logits
+    torch.cuda.empty_cache()
+    cross_cache_check(torch, cfg, params, seed)
+    return launches, flash
+
+
+def image_path(torch, cfg, params, seed: int, n_new: int = MAX_NEW):
+    """(13b): one image prompt as LLaVA-NeXT lays it out: 3,072 tokens
+    with ``frontend_positions`` anyres patch positions from
+    ``PATCH_START``, patch embeddings from ``seed``; ``model.prefill``
+    (which splices them) and ``n_new`` greedy ``model.decode_step``s.
+    ``splice_patches`` must equal a plain scatter of the projector's
+    output exactly.  Returns the prefill's flash_attention launches and
+    its first launch's inputs."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import kernel as fkernel
+    from repro_torch.models import model, transformer
+    from repro_torch.parallel.sharding import NO_PARALLEL
+    dev = params["embed"]["w"].device
+    rng = np.random.default_rng([seed, 14])
+    T, P = LONG_PROMPTS[0], cfg.frontend_positions
+    pos = torch.arange(PATCH_START, PATCH_START + P, dtype=torch.int32,
+                       device=dev)[None]
+    batch = {"inputs": torch.from_numpy(rng.integers(
+                 0, cfg.vocab_size, (1, T)).astype(np.int32)).to(dev),
+             "patch_embeds": torch.from_numpy(rng.standard_normal(
+                 (1, P, cfg.d_model), dtype=np.float32)).to(dev).to(
+                 torch.bfloat16),
+             "patch_pos": pos}
+    with torch.inference_mode():
+        x = transformer.embed(params, batch["inputs"], cfg=cfg,
+                              pcfg=NO_PARALLEL)
+        got = transformer.splice_patches(params, x, batch["patch_embeds"],
+                                         pos, cfg=cfg, pcfg=NO_PARALLEL)
+        fp = params["frontend"]
+        proj = F.gelu(batch["patch_embeds"] @ fp["w1"],
+                      approximate="tanh") @ fp["w2"]
+        want = x.clone()
+        want[0, pos[0].long()] = proj[0].to(x.dtype)
+        check(torch.equal(got, want), "splice_patches differs from a plain "
+                                      "scatter of the projector's output")
+        del x, got, want, proj
+        captured = capture_calls(torch, cfg, params, batch["inputs"][0]
+                                 .tolist(), {"attn": (fkernel,
+                                                      "flash_attention_fwd")},
+                                 extra={k: batch[k] for k in
+                                        ("patch_embeds", "patch_pos")})
+        sync(torch, dev)
+        fkernel.launches = 0
+        t = time.perf_counter()
+        logits, cache = model.prefill(params, batch, cfg=cfg,
+                                      max_len=SERVE_LEN)
+        tok = logits.argmax(-1, keepdim=True).to(torch.int32)
+        out = [int(tok[0, 0])]
+        ttft = time.perf_counter() - t
+        n_prefill = fkernel.launches
+        t = time.perf_counter()
+        for i in range(n_new - 1):
+            logits, cache = model.decode_step(
+                params, cache, tok,
+                torch.full((1,), T + i, dtype=torch.int32, device=dev),
+                cfg=cfg)
+            tok = logits.argmax(-1, keepdim=True).to(torch.int32)
+            out.append(int(tok[0, 0]))
+        dec_s = time.perf_counter() - t
+    check(n_prefill == flash_per_prefill(cfg) and
+          fkernel.launches == n_prefill,
+          f"the image prompt launched flash_attention {n_prefill} times in "
+          f"its prefill and {fkernel.launches - n_prefill} in decode")
+    check(all(0 <= t_ < cfg.vocab_size for t_ in out),
+          "the image prompt's tokens leave the vocabulary")
+    print(f"vlm: image prompt of {T} tokens, {P} patch positions at "
+          f"{PATCH_START}..{PATCH_START + P - 1}: splice_patches equals the "
+          f"plain scatter exactly; ttft_s={ttft:.4f} ({T / ttft:.1f} prefill "
+          f"tokens/s) decode {n_new - 1} steps {dec_s:.4f}s "
+          f"({(n_new - 1) / dec_s:.1f} tokens/s); tokens {out[:8]}...; "
+          f"flash_attention launches {n_prefill}")
+    return n_prefill, captured["attn"]
+
+
+def vlm_phase(torch, seed: int):
+    """Phase 13: ``llava-next-mistral-7b`` at its full config in bf16:
+    phase 7's text requests (32 flash_attention launches a prefill), an
+    image prompt through ``model.prefill`` and ``decode_step``, and
+    flash_attention at its shape.  Returns (serving launches, the image
+    prefill's launches, the flash timings)."""
+    from repro_torch.configs import get_config
+    cfg, params = lm_model(torch, seed, get_config(VLM_ARCH))
+    n_image, attn = image_path(torch, cfg, params, seed)
+    with torch.inference_mode():
+        flash = path_flash_times(torch, f"{VLM_ARCH} image prefill", attn)
+    del attn
+    torch.cuda.empty_cache()
+    prompts = serve_prompts(cfg, seed)
+    eng, reqs, launches, _, steady_s = serve_family(torch, cfg, params,
+                                                    prompts)
+    profile_decode(torch, eng, steady_s)
+    profile_prefill(torch, cfg, params, prompts[0])
+    return launches, n_image, flash
 
 
 def main() -> None:
@@ -2865,13 +3178,29 @@ def main() -> None:
                                                                 args.seed)
     print(f"phase 11 done in {time.perf_counter() - t:.1f}s (at "
           f"{time.perf_counter() - t0:.1f}s)")
+
+    # phases 12-13: the encoder-decoder and the vision backbone served at
+    # full width, each on a card holding nothing of the earlier phases
+    t = fresh_card(torch, 12)
+    encdec_launches, rows["flash_attention"][ENCDEC_ARCH] = encdec_phase(
+        torch, args.seed)
+    print(f"phase 12 done in {time.perf_counter() - t:.1f}s (at "
+          f"{time.perf_counter() - t0:.1f}s)")
+    t = fresh_card(torch, 13)
+    vlm_launches, image_launches, rows["flash_attention"][VLM_ARCH] = \
+        vlm_phase(torch, args.seed)
+    print(f"phase 13 done in {time.perf_counter() - t:.1f}s (at "
+          f"{time.perf_counter() - t0:.1f}s)")
     for name, by_path in (
             ("bucket_partition_rows", {
                 "partition": p_launches[0],
                 "mesh": m_launches["bucket_partition_rows"]}),
             ("flash_attention", {"serve": lm_launches[0],
                                  "train": t_launches[0],
-                                 "serve_" + MOE_ARCH: moe_launches[0]}),
+                                 "serve_" + MOE_ARCH: moe_launches[0],
+                                 "serve_" + ENCDEC_ARCH: encdec_launches[0],
+                                 "serve_" + VLM_ARCH: vlm_launches[0],
+                                 "image_" + VLM_ARCH: image_launches}),
             ("rg_lru_scan", {"serve": lm_launches[1],
                              "train": t_launches[1]}),
             ("rg_lru_scan_backward", {"train": t_launches[2]})):

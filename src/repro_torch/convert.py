@@ -82,7 +82,9 @@ def params_from_jax(tree_of_numpy, device=None):
     (``jax.tree.map(np.asarray, params)``), as the port's tree of tensors
     on ``device`` (default CUDA): the same paths, shapes and types, a bf16
     tree's float32 leaves included (the mLSTM's gate weights, the sLSTM's
-    biases, the MoE router) and the stacked ``[G, E, d, f]`` experts."""
+    biases, the MoE router), the stacked ``[G, E, d, f]`` experts, an
+    encoder-decoder's ``encoder`` tree and decoder ``norm_x`` / ``xattn``
+    leaves, and a frontend's ``frontend`` weights."""
     if isinstance(tree_of_numpy, dict):
         return {key: params_from_jax(sub, device)
                 for key, sub in tree_of_numpy.items()}
@@ -91,8 +93,9 @@ def params_from_jax(tree_of_numpy, device=None):
 
 def cache_from_jax(tree_of_numpy, device=None):
     """The JAX package's decode cache (KV caches, ring ``kpos``, the
-    RG-LRU, mLSTM and sLSTM states, float32 beside the bf16 conv tails),
-    as numpy, as the port's cache on ``device`` (default CUDA)."""
+    RG-LRU, mLSTM and sLSTM states, float32 beside the bf16 conv tails,
+    an encoder-decoder's cross ``xk`` / ``xv``), as numpy, as the port's
+    cache on ``device`` (default CUDA)."""
     return params_from_jax(tree_of_numpy, device)
 
 

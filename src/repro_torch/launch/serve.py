@@ -2,11 +2,15 @@
 
     python -m repro_torch.launch.serve --arch recurrentgemma-2b --smoke --device cpu
     python -m repro_torch.launch.serve --arch xlstm-1.3b --smoke --device cpu
+    python -m repro_torch.launch.serve --arch seamless-m4t-large-v2 --smoke --device cpu
+    python -m repro_torch.launch.serve --arch llava-next-mistral-7b
     python -m repro_torch.launch.serve --arch qwen3-moe-30b-a3b
 
-Every decoder-only config runs (the ``A`` / ``L`` / ``R`` / ``m`` / ``s``
-layers, dense or MoE FFNs); the encoder-decoder and vision configs
-raise.  The port of ``repro.launch.serve``, with the same flags plus
+Every config runs: the ``A`` / ``L`` / ``R`` / ``m`` / ``s`` layers, dense
+or MoE FFNs, the encoder-decoder (its requests carry no frames, so the
+engine feeds zeros, as the JAX engine does) and the vision backbone
+(text prompts: the engine splices no patches, nor does the JAX
+engine).  The port of ``repro.launch.serve``, with the same flags plus
 ``--device`` (default CUDA, which raises without a card).  ``--smoke``
 runs the config's reduced twin; without it the full config runs on one
 device, with no mesh.  Parameters are random from seed 0, as the JAX

@@ -3,14 +3,19 @@
 The port of ``repro.models.attention``.  The JAX package gives
 ``chunked_attention`` three lowerings of one numerics contract: ``scan``,
 ``rect``, ``triangular`` (XLA loop choices over q / kv chunks) and
-``pallas`` (the flash-attention TPU kernel).  Here every causal
-self-attention in prefill or training goes through one op,
+``pallas`` (the flash-attention TPU kernel).  Here every attention in
+prefill, training or an encoder goes through one op,
 ``repro_torch.kernels.flash_attention``: the hand-written CUDA kernel
 for tensors on the card, whatever ``attn_impl`` says, and its plain
-version on the CPU.  ``attn_impl`` is kept and validated; ``q_chunk`` /
-``kv_chunk`` are accepted and unused (the kernel has its own tiles).
-Numerics follow the TPU kernel: p stays float32 in the product with V,
-where the JAX ``scan`` lowering rounds it to V's type first.
+version on the CPU.  That covers the causal self-attention, the
+encoder's non-causal self-attention (``mode="encode"``) and the
+decoder's cross-attention over the encoder memory (``memory_kv``: queries
+and keys of different lengths, no mask), which the JAX package runs
+through its ``scan`` lowering alone.  ``attn_impl`` is kept and
+validated; ``q_chunk`` / ``kv_chunk`` are accepted and unused (the kernel
+has its own tiles).  Numerics: the plain version keeps p float32 in the
+product with V, as the TPU kernel does; the bf16 CUDA kernel rounds it
+to V's type first, as the JAX ``scan`` lowering does.
 
 Decode attends a single query against a **full cache** ([B, S, K, D],
 positions implicit) or a **ring cache** ([B, W, K, D] plus an explicit
@@ -222,44 +227,67 @@ def apply(
     layer_sym: str,                    # "A" | "L"
     positions: torch.Tensor,           # [B, T] (or [B] for decode)
     mode: str,                         # "train" | "prefill" | "decode"
+                                       # | "encode"
     cache: Optional[dict] = None,
-    memory_kv: Optional[tuple] = None,
+    memory_kv: Optional[tuple] = None, # cross-attention (k, v) from encoder
     max_len: int = 0,                  # prefill: decode-cache capacity
 ):
-    """Returns (out [B,T,d_model], new_cache).  Cross-attention
-    (``memory_kv``) belongs to the encoder-decoder stack, not ported yet
-    (``ROADMAP.md`` item 1.3b)."""
-    if memory_kv is not None:
-        raise NotImplementedError(
-            "cross-attention: encoder-decoder models are not ported yet "
-            "(ROADMAP.md item 1.3b)")
+    """Returns (out [B,T,d_model], new_cache).
+
+    ``mode="encode"`` is an encoder-decoder model's encoder: non-causal
+    self-attention with RoPE and no cache.  With ``memory_kv`` the layer
+    is a cross-attention over the encoder memory's ``(k, v)`` ``[B, F, K,
+    D]``: no RoPE on q (the memory's K / V carry none either), every
+    memory row attended; at decode the cached memory, with the cache
+    passed through unchanged."""
     is_local = layer_sym == "L"
     window = cfg.local_window if is_local else 0
     theta = cfg.rope_theta
     if is_local and getattr(cfg, "rope_theta_local", 0):
         theta = cfg.rope_theta_local
+    cross = memory_kv is not None
 
     q = _project_q(params, x, cfg)
-    q = common.apply_rope(q, positions, theta)
+    if not cross:
+        q = common.apply_rope(q, positions, theta)
     q = constrain(q, pcfg, heads_spec(pcfg, cfg.n_heads, batch_dims=2))
 
-    k_new, v_new = _project_kv(params, x, cfg)
-    k_new = common.apply_rope(k_new, positions, theta)
-    if mode == "decode":
-        new_cache = update_cache(cache, k_new, v_new, positions[:, 0],
-                                 mode=pcfg.cache_write)
-        out = decode_attention(q, new_cache, positions[:, 0],
-                               window=window, softcap=cfg.attn_softcap)
+    if cross:
+        k, v = memory_kv
+        if mode == "decode":
+            last = torch.full((x.shape[0],), k.shape[1] - 1,
+                              dtype=torch.int32, device=x.device)
+            out = decode_attention(q, {"k": k, "v": v}, last,
+                                   softcap=cfg.attn_softcap)
+            new_cache = cache
+        else:
+            out = chunked_attention(q, k, v, causal=False,
+                                    q_chunk=pcfg.q_chunk,
+                                    kv_chunk=pcfg.kv_chunk, impl="scan",
+                                    softcap=cfg.attn_softcap)
+            new_cache = None
     else:
-        out = chunked_attention(
-            q, k_new, v_new, causal=True, window=window,
-            q_chunk=pcfg.q_chunk, kv_chunk=pcfg.kv_chunk,
-            impl=pcfg.attn_impl, softcap=cfg.attn_softcap)
-        new_cache = None
-        if mode == "prefill":
-            new_cache = _prefill_cache(k_new, v_new, positions,
-                                       window=window,
-                                       max_len=max_len or k_new.shape[1])
+        k_new, v_new = _project_kv(params, x, cfg)
+        k_new = common.apply_rope(k_new, positions, theta)
+        if mode == "decode":
+            new_cache = update_cache(cache, k_new, v_new, positions[:, 0],
+                                     mode=pcfg.cache_write)
+            out = decode_attention(q, new_cache, positions[:, 0],
+                                   window=window, softcap=cfg.attn_softcap)
+        else:
+            # the JAX package's mask takes the window only with causal
+            causal = not (cfg.is_encoder_decoder and mode == "encode")
+            out = chunked_attention(
+                q, k_new, v_new, causal=causal,
+                window=window if causal else 0,
+                q_chunk=pcfg.q_chunk, kv_chunk=pcfg.kv_chunk,
+                impl=pcfg.attn_impl if causal else "scan",
+                softcap=cfg.attn_softcap)
+            new_cache = None
+            if mode == "prefill":
+                new_cache = _prefill_cache(k_new, v_new, positions,
+                                           window=window,
+                                           max_len=max_len or k_new.shape[1])
 
     B, T = x.shape[0], x.shape[1]
     out = out.reshape(B, T, cfg.q_dim)

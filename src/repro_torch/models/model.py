@@ -33,13 +33,16 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, device=None):
                               resolve_device(device))
 
 
-def cache_shapes(cfg: ModelConfig, batch: int, seq: int):
-    return transformer.cache_shapes(cfg, batch, seq)
+def cache_shapes(cfg: ModelConfig, batch: int, seq: int, *,
+                 cross_len: int = 0):
+    return transformer.cache_shapes(cfg, batch, seq, cross_len=cross_len)
 
 
-def init_cache(cfg: ModelConfig, batch: int, seq: int, *, device=None):
-    """A zeroed decode cache on ``device`` (default CUDA)."""
-    return transformer.init_cache(cfg, batch, seq,
+def init_cache(cfg: ModelConfig, batch: int, seq: int, *, cross_len: int = 0,
+               device=None):
+    """A zeroed decode cache on ``device`` (default CUDA); an
+    encoder-decoder's holds ``cross_len`` rows of cross K / V a layer."""
+    return transformer.init_cache(cfg, batch, seq, cross_len=cross_len,
                                   device=resolve_device(device))
 
 
@@ -49,14 +52,39 @@ def _positions(tokens: torch.Tensor) -> torch.Tensor:
                         device=tokens.device)[None].expand(B, S)
 
 
+def _encode(params, frames, *, cfg, pcfg):
+    """The encoder memory ``[B, F, d]`` of ``frames [B, F, d]``: the frame
+    projection, the encoder stack (non-causal) and its final norm."""
+    x = transformer.project_frames(params, frames, cfg=cfg, pcfg=pcfg)
+    enc = params["encoder"]
+    x, _, _ = transformer.stack_apply(
+        enc["blocks"], x, cfg=cfg, pcfg=pcfg,
+        positions=_positions(x[..., 0]), mode="encode",   # [B, F]
+        n_groups=cfg.n_enc_layers // cfg.pattern_len)
+    return common.rms_norm(x, enc["final_norm"]["scale"], cfg.norm_eps)
+
+
+def _embed_and_memory(params, batch: dict, *, cfg, pcfg):
+    """The token embeddings, with vision patches spliced in where the
+    batch carries them, and the encoder memory of an encoder-decoder's
+    ``enc_frames`` (else None)."""
+    x = transformer.embed(params, batch["inputs"], cfg=cfg, pcfg=pcfg)
+    if cfg.frontend == "vision_patches" and "patch_embeds" in batch:
+        x = transformer.splice_patches(params, x, batch["patch_embeds"],
+                                       batch["patch_pos"], cfg=cfg, pcfg=pcfg)
+    memory = None
+    if cfg.is_encoder_decoder:
+        memory = _encode(params, batch["enc_frames"], cfg=cfg, pcfg=pcfg)
+    return x, memory
+
+
 def _backbone(params, batch: dict, *, cfg: ModelConfig,
               pcfg: ParallelConfig, mode: str):
-    """Embed + stack. Returns (pre-head hiddens, aux)."""
-    tokens = batch["inputs"]
-    x = transformer.embed(params, tokens, cfg=cfg, pcfg=pcfg)
+    """Embed + frontends + stack. Returns (pre-head hiddens, aux)."""
+    x, memory = _embed_and_memory(params, batch, cfg=cfg, pcfg=pcfg)
     x, _, aux = transformer.stack_apply(
         params["blocks"], x, cfg=cfg, pcfg=pcfg,
-        positions=_positions(tokens), mode=mode)
+        positions=_positions(batch["inputs"]), mode=mode, memory=memory)
     return x, aux
 
 
@@ -96,16 +124,20 @@ def prefill(params, batch: dict, *, cfg: ModelConfig,
             pcfg: ParallelConfig = NO_PARALLEL, max_len: int = 0):
     """Run the prompt, build the decode cache (capacity ``max_len``; a
     stack without attention layers, as the xLSTM's, holds O(1) recurrent
-    state and leaves ``max_len`` unused).
+    state and leaves ``max_len`` unused).  ``batch`` carries ``inputs``
+    and, by the config, ``enc_frames`` (an encoder-decoder: the cache
+    then holds the memory's cross K / V) or ``patch_embeds`` /
+    ``patch_pos`` (vision patches, optional).
 
     Returns (last_logits, cache)."""
     tokens = batch["inputs"]
     S = tokens.shape[1]
     max_len = max_len or S
-    x = transformer.embed(params, tokens, cfg=cfg, pcfg=pcfg)
+    x, memory = _embed_and_memory(params, batch, cfg=cfg, pcfg=pcfg)
     x, new_caches, _ = transformer.stack_apply(
         params["blocks"], x, cfg=cfg, pcfg=pcfg,
-        positions=_positions(tokens), mode="prefill", max_len=max_len)
+        positions=_positions(tokens), mode="prefill", memory=memory,
+        max_len=max_len)
     logits = transformer.lm_logits(params, x[:, -1:, :], cfg=cfg, pcfg=pcfg)
     return logits[:, 0], new_caches
 

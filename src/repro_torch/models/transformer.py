@@ -1,13 +1,18 @@
 """The layer stack: ``n_groups`` repetitions of the config's pattern unit.
 
-The port of ``repro.models.transformer`` for the decoder-only stacks:
-``A`` (global attention + FFN), ``L`` (sliding-window attention + FFN),
-``R`` (RG-LRU recurrent block + FFN), ``m`` (mLSTM block) and ``s``
-(sLSTM block); in the ``moe`` family every ``A`` / ``L`` layer's FFN is
-the MoE FFN (``models/moe.py``), whose load-balancing losses the stack
-sums into ``aux``.  Encoder-decoder stacks and the vision / audio
-frontends raise ``NotImplementedError``: they wait in ``ROADMAP.md``
-item 1.3b.
+The port of ``repro.models.transformer``: ``A`` (global attention +
+FFN), ``L`` (sliding-window attention + FFN), ``R`` (RG-LRU recurrent
+block + FFN), ``m`` (mLSTM block) and ``s`` (sLSTM block); in the
+``moe`` family every ``A`` / ``L`` layer's FFN is the MoE FFN
+(``models/moe.py``), whose load-balancing losses the stack sums into
+``aux``.  An encoder-decoder config adds an ``encoder`` stack (run with
+``mode="encode"``: non-causal self-attention) and, in each decoder
+attention layer, a cross-attention block (``norm_x``, ``xattn``) over
+the encoder memory, whose projected K / V the decode cache keeps
+(``xk`` / ``xv``).  The modality frontends are the JAX package's stubs:
+``project_frames`` (one linear map of precomputed audio frames) and
+``splice_patches`` (a two-layer projector of precomputed vision patches,
+spliced into the token stream).
 
 Parameters (and decode caches / recurrent states) for the unit are
 stacked with a leading group dim, as in the JAX package, so the two
@@ -36,31 +41,11 @@ from repro_torch.models.common import rms_norm, sds, soft_cap
 from repro_torch.parallel.sharding import ParallelConfig, batch_spec, constrain
 from repro_torch.utils.pytree import tree_map, tree_map_with_path
 
-SUPPORTED_LAYERS = ("A", "L", "R", "m", "s")
-
-
-def check_supported(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` for what the port's stack does not
-    run yet."""
-    missing = []
-    if any(sym not in SUPPORTED_LAYERS for sym in cfg.block_pattern):
-        missing.append(f"layer kinds {sorted(set(cfg.block_pattern))}")
-    if cfg.is_encoder_decoder:
-        missing.append("encoder-decoder stacks")
-    if cfg.frontend:
-        missing.append(f"the {cfg.frontend} frontend")
-    if missing:
-        raise NotImplementedError(
-            f"{cfg.name}: {', '.join(missing)} are not ported yet; the port "
-            f"runs decoder-only {'/'.join(SUPPORTED_LAYERS)} stacks "
-            f"(ROADMAP.md item 1.3b)")
-
-
 # ---------------------------------------------------------------------------
 # Parameter shapes
 # ---------------------------------------------------------------------------
 
-def _unit_shapes(cfg: ModelConfig) -> dict:
+def _unit_shapes(cfg: ModelConfig, *, decoder_cross: bool) -> dict:
     pd = cfg.param_dtype
     d = cfg.d_model
     unit = {}
@@ -71,6 +56,9 @@ def _unit_shapes(cfg: ModelConfig) -> dict:
                 "attn": attention.shapes(cfg),
                 "norm2": {"scale": sds((d,), pd)},
             }
+            if decoder_cross:
+                layer["norm_x"] = {"scale": sds((d,), pd)}
+                layer["xattn"] = attention.shapes(cfg, cross=True)
             if cfg.family == "moe":
                 layer["moe"] = moe.shapes(cfg)
             else:
@@ -85,9 +73,11 @@ def _unit_shapes(cfg: ModelConfig) -> dict:
         elif sym == "m":
             layer = {"norm1": {"scale": sds((d,), pd)},
                      "mlstm": xlstm.mlstm_shapes(cfg)}
-        else:  # "s"
+        elif sym == "s":
             layer = {"norm1": {"scale": sds((d,), pd)},
                      "slstm": xlstm.slstm_shapes(cfg)}
+        else:
+            raise ValueError(sym)
         unit[f"layer{i}"] = layer
     return unit
 
@@ -98,16 +88,27 @@ def _stack_groups(unit_tree, n_groups: int):
 
 def shapes(cfg: ModelConfig) -> dict:
     """Full parameter tree (as TensorSpecs)."""
-    check_supported(cfg)
     pd = cfg.param_dtype
     d, vp = cfg.d_model, cfg.padded_vocab
     out = {
         "embed": {"w": sds((vp, d), pd)},
-        "blocks": _stack_groups(_unit_shapes(cfg), cfg.n_groups),
+        "blocks": _stack_groups(
+            _unit_shapes(cfg, decoder_cross=cfg.is_encoder_decoder),
+            cfg.n_groups),
         "final_norm": {"scale": sds((d,), pd)},
     }
     if not cfg.tie_embeddings:
         out["lm_head"] = {"w": sds((d, vp), pd)}
+    if cfg.is_encoder_decoder:       # the encoder has the decoder's dims
+        out["encoder"] = {
+            "blocks": _stack_groups(_unit_shapes(cfg, decoder_cross=False),
+                                    cfg.n_enc_layers // cfg.pattern_len),
+            "final_norm": {"scale": sds((d,), pd)},
+        }
+    if cfg.frontend == "vision_patches":
+        out["frontend"] = {"w1": sds((d, d), pd), "w2": sds((d, d), pd)}
+    elif cfg.frontend == "audio_frames":
+        out["frontend"] = {"w1": sds((d, d), pd)}
     return out
 
 
@@ -119,28 +120,40 @@ _STATE_SHAPES = {"R": rglru.state_shapes, "m": xlstm.mlstm_state_shapes,
                  "s": xlstm.slstm_state_shapes}
 
 
-def _unit_cache_shapes(cfg: ModelConfig, batch: int, seq: int) -> dict:
+def _unit_cache_shapes(cfg: ModelConfig, batch: int, seq: int,
+                       *, cross_len: int = 0) -> dict:
     unit = {}
     for i, sym in enumerate(cfg.block_pattern):
         if sym in ("A", "L"):
             ring = sym == "L" and cfg.local_window and cfg.local_window < seq
             layer = {"attn": attention.cache_shapes(
                 cfg, batch, seq, ring=ring, window=cfg.local_window)}
+            if cfg.is_encoder_decoder and cross_len:
+                kv = sds((batch, cross_len, cfg.n_kv_heads, cfg.d_head),
+                         cfg.compute_dtype)
+                layer["xk"], layer["xv"] = kv, kv
         else:  # "R", "m", "s"
             layer = {"rec": _STATE_SHAPES[sym](cfg, batch)}
         unit[f"layer{i}"] = layer
     return unit
 
 
-def cache_shapes(cfg: ModelConfig, batch: int, seq: int) -> dict:
-    check_supported(cfg)
-    return _stack_groups(_unit_cache_shapes(cfg, batch, seq), cfg.n_groups)
+def cache_shapes(cfg: ModelConfig, batch: int, seq: int,
+                 *, cross_len: int = 0) -> dict:
+    """The decode cache; an encoder-decoder config's attention layers
+    also hold the cross-attention K / V of ``cross_len`` memory rows
+    (none when it is 0)."""
+    return _stack_groups(
+        _unit_cache_shapes(cfg, batch, seq, cross_len=cross_len),
+        cfg.n_groups)
 
 
-def init_cache(cfg: ModelConfig, batch: int, seq: int, *, device=None):
+def init_cache(cfg: ModelConfig, batch: int, seq: int, *, cross_len: int = 0,
+               device=None):
     """A zeroed decode cache on ``device`` (default CUDA, raising without
     it)."""
-    return _zero_state(cache_shapes(cfg, batch, seq), resolve_device(device))
+    return _zero_state(cache_shapes(cfg, batch, seq, cross_len=cross_len),
+                       resolve_device(device))
 
 
 # ---------------------------------------------------------------------------
@@ -159,9 +172,15 @@ def _zero_state(shape_tree, device):
 
 
 def _unit_apply(unit_params, x, *, cfg: ModelConfig, pcfg: ParallelConfig,
-                positions, mode: str, unit_cache=None, max_len: int = 0):
+                positions, mode: str, unit_cache=None, memory=None,
+                max_len: int = 0):
     """Apply one pattern unit. Returns (x, new_cache, aux_loss); the aux
-    loss sums the unit's MoE layers' (zero without MoE)."""
+    loss sums the unit's MoE layers' (zero without MoE).  In an
+    encoder-decoder's decoder, each attention layer adds a cross block
+    over the encoder ``memory`` (train / prefill: projected here, and
+    prefill keeps the projection as the cache's ``xk`` / ``xv``) or over
+    the cached ``xk`` / ``xv`` (decode); a decode cache without them
+    skips the block, as the JAX package does."""
     eps = cfg.norm_eps
     B = x.shape[0]
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -185,6 +204,18 @@ def _unit_apply(unit_params, x, *, cfg: ModelConfig, pcfg: ParallelConfig,
                 positions=positions, mode=mode, max_len=max_len,
                 cache=lc["attn"] if lc is not None else None)
             x = x + out
+            cross = cfg.is_encoder_decoder and mode != "encode" and (
+                memory is not None or (lc is not None and "xk" in lc))
+            if cross:
+                hx = rms_norm(x, lp["norm_x"]["scale"], eps)
+                if memory is not None:  # train / prefill: project fresh
+                    mem_kv = attention._project_kv(lp["xattn"], memory, cfg)
+                else:                   # decode: cached cross K/V
+                    mem_kv = (lc["xk"], lc["xv"])
+                xout, _ = attention.apply(
+                    lp["xattn"], hx, cfg=cfg, pcfg=pcfg, layer_sym="A",
+                    positions=positions, mode=mode, memory_kv=mem_kv)
+                x = x + xout
             h = rms_norm(x, lp["norm2"]["scale"], eps)
             if cfg.family == "moe":
                 ffn, aux_i = moe.apply(lp["moe"], h, cfg=cfg, pcfg=pcfg)
@@ -193,9 +224,11 @@ def _unit_apply(unit_params, x, *, cfg: ModelConfig, pcfg: ParallelConfig,
                 ffn = mlp.apply(lp["mlp"], h, cfg=cfg, pcfg=pcfg)
             x = x + ffn
             if new_cache is not None:
-                new_cache[f"layer{i}"] = {
-                    "attn": attn_cache if attn_cache is not None
-                    else lc["attn"]}
+                layer_new = {"attn": attn_cache if attn_cache is not None
+                             else lc["attn"]}
+                if cross:
+                    layer_new["xk"], layer_new["xv"] = mem_kv
+                new_cache[f"layer{i}"] = layer_new
         elif sym == "R":
             h = rms_norm(x, lp["norm1"]["scale"], eps)
             out, st = rglru.apply(lp["rglru"], h, cfg=cfg,
@@ -264,14 +297,17 @@ def _remat_wrap(fn, pcfg: ParallelConfig, mode: str):
 
 
 def stack_apply(blocks_params, x, *, cfg: ModelConfig, pcfg: ParallelConfig,
-                positions, mode: str, caches=None,
+                positions, mode: str, caches=None, memory=None,
                 n_groups: Optional[int] = None, max_len: int = 0):
     """Run the full stack. Returns (x, new_caches, aux).
 
-    ``caches`` is required for decode, ignored for train, and unused for
-    prefill (prefill builds fresh caches of capacity ``max_len``).  The
-    new caches are stacked over groups, as the JAX package's scan emits
-    them; ``aux`` sums the units' aux losses (zero without MoE).
+    ``caches`` is required for decode, ignored for train / encode, and
+    unused for prefill (prefill builds fresh caches of capacity
+    ``max_len``); ``memory`` is the encoder's output for a decoder's
+    cross blocks, and ``n_groups`` the groups to run (default the
+    config's: the decoder's).  The new caches are stacked over groups, as
+    the JAX package's scan emits them; ``aux`` sums the units' aux losses
+    (zero without MoE).
     """
     n_groups = n_groups or cfg.n_groups
     emit_cache = mode == "prefill" or caches is not None
@@ -279,7 +315,8 @@ def stack_apply(blocks_params, x, *, cfg: ModelConfig, pcfg: ParallelConfig,
     def body(h, unit_params, unit_cache):
         return _unit_apply(unit_params, h, cfg=cfg, pcfg=pcfg,
                            positions=positions, mode=mode,
-                           unit_cache=unit_cache, max_len=max_len)
+                           unit_cache=unit_cache, memory=memory,
+                           max_len=max_len)
 
     body = _remat_wrap(body, pcfg, mode)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -297,7 +334,7 @@ def stack_apply(blocks_params, x, *, cfg: ModelConfig, pcfg: ParallelConfig,
 
 
 # ---------------------------------------------------------------------------
-# Embedding / head
+# Embedding / head / frontends
 # ---------------------------------------------------------------------------
 
 def embed(params, tokens, *, cfg: ModelConfig, pcfg: ParallelConfig):
@@ -310,6 +347,41 @@ def embed(params, tokens, *, cfg: ModelConfig, pcfg: ParallelConfig):
         x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=ct,
                              device=x.device)
     return constrain(x, pcfg, batch_spec(pcfg, None, None))
+
+
+def splice_patches(params, x, patch_embeds, patch_pos, *, cfg, pcfg):
+    """Splice projected vision-patch embeddings into the token stream.
+
+    ``x`` [B, S, d]; ``patch_embeds`` [B, P, d]; ``patch_pos`` [B, P],
+    distinct positions in [0, S) (with duplicates the JAX package's
+    scatter order is undefined).  The projector is ``gelu(e @ w1) @ w2``
+    (tanh GELU) in the compute type, scaled as the embedding is; as in
+    the JAX package, an int inverse-index map ([B, S], -1 where no patch
+    lands) is scattered first and the projection gathered through it."""
+    fp = params["frontend"]
+    ct = getattr(torch, cfg.compute_dtype)
+    proj = torch.nn.functional.gelu(patch_embeds.to(ct) @ fp["w1"],
+                                    approximate="tanh") @ fp["w2"]
+    if cfg.embed_scale:
+        proj = proj * torch.tensor(math.sqrt(cfg.d_model), dtype=ct,
+                                   device=proj.device)
+    B, S, _ = x.shape
+    P_ = patch_pos.shape[1]
+    b_idx = torch.arange(B, device=x.device)[:, None]
+    inv = torch.full((B, S), -1, dtype=torch.int64, device=x.device)
+    inv[b_idx, patch_pos.long()] = torch.arange(
+        P_, device=x.device)[None].expand(B, P_)
+    picked = torch.take_along_dim(proj.to(x.dtype),
+                                  inv.clamp(0, P_ - 1)[..., None], dim=1)
+    return torch.where((inv >= 0)[..., None], picked, x)
+
+
+def project_frames(params, frames, *, cfg, pcfg):
+    """Audio frontend stub: one linear projection over frame embeddings
+    (cast to the compute type first)."""
+    ct = getattr(torch, cfg.compute_dtype)
+    return constrain(frames.to(ct) @ params["frontend"]["w1"], pcfg,
+                     batch_spec(pcfg, None, None))
 
 
 def lm_logits(params, x, *, cfg: ModelConfig, pcfg: ParallelConfig):

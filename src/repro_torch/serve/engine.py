@@ -7,8 +7,12 @@ length, and its cache is written into the pooled ``[G, B, ...]`` cache at
 the slot index, in place (the JAX package returns a new pool): every
 leaf of the slot, whatever its type (the bf16 KV caches, the float32
 RG-LRU / mLSTM / sLSTM states), is overwritten whole, so a recycled slot
-keeps nothing of its last request.  Finished slots (EOS or token budget)
-are recycled immediately.
+keeps nothing of its last request.  The one exception is the JAX
+package's own: an encoder-decoder's cross K / V pool holds ``max_len``
+memory rows, and a request whose frames are fewer writes only their
+prefix (``dynamic_update_slice``), leaving the rest of the slot's rows
+to the last request, which decode then attends (``ROADMAP.md`` §3).
+Finished slots (EOS or token budget) are recycled immediately.
 
 Everything runs under ``torch.inference_mode()``.  Each request carries
 host-clock stamps (``time.perf_counter``): ``t_submit``, ``t_admit``
@@ -68,9 +72,10 @@ class ServeEngine:
         self.scfg = scfg
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(0)
+        cross = max_len if cfg.is_encoder_decoder else 0
         with torch.inference_mode():
             self.cache = model.init_cache(cfg, max_batch, max_len,
-                                          device=self.device)
+                                          cross_len=cross, device=self.device)
         self.pos = np.zeros(max_batch, np.int32)
         self.tok = np.zeros(max_batch, np.int32)
         self.slot_req: List[Optional[Request]] = [None] * max_batch
@@ -80,18 +85,22 @@ class ServeEngine:
     @staticmethod
     def _insert(pool, new, slot: int) -> None:
         """Write a batch-1 cache ``new`` ([G, 1, ...] leaves) into the
-        pool's ([G, B, ...] leaves) slot, in place."""
-        tree_map(lambda a, b: a[:, slot:slot + 1].copy_(b), pool, new)
+        pool's ([G, B, ...] leaves) slot, in place, at offset 0 of every
+        further axis: a leaf shorter than the pool's fills its prefix, as
+        the JAX package's ``dynamic_update_slice`` does."""
+        def put(a, b):
+            prefix = tuple(slice(0, n) for n in b.shape[2:])
+            a[(slice(None), slice(slot, slot + 1)) + prefix].copy_(b)
+        tree_map(put, pool, new)
 
     # ------------------------------------------------------------- requests
     def submit(self, prompt: List[int], max_new: int = 32,
                enc_frames: Optional[np.ndarray] = None) -> Request:
-        if enc_frames is not None or self.cfg.is_encoder_decoder:
-            raise NotImplementedError(
-                "encoder-decoder serving is not ported yet (ROADMAP.md "
-                "item 1.3b)")
+        """Queue a request; ``enc_frames`` ``[1, F, d_model]`` (F at most
+        ``max_len``) are an encoder-decoder's encoder input, zeros of
+        ``max_len`` frames when left out."""
         req = Request(self._rid, [int(t) for t in prompt], max_new,
-                      t_submit=time.perf_counter())
+                      enc_frames, t_submit=time.perf_counter())
         self._rid += 1
         self.queue.append(req)
         return req
@@ -105,6 +114,14 @@ class ServeEngine:
             req.t_admit = time.perf_counter()
             batch = {"inputs": torch.tensor([req.prompt], dtype=torch.int32,
                                             device=self.device)}
+            if self.cfg.is_encoder_decoder:
+                frames = req.enc_frames
+                if frames is None:
+                    frames = np.zeros((1, self.max_len, self.cfg.d_model),
+                                      np.float32)
+                # bf16 whatever the compute type, as the JAX engine does
+                batch["enc_frames"] = torch.as_tensor(frames).to(
+                    self.device).to(torch.bfloat16)
             last_logits, cache1 = model.prefill(self.params, batch,
                                                 cfg=self.cfg, pcfg=self.pcfg,
                                                 max_len=self.max_len)

@@ -5,7 +5,8 @@ entries), ``kmeans_assign``,
 (TeraSort through ``SphereEngine``, on one device and on a one-rank
 NCCL mesh, ``partition_batch`` /
 ``shuffle_batch``, k-means through ``kmeans_sphere``, LM prefill, decode,
-``ServeEngine`` and a training step) against the same calls on the CPU;
+``ServeEngine`` and a training step; the encoder-decoder and vision
+configs' prefill, decode and serving) against the same calls on the CPU;
 the two LM kernels' gradients against autograd through their plain
 versions on the card.
 
@@ -645,6 +646,47 @@ def test_cuda_flash_attention_tile_edges(cuda, dtype, B, T, S, H, K, D,
         _close_to_rounded_p(got, q, k, v, causal, window)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,T,S,H,K,D,causal", [
+    # the encoder-decoder's and the vision backbone's serving routes,
+    # scaled down from T = 3072 / S = 4096: the encoder's non-causal
+    # self-attention, the decoder's causal one and its cross-attention
+    # (T != S) at D = 64 with 16 heads, and GQA 32 / 8 at D = 128
+    (1, 512, 512, 16, 16, 64, False), (1, 384, 384, 16, 16, 64, True),
+    (1, 384, 512, 16, 16, 64, False), (1, 384, 384, 32, 8, 128, True)])
+def test_cuda_flash_attention_serving_routes(cuda, dtype, B, T, S, H, K, D,
+                                             causal):
+    g = torch.Generator().manual_seed(T + S + D)
+    q, k, v = (torch.randn(shape, generator=g).to(dtype).to(cuda)
+               for shape in ((B, T, H, D), (B, S, K, D), (B, S, K, D)))
+    got = fkernel.flash_attention_fwd(q, k, v, causal=causal, window=0)
+    want = flash_attention_ref(q, k, v, causal=causal, window=0)
+    tol = 2e-2 if dtype == torch.bfloat16 else 2e-5
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    if dtype == torch.bfloat16:
+        _close_to_rounded_p(got, q, k, v, causal, 0)
+
+
+@pytest.mark.parametrize("T,S", [(63, 129), (65, 64), (127, 65), (129, 63),
+                                 (128, 192), (1, 200), (200, 1), (64, 257)])
+def test_cuda_flash_attention_cross_lengths_at_tile_edges(cuda, T, S):
+    """Non-causal, queries and keys of different lengths at the 128-row
+    block's and the 64-key tile's edges, at D = 64 (the cross-attention's
+    width): bf16 against the plain version and the rounded-p oracle,
+    float32 against the plain version."""
+    g = torch.Generator().manual_seed(T * 1000 + S)
+    for dtype, tol in ((torch.bfloat16, 2e-2), (torch.float32, 2e-5)):
+        q, k, v = (torch.randn(shape, generator=g).to(dtype).to(cuda)
+                   for shape in ((2, T, 4, 64), (2, S, 2, 64),
+                                 (2, S, 2, 64)))
+        got = fkernel.flash_attention_fwd(q, k, v, causal=False, window=0)
+        want = flash_attention_ref(q, k, v, causal=False, window=0)
+        torch.testing.assert_close(got.float(), want.float(), rtol=tol,
+                                   atol=tol)
+        if dtype == torch.bfloat16:
+            _close_to_rounded_p(got, q, k, v, False, 0)
+
+
 @pytest.mark.parametrize("D", [64, 256])
 def test_cuda_flash_attention_both_load_routes(cuda, D):
     """The bf16 kernel loads by TMA from 16-byte aligned tensors and by
@@ -787,6 +829,102 @@ def test_cuda_serve_engine_matches_cpu(cuda):
         assert all(s is None for s in eng.slot_req)
         outs[dev] = [r.out for r in reqs]
     assert outs["cuda"] == outs["cpu"]
+
+
+def test_cuda_encdec_prefill_decode_and_serve(cuda):
+    """Reduced ``seamless-m4t-large-v2`` (float32): a prefill over 100
+    tokens and 120 frames, then three decode steps over the cached cross
+    K / V, on the card against the CPU within 1e-4 of the logits' scale;
+    a prefill launches ``flash_attention`` once per encoder layer and
+    twice per decoder layer (self and cross), a decode step never; and
+    greedy ``ServeEngine`` tokens, with frames and without, as the CPU's."""
+    cfg, p_cpu = _lm("seamless-m4t-large-v2")
+    rng = np.random.default_rng(4)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, 100))
+                            .astype(np.int32))
+    frames = torch.from_numpy(rng.standard_normal((1, 120, cfg.d_model))
+                              .astype(np.float32))
+    want_launches = cfg.n_enc_layers + 2 * cfg.n_layers
+    out = {}
+    with torch.inference_mode():
+        for dev, params in (("cpu", p_cpu), ("cuda", _to(p_cpu, cuda))):
+            f0 = fkernel.launches
+            logits, cache = tmodel.prefill(
+                params, {"inputs": toks.to(dev), "enc_frames": frames.to(dev)},
+                cfg=cfg, max_len=128)
+            n_prefill = fkernel.launches - f0
+            steps = [logits.cpu()]
+            for i in range(3):
+                lg, cache = tmodel.decode_step(
+                    params, cache,
+                    torch.tensor([[7 + i]], dtype=torch.int32, device=dev),
+                    torch.tensor([100 + i], dtype=torch.int32, device=dev),
+                    cfg=cfg)
+                steps.append(lg.cpu())
+            out[dev] = (steps, n_prefill, fkernel.launches - f0)
+    assert out["cpu"][1:] == (0, 0)
+    assert out["cuda"][1:] == (want_launches, want_launches)
+    for got, want in zip(out["cuda"][0], out["cpu"][0]):
+        torch.testing.assert_close(got, want, rtol=0,
+                                   atol=1e-4 * float(want.abs().max()))
+    prompts = [[int(t) for t in rng.integers(0, cfg.vocab_size, n)]
+               for n in (30, 12, 30)]
+    given = [rng.standard_normal((1, 64, cfg.d_model)).astype(np.float32),
+             None, rng.standard_normal((1, 40, cfg.d_model))
+             .astype(np.float32)]
+    served = {}
+    for dev, params in (("cpu", p_cpu), ("cuda", _to(p_cpu, cuda))):
+        eng = ServeEngine(cfg, params, max_batch=2, max_len=64,
+                          scfg=SamplerConfig(temperature=0.0), device=dev)
+        reqs = [eng.submit(p, max_new=5, enc_frames=f)
+                for p, f in zip(prompts, given)]
+        eng.run()
+        assert all(r.done for r in reqs)
+        served[dev] = [r.out for r in reqs]
+    assert served["cuda"] == served["cpu"]
+
+
+def test_cuda_vision_prefill_with_patches(cuda):
+    """Reduced ``llava-next-mistral-7b`` (float32): a prefill of 100
+    tokens with the patches spliced in at distinct positions and three
+    decode steps, on the card against the CPU within 1e-4 of the scale;
+    ``splice_patches`` on the card is the CPU's plain scatter within 1e-5
+    (float32 products in another order)."""
+    from repro_torch.models import transformer as ttransformer
+    from repro_torch.parallel.sharding import NO_PARALLEL
+    cfg, p_cpu = _lm("llava-next-mistral-7b")
+    rng = np.random.default_rng(5)
+    P = cfg.frontend_positions
+    batch = {"inputs": torch.from_numpy(rng.integers(
+                 0, cfg.vocab_size, (1, 100)).astype(np.int32)),
+             "patch_embeds": torch.from_numpy(rng.standard_normal(
+                 (1, P, cfg.d_model)).astype(np.float32)),
+             "patch_pos": torch.from_numpy(rng.choice(100, (1, P), False)
+                                           .astype(np.int32))}
+    out = {}
+    with torch.inference_mode():
+        for dev, params in (("cpu", p_cpu), ("cuda", _to(p_cpu, cuda))):
+            b = {k: v.to(dev) for k, v in batch.items()}
+            x = ttransformer.embed(params, b["inputs"], cfg=cfg,
+                                   pcfg=NO_PARALLEL)
+            spliced = ttransformer.splice_patches(
+                params, x, b["patch_embeds"], b["patch_pos"], cfg=cfg,
+                pcfg=NO_PARALLEL)
+            logits, cache = tmodel.prefill(params, b, cfg=cfg, max_len=128)
+            steps = [logits.cpu()]
+            for i in range(3):
+                lg, cache = tmodel.decode_step(
+                    params, cache,
+                    torch.tensor([[7 + i]], dtype=torch.int32, device=dev),
+                    torch.tensor([100 + i], dtype=torch.int32, device=dev),
+                    cfg=cfg)
+                steps.append(lg.cpu())
+            out[dev] = (spliced.cpu(), steps)
+    torch.testing.assert_close(out["cuda"][0], out["cpu"][0], rtol=1e-5,
+                               atol=1e-5)
+    for got, want in zip(out["cuda"][1], out["cpu"][1]):
+        torch.testing.assert_close(got, want, rtol=0,
+                                   atol=1e-4 * float(want.abs().max()))
 
 
 # --------------------------------------------------------------- training

@@ -294,16 +294,6 @@ def test_forward_matches_prefill_logits():
     torch.testing.assert_close(logits[:, -1], last, rtol=0, atol=1e-5)
 
 
-@pytest.mark.parametrize("name", ["seamless-m4t-large-v2",
-                                  "llava-next-mistral-7b"])
-def test_unported_configs_raise(name):
-    cfg = tconfigs.get_config(name).reduced()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tmodel.param_shapes(cfg)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tmodel.cache_shapes(cfg, 1, 16)
-
-
 def test_mesh_raises_and_default_device_is_cuda(monkeypatch):
     with pytest.raises(NotImplementedError, match="mesh"):
         ParallelConfig(mesh=object())

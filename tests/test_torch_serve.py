@@ -6,8 +6,10 @@ Both engines serve the same greedy requests with the same parameters
 reduced float32 configs; the token lists must be identical.  The
 requests include prompts longer than the window of 64 (so the ring
 caches and the window mask carry weight), two slots and more requests
-than slots.  Few distinct prompt lengths keep the JAX side's compiles
-down.
+than slots; the encoder-decoder's requests come with frames and without
+(zeros, cast to bf16 by both engines), and the vision config serves text
+(neither engine splices patches).  Few distinct prompt lengths keep the
+JAX side's compiles down.
 """
 import jax
 import numpy as np
@@ -39,7 +41,9 @@ def _prompts(vocab, lengths, seed=0):
 
 
 @pytest.mark.parametrize("name", ["recurrentgemma-2b", "qwen2.5-3b",
-                                  "xlstm-1.3b", "qwen3-moe-30b-a3b"])
+                                  "xlstm-1.3b", "qwen3-moe-30b-a3b",
+                                  "seamless-m4t-large-v2",
+                                  "llava-next-mistral-7b"])
 def test_serve_matches_jax_engine(name):
     jcfg = _f32(ARCHS[name])
     tcfg = _f32(tconfigs.get_config(name))
@@ -64,6 +68,56 @@ def test_serve_matches_jax_engine(name):
         assert len(tr.out) == max_new
         assert tr.t_submit <= tr.t_admit <= tr.t_first
     assert all(s is None for s in teng.slot_req)
+
+
+def _frames(cfg, n, seed):
+    return np.random.default_rng(seed).standard_normal(
+        (1, n, cfg.d_model)).astype(np.float32)
+
+
+def test_encdec_frames_match_jax_engine_and_fill_a_prefix():
+    """Encoder frames given, one slot: the first request's frames fill
+    the cross K / V pool (``max_len`` rows); the second's are fewer and,
+    as the JAX engine's ``dynamic_update_slice`` does, overwrite only the
+    prefix of the slot's rows, so its decode attends the first request's
+    remaining rows (a fault of the reference, ``ROADMAP.md`` §3, which the
+    port matches); the third has none (zeros of ``max_len`` rows).  The
+    greedy tokens equal the JAX engine's, and after the second admission
+    the slot's rows past its frames still hold the first request's."""
+    name = "seamless-m4t-large-v2"
+    jcfg = _f32(ARCHS[name])
+    tcfg = _f32(tconfigs.get_config(name))
+    jp = jmodel.init_params(jcfg, jax.random.PRNGKey(2))
+    tp = params_from_jax(jax.tree.map(np.asarray, jp), "cpu")
+    max_len, short = 48, 20
+    prompts = _prompts(jcfg.vocab_size, [10, 7, 10], seed=5)
+    frames = [_frames(jcfg, max_len, 1), _frames(jcfg, short, 2), None]
+    jeng = JServeEngine(jcfg, jp, max_batch=1, max_len=max_len,
+                        scfg=JSamplerConfig(temperature=0.0))
+    jreqs = [jeng.submit(p, max_new=5, enc_frames=f)
+             for p, f in zip(prompts, frames)]
+    jeng.run()
+    teng = ServeEngine(tcfg, tp, max_batch=1, max_len=max_len,
+                       scfg=SamplerConfig(temperature=0.0), device="cpu")
+    treqs = [teng.submit(p, max_new=5, enc_frames=f)
+             for p, f in zip(prompts, frames)]
+    teng.step()
+    while teng.slot_req[0] is not None:
+        teng.step()
+    first = {k: teng.cache["layer0"][k][:, 0].clone() for k in ("xk", "xv")}
+    teng._admit()
+    with torch.inference_mode():
+        _, fresh = tmodel.prefill(tp, {
+            "inputs": torch.tensor([prompts[1]], dtype=torch.int32),
+            "enc_frames": torch.from_numpy(frames[1]).to(torch.bfloat16)},
+            cfg=tcfg, max_len=max_len)
+    for k in ("xk", "xv"):
+        slot = teng.cache["layer0"][k][:, 0]
+        assert torch.equal(slot[:, :short], fresh["layer0"][k][:, 0])
+        assert torch.equal(slot[:, short:], first[k][:, short:])
+    teng.run()
+    for tr, jr in zip(treqs, jreqs):
+        assert tr.done and tr.out == [int(t) for t in jr.out], tr.rid
 
 
 def test_continuous_batching_matches_single_stream():
@@ -124,6 +178,17 @@ def test_launcher_serves_the_xlstm_and_moe_families(name, capsys):
     --device cpu``: the reduced configs, sampled, 3 requests over 4
     slots; the engine's pool holds the float32 recurrent states beside
     the bf16 caches."""
+    assert tlaunch.main(["--arch", name, "--smoke", "--device", "cpu",
+                         "--requests", "3", "--max-new", "4"]) == 0
+    assert "3 requests, 12 tokens" in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("name", ["seamless-m4t-large-v2",
+                                  "llava-next-mistral-7b"])
+def test_launcher_serves_the_encdec_and_vision_configs(name, capsys):
+    """``--arch seamless-m4t-large-v2`` (requests without frames: the
+    engine feeds zeros) and ``--arch llava-next-mistral-7b`` (text) with
+    ``--smoke --device cpu``: 3 requests over 4 slots."""
     assert tlaunch.main(["--arch", name, "--smoke", "--device", "cpu",
                          "--requests", "3", "--max-new", "4"]) == 0
     assert "3 requests, 12 tokens" in capsys.readouterr().out
