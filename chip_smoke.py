@@ -240,6 +240,40 @@ and passed over.
    ``[1, 3072, 8, 128]``, causal), held and timed as in 12 (b); (a)
    phase 7's text requests, 32 launches a prefill.  Prints the serving
    lines and the profiles.
+14. **The LM training mesh: ``pjit``** on two gloo ranks sharing the card
+   (``launch.mesh.run_ranks``; every collective staged through the
+   host).  Phases 14-15 run right after phase 1, while this process holds
+   nothing on the card.  First, in this process, one single-device forward and
+   backward of phase 8's kind on the global batch of 2 x 2,048 tokens
+   (cut from 3,072: two ranks at 3,072 run out of the card's memory);
+   each rank's slices of its gradient go to the temporary directory, and
+   the same gradient as the token-weighted sum of the two rows' measures
+   the single device's own bf16 spread, leaf by leaf.  Then the full
+   ``recurrentgemma-2b`` (nothing cut in width, from ``--seed``) trains
+   2 steps through the port's ``Trainer`` on ``(data, model) = (2, 1)``,
+   ``layout="tp"``, one row a rank, full remat, fused head.  Each rank:
+   step 1's loss within 2**-8 of itself of the single device's, the
+   gradient norm within 1e-2 relative, each reduce-scattered gradient
+   block within 1e-2 relative L2 of the single device's slice (or twice
+   that leaf's own bf16 spread, where larger), exactly one row's kernel
+   launches (16, 36, 18 a step), the loss falling; prints each rank's
+   step seconds, tokens/s, peak memory and the bytes a step hands to the
+   gather, the reduce-scatter and the norm.  The reduced config trained 2
+   steps on the same mesh checkpoints at step 2 (rank 0 writes): a
+   single-device ``Trainer`` restores it, leaf for leaf equal to the
+   mesh's gathered tree.
+15. **The LM training mesh: ``podwise``** on ``(pod, data, model) = (2,
+   1, 1)``, the model cut to one pattern unit (13 of 26 layers: two
+   replicas of 26 layers at 16 bytes a parameter would not fit), one row
+   a pod: one forward and backward, then ``cross_pod_mean`` leaf by leaf
+   on those gradients in float32 with ``none`` (equal to the all-reduce
+   mean), ``bf16`` (within bf16 rounding of the leaf's largest |g|) and
+   ``int8_ef`` (within amax / 64, a residual left), the bytes over
+   ``pod`` 4 : 2 : 1 (plus int8's scale); then one full podwise
+   ``int8_ef`` step of the ``Trainer`` (a finite loss; the pods' parameters
+   equal, by exact checksums of their bits).  Prints the step's seconds
+   and ``pod_efficiency_ratio`` against a one-rank step of the same cut
+   model, a gloo-on-one-card figure.
 
 The line before the last is one JSON object describing every kernel; the
 last line is
@@ -1990,10 +2024,12 @@ def scan_backward_phase(torch, captured):
     return row("rg_lru_scan_backward", worst, ms, plain, bnd, by)
 
 
-def grad_check(torch, cfg, seed: int, batch, device="cuda") -> None:
+def grad_check(torch, cfg, seed: int, batch, device="cuda",
+               label="train"):
     """(a): one step's loss and gradients by the kernel route against the
     same step with ``plain_kernels()``, on the same batch and
-    parameters."""
+    parameters.  Returns the parameters and the kernel route's loss and
+    gradient tree."""
     from repro_torch.models import model
     from repro_torch.train import step
     from repro_torch.utils.pytree import tree_flatten_with_paths
@@ -2006,11 +2042,13 @@ def grad_check(torch, cfg, seed: int, batch, device="cuda") -> None:
               else contextlib.nullcontext()):
             (loss, _), grads = step._value_and_grad_accum(
                 params, batch, cfg=cfg, pcfg=train_pcfg())
-        out[route] = (float(loss), tree_flatten_with_paths(grads))
-        print(f"train: gradient check, {route} route: loss "
+        out[route] = (float(loss), grads)
+        print(f"{label}: gradient check, {route} route: loss "
               f"{out[route][0]:.6f} in {time.perf_counter() - t:.2f}s")
     worst_rel, worst_cos, worst_leaf = 0.0, 1.0, ""
-    for (path, g), (_, w) in zip(out["kernel"][1], out["plain"][1]):
+    flat = tree_flatten_with_paths(out["kernel"][1])
+    for (path, g), (_, w) in zip(flat,
+                                 tree_flatten_with_paths(out["plain"][1])):
         g, w = g.double(), w.double()
         rel = float((g - w).norm() / w.norm().clamp_min(1e-30))
         cos = float((g * w).sum() / (g.norm() * w.norm()).clamp_min(1e-30))
@@ -2021,12 +2059,14 @@ def grad_check(torch, cfg, seed: int, batch, device="cuda") -> None:
               f"gradient of {path}: kernel route against plain route "
               f"relative error {rel}, cosine {cos}")
     d_loss = abs(out["kernel"][0] - out["plain"][0])
-    print(f"train: gradient check over {len(out['kernel'][1])} leaves: loss "
-          f"diff {d_loss:.3e} (tolerance {TRAIN_LOSS_TOL}); worst relative "
-          f"error {worst_rel:.3e} ({worst_leaf}; tolerance {GRAD_REL_TOL}), "
+    print(f"{label}: gradient check over {len(flat)} leaves (batch "
+          f"{list(batch['inputs'].shape)}): loss diff {d_loss:.3e} "
+          f"(tolerance {TRAIN_LOSS_TOL}); worst relative error "
+          f"{worst_rel:.3e} ({worst_leaf}; tolerance {GRAD_REL_TOL}), "
           f"worst cosine {worst_cos:.6f} (at least {GRAD_COS_MIN})")
     check(d_loss <= TRAIN_LOSS_TOL, f"loss by the kernel route "
           f"{out['kernel'][0]} against the plain route {out['plain'][0]}")
+    return params, out["kernel"][0], out["kernel"][1]
 
 
 def train_path(torch, cfg, seed: int, tmp: Path, seq=TRAIN_SEQ,
@@ -2585,8 +2625,10 @@ def fresh_card(torch, phase: int) -> float:
     allocated.  Returns the phase's start on the host clock."""
     gc.collect()
     torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info()
     print(f"phase {phase}: {torch.cuda.memory_allocated()} bytes allocated "
-          f"on the card before it")
+          f"({torch.cuda.memory_reserved()} reserved) on the card before it; "
+          f"{free} of {total} bytes free")
     return time.perf_counter()
 
 
@@ -3058,6 +3100,533 @@ def vlm_phase(torch, seed: int):
     return launches, n_image, flash
 
 
+# ------------------------------------------------------------ phases 14-15
+MESH_LM_RANKS = 2               # gloo ranks sharing the card
+MESH_STEPS = 2
+# the mesh phases' rows: 2,048 tokens, cut from phase 8's 3,072 because
+# two ranks at 3,072 ran out of the 79.18 GiB of an NVIDIA H100 80GB HBM3
+# (700.00 W), 37.5 GiB a rank in the backward: its blocks, the state's
+# half, the whole gathered parameters and gradients, a row's
+# activations; per-layer gathering (ROADMAP.md item 1.3h) is what would
+# fit the full length
+MESH_SEQ = 2048
+POD_LAYERS = 13                 # phase 15: one pattern unit of the 26 layers
+# (14): step 1's loss within 2**-8 of itself of the single-device loss
+# (bf16 activations: the two ranks' rows and the single device's batch
+# round at other places), grad_norm within 1e-2 relative.  Each rank's
+# gradient block is the bf16 sum of the two ranks' row gradients, which
+# the reference computes on its own device as the token-weighted sum of
+# the rows' gradients; the block is held to that sum (rounded to bf16)
+# within one bf16 rounding, unit roundoff 2**-8, in relative L2
+MESH_LOSS_REL, MESH_NORM_REL, MESH_ROWSUM_REL = 2.0 ** -8, 1e-2, 2.0 ** -8
+# (15): bf16's mean within bf16 rounding of none's: each pod's value and
+# the sum rounded to 8 significant bits (unit roundoff u = 2**-8), at
+# most u * (2 + u) of the leaf's largest |g| over the pods, amax (and a
+# float32 denormal); int8_ef's within amax / 64 of the exact mean
+BF16_MEAN_REL = 2.0 ** -7 * (1 + 2.0 ** -9)
+# the parts of a mesh step timed apart on the host clock (synchronised
+# before and after): the functions that make_train_step calls
+MESH_SPANS = (("gather", "sharded", "gather_tree"),
+              ("fwd_bwd", "step", "_value_and_grad_accum"),
+              ("reduce_scatter", "sharded", "reduce_scatter_grads"),
+              ("norm", "sharded", "global_norm_sq"),
+              ("update", "optim", "apply_updates"))
+
+
+def mesh_lm_pcfg(mesh, **kw):
+    """Phase 8's training knobs on ``mesh``."""
+    from repro_torch.parallel.sharding import ParallelConfig
+    return ParallelConfig(mesh=mesh, remat="full", fused_head=True,
+                          head_chunk=HEAD_CHUNK, **kw)
+
+
+def _rel(torch, got, want) -> float:
+    """Relative L2 distance of ``got`` from ``want``, in float64."""
+    want = want.to(got.device).double()
+    return float((got.double() - want).norm() / want.norm().clamp_min(1e-30))
+
+
+def mesh_reference(torch, cfg, seed: int, batch, tmp: Path) -> dict:
+    """Phase 14's reference on the card: one single-device forward and
+    backward of phase 8's kind (full remat, fused head) from ``seed``'s
+    parameters on the global ``batch``, by the kernel route held to the
+    plain route (``grad_check``, phase 8's bands at this length); then
+    the token-weighted sum of the rows' gradients, each row as a mesh
+    rank computes it.  Both gradients go to ``tmp/ref.pt`` (bf16, whole
+    leaves; each rank cuts its blocks); returns the loss and the
+    gradient's norm.  The card is freed after it."""
+    from repro_torch.train import optim, step
+    from repro_torch.utils.pytree import tree_flatten_with_paths, tree_leaves
+    t = time.perf_counter()
+    params, loss, grads = grad_check(torch, cfg, seed, batch, label="mesh")
+    gnorm = float(optim.global_norm(grads))
+    flat = tree_flatten_with_paths(grads)
+    del grads
+    # each rank's share of the mesh's work, on this device: the row's
+    # gradient scaled by its share of the valid tokens, summed in float32
+    tokens = (batch["labels"] >= 0).sum().float()
+    acc = [torch.zeros(g.shape, dtype=torch.float32, device=g.device)
+           for _, g in flat]
+    for r in range(batch["labels"].shape[0]):
+        row = {k: v[r:r + 1] for k, v in batch.items()}
+        _, g_r = step._value_and_grad_accum(
+            params, row, cfg=cfg, pcfg=train_pcfg(),
+            loss_scale=(row["labels"] >= 0).sum().float() / tokens)
+        for a, g in zip(acc, tree_leaves(g_r)):
+            a.add_(g.float())
+        del g_r
+    del params
+    spread = {p: _rel(torch, g, a) for (p, g), a in zip(flat, acc)}
+    torch.save({"whole": {p: g.cpu() for p, g in flat},
+                "rowsum": {p: a.to(g.dtype).cpu()
+                           for (p, g), a in zip(flat, acc)}},
+               tmp / "ref.pt")
+    del acc, flat
+    gc.collect()
+    torch.cuda.empty_cache()
+    worst = max(spread, key=spread.get)
+    print(f"mesh: single-device reference step ({cfg.name}, batch "
+          f"{TRAIN_BATCH} x {batch['inputs'].shape[1]}): loss {loss:.6f} "
+          f"grad_norm {gnorm:.4f}; the whole batch's gradient differs from "
+          f"the token-weighted sum of its rows' by {spread[worst]:.3e} "
+          f"relative L2 at most ({worst}; bf16 rounding); both on the host "
+          f"in {time.perf_counter() - t:.2f}s")
+    return {"loss": loss, "grad_norm": gnorm}
+
+
+def pod_single_step(torch, cfg, seed: int, tmp: Path, seq) -> float:
+    """Phase 15's one-rank reference: the cut model on the card, one row
+    (a pod's share), 2 steps; returns the second step's seconds."""
+    from repro_torch.train import Trainer, TrainerConfig
+    _, _, pipe = train_data(torch, tmp, cfg, seed, batch=1, seq=seq)
+    tr = Trainer(cfg, train_pcfg(), TrainerConfig(
+        steps=2, ckpt_every=2 ** 62, log_every=1, seed=seed), pipe,
+        device="cuda")
+    hist = tr.run(2)
+    del tr
+    gc.collect()
+    torch.cuda.empty_cache()
+    return hist[1]["wall_s"] - hist[0]["wall_s"]
+
+
+def _checksums(torch, tree) -> list:
+    """Exact integer checksums of each leaf's bits (the whole leaf and two
+    strided subsets of its 16-bit words)."""
+    from repro_torch.utils.pytree import tree_leaves
+    out = []
+    for x in tree_leaves(tree):
+        v = x.detach().contiguous().view(-1).view(torch.int16).long()
+        out.append([int(v.sum()), int(v[::3].sum()), int(v[1::5].sum())])
+    return out
+
+
+def _mesh_spans(torch, spans: dict) -> contextlib.ExitStack:
+    """``MESH_SPANS``' functions wrapped to append their seconds (the card
+    synchronised before and after) to ``spans[name]``."""
+    from repro_torch.parallel import sharded
+    from repro_torch.train import optim, step
+    modules = {"sharded": sharded, "step": step, "optim": optim}
+    stack = contextlib.ExitStack()
+    for name, mod, attr in MESH_SPANS:
+        def timed(*a, _fn=getattr(modules[mod], attr), _name=name, **kw):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = _fn(*a, **kw)
+            torch.cuda.synchronize()
+            spans.setdefault(_name, []).append(time.perf_counter() - t)
+            return out
+        stack.enter_context(patched(modules[mod], attr, timed))
+    return stack
+
+
+def _rank_train(torch, rank: int, seed: int, tmp: Path, cfg, seq) -> dict:
+    """(14) the full model, 2 steps on the ``(2, 1)`` mesh, each step's
+    parts timed (``MESH_SPANS``); the step-1 gradient blocks held against
+    the reference's row sum (``MESH_ROWSUM_REL``) and measured against
+    its whole-batch gradient."""
+    from repro_torch.kernels.flash_attention import kernel as fkernel
+    from repro_torch.kernels.rg_lru_scan import kernel as lkernel
+    from repro_torch.launch.mesh import make_mesh_compat
+    from repro_torch.parallel import sharded
+    from repro_torch.train import Trainer, TrainerConfig, optim
+    from repro_torch.utils.pytree import tree_flatten_with_paths, tree_leaves
+    mesh = make_mesh_compat((MESH_LM_RANKS, 1), ("data", "model"))
+    check(mesh.host_staged,
+          f"rank {rank}: mesh on {mesh.device} over {mesh.backend}")
+    _, _, pipe = train_data(torch, tmp / f"train{rank}", cfg, seed, seq=seq)
+    t = time.perf_counter()
+    trainer = Trainer(cfg, mesh_lm_pcfg(mesh), TrainerConfig(
+        steps=MESH_STEPS, ckpt_every=2 ** 62, log_every=1, seed=seed), pipe,
+        device=mesh.device)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t
+    worst, spans = {}, {}
+
+    def held(params, grads, state, *a, **kw):
+        if not worst:                       # step 1's gradient blocks
+            want = torch.load(tmp / "ref.pt", mmap=True)
+            for (path, g), s in zip(tree_flatten_with_paths(grads),
+                                    tree_leaves(kw["specs"])):
+                sl = sharded.block_slices(s, want["whole"][path].shape, mesh)
+                for key in ("rowsum", "whole"):
+                    worst[key] = max(worst.get(key, (0.0, "")), (
+                        _rel(torch, g, want[key][path][sl]), path))
+            del want
+        return update(params, grads, state, *a, **kw)
+
+    torch.cuda.reset_peak_memory_stats()
+    for k in sharded.WIRE:
+        sharded.WIRE[k] = 0
+    fkernel.launches = lkernel.launches = lkernel.backward_launches = 0
+    with _mesh_spans(torch, spans):
+        update = optim.apply_updates        # the timed one
+        with patched(optim, "apply_updates", held):
+            hist = trainer.run(MESH_STEPS)
+    launches = (fkernel.launches, lkernel.launches,
+                lkernel.backward_launches)
+    wire = {k: v // MESH_STEPS for k, v in sharded.WIRE.items()}
+    peak = torch.cuda.max_memory_allocated()
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    walls = [h["wall_s"] for h in hist]
+    return {"build_s": build_s, "launches": launches, "wire": wire,
+            "peak": peak, "worst": worst, "spans": spans,
+            "steps": [(h["loss"], h["grad_norm"], s) for h, s in
+                      zip(hist, np.diff([0.0] + walls))]}
+
+
+def _rank_ckpt(torch, rank: int, seed: int, tmp: Path, cfg) -> dict:
+    """(14): the reduced config trained 2 steps on the mesh and
+    checkpointed at step 2 (rank 0 writes); rank 0 returns the files and
+    the gathered tree."""
+    from repro_torch.launch.mesh import make_mesh_compat
+    from repro_torch.parallel import sharded
+    from repro_torch.train import SectorCheckpointer, Trainer, TrainerConfig
+    from repro_torch.utils.pytree import tree_flatten_with_paths
+    mesh = make_mesh_compat((MESH_LM_RANKS, 1), ("data", "model"))
+    small = cfg.reduced()
+    client, _, pipe = train_data(torch, tmp / f"ck{rank}", small, seed,
+                                 seq=128, n_tokens=20_000)
+    tr = Trainer(small, mesh_lm_pcfg(mesh), TrainerConfig(
+        steps=2, ckpt_every=2, log_every=1, lr=1e-3, warmup=1, seed=seed),
+        pipe, SectorCheckpointer(client, "mesh"), device=mesh.device)
+    tr.run(2)
+    whole = sharded.gather_tree(tr._tree(), tr._specs(), tr._shapes(), mesh)
+    out = {"cursor": tr.pipeline.state_dict()}
+    if rank == 0:
+        base = "ckpt/mesh/step_00000002"
+        out["files"] = {n: client.download(n) for n in
+                        (base + ".bin", base + ".manifest.json")}
+        out["whole"] = {p: x.detach().float().cpu().numpy()
+                        for p, x in tree_flatten_with_paths(whole)}
+    return out
+
+
+def _rank_pod(torch, rank: int, seed: int, tmp: Path, cfg, seq) -> dict:
+    """(15) on ``(pod, data, model) = (2, 1, 1)``, the model cut to one
+    pattern unit: one forward and backward on the pod's row, then
+    ``cross_pod_mean`` of every mode leaf by leaf on those gradients (in
+    float32, as an accumulating step makes them); then one podwise
+    ``int8_ef`` step of the ``Trainer``."""
+    import torch.distributed as dist
+
+    from repro_torch.data.dataset import Cursor
+    from repro_torch.launch.mesh import make_mesh_compat
+    from repro_torch.models import model
+    from repro_torch.parallel import collectives
+    from repro_torch.train import Trainer, TrainerConfig, step
+    from repro_torch.utils.pytree import tree_flatten_with_paths
+    pod = make_mesh_compat((MESH_LM_RANKS, 1, 1), ("pod", "data", "model"))
+    cut = cfg.replace(n_layers=POD_LAYERS)
+    pcfg = mesh_lm_pcfg(pod, multi_pod=True, mode="podwise",
+                        compress_pod="int8_ef")
+    _, ds, pipe = train_data(torch, tmp / f"pod{rank}", cut, seed, seq=seq)
+    host, _ = next(ds.batches(TRAIN_BATCH, Cursor()))
+    rows = step.local_batch({k: torch.from_numpy(v) for k, v in
+                             host.items()}, pcfg)
+    rows = {k: v.to(pod.device) for k, v in rows.items()}
+    params = model.init_params(cut, torch.Generator().manual_seed(seed),
+                               pod.device)
+    t = time.perf_counter()
+    (loss, _), grads = step._value_and_grad_accum(
+        params, rows, cfg=cut, pcfg=pcfg.with_(multi_pod=False))
+    del params
+    torch.cuda.synchronize()
+    fwd_bwd_s = time.perf_counter() - t
+    group = pod.group_for("pod")
+
+    def exact_reduce(x, op):
+        buf = x.to("cpu", copy=True)
+        dist.all_reduce(buf, op=op, group=group)
+        return buf.to(x.device)
+
+    def mean(x, mode, ef=None):
+        before = collectives.WIRE["pod"]
+        m, e = collectives.cross_pod_mean(
+            {"w": x.clone()}, mesh=pod, compress=mode,
+            ef_state=None if ef is None else {"w": ef})
+        return m["w"], None if e is None else e["w"], \
+            collectives.WIRE["pod"] - before
+
+    wire = {"none": 0, "bf16": 0, "int8_ef": 0}
+    worst = {"bf16": 0.0, "int8_ef": 0.0}
+    ef_nonzero, n_leaves, n_elems = False, 0, 0
+    t = time.perf_counter()
+    for path, g in tree_flatten_with_paths(grads):
+        g32 = g.float()
+        n_leaves += 1
+        n_elems += g32.numel()
+        exact = exact_reduce(g32, dist.ReduceOp.SUM) / MESH_LM_RANKS
+        none, _, b = mean(g32, "none")
+        wire["none"] += b
+        check(torch.equal(none, exact),
+              f"rank {rank}: {path}: cross_pod_mean none differs from the "
+              f"all-reduce mean")
+        del exact
+        amax = float(exact_reduce(g32.abs().max().reshape(1),
+                                  dist.ReduceOp.MAX)[0])
+        b16, _, b = mean(g32, "bf16")
+        wire["bf16"] += b
+        err = float((b16 - none).abs().max())
+        worst["bf16"] = max(worst["bf16"], err / max(amax, 1e-30))
+        check(err <= BF16_MEAN_REL * amax + 1e-38, f"rank {rank}: {path}: "
+              f"bf16 mean {err} from none's, beyond bf16 rounding of the "
+              f"leaf's largest |g| {amax}")
+        del b16
+        m8, ef, b = mean(g32, "int8_ef", torch.zeros_like(g32))
+        wire["int8_ef"] += b
+        err = float((m8 - none).abs().max())
+        worst["int8_ef"] = max(worst["int8_ef"], err / max(amax, 1e-30))
+        check(err <= amax / 64, f"rank {rank}: {path}: int8_ef mean "
+              f"{err} from the exact mean, beyond amax / 64 = {amax / 64}")
+        ef_nonzero |= bool(ef.any())
+        del m8, ef, none, g32
+    modes_s = time.perf_counter() - t
+    check(ef_nonzero, f"rank {rank}: every int8_ef residual is zero")
+    del grads
+    gc.collect()
+    torch.cuda.empty_cache()
+    # one full podwise int8_ef step of the Trainer
+    t = time.perf_counter()
+    trainer = Trainer(cut, pcfg, TrainerConfig(
+        steps=1, ckpt_every=2 ** 62, log_every=1, seed=seed), pipe,
+        device=pod.device)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t
+    torch.cuda.reset_peak_memory_stats()
+    hist = trainer.run(1)
+    peak = torch.cuda.max_memory_allocated()
+    sums = _checksums(torch, trainer.params)
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"loss_local": float(loss), "fwd_bwd_s": fwd_bwd_s,
+            "modes_s": modes_s, "wire": wire, "worst": worst,
+            "leaves": n_leaves, "elems": n_elems, "build_s": build_s,
+            "step": (hist[0]["loss"], hist[0]["grad_norm"],
+                     hist[0]["wall_s"]),
+            "peak": peak, "sums": sums}
+
+
+def lm_mesh_rank(rank: int, world: int, seed: int, tmp: str, cfg,
+                 seq: int) -> dict:
+    """One of the 2 ranks of phases 14-15 (started by ``run_ranks``)."""
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    tmp = Path(tmp)
+    t = time.perf_counter()
+    out = {"train": _rank_train(torch, rank, seed, tmp, cfg, seq)}
+    out["train_s"] = time.perf_counter() - t
+    out["ckpt"] = _rank_ckpt(torch, rank, seed, tmp, cfg)
+    out["ckpt_s"] = time.perf_counter() - t - out["train_s"]
+    t = time.perf_counter()
+    out["pod"] = _rank_pod(torch, rank, seed, tmp, cfg, seq)
+    out["pod_s"] = time.perf_counter() - t
+    return out
+
+
+def check_mesh_train(cfg, res, ref) -> None:
+    """Phase 14's bands, per rank."""
+    n_attn = cfg.n_groups * sum(s in "AL" for s in cfg.block_pattern)
+    n_rec = cfg.n_groups * cfg.block_pattern.count("R")
+    want = (2 * n_attn * MESH_STEPS, 2 * n_rec * MESH_STEPS,
+            n_rec * MESH_STEPS)
+    for r, out in enumerate(res):
+        tr = out["train"]
+        loss1, norm1, _ = tr["steps"][0]
+        check(abs(loss1 - ref["loss"]) <= MESH_LOSS_REL * abs(ref["loss"]),
+              f"rank {r}: step-1 loss {loss1} against the single device's "
+              f"{ref['loss']}")
+        check(abs(norm1 - ref["grad_norm"])
+              <= MESH_NORM_REL * ref["grad_norm"],
+              f"rank {r}: step-1 grad_norm {norm1} against "
+              f"{ref['grad_norm']}")
+        rel, path = tr["worst"]["rowsum"]
+        check(rel <= MESH_ROWSUM_REL,
+              f"rank {r}: gradient block {path} off the single device's "
+              f"sum of the rows' gradients by {rel} (relative L2; bound "
+              f"{MESH_ROWSUM_REL})")
+        check(tr["launches"] == want,
+              f"rank {r}: launches (flash_attention, rg_lru_scan, backward) "
+              f"{tr['launches']}, one row's are {want}")
+        losses = [s[0] for s in tr["steps"]]
+        check(all(math.isfinite(x) for x in losses)
+              and losses[-1] < losses[0],
+              f"rank {r}: the loss did not fall: {losses}")
+
+
+def check_mesh_ckpt(torch, cfg, res, seed: int, tmp: Path) -> None:
+    """(14): the mesh's checkpoint restores into a single-device Trainer,
+    leaf for leaf."""
+    from repro_torch.train import SectorCheckpointer, Trainer, TrainerConfig
+    from repro_torch.utils.pytree import tree_flatten_with_paths
+    small = cfg.reduced()
+    client, _, pipe = train_data(torch, tmp / "restore", small, seed,
+                                 seq=128, n_tokens=20_000)
+    for name, data in res[0]["ckpt"]["files"].items():
+        client.upload(name, data, replication=2)
+    tr = Trainer(small, train_pcfg(), TrainerConfig(
+        steps=2, ckpt_every=2, log_every=1, lr=1e-3, warmup=1, seed=seed),
+        pipe, SectorCheckpointer(client, "mesh"), device="cuda")
+    check(tr.step_idx == 2, f"restored step {tr.step_idx}, not 2")
+    check(tr.pipeline.state_dict() == res[0]["ckpt"]["cursor"],
+          "the restored cursor differs from the mesh's")
+    got = {p: x.detach().float().cpu().numpy() for p, x in
+           tree_flatten_with_paths(tr._tree())}
+    want = res[0]["ckpt"]["whole"]
+    check(set(got) == set(want)
+          and all(np.array_equal(got[p], want[p]) for p in want),
+          "the single-device Trainer's restored tree differs from the "
+          "mesh's gathered tree")
+    print(f"mesh: checkpoint at step 2 written by the 2-rank mesh "
+          f"({small.name}, rank 0 writes) restored into a single-device "
+          f"Trainer: {len(want)} leaves bit-identical, cursor equal")
+
+
+def check_pod(res) -> None:
+    """Phase 15's bands."""
+    for r, out in enumerate(res):
+        p = out["pod"]
+        w = p["wire"]
+        check(w["bf16"] * 2 == w["none"]
+              and (w["int8_ef"] - 4 * p["leaves"]) * 4 == w["none"],
+              f"rank {r}: bytes over pod none / bf16 / int8_ef {w} are not "
+              f"4 : 2 : 1 (+ 4 bytes a leaf of int8 scale)")
+        check(math.isfinite(p["step"][0]),
+              f"rank {r}: the podwise step's loss {p['step'][0]}")
+    check(res[0]["pod"]["sums"] == res[1]["pod"]["sums"],
+          "the two pods hold different parameters after the podwise step")
+
+
+def mesh_lm_run(torch, seed: int, seq=MESH_SEQ):
+    """Phases 14-15 up to their checks: the single-device references in
+    this process, then the 2 ranks.  Returns (cfg, reference, one-rank
+    step seconds, the ranks' results, seconds with the spawn)."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.dataset import Cursor
+    from repro_torch.launch.mesh import run_ranks
+    cfg = get_config(LM_ARCH)
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_lm_mesh_"))
+    try:
+        _, ds, _ = train_data(torch, tmp / "ref", cfg, seed, seq=seq)
+        host, _ = next(ds.batches(TRAIN_BATCH, Cursor()))
+        ref = mesh_reference(torch, cfg, seed, {
+            k: torch.from_numpy(v).cuda() for k, v in host.items()}, tmp)
+        cut = cfg.replace(n_layers=POD_LAYERS)
+        single_s = pod_single_step(torch, cut, seed, tmp / "single", seq)
+        print(f"mesh: one-rank step of {cut.name} cut to {POD_LAYERS} layers "
+              f"(one row of {seq}): {single_s:.4f}s")
+        t = time.perf_counter()
+        res = run_ranks(lm_mesh_rank, MESH_LM_RANKS,
+                        (seed, str(tmp), cfg, seq),
+                        timeout_s=600, join_timeout_s=900)
+        spawn_s = time.perf_counter() - t
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return cfg, ref, single_s, res, spawn_s
+
+
+def mesh_lm_phase(torch, seed: int) -> tuple:
+    """Phases 14-15.  Returns each rank's (flash, scan, scan backward)
+    launches of phase 14's run."""
+    from repro_torch.parallel.collectives import pod_efficiency_ratio
+    seq = MESH_SEQ
+    cfg, ref, single_s, res, spawn_s = mesh_lm_run(torch, seed, seq)
+    cut = cfg.replace(n_layers=POD_LAYERS)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_lm_mesh_") as tmp:
+        tmp = Path(tmp)
+        card = card_line()
+        tokens = seq                           # a rank's row
+        for r, out in enumerate(res):
+            tr = out["train"]
+            secs = [s for _, _, s in tr["steps"]]
+            steady = statistics.median(secs[1:])
+            parts = []
+            for i, s in enumerate(secs):
+                part = {n: tr["spans"][n][i] for n, _, _ in MESH_SPANS}
+                rest = s - sum(v for n, v in part.items() if n != "norm")
+                parts.append(f"step {i + 1}: " + " ".join(
+                    f"{n} {v:.4f}" for n, v in part.items())
+                    + f" other {rest:.4f}")
+            print(f"mesh train rank {r}/{MESH_LM_RANKS} ({cfg.name}, "
+                  f"(data, model) = (2, 1), gloo sharing the card, "
+                  f"host-staged; {card}): steps "
+                  + ", ".join(f"loss={l:.6f} grad_norm={n:.4f} "
+                              f"step_s={s:.4f}" for l, n, s in tr["steps"])
+                  + f"; step_s (median after the first) {steady:.4f}, "
+                  f"{tokens / steady:.1f} tokens/s a rank "
+                  f"({MESH_LM_RANKS * tokens / steady:.1f} for the mesh); "
+                  f"max_memory_allocated={tr['peak']}; bytes a step: "
+                  f"gather {tr['wire']['gather']} reduce_scatter "
+                  f"{tr['wire']['reduce_scatter']} norm {tr['wire']['norm']};"
+                  f" launches flash_attention={tr['launches'][0]} "
+                  f"rg_lru_scan={tr['launches'][1]} rg_lru_scan backward="
+                  f"{tr['launches'][2]}; gradient blocks against the single "
+                  f"device's sum of the rows' gradients: worst "
+                  f"{tr['worst']['rowsum'][0]:.3e} relative L2 "
+                  f"({tr['worst']['rowsum'][1]}; bound {MESH_ROWSUM_REL}), "
+                  f"against its whole-batch gradient: worst "
+                  f"{tr['worst']['whole'][0]:.3e} ({tr['worst']['whole'][1]}"
+                  f"); Trainer built in {tr['build_s']:.2f}s")
+            print(f"mesh train rank {r} seconds by part (host clock, the "
+                  f"card synchronised around each; update includes norm; "
+                  f"other is the rest of the step): {'; '.join(parts)}")
+        check_mesh_train(cfg, res, ref)
+        print(f"mesh train: step-1 loss {res[0]['train']['steps'][0][0]:.6f} "
+              f"against the single device's {ref['loss']:.6f}, grad_norm "
+              f"{res[0]['train']['steps'][0][1]:.4f} against "
+              f"{ref['grad_norm']:.4f}")
+        check_mesh_ckpt(torch, cfg, res, seed, tmp)
+        check_pod(res)
+        for r, out in enumerate(res):
+            p = out["pod"]
+            loss, norm, step_s = p["step"]
+            print(f"mesh pod rank {r}/{MESH_LM_RANKS} ({cut.name} cut to "
+                  f"{POD_LAYERS} layers, (pod, data, model) = (2, 1, 1), "
+                  f"{p['leaves']} leaves, {p['elems']} parameters; {card}): "
+                  f"forward+backward {p['fwd_bwd_s']:.2f}s; cross_pod_mean "
+                  f"of the float32 gradients leaf by leaf, three modes "
+                  f"{p['modes_s']:.2f}s: bytes over pod none "
+                  f"{p['wire']['none']} bf16 {p['wire']['bf16']} int8_ef "
+                  f"{p['wire']['int8_ef']}; none equal to the all-reduce "
+                  f"mean; bf16 worst {p['worst']['bf16']:.4e} of amax (bound "
+                  f"{BF16_MEAN_REL:.4e}); int8_ef worst "
+                  f"{p['worst']['int8_ef']:.4e} of amax (bound 1/64); "
+                  f"podwise int8_ef Trainer step: loss={loss:.6f} "
+                  f"grad_norm={norm:.4f} step_s={step_s:.4f} "
+                  f"max_memory_allocated={p['peak']}; "
+                  f"pod_efficiency_ratio {pod_efficiency_ratio(step_s, single_s):.4f}"
+                  f" (a gloo-on-one-card figure: both pods share the card "
+                  f"and stage through the host)")
+        print(f"mesh: phases 14-15 ranks: train {res[0]['train_s']:.1f}s, "
+              f"checkpoint {res[0]['ckpt_s']:.1f}s, pod {res[0]['pod_s']:.1f}s;"
+              f" {spawn_s:.1f}s with the spawn; the pods hold equal "
+              f"parameters after the podwise step")
+    return [out["train"]["launches"] for out in res]
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--records", type=int, default=10_000_000)
@@ -3081,6 +3650,15 @@ def main() -> None:
     print(f"python {sys.version.split()[0]} torch {torch.__version__} "
           f"cuda {torch.version.cuda}")
     build_all(ROOT / "build" / "repro_torch")
+
+    # phases 14-15: the LM training mesh, 2 gloo ranks sharing the card,
+    # run first, while this process holds nothing on the card: two ranks
+    # of the full model need all but a few GiB of it, and after phases
+    # 2-13 this process kept enough cached there that a rank ran out
+    t = fresh_card(torch, 14)
+    mesh_launches = mesh_lm_phase(torch, args.seed)
+    print(f"phases 14-15 done in {time.perf_counter() - t:.1f}s (at "
+          f"{time.perf_counter() - t0:.1f}s)")
 
     # phase 2: every kernel against its plain version on the card
     rows = {r["name"]: r for r in (dest_phase(torch), *partition_phase(torch),
@@ -3191,19 +3769,25 @@ def main() -> None:
         vlm_phase(torch, args.seed)
     print(f"phase 13 done in {time.perf_counter() - t:.1f}s (at "
           f"{time.perf_counter() - t0:.1f}s)")
+
     for name, by_path in (
             ("bucket_partition_rows", {
                 "partition": p_launches[0],
                 "mesh": m_launches["bucket_partition_rows"]}),
             ("flash_attention", {"serve": lm_launches[0],
                                  "train": t_launches[0],
+                                 "train_mesh": sum(x[0] for x in
+                                                   mesh_launches),
                                  "serve_" + MOE_ARCH: moe_launches[0],
                                  "serve_" + ENCDEC_ARCH: encdec_launches[0],
                                  "serve_" + VLM_ARCH: vlm_launches[0],
                                  "image_" + VLM_ARCH: image_launches}),
             ("rg_lru_scan", {"serve": lm_launches[1],
-                             "train": t_launches[1]}),
-            ("rg_lru_scan_backward", {"train": t_launches[2]})):
+                             "train": t_launches[1],
+                             "train_mesh": sum(x[1] for x in mesh_launches)}),
+            ("rg_lru_scan_backward", {"train": t_launches[2],
+                                      "train_mesh": sum(
+                                          x[2] for x in mesh_launches)})):
         rows[name]["launches"] = sum(by_path.values())
         rows[name]["launches_by_path"] = by_path
     # the k-means path runs the fused entry and the partition path the

@@ -77,14 +77,20 @@ def tensor_from_numpy(a: np.ndarray, device=None) -> torch.Tensor:
     return torch.from_numpy(a).to(dev)
 
 
-def params_from_jax(tree_of_numpy, device=None):
+def params_from_jax(tree_of_numpy, device=None, *, specs=None, mesh=None):
     """The JAX package's parameter tree, its leaves as numpy arrays
     (``jax.tree.map(np.asarray, params)``), as the port's tree of tensors
     on ``device`` (default CUDA): the same paths, shapes and types, a bf16
     tree's float32 leaves included (the mLSTM's gate weights, the sLSTM's
     biases, the MoE router), the stacked ``[G, E, d, f]`` experts, an
     encoder-decoder's ``encoder`` tree and decoder ``norm_x`` / ``xattn``
-    leaves, and a frontend's ``frontend`` weights."""
+    leaves, and a frontend's ``frontend`` weights.  With a ``mesh`` (and
+    ``specs``, the tree's PartitionSpecs) each leaf is this rank's block
+    (``sharded.shard_tree``), on the mesh's device."""
+    if mesh is not None:
+        from repro_torch.parallel.sharded import shard_tree
+        return shard_tree(params_from_jax(tree_of_numpy, mesh.device),
+                          specs, mesh)
     if isinstance(tree_of_numpy, dict):
         return {key: params_from_jax(sub, device)
                 for key, sub in tree_of_numpy.items()}
@@ -99,14 +105,20 @@ def cache_from_jax(tree_of_numpy, device=None):
     return params_from_jax(tree_of_numpy, device)
 
 
-def opt_state_from_jax(tree_of_numpy, device=None):
-    """The JAX package's AdamW state (``step``, ``m``, ``v``, ``master``),
-    as numpy, as the port's (``repro_torch.train.optim``) on ``device``
-    (default CUDA), by the rule of :func:`params_from_jax`.  The
-    ``int8_ef`` residual (``ef``) belongs to the podwise mode, which the
-    port has not reached: a state that holds one raises."""
+def opt_state_from_jax(tree_of_numpy, device=None, *, specs=None,
+                       mesh=None):
+    """The JAX package's AdamW state (``step``, ``m``, ``v``, ``master``,
+    and the ``int8_ef`` residual ``ef`` where it has one), as numpy, as the
+    port's (``repro_torch.train.optim``) on ``device`` (default CUDA), by
+    the rule of :func:`params_from_jax`; with a ``mesh``, ``specs`` are
+    the PARAMETERS' specs, and every tree of the state keeps the blocks
+    its parameters keep."""
     keys = set(tree_of_numpy)
-    if keys != {"step", "m", "v", "master"}:
-        raise ValueError(f"an AdamW state holds step, m, v and master; got "
-                         f"{sorted(keys)}")
-    return params_from_jax(tree_of_numpy, device)
+    if keys not in ({"step", "m", "v", "master"},
+                    {"step", "m", "v", "master", "ef"}):
+        raise ValueError(f"an AdamW state holds step, m, v, master and "
+                         f"optionally ef; got {sorted(keys)}")
+    if mesh is not None:
+        from repro_torch.parallel.sharding import P
+        specs = {k: (P() if k == "step" else specs) for k in keys}
+    return params_from_jax(tree_of_numpy, device, specs=specs, mesh=mesh)

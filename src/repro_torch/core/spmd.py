@@ -22,7 +22,10 @@ the functions here take and return **rank-local blocks**.  A block is
 the leading-axis slice ``[r * n / D, (r + 1) * n / D)`` of the global
 array, ``D`` the size of the ``data`` axis.
 
-Collectives run over the mesh's process group.  On a gloo group whose
+Collectives run over the process group of their axis
+(``Mesh.group_for``): on a 2-D mesh the ``data`` ranks of one ``model``
+coordinate exchange, and the other coordinates repeat the same work.
+On a gloo group whose
 ranks keep their tensors on a GPU (several ranks sharing one card, where
 NCCL refuses), the collective copies to the host and back
 (``Mesh.host_staged``); gloo carries no ``uint32``, so 32-bit keys cross
@@ -47,14 +50,10 @@ SENTINEL = 0xFFFFFFFF
 
 # ------------------------------------------------------------ collectives
 def _axis_size(mesh: Mesh, axis: str) -> int:
-    """Ranks along ``axis``, which must span the whole group (a
-    collective over a sub-axis needs a group of its own)."""
-    d = mesh.shape[axis]
-    if d != mesh.size:
-        raise NotImplementedError(
-            f"collectives over axis {axis!r} of {dict(mesh.shape)}: only an "
-            f"axis spanning every rank is ported (ROADMAP.md item 1.3c)")
-    return d
+    """Ranks along ``axis``; its collectives run over the axis's own
+    process group (``Mesh.group_for``), so the data plane runs on the
+    ``data`` axis of a 2-D or 3-D mesh as on a 1-D one."""
+    return mesh.shape[axis]
 
 
 def _to_wire(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
@@ -65,26 +64,28 @@ def _from_wire(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
     return x.to(mesh.device) if mesh.host_staged else x
 
 
-def _all_to_all(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
-    """Block ``j`` of the leading axis goes to rank ``j``; block ``j`` of
-    the result came from rank ``j`` (``lax.all_to_all`` tiled over axis
-    0)."""
-    if mesh.group is None:
+def _all_to_all(x: torch.Tensor, mesh: Mesh, axis: str) -> torch.Tensor:
+    """Block ``j`` of the leading axis goes to rank ``j`` of ``axis``;
+    block ``j`` of the result came from rank ``j`` (``lax.all_to_all``
+    tiled over axis 0)."""
+    group = mesh.group_for(axis)
+    if group is None:
         return x
     src = _to_wire(x, mesh)
     dst = torch.empty_like(src)
-    dist.all_to_all_single(dst, src, group=mesh.group)
+    dist.all_to_all_single(dst, src, group=group)
     return _from_wire(dst, mesh)
 
 
-def _all_gather(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
-    """Every rank's ``x`` concatenated along axis 0, in rank order
-    (``lax.all_gather`` tiled)."""
-    if mesh.group is None:
+def _all_gather(x: torch.Tensor, mesh: Mesh, axis: str) -> torch.Tensor:
+    """Every rank's ``x`` along ``axis`` concatenated along axis 0, in
+    rank order (``lax.all_gather`` tiled)."""
+    group = mesh.group_for(axis)
+    if group is None:
         return x
     src = _to_wire(x, mesh)
-    parts = [torch.empty_like(src) for _ in range(mesh.size)]
-    dist.all_gather(parts, src, group=mesh.group)
+    parts = [torch.empty_like(src) for _ in range(mesh.axes_size(axis))]
+    dist.all_gather(parts, src, group=group)
     return _from_wire(torch.cat(parts), mesh)
 
 
@@ -100,12 +101,13 @@ def host_gather(values, mesh: Mesh) -> list:
 
 
 def psum(x: torch.Tensor, mesh: Mesh, axis: str = "data") -> torch.Tensor:
-    """Elementwise sum of every rank's ``x`` (``lax.psum``)."""
-    _axis_size(mesh, axis)
-    if mesh.group is None:
+    """Elementwise sum of ``x`` over the ranks of ``axis``
+    (``lax.psum``)."""
+    group = mesh.group_for(axis)
+    if group is None:
         return x
     buf = _to_wire(x, mesh).clone()
-    dist.all_reduce(buf, op=dist.ReduceOp.SUM, group=mesh.group)
+    dist.all_reduce(buf, op=dist.ReduceOp.SUM, group=group)
     return _from_wire(buf, mesh)
 
 
@@ -136,8 +138,9 @@ def gather_blocks(x: torch.Tensor, mesh: Mesh, axis: str = "data"
     ``x`` in rank order)."""
     _axis_size(mesh, axis)
     if x.dtype == torch.uint32:
-        return _all_gather(x.view(torch.int32), mesh).view(torch.uint32)
-    return _all_gather(x, mesh)
+        return _all_gather(x.view(torch.int32), mesh, axis) \
+            .view(torch.uint32)
+    return _all_gather(x, mesh, axis)
 
 
 # ----------------------------------------------------- sharded stacks
@@ -212,8 +215,9 @@ def sphere_shuffle(x: torch.Tensor, bucket_of_shard: Callable, mesh: Mesh,
     here: the send buffer is already laid out by destination."""
     _axis_size(mesh, axis)
     if x.dtype == torch.uint32:
-        return _all_to_all(x.view(torch.int32), mesh).view(torch.uint32)
-    return _all_to_all(x, mesh)
+        return _all_to_all(x.view(torch.int32), mesh, axis) \
+            .view(torch.uint32)
+    return _all_to_all(x, mesh, axis)
 
 
 def _take_rows(rows: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -292,8 +296,8 @@ def fused_scatter_round(data: torch.Tensor, n_valids, bounds, *, key_spec,
     take = order[(sec_start[:, None] + pos[None, :]).clamp_max(m - 1)]
     send = _take_rows(flat, take.reshape(-1)).view(D, m, width)
     meta = torch.where(live, ids[take], -1).to(torch.int32)
-    recv = _all_to_all(send, mesh)
-    rmeta = _all_to_all(meta, mesh)
+    recv = _all_to_all(send, mesh, axis)
+    rmeta = _all_to_all(meta, mesh, axis)
     # --- receiver: one stable sort by (local worker, bucket); source
     # sections arrive rank-major, so ties keep slot-major input order
     n2 = D * m
@@ -311,7 +315,7 @@ def fused_scatter_round(data: torch.Tensor, n_valids, bounds, *, key_spec,
         .view(wpd, n2, width)
     # counts and histograms of every rank, in one gather
     mine = torch.cat([wcount, hist_sb.reshape(-1)]).to(torch.int32)
-    every = _all_gather(mine, mesh).view(D, wpd + s_l * n)
+    every = _all_gather(mine, mesh, axis).view(D, wpd + s_l * n)
     return (parts, every[:, :wpd].reshape(W),
             every[:, wpd:].reshape(D * s_l, n))
 
@@ -339,7 +343,8 @@ def distributed_sort(keys: torch.Tensor, mesh: Mesh, axis: str = "data",
     samp_n = min(D * oversample, m)
     stride = max(m // samp_n, 1)
     samples = torch.sort(local).values[::stride][:samp_n]
-    all_samples = _u32_to_i64(_all_gather(_i64_to_i32(samples), mesh))
+    all_samples = _u32_to_i64(_all_gather(_i64_to_i32(samples), mesh,
+                                          axis))
     ssorted = torch.sort(all_samples).values
     step = ssorted.shape[0] // D
     bounds = ssorted[step::step][:D - 1].contiguous()
@@ -355,7 +360,7 @@ def distributed_sort(keys: torch.Tensor, mesh: Mesh, axis: str = "data",
     send = torch.full((D, cap), SENTINEL, dtype=torch.int64,
                       device=local.device)
     send.index_put_((sb, pos), sk)
-    recv = _u32_to_i64(_all_to_all(_i64_to_i32(send), mesh))
+    recv = _u32_to_i64(_all_to_all(_i64_to_i32(send), mesh, axis))
 
     # --- stage 2 (sort UDF): local sort of the owned bucket ------------------
     flat = recv.reshape(-1)
@@ -369,7 +374,8 @@ def barrier_sort(keys: torch.Tensor, mesh: Mesh, axis: str = "data"
     """Hadoop-style comparison point: gather everything to every rank,
     sort, keep your slice — the no-locality, all-data-moves baseline."""
     D = _axis_size(mesh, axis)
-    allk = _u32_to_i64(_all_gather(keys.reshape(-1).view(torch.int32), mesh))
+    allk = _u32_to_i64(_all_gather(keys.reshape(-1).view(torch.int32), mesh,
+                                   axis))
     ssorted = torch.sort(allk).values
     m = ssorted.shape[0] // D
     r = mesh.axis_index(axis)

@@ -3,11 +3,13 @@ lookahead.
 
 The port of ``repro.data.pipeline``.  One process feeds one device: each
 batch from the dataset becomes ``int32`` tensors on ``device`` (default
-CUDA).  On the card a batch goes through pinned host memory and a
-``non_blocking`` copy, so the copy of the next batch overlaps the step
-that runs; prefetch depth 2 also overlaps the host-side chunk reads.  A
-mesh is not ported (``ROADMAP.md`` item 1.3c): ``pcfg`` is kept for the
-JAX package's signature.
+CUDA, or the mesh's).  On the card a batch goes through pinned host
+memory and a ``non_blocking`` copy, so the copy of the next batch
+overlaps the step that runs; prefetch depth 2 also overlaps the
+host-side chunk reads.  On a mesh (``pcfg.mesh``) every rank reads the
+same global batch from Sector with the same cursor and keeps its rows
+(the JAX package places the global batch with ``batch_spec(pcfg,
+None)``: the leading dim split over the data axes).
 """
 from __future__ import annotations
 
@@ -17,7 +19,8 @@ from typing import Iterator
 import torch
 
 from repro_torch.data.dataset import Cursor, SectorTokenDataset
-from repro_torch.device import resolve_device
+from repro_torch.device import mesh_device
+from repro_torch.parallel.sharded import batch_rows
 from repro_torch.parallel.sharding import ParallelConfig
 
 
@@ -28,13 +31,14 @@ class DataPipeline:
         self.batch = batch
         self.pcfg = pcfg
         self.prefetch = prefetch
-        self.device = resolve_device(device)
+        self.device = mesh_device(pcfg.mesh, device)
         self.cursor = Cursor()
 
     def _place(self, host_batch: dict) -> dict:
         out = {}
         for k, v in host_batch.items():
-            t = torch.from_numpy(v)
+            t = batch_rows(torch.from_numpy(v), self.pcfg.mesh,
+                           self.pcfg.data_axes)
             if self.device.type == "cuda":
                 t = t.pin_memory().to(self.device, non_blocking=True)
             else:

@@ -3,8 +3,9 @@
 The port of ``repro.launch.mesh``.  JAX builds a mesh over the devices
 one controller sees; here every rank is a process of its own, so a mesh
 is built over an initialised default process group, one per rank
-(:class:`repro_torch.parallel.mesh_utils.Mesh`).  Nothing here touches a
-device or a process group when the module is imported.
+(:class:`repro_torch.parallel.mesh_utils.Mesh`), with a process group
+for every combination of its axes.  Nothing here touches a device or a
+process group when the module is imported.
 
 :func:`run_ranks` starts ``D`` ranks on this machine (spawned processes,
 a ``file://`` store, a collective timeout) and returns what each
@@ -14,20 +15,22 @@ returned: the CPU tests run the mesh over gloo with it, and
 from __future__ import annotations
 
 import datetime
+import itertools
+import math
 import os
 import queue
 import shutil
 import tempfile
 import time
 import traceback
-from typing import Any, Callable, List, Sequence
+from typing import Any, Callable, List, Optional
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
 from repro_torch.parallel.mesh_utils import Mesh
 
-MESH_QUEUE = "not ported yet (ROADMAP.md item 1.3c, the mesh)"
 # how long a host exchange waits for the other ranks before it raises
 HOST_TIMEOUT = datetime.timedelta(minutes=5)
 
@@ -52,38 +55,101 @@ def _world() -> int:
     return dist.get_world_size()
 
 
-def _group_mesh(axes: Sequence[str], shape: dict, device) -> Mesh:
-    """A mesh over the default group; over NCCL, every rank also joins a
-    gloo group for host exchanges (a collective call: every rank builds
-    its meshes in the same order, as it runs the same program)."""
-    rank, backend = dist.get_rank(), dist.get_backend()
+def _sub_groups(shape: tuple, members: list, me: int) -> dict:
+    """For every combination of axes (indices, each of more than one
+    rank) that spans neither one rank nor all of ``members``: the group
+    of ``me``'s coordinates on the other axes.  Every rank creates every
+    group, in the same order, member or not (``new_group`` is collective
+    over the default group)."""
+    n = len(shape)
+    coords = [np.unravel_index(i, shape) for i in range(len(members))]
+    out = {}
+    for k in range(1, n + 1):
+        for combo in itertools.combinations(range(n), k):
+            size = math.prod(shape[i] for i in combo)
+            if any(shape[i] == 1 for i in combo) \
+                    or size in (1, len(members)):
+                continue
+            rest = [i for i in range(n) if i not in combo]
+            parts: dict = {}
+            for li, c in enumerate(coords):
+                parts.setdefault(tuple(c[i] for i in rest), []) \
+                    .append(members[li])
+            for ranks in parts.values():
+                g = dist.new_group(ranks)
+                if me in ranks:
+                    out[combo] = g
+    return out
+
+
+def make_mesh_compat(shape, axes, *, device=None, ranks=None
+                     ) -> Optional[Mesh]:
+    """A mesh of ``shape`` over ``axes`` (the JAX package's
+    ``make_mesh_compat``) on the ranks ``ranks`` of the default group
+    (default: every rank, in order), with a process group for every
+    combination of axes (``Mesh.group_for``); over NCCL every rank also
+    joins a gloo group for host exchanges.
+
+    Every rank of the default group calls it with the same arguments,
+    member or not, in the same order as its other meshes: creating a
+    process group is collective.  A rank outside ``ranks`` gets None."""
+    axes, shape = tuple(axes), tuple(int(s) for s in shape)
+    world = _world()
+    members = list(range(world)) if ranks is None else [int(r) for r in ranks]
+    if len(axes) != len(shape) or math.prod(shape) != len(members):
+        raise ValueError(f"a mesh of shape {shape} over axes {axes} needs "
+                         f"{math.prod(shape)} ranks, not {len(members)}")
+    if len(set(members)) != len(members) \
+            or not all(0 <= r < world for r in members):
+        raise ValueError(f"ranks {members} are not distinct ranks of a "
+                         f"world of {world}")
+    me, backend = dist.get_rank(), dist.get_backend()
+    group = dist.group.WORLD if len(members) == world \
+        else dist.new_group(members)
     host = None if backend == "gloo" else dist.new_group(
-        backend="gloo", timeout=HOST_TIMEOUT)
-    return Mesh(tuple(axes), shape, dist.group.WORLD, rank,
-                dist.get_world_size(), _rank_device(rank, device), backend,
-                host)
+        members, backend="gloo", timeout=HOST_TIMEOUT)
+    groups = {tuple(axes[i] for i in combo): g for combo, g in
+              _sub_groups(shape, members, me).items()}
+    if me not in members:
+        return None
+    return Mesh(axes, dict(zip(axes, shape)), group, members.index(me),
+                len(members), _rank_device(me, device), backend,
+                host, groups)
 
 
 def make_flat_mesh(axis: str = "data", *, device=None) -> Mesh:
     """1-D mesh over every rank of the default group (Sphere SPMD jobs,
     sort benchmarks)."""
-    return _group_mesh((axis,), {axis: _world()}, device)
+    return make_mesh_compat((_world(),), (axis,), device=device)
 
 
 def make_debug_mesh(*, multi_pod: bool = False, device=None) -> Mesh:
-    """The production axis names over every rank of the default group:
-    ``("data", "model")`` with the ranks on ``data``."""
+    """The production axis names over every rank of the default group,
+    the ranks on ``data``: ``(n, 1)`` over ``("data", "model")``, or
+    ``(1, n, 1)`` over ``("pod", "data", "model")``."""
+    n = _world()
     if multi_pod:
-        raise NotImplementedError(f"the multi-pod debug mesh is {MESH_QUEUE}")
-    return _group_mesh(("data", "model"), {"data": _world(), "model": 1},
-                       device)
+        return make_mesh_compat((1, n, 1), ("pod", "data", "model"),
+                                device=device)
+    return make_mesh_compat((n, 1), ("data", "model"), device=device)
 
 
-def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
-    """The JAX package's 16x16 TPU pod mesh (2x16x16 across two pods)."""
-    raise NotImplementedError(
-        f"the {'2x16x16' if multi_pod else '16x16'} production mesh is "
-        f"{MESH_QUEUE}")
+def make_production_mesh(*, multi_pod: bool = False, device=None) -> Mesh:
+    """The JAX package's pod mesh: ``(16, 16)`` over ``("data",
+    "model")``, or ``(2, 16, 16)`` over ``("pod", "data", "model")``
+    across two pods; raises unless the default group has exactly that
+    many ranks."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    need = math.prod(shape)
+    if not (dist.is_available() and dist.is_initialized()) \
+            or dist.get_world_size() != need:
+        have = dist.get_world_size() if dist.is_available() \
+            and dist.is_initialized() else 0
+        raise ValueError(f"the {'x'.join(map(str, shape))} production mesh "
+                         f"needs a default group of {need} ranks, not "
+                         f"{have}")
+    return make_mesh_compat(shape, axes, device=device)
 
 
 # ------------------------------------------------------------ ranks

@@ -3,30 +3,40 @@
     python -m repro_torch.launch.train --arch recurrentgemma-2b --steps 3
     python -m repro_torch.launch.train --arch qwen2.5-3b --smoke --device cpu
 
+    python -m repro_torch.launch.train --smoke --device cpu --ranks 2 \
+        --multi-pod --mode podwise --compress int8_ef
+
 The port of ``repro.launch.train``, with the same flags plus ``--device``
-(default CUDA, which raises without a card).  ``--smoke`` runs the
-config's reduced twin without remat; without it the full config runs
-with full remat, on one device.  The driver stands up a complete
-wide-area deployment in-process: Sector servers at every testbed site, a
-synthetic corpus uploaded through the cloud, the locality-aware data
-pipeline, Sector-replicated checkpoints, and the Sphere-staged train
-step.  ``--multi-pod``, ``--mode podwise`` and a ``--compress`` other
-than ``none`` need a mesh and raise ``NotImplementedError``.
+(default CUDA, which raises without a card) and ``--ranks``.  ``--smoke``
+runs the config's reduced twin without remat; without it the full config
+runs with full remat.  The launcher stands up a complete wide-area
+deployment in-process: Sector servers at every testbed site, a synthetic
+corpus uploaded through the cloud, the locality-aware data pipeline,
+Sector-replicated checkpoints, and the Sphere-staged train step.
+
+With ``--ranks N`` above 1, or ``--multi-pod``, ``--mode podwise`` or a
+``--compress`` other than ``none``, the job runs on a mesh: ``N`` ranks
+started by ``launch.mesh.run_ranks`` (gloo; on the card, ranks sharing
+it stage their collectives through the host), each standing up the same
+deployment from the same seed, on the JAX launcher's debug mesh
+(``make_debug_mesh``: the ranks on ``data``, and a ``pod`` axis of one
+under ``--multi-pod``).  Rank 0's history is printed.
 """
 from __future__ import annotations
 
 import argparse
 import json
+import sys
 import tempfile
 
 from repro_torch.configs import get_config, list_archs
 from repro_torch.data import (DataPipeline, SectorTokenDataset,
                               write_synthetic_corpus)
 from repro_torch.device import resolve_device
+from repro_torch.launch.mesh import make_debug_mesh, run_ranks
 from repro_torch.parallel.sharding import ParallelConfig
 from repro_torch.sector import ChunkServer, SectorClient, SectorMaster
 from repro_torch.train import SectorCheckpointer, Trainer, TrainerConfig
-from repro_torch.train.step import MESH_QUEUE
 
 
 def build_cloud(root: str, chunk_size: int = 256 * 1024,
@@ -43,7 +53,7 @@ def build_cloud(root: str, chunk_size: int = 256 * 1024,
     return master, client
 
 
-def main(argv=None):
+def _parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="qwen2.5-3b", choices=list_archs())
     ap.add_argument("--smoke", action="store_true",
@@ -61,17 +71,21 @@ def main(argv=None):
     ap.add_argument("--out", default="")
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda)")
-    args = ap.parse_args(argv)
+    ap.add_argument("--ranks", type=int, default=1,
+                    help="ranks of the mesh (default 1: one device, no "
+                         "mesh, unless a mesh flag is given)")
+    return ap
 
-    if args.multi_pod or args.mode != "pjit" or args.compress != "none":
-        raise NotImplementedError(
-            f"--multi-pod, --mode podwise and --compress {MESH_QUEUE}")
-    device = resolve_device(args.device)
+
+def _train(args, mesh=None) -> dict:
+    """One process's run: on ``mesh`` (this rank's) or one device."""
+    device = mesh.device if mesh is not None else resolve_device(args.device)
     cfg = get_config(args.arch)
     if args.smoke:
         cfg = cfg.reduced()
-    pcfg = ParallelConfig(mesh=None, remat="none" if args.smoke else "full")
-
+    pcfg = ParallelConfig(mesh=mesh, multi_pod=args.multi_pod,
+                          mode=args.mode, compress_pod=args.compress,
+                          remat="none" if args.smoke else "full")
     with tempfile.TemporaryDirectory(prefix="sector_") as root:
         master, client = build_cloud(root)
         write_synthetic_corpus(client, "corpus/train.u32", args.tokens,
@@ -84,12 +98,38 @@ def main(argv=None):
                              log_every=max(args.steps // 10, 1), lr=args.lr)
         trainer = Trainer(cfg, pcfg, tcfg, pipe, ckpt, device=device)
         hist = trainer.run()
-        for rec in hist:
-            print(f"step {rec['step']:5d} loss={rec['loss']:.4f} "
-                  f"lr={rec['lr']:.2e} gnorm={rec['grad_norm']:.2f} "
-                  f"wall={rec['wall_s']:.1f}s")
-        print(f"data locality: {ds.locality_fraction:.2f}; "
-              f"sector stats: {master.stats()}; device: {device}")
+        return {"history": hist,
+                "stats": f"data locality: {ds.locality_fraction:.2f}; "
+                         f"sector stats: {master.stats()}; device: {device}"}
+
+
+def _train_rank(rank: int, world: int, argv) -> dict:
+    """A rank of a mesh run (``run_ranks``)."""
+    args = _parser().parse_args(argv)
+    return _train(args, make_debug_mesh(multi_pod=args.multi_pod,
+                                        device=args.device))
+
+
+def main(argv=None):
+    args = _parser().parse_args(argv)
+    on_mesh = args.ranks > 1 or args.multi_pod or args.mode != "pjit" \
+        or args.compress != "none"
+    if on_mesh:
+        argv = sys.argv[1:] if argv is None else list(argv)
+        out = run_ranks(_train_rank, args.ranks, (argv,), timeout_s=600,
+                        join_timeout_s=3600)[0]
+        mesh_line = (f"; mesh: {args.ranks} ranks ("
+                     f"{'pod 1, ' if args.multi_pod else ''}data "
+                     f"{args.ranks}, model 1), mode {args.mode}, compress "
+                     f"{args.compress}")
+    else:
+        out, mesh_line = _train(args), ""
+    hist = out["history"]
+    for rec in hist:
+        print(f"step {rec['step']:5d} loss={rec['loss']:.4f} "
+              f"lr={rec['lr']:.2e} gnorm={rec['grad_norm']:.2f} "
+              f"wall={rec['wall_s']:.1f}s")
+    print(out["stats"] + mesh_line)
     if args.out:
         with open(args.out, "w") as f:
             json.dump(hist, f, indent=1)

@@ -90,20 +90,23 @@ def _init_leaf(path: str, spec: TensorSpec, gen: torch.Generator,
     return out
 
 
-def materialize(shape_tree, generator: torch.Generator, device):
+def materialize(shape_tree, generator: torch.Generator, device, keep=None):
     """Instantiate a tree of TensorSpecs into tensors on ``device``.
 
     One seed is drawn from ``generator``; each leaf's own generator (on
     ``device``) is seeded with it and a *stable* hash of the leaf's path
     (crc32), as the JAX package folds the path into its key, so a leaf's
-    values do not depend on which other leaves the tree holds."""
+    values do not depend on which other leaves the tree holds.  ``keep(path,
+    leaf)``, where given, replaces each leaf as soon as it is made (a mesh
+    rank keeps its block of it)."""
     device = torch.device(device)
     base = int(torch.randint(0, 2 ** 31, (1,), generator=generator))
 
     def leaf(path, spec):
         gen = torch.Generator(device=device)
         gen.manual_seed(base * (2 ** 31) + zlib.crc32(path.encode()) % (2 ** 31))
-        return _init_leaf(path, spec, gen, device)
+        x = _init_leaf(path, spec, gen, device)
+        return x if keep is None else keep(path, x)
 
     return tree_map_with_path(leaf, shape_tree)
 

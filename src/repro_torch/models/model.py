@@ -27,10 +27,13 @@ def param_shapes(cfg: ModelConfig):
     return transformer.shapes(cfg)
 
 
-def init_params(cfg: ModelConfig, generator: torch.Generator, device=None):
-    """Parameters from ``generator`` on ``device`` (default CUDA)."""
+def init_params(cfg: ModelConfig, generator: torch.Generator, device=None,
+                *, keep=None):
+    """Parameters from ``generator`` on ``device`` (default CUDA);
+    ``keep(path, leaf)`` replaces each leaf as it is made
+    (``common.materialize``)."""
     return common.materialize(transformer.shapes(cfg), generator,
-                              resolve_device(device))
+                              resolve_device(device), keep=keep)
 
 
 def cache_shapes(cfg: ModelConfig, batch: int, seq: int, *,

@@ -15,10 +15,11 @@ Dispatch modes (``ParallelConfig.moe_dispatch``):
     JAX package combines by a scatter-add; here each token sums its own
     ``k`` slots gathered back from the experts' outputs, so no atomic
     adds are involved and the result is deterministic.
-  * ``a2a`` — the explicit all-to-all of an expert-parallel mesh; without
-    a mesh it runs ``gather``, as the JAX package does.  The LM mesh is
-    not ported (``ROADMAP.md`` item 1.3c): ``ParallelConfig(mesh=)``
-    raises.
+  * ``a2a`` — the explicit all-to-all of an expert-parallel mesh; it
+    runs ``gather`` where the JAX package falls back to it (no mesh, or
+    ``layout="tp"``, or one ``model`` rank).  The all-to-all itself, under
+    ``layout="fsdp"`` over several ``model`` ranks, is not ported
+    (``ROADMAP.md`` item 1.3g): it raises.
 
 All share routing: top-k softmax gates (float32 router), position in
 expert by a stable sort in first-come order over the ``k``-major
@@ -114,7 +115,14 @@ def apply(params: dict, x: torch.Tensor, *, cfg: ModelConfig,
     if mode not in DISPATCH_MODES:
         raise ValueError(mode)
     if mode == "a2a":
-        mode = "gather"  # meshless: the JAX package's fallback
+        if pcfg.mesh is not None and pcfg.layout == "fsdp" \
+                and pcfg.model_size > 1 \
+                and cfg.n_experts % pcfg.model_size == 0:
+            raise NotImplementedError(
+                "moe_dispatch='a2a' over several model ranks under "
+                "layout='fsdp' (the expert all-to-all) is not ported: "
+                "ROADMAP.md item 1.3g (the MoE on the LM mesh)")
+        mode = "gather"  # the JAX package's meshless / TP fallback
     B, T, d = x.shape
     total = B * T
     group = min(GROUP_SIZE, total)

@@ -14,13 +14,19 @@ collectives are the identity (:mod:`repro_torch.core.spmd`).
 ``host_group`` carries the host's own exchanges (the engine's plan
 digests) on CPU tensors, so they never wait on a device stream: the
 group itself over gloo, a gloo group beside it over NCCL.
+
+A mesh of several axes also carries a process group for every
+combination of axes that is neither one rank nor the whole mesh
+(``groups``, keyed by the axis names in mesh order), so that a
+collective runs over one axis (``"data"``), or over several
+(``("pod", "data")``), of a 2-D or 3-D grid: :meth:`Mesh.group_for`.
 """
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass
 from types import MappingProxyType
-from typing import Mapping, Optional, Sequence
+from typing import Iterable, Mapping, Optional, Sequence, Union
 
 import torch
 
@@ -36,7 +42,10 @@ class Mesh:
     on.  ``backend`` names the group's transport (``"nccl"``, ``"gloo"``)
     or is ``None`` without a group.  ``host_group`` is a gloo group over
     the same ranks for exchanges of host values; it defaults to ``group``
-    when that is gloo.
+    when that is gloo.  ``groups`` maps each combination of axes (names
+    in mesh order) that spans more than one rank and fewer than all to
+    the process group of this rank's coordinates on the other axes
+    (built by :func:`repro_torch.launch.mesh.make_mesh_compat`).
     """
 
     axis_names: tuple
@@ -47,6 +56,7 @@ class Mesh:
     device: torch.device
     backend: Optional[str]
     host_group: Optional[object] = None
+    groups: Optional[Mapping[tuple, object]] = None
 
     def __post_init__(self):
         names = tuple(self.axis_names)
@@ -69,6 +79,8 @@ class Mesh:
         object.__setattr__(self, "axis_names", names)
         object.__setattr__(self, "shape", MappingProxyType(dict(self.shape)))
         object.__setattr__(self, "device", torch.device(self.device))
+        object.__setattr__(self, "groups",
+                           MappingProxyType(dict(self.groups or {})))
 
     def axis_index(self, axis: str = "data") -> int:
         """This rank's coordinate along ``axis`` (row-major over the axes,
@@ -79,6 +91,45 @@ class Mesh:
                 return (self.rank // stride) % self.shape[name]
             stride *= self.shape[name]
         raise KeyError(f"mesh has no axis {axis!r}: {self.axis_names}")
+
+    def mesh_axes(self, axes: Union[str, Iterable[str], None]) -> tuple:
+        """``axes`` (a name, names, or None) as the names of more than one
+        rank, in mesh order; raises on a name the mesh lacks."""
+        names = (axes,) if isinstance(axes, str) else tuple(axes or ())
+        for a in names:
+            if a not in self.shape:
+                raise KeyError(f"mesh has no axis {a!r}: {self.axis_names}")
+        return tuple(a for a in self.axis_names
+                     if a in names and self.shape[a] > 1)
+
+    def axes_size(self, axes) -> int:
+        """Ranks along ``axes`` together."""
+        return math.prod(self.shape[a] for a in self.mesh_axes(axes))
+
+    def axes_index(self, axes) -> int:
+        """This rank's coordinate along ``axes`` taken together, row-major
+        in the order given (``("pod", "data")``: pod-major)."""
+        names = (axes,) if isinstance(axes, str) else tuple(axes or ())
+        idx = 0
+        for a in names:
+            idx = idx * self.shape[a] + self.axis_index(a)
+        return idx
+
+    def group_for(self, axes):
+        """The process group of the ranks that differ from this one only
+        along ``axes``, numbered row-major in mesh order (``None`` when
+        that is this rank alone: the collective is the identity)."""
+        key = self.mesh_axes(axes)
+        n = math.prod(self.shape[a] for a in key)
+        if n == 1:
+            return None
+        if n == self.size:
+            return self.group
+        if key not in self.groups:
+            raise ValueError(f"mesh {dict(self.shape)} has no process group "
+                             f"for axes {key}: build it with "
+                             f"launch.mesh.make_mesh_compat")
+        return self.groups[key]
 
     @property
     def host_staged(self) -> bool:

@@ -1,0 +1,250 @@
+"""Trees of blocks on a mesh of ``torch.distributed`` ranks.
+
+A port-only module, as ``convert.py`` is: it does by hand what XLA does
+for the JAX package under ``pjit``.  There a parameter is one global
+array that a ``NamedSharding`` lays over the devices; here every rank
+keeps only its **block** of each leaf, the part the leaf's
+``PartitionSpec`` (:mod:`repro_torch.parallel.sharding`) gives its mesh
+coordinates.  A dim whose spec entry names axes is split into equal
+blocks over them, row-major in the order named; a dim whose entry is
+``None``, and every axis the spec does not name, keeps the leaf whole
+(replicated).  Every axis a spec names splits storage, ``model``
+included.
+
+* :func:`shard_tree` keeps each leaf's block (no communication);
+* :func:`gather_tree` all-gathers the blocks back to whole leaves;
+* :func:`reduce_scatter_grads` sums whole gradients over the batch axes
+  and leaves each rank its block of the sum: a ``SUM`` reduce-scatter
+  over the batch axes that split the leaf, an all-reduce over those
+  that do not;
+* :func:`global_norm_sq` is the squared norm of the whole tree from its
+  blocks, counting each block once however many ranks hold it.
+
+Every rank calls each function on the same tree in the same order (the
+collectives pair up leaf by leaf; none is skipped for an empty block).
+On a gloo group whose ranks keep their tensors on a GPU the collectives
+copy through the host (``Mesh.host_staged``).  ``WIRE`` counts the bytes
+this rank hands to each kind of collective.
+"""
+from __future__ import annotations
+
+import math
+from typing import List, Optional, Tuple
+
+import torch
+import torch.distributed as dist
+
+from repro_torch.core.spmd import _from_wire, _to_wire
+from repro_torch.parallel.mesh_utils import Mesh
+from repro_torch.utils.pytree import (tree_flatten_with_paths, tree_leaves,
+                                      tree_unflatten)
+
+# bytes this rank handed to the gathers, the reduce-scatters (and the
+# all-reduces that stand for them over an axis that does not split a
+# leaf) and the norm's exchange
+WIRE = {"gather": 0, "reduce_scatter": 0, "norm": 0}
+
+
+def _split_dims(spec, ndim: int, mesh: Mesh) -> List[Tuple[int, tuple]]:
+    """``(dim, axes)`` for each dim split over more than one rank; axes in
+    the order the spec names them, those of one rank left out."""
+    out = []
+    for d, entry in enumerate(tuple(spec)[:ndim]):
+        if entry is None:
+            continue
+        names = entry if isinstance(entry, tuple) else (entry,)
+        names = tuple(a for a in names if mesh.shape.get(a, 1) > 1)
+        if names:
+            out.append((d, names))
+    return out
+
+
+def _split_axes(spec, ndim: int, mesh: Mesh) -> tuple:
+    """Every axis that splits the leaf, in mesh order."""
+    return mesh.mesh_axes([a for _, names in _split_dims(spec, ndim, mesh)
+                           for a in names])
+
+
+def block_slices(spec, shape, mesh: Mesh) -> tuple:
+    """The slices of a whole leaf of ``shape`` that this rank keeps."""
+    sl = [slice(None)] * len(shape)
+    for d, names in _split_dims(spec, len(shape), mesh):
+        n = mesh.axes_size(names)
+        if shape[d] % n:
+            raise ValueError(f"dim {d} of {tuple(shape)} does not split over "
+                             f"{names} ({n} ranks)")
+        k = shape[d] // n
+        i = mesh.axes_index(names)
+        sl[d] = slice(i * k, (i + 1) * k)
+    return tuple(sl)
+
+
+def local_block(x: torch.Tensor, spec, mesh: Mesh) -> torch.Tensor:
+    """This rank's block of the whole ``x``: a tensor of its own (the
+    whole may be freed), or ``x`` itself where the rank keeps it all."""
+    sl = block_slices(spec, x.shape, mesh)
+    if all(s == slice(None) for s in sl):
+        return x
+    return x[sl].clone(memory_format=torch.contiguous_format)
+
+
+def shard_tree(tree, specs, mesh: Mesh):
+    """Each leaf's block (``specs`` a tree of PartitionSpecs parallel to
+    ``tree``); no communication."""
+    return tree_unflatten(tree, [
+        local_block(x, s, mesh) for x, s in
+        zip(tree_leaves(tree), tree_leaves(specs))])
+
+
+def gather_leaf(x: torch.Tensor, spec, shape, mesh: Mesh) -> torch.Tensor:
+    """The whole leaf of ``shape`` whose blocks the ranks hold."""
+    dims = _split_dims(spec, len(shape), mesh)
+    axes = mesh.mesh_axes([a for _, names in dims for a in names])
+    if not axes:
+        return x
+    sizes = [mesh.shape[a] for a in axes]
+    src = _to_wire(x, mesh)
+    out = torch.empty(math.prod(sizes) * src.numel(), dtype=src.dtype,
+                      device=src.device)
+    dist.all_gather_into_tensor(out, src.reshape(-1),
+                                group=mesh.group_for(axes))
+    WIRE["gather"] += x.nbytes
+    # [*axes in mesh order, *block] -> each dim preceded by its axes
+    lead = {a: i for i, a in enumerate(axes)}
+    split = dict(dims)
+    perm = []
+    for d in range(len(shape)):
+        perm += [lead[a] for a in split.get(d, ())]
+        perm.append(len(axes) + d)
+    whole = out.view(sizes + list(src.shape)).permute(perm).reshape(shape)
+    return _from_wire(whole, mesh)
+
+
+def gather_tree(tree, specs, shapes, mesh: Mesh):
+    """Whole leaves from blocks; ``shapes`` a tree of the whole shapes
+    (TensorSpecs or tensors)."""
+    return tree_unflatten(tree, [
+        gather_leaf(x, s, tuple(w.shape), mesh) for x, s, w in
+        zip(tree_leaves(tree), tree_leaves(specs), tree_leaves(shapes))])
+
+
+def all_reduce(x: torch.Tensor, mesh: Mesh, axes, op=dist.ReduceOp.SUM,
+               wire: Optional[tuple] = None) -> torch.Tensor:
+    """``x`` reduced over ``axes``, written into ``x`` (through a host
+    copy on a staged mesh) and returned; ``wire``, a ``(counter dict,
+    key)``, grows by the bytes handed to the collective."""
+    group = mesh.group_for(axes)
+    if group is None:
+        return x
+    buf = _to_wire(x, mesh)
+    dist.all_reduce(buf, op=op, group=group)
+    if wire is not None:
+        wire[0][wire[1]] += buf.nbytes
+    return x if buf is x else x.copy_(buf)
+
+
+def reduce_scatter_leaf(g: torch.Tensor, spec, mesh: Mesh,
+                        batch_axes) -> torch.Tensor:
+    """This rank's block of the sum of every batch rank's whole ``g``:
+    a ``SUM`` reduce-scatter over the batch axes that split the leaf,
+    then an all-reduce of the block over those that do not.  Along an
+    axis that splits the leaf but carries no batch rows (``model`` under
+    ``layout="tp"``), every rank holds the same sum and keeps its block.
+    """
+    shape = tuple(g.shape)
+    dims = _split_dims(spec, len(shape), mesh)
+    split = _split_axes(spec, len(shape), mesh)
+    batch = mesh.mesh_axes(batch_axes)
+    scatter = tuple(a for a in split if a in batch)
+    reduce = tuple(a for a in batch if a not in split)
+    sl = block_slices(spec, shape, mesh)
+    block_shape = tuple(len(range(*s.indices(n))) for s, n in zip(sl, shape))
+    if scatter:
+        # [..., (axes of dim d), block_d, ...]: the scattered axes first
+        # (mesh order, as the group numbers its ranks), the others cut
+        # down to this rank's coordinate
+        view, pos = [], {}
+        named = dict(dims)
+        for d, n in enumerate(shape):
+            for a in named.get(d, ()):
+                pos[a] = len(view)
+                view.append(mesh.shape[a])
+            view.append(n // mesh.axes_size(named[d]) if d in named else n)
+        gv = g.reshape(view)
+        for a in split:
+            if a not in scatter:
+                gv = gv.narrow(pos[a], mesh.axis_index(a), 1)
+        lead = [pos[a] for a in scatter]
+        rest = [i for i in range(len(view)) if i not in lead]
+        src = _to_wire(gv.permute(lead + rest), mesh)
+        out = torch.empty(math.prod(block_shape), dtype=src.dtype,
+                          device=src.device)
+        dist.reduce_scatter_tensor(out, src.reshape(-1), op=dist.ReduceOp.SUM,
+                                   group=mesh.group_for(scatter))
+        WIRE["reduce_scatter"] += src.nbytes
+        out = _from_wire(out.view(block_shape), mesh)
+    else:
+        out = local_block(g, spec, mesh)
+    return all_reduce(out, mesh, reduce, wire=(WIRE, "reduce_scatter"))
+
+
+def reduce_scatter_grads(grads, specs, mesh: Mesh, batch_axes):
+    """:func:`reduce_scatter_leaf` over a tree, leaf by leaf.  Each whole
+    gradient is dropped from ``grads`` (a dict tree, left holding None)
+    once its block is made, so whole and blocks never coexist beyond one
+    leaf."""
+    paths = [p for p, _ in tree_flatten_with_paths(grads)]
+    out = [reduce_scatter_leaf(_take(grads, path), s, mesh, batch_axes)
+           for path, s in zip(paths, tree_leaves(specs))]
+    return tree_unflatten(specs, out)
+
+
+def _take(tree: dict, path: str):
+    """The leaf at ``path``, left as None in ``tree``."""
+    *head, last = path.split("/")
+    for k in head:
+        tree = tree[k]
+    x, tree[last] = tree[last], None
+    return x
+
+
+def owns(spec, ndim: int, mesh: Mesh) -> bool:
+    """Whether this rank counts its block of the leaf: of the ranks that
+    hold the same block (they differ only along axes that do not split
+    it), the one at coordinate 0 on each of those axes."""
+    split = _split_axes(spec, ndim, mesh)
+    return all(mesh.axis_index(a) == 0 for a in mesh.axis_names
+               if a not in split)
+
+
+def global_norm_sq(tree, specs, mesh: Mesh) -> torch.Tensor:
+    """Squared Frobenius norm of the whole tree (float32), from this
+    rank's blocks: one all-reduce of the per-leaf sums of squares, each
+    leaf's block counted by its owner alone (:func:`owns`), so a leaf
+    replicated over an axis counts once."""
+    leaves = tree_leaves(tree)
+    specs = tree_leaves(specs)
+    dev = leaves[0].device
+    part = torch.stack([
+        torch.sum(torch.square(x.float())) if owns(s, x.ndim, mesh)
+        else torch.zeros((), dtype=torch.float32, device=dev)
+        for x, s in zip(leaves, specs)])
+    part = all_reduce(part, mesh, mesh.axis_names, wire=(WIRE, "norm"))
+    return part.sum()
+
+
+def batch_rows(x: torch.Tensor, mesh: Optional[Mesh], batch_axes
+               ) -> torch.Tensor:
+    """This rank's rows of a global batch leaf: the leading dim split
+    over ``batch_axes`` row-major in the order given (the ranks of the
+    other axes compute the same rows)."""
+    if mesh is None:
+        return x
+    names = tuple(a for a in batch_axes if a in mesh.shape)
+    n = mesh.axes_size(names)
+    if x.shape[0] % n:
+        raise ValueError(f"a global batch of {x.shape[0]} rows does not "
+                         f"split over {names} ({n} ranks)")
+    k = x.shape[0] // n
+    i = mesh.axes_index(names)
+    return x[i * k:(i + 1) * k]

@@ -1,19 +1,59 @@
-"""The parallel configuration the LM path reads, on one device.
+"""Sharding policy: logical rules mapping parameter paths -> PartitionSpec.
 
-The port of the part of ``repro.parallel.sharding`` that the serving path
-reaches: ``ParallelConfig`` with the JAX package's fields and defaults
-(``moe_dispatch`` ``"einsum"``, ``"gather"`` or ``"a2a"``, which runs
-``"gather"`` without a mesh, as in the JAX package),
-``NO_PARALLEL``, and the sharding hints ``constrain`` / ``batch_spec`` /
-``heads_spec``, which do nothing on one device.  The LM path's mesh is
-not ported yet (``ROADMAP.md`` item 1.3c): a ``ParallelConfig`` given one
-raises.  (The Sphere data plane runs on a mesh: ``SphereEngine(mesh=)``,
-:mod:`repro_torch.core.spmd`.)
+The port of ``repro.parallel.sharding``.  The production mesh is
+``("data", "model")`` within a pod and ``("pod", "data", "model")``
+across pods. Policy (paper-faithful wide-area design):
+
+  * parameters / optimizer state: FSDP over ``data`` x TP/EP over ``model``,
+    **replicated over ``pod``** — the cross-pod ("wide-area") hop carries only
+    the once-per-step gradient reduction, never bulk weights;
+  * activations: batch over ``(pod, data)``, heads/ffn over ``model``;
+  * KV caches: batch over ``(pod, data)``; heads over ``model`` when the head
+    count divides, else the sequence dim (flash-decoding style), else
+    replicated.
+
+A spec says which block of a leaf each rank keeps
+(:mod:`repro_torch.parallel.sharded` cuts and joins the blocks).  The
+model code computes on whole tensors, so the activation hints
+(``constrain``) are the identity: a rank's tensors are already its own.
+The mesh is a :class:`repro_torch.parallel.mesh_utils.Mesh`.
 """
 from __future__ import annotations
 
+import re
 from dataclasses import dataclass, replace
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
+
+from repro_torch.utils.pytree import tree_map, tree_map_with_path
+
+
+class PartitionSpec(tuple):
+    """One entry per leading dim of a leaf: ``None`` (whole), a mesh axis
+    name, or a tuple of names (the dim split over their product,
+    row-major); dims past the entries are whole (``jax.sharding.
+    PartitionSpec``)."""
+
+    def __new__(cls, *parts):
+        return super().__new__(cls, parts)
+
+    def __repr__(self) -> str:
+        return f"P{tuple.__repr__(self)}"
+
+    def __getnewargs__(self):
+        return tuple(self)
+
+
+P = PartitionSpec
+
+
+class NamedSharding(NamedTuple):
+    """A spec bound to its mesh (``jax.sharding.NamedSharding``)."""
+    mesh: object
+    spec: PartitionSpec
+
+
+def is_spec(x) -> bool:
+    return isinstance(x, PartitionSpec)
 
 
 @dataclass(frozen=True)
@@ -33,7 +73,8 @@ class ParallelConfig:
     donate: bool = True
     scan_layers: bool = True
     # --- beyond-paper optimizations (each a §Perf iteration) ---------------
-    layout: str = "tp"                 # "tp" (FSDPxTP) | "fsdp" (ZeRO-3)
+    layout: str = "tp"                 # "tp" (FSDPxTP) | "fsdp" (ZeRO-3:
+                                       # batch over data AND model)
     fused_head: bool = False           # chunked CE fused with the LM head
     head_chunk: int = 512              # token chunk for the fused head
     embed_mode: str = "gather"         # "gather" | "vocab_parallel"
@@ -44,10 +85,11 @@ class ParallelConfig:
     unroll_scans: bool = False         # python-loop the inner scans
 
     def __post_init__(self):
-        if self.mesh is not None:
-            raise NotImplementedError(
-                "the port runs the LM path on one device: a mesh is not "
-                "ported yet (ROADMAP.md item 1.3c)")
+        from repro_torch.parallel.mesh_utils import Mesh
+        if self.mesh is not None and not isinstance(self.mesh, Mesh):
+            raise TypeError(f"mesh must be a repro_torch Mesh "
+                            f"(launch.mesh.make_mesh_compat), got "
+                            f"{type(self.mesh).__name__}")
 
     @property
     def data_axes(self) -> Tuple[str, ...]:
@@ -58,15 +100,20 @@ class ParallelConfig:
 
     @property
     def axis_sizes(self):
-        return {}
+        if self.mesh is None:
+            return {}
+        return dict(self.mesh.shape)
 
     @property
     def model_size(self) -> int:
-        return 1
+        return self.axis_sizes.get("model", 1)
 
     @property
     def data_size(self) -> int:
-        return 1
+        s = self.axis_sizes.get("data", 1)
+        if self.multi_pod:
+            s *= self.axis_sizes.get("pod", 1)
+        return s
 
     def with_(self, **kw) -> "ParallelConfig":
         return replace(self, **kw)
@@ -75,17 +122,179 @@ class ParallelConfig:
 NO_PARALLEL = ParallelConfig(mesh=None)
 
 
-def batch_spec(pcfg: ParallelConfig, *trailing):
-    """No spec on one device."""
-    return None
+def batch_spec(pcfg: ParallelConfig, *trailing) -> P:
+    """Batch dim over the data axes; trailing entries appended verbatim.
+
+    Under the fsdp layout the model axis belongs to the batch dim, so any
+    trailing "model" (TP) annotation is dropped."""
+    if pcfg.mesh is None:
+        return P()
+    if pcfg.layout == "fsdp":
+        trailing = tuple(None if t == "model" else t for t in trailing)
+    return P(pcfg.data_axes if len(pcfg.data_axes) > 1 else pcfg.data_axes[0],
+             *trailing)
 
 
-def heads_spec(pcfg: ParallelConfig, n_heads: int, *, batch_dims=1,
-               trailing=1):
-    """No spec on one device."""
-    return None
+def _divisible(n: int, k: int) -> bool:
+    return k > 0 and n % k == 0
+
+
+def heads_spec(pcfg: ParallelConfig, n_heads: int, *, batch_dims=1, trailing=1):
+    """Spec for [batch, (seq), heads, d_head]-shaped activations."""
+    if pcfg.mesh is None:
+        return None
+    axes = [pcfg.data_axes if len(pcfg.data_axes) > 1 else pcfg.data_axes[0]]
+    axes += [None] * (batch_dims - 1)
+    use_tp = pcfg.layout == "tp" and _divisible(n_heads, pcfg.model_size)
+    axes += ["model" if use_tp else None]
+    axes += [None] * trailing
+    return P(*axes)
+
+
+def kv_cache_spec(pcfg: ParallelConfig, n_kv: int, seq: int) -> P:
+    """Spec for a [B, S, K, D] KV cache (leading group dim handled by caller).
+
+    Heads over ``model`` when divisible, else sequence (flash-decoding
+    partial-softmax), else replicated over model.
+    """
+    if pcfg.mesh is None:
+        return P()
+    b = pcfg.data_axes if len(pcfg.data_axes) > 1 else pcfg.data_axes[0]
+    if _divisible(n_kv, pcfg.model_size):
+        return P(b, None, "model", None)
+    if _divisible(seq, pcfg.model_size):
+        return P(b, "model", None, None)
+    return P(b, None, None, None)
+
+
+def validate_spec(spec: P, shape, sizes: dict) -> P:
+    """Drop spec axes that do not divide the corresponding dim."""
+    dims = []
+    for i, ax in enumerate(spec):
+        if ax is None or i >= len(shape):
+            dims.append(None if i >= len(shape) else ax)
+            continue
+        names = ax if isinstance(ax, tuple) else (ax,)
+        total = 1
+        for n in names:
+            total *= sizes.get(n, 1)
+        dims.append(ax if shape[i] % total == 0 else None)
+    return P(*dims)
 
 
 def constrain(x, pcfg: ParallelConfig, spec):
-    """Identity: one device holds every tensor whole."""
+    """Identity: the JAX package's ``with_sharding_constraint`` places an
+    activation; a rank's tensors here are already the ones it computes
+    on."""
     return x
+
+
+# ---------------------------------------------------------------------------
+# Parameter path -> PartitionSpec rules
+# ---------------------------------------------------------------------------
+# Paths are '/'-joined key paths into the param tree. Leading "blocks/u<i>/"
+# (and "encoder/blocks/u<i>/") segments carry a stacked group dim, handled by
+# prefixing the matched spec with None.
+#
+# Order matters: first match wins.
+
+_RULES: Tuple[Tuple[str, P], ...] = (
+    # embeddings / head: vocab over model, d_model over data (FSDP)
+    (r"embed/w$", P("model", "data")),
+    (r"lm_head/w$", P("data", "model")),
+    # attention projections
+    (r"attn/wq$", P("data", "model")),
+    (r"attn/wk$", P("data", "model")),
+    (r"attn/wv$", P("data", "model")),
+    (r"attn/wo$", P("model", "data")),
+    (r"attn/b[qkv]$", P("model")),
+    (r"attn/(q_norm|k_norm)$", P(None)),
+    # dense FFN
+    (r"mlp/w(i|g)$", P("data", "model")),
+    (r"mlp/wo$", P("model", "data")),
+    # MoE: experts over model (EP), FSDP over data
+    (r"moe/router$", P("data", None)),
+    (r"moe/w(i|g)$", P("model", "data", None)),
+    (r"moe/wo$", P("model", None, "data")),
+    # RG-LRU block
+    (r"rglru/in_[xg]$", P("data", "model")),
+    (r"rglru/out$", P("model", "data")),
+    (r"rglru/conv_w$", P(None, "model")),
+    (r"rglru/(gate_a|gate_x)/w$", P(None, None, "model")),
+    (r"rglru/a_param$", P("model")),
+    # mLSTM block
+    (r"mlstm/up$", P("data", "model")),
+    (r"mlstm/down$", P("model", "data")),
+    (r"mlstm/conv_w$", P(None, "model")),
+    (r"mlstm/(q|k|v)/w$", P("model", None, None)),
+    (r"mlstm/(igate|fgate)/w$", P("model", None)),
+    (r"mlstm/(igate|fgate)/b$", P(None)),
+    (r"mlstm/out_norm$", P("model")),
+    # sLSTM block
+    (r"slstm/w_(i|f|z|o)$", P("data", "model")),
+    (r"slstm/r_(i|f|z|o)$", P(None, None, "model")),
+    (r"slstm/b_(i|f|z|o)$", P("model")),
+    # frontend projectors
+    (r"frontend/.*w.$", P("data", "model")),
+    # norms, biases, anything 1-D: replicated
+    (r".*", P()),
+)
+
+
+def _spec_for_path(path: str, leading_group_dim: bool) -> P:
+    for pat, spec in _RULES:
+        if re.search(pat, path):
+            if leading_group_dim and len(spec) > 0:
+                return P(None, *spec)
+            if leading_group_dim:
+                return P(None)
+            return spec
+    raise AssertionError("unreachable")
+
+
+def spec_matches(path: str, spec_len: int) -> P:
+    """Public helper for tests."""
+    return _spec_for_path(path, False)
+
+
+def param_specs_for(shape_tree, pcfg: ParallelConfig):
+    """Tree of PartitionSpecs parallel to the param tree.
+
+    Leaves under ``blocks/`` (scan-stacked) get a leading None for the group
+    dim. Specs are validated for divisibility against the mesh — any axis
+    whose size does not divide falls back to None (replicated) on that dim,
+    so every arch lowers on every mesh (e.g. 10-head recurrentgemma on
+    model=16).
+    """
+    sizes = pcfg.axis_sizes
+
+    def leaf(path: str, leaf_spec):
+        grouped = "blocks/" in path
+        spec = _spec_for_path(path, grouped)
+        if pcfg.mesh is None:
+            return P()
+        # validate divisibility per dim
+        dims = []
+        for i, ax in enumerate(spec):
+            if ax is None:
+                dims.append(None)
+                continue
+            names = ax if isinstance(ax, tuple) else (ax,)
+            total = 1
+            for n in names:
+                total *= sizes.get(n, 1)
+            if leaf_spec.shape[i] % total == 0:
+                dims.append(ax)
+            else:
+                dims.append(None)
+        return P(*dims)
+
+    return tree_map_with_path(leaf, shape_tree)
+
+
+def shardings_for(shape_tree, pcfg: ParallelConfig):
+    """NamedSharding tree (or None when mesh-less)."""
+    if pcfg.mesh is None:
+        return None
+    return tree_map(lambda s: NamedSharding(pcfg.mesh, s),
+                    param_specs_for(shape_tree, pcfg))

@@ -9,9 +9,17 @@ not a second copy of the 16 bytes a parameter the state and weights
 take.  The learning rate, the clip factor and the bias corrections stay
 on the device as 0-dim tensors, so a step does not wait for the host.
 
-The ``error_feedback`` residual of the cross-pod ``int8_ef`` compression
-serves the podwise mode only, which needs a mesh (``ROADMAP.md`` item
-1.3c): asking for it raises ``NotImplementedError``.
+``error_feedback`` adds ``ef``, the float32 residual of the cross-pod
+``int8_ef`` compression (zeros initially), shaped like the parameters.
+
+On a mesh every tree here holds the rank's blocks
+(:mod:`repro_torch.parallel.sharded`) and the update runs on them
+unchanged: only the gradient's global norm needs the whole tree, and
+``global_norm`` takes it from the blocks when given their specs and
+mesh.  Each leaf is updated a chunk of ``CHUNK`` elements at a time, so a
+step's temporaries are a few chunks however large the leaf (the tied
+embedding of 655M parameters would otherwise take ten of its own size in
+float32); the update is elementwise, so the values do not change.
 """
 from __future__ import annotations
 
@@ -25,6 +33,9 @@ from repro_torch.models.common import sds
 from repro_torch.utils.pytree import (tree_flatten_with_paths, tree_leaves,
                                       tree_map)
 
+# elements of a leaf updated at once
+CHUNK = 2 ** 24
+
 
 @dataclass(frozen=True)
 class AdamWConfig:
@@ -36,14 +47,6 @@ class AdamWConfig:
     grad_clip: float = 1.0
     # int8_ef cross-pod compression keeps a residual tree in the state
     error_feedback: bool = False
-
-
-def _no_error_feedback(ocfg: AdamWConfig) -> None:
-    if ocfg.error_feedback:
-        raise NotImplementedError(
-            "error_feedback (int8_ef cross-pod compression) belongs to the "
-            "podwise mode, which needs a mesh: not ported yet (ROADMAP.md "
-            "item 1.3c, the mesh)")
 
 
 def warmup_cosine(lr: float, warmup: int, total: int) -> Callable:
@@ -62,37 +65,63 @@ def warmup_cosine(lr: float, warmup: int, total: int) -> Callable:
 
 def state_shapes(param_tree, ocfg: AdamWConfig) -> Dict:
     """TensorSpec tree for the optimizer state."""
-    _no_error_feedback(ocfg)
-
     def f32(s):
         return sds(s.shape, torch.float32)
-    return {
+    out = {
         "step": sds((), torch.int32),
         "m": tree_map(f32, param_tree),
         "v": tree_map(f32, param_tree),
         "master": tree_map(f32, param_tree),
     }
+    if ocfg.error_feedback:
+        out["ef"] = tree_map(f32, param_tree)
+    return out
 
 
 def init_state(params, ocfg: AdamWConfig):
-    """Zero moments and an fp32 copy of ``params``, on their device."""
-    _no_error_feedback(ocfg)
+    """Zero moments (and residuals) and an fp32 copy of ``params``, on
+    their device."""
     device = tree_leaves(params)[0].device
 
     def zeros(p):
         return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
-    return {
+    out = {
         "step": torch.zeros((), dtype=torch.int32, device=device),
         "m": tree_map(zeros, params),
         "v": tree_map(zeros, params),
         "master": tree_map(
             lambda p: p.detach().to(torch.float32, copy=True), params),
     }
+    if ocfg.error_feedback:
+        out["ef"] = tree_map(zeros, params)
+    return out
 
 
-def global_norm(tree) -> torch.Tensor:
+def global_norm(tree, *, specs=None, mesh=None) -> torch.Tensor:
+    """The norm of the whole tree.  On a mesh (``specs`` the tree's
+    PartitionSpecs) ``tree`` holds this rank's blocks: their squares are
+    summed over the mesh, each block once
+    (``sharded.global_norm_sq``)."""
+    if mesh is not None:
+        from repro_torch.parallel.sharded import global_norm_sq
+        return torch.sqrt(global_norm_sq(tree, specs, mesh))
     sq = sum(torch.sum(torch.square(x.float())) for x in tree_leaves(tree))
     return torch.sqrt(sq)
+
+
+def _update(p, g, m, v, w, decay: bool, clip, lr, c1, c2,
+            ocfg: AdamWConfig) -> None:
+    """The AdamW update of one chunk of a leaf, in place."""
+    gf = g.float() * clip
+    m.mul_(ocfg.b1).add_((1 - ocfg.b1) * gf)
+    v.mul_(ocfg.b2).add_((1 - ocfg.b2) * torch.square(gf))
+    del gf
+    upd = (m / c1) / (torch.sqrt(v / c2) + ocfg.eps)
+    if decay:
+        upd = upd + ocfg.weight_decay * w
+    w.sub_(lr * upd)
+    del upd
+    p.copy_(w)
 
 
 def _decay_mask(path: str) -> bool:
@@ -104,12 +133,12 @@ def _decay_mask(path: str) -> bool:
 
 @torch.no_grad()
 def apply_updates(params, grads, state, ocfg: AdamWConfig,
-                  lr_fn: Callable):
+                  lr_fn: Callable, *, specs=None, mesh=None):
     """One AdamW step, in place. Returns (params, state, metrics): the
-    same ``params`` and ``state`` objects, updated."""
-    _no_error_feedback(ocfg)
+    same ``params`` and ``state`` objects, updated.  On a mesh the trees
+    are blocks (``specs``, ``mesh``: :func:`global_norm`)."""
     step = state["step"] + 1
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads, specs=specs, mesh=mesh)
     if ocfg.grad_clip:
         clip = torch.clamp(ocfg.grad_clip / torch.clamp(gnorm, min=1e-12),
                            max=1.0)
@@ -127,16 +156,13 @@ def apply_updates(params, grads, state, ocfg: AdamWConfig,
     flat_w = tree_leaves(state["master"])
     for (path, p), g, m, v, w in zip(flat_p, flat_g, flat_m, flat_v,
                                      flat_w):
-        gf = g.float() * clip
-        m.mul_(b1).add_((1 - b1) * gf)
-        v.mul_(b2).add_((1 - b2) * torch.square(gf))
-        del gf
-        upd = (m / c1) / (torch.sqrt(v / c2) + ocfg.eps)
-        if _decay_mask(path):
-            upd = upd + ocfg.weight_decay * w
-        w.sub_(lr * upd)
-        del upd
-        p.copy_(w)
+        decay = _decay_mask(path)
+        g = g.reshape(-1)
+        p, m, v, w = (t.view(-1) for t in (p, m, v, w))
+        for i in range(0, p.numel(), CHUNK):
+            _update(p[i:i + CHUNK], g[i:i + CHUNK], m[i:i + CHUNK],
+                    v[i:i + CHUNK], w[i:i + CHUNK], decay, clip, lr, c1, c2,
+                    ocfg)
 
     state["step"] = step
     return params, state, {"grad_norm": gnorm, "lr": lr}

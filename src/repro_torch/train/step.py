@@ -1,18 +1,39 @@
-"""The train step builder: the port of ``repro.train.step`` on one
-device.
+"""The train step builder and the sharding trees: the port of
+``repro.train.step``.
 
 ``make_train_step`` returns ``step(params, opt_state, batch) -> (params,
-opt_state, metrics)``: the JAX package's ``pjit`` mode on one device, a
-forward and backward through autograd followed by the AdamW update, in
-place.  The ``podwise`` mode (a manual ``pod`` axis and the explicit,
-optionally compressed cross-pod gradient reduction), ``multi_pod`` and
-the sharding-spec trees the JAX launcher jits with need a mesh: they
-raise ``NotImplementedError`` until the mesh is ported (``ROADMAP.md``
-item 1.3c).  The serve-step builders are not ported: the port's
-``ServeEngine`` calls ``model.prefill`` / ``model.decode_step`` itself.
+opt_state, metrics)``, updating ``params`` and ``opt_state`` in place.
+Without a mesh it is one device's forward and backward through autograd
+followed by the AdamW update.  On a mesh (``pcfg.mesh``, one
+``torch.distributed`` rank per process) the trees are this rank's blocks
+(:mod:`repro_torch.parallel.sharded`) and ``batch`` is this rank's rows
+of the global batch (:func:`local_batch`), in the JAX package's two
+modes:
 
-A training step is a two-stage Sphere job: stage 1 = the
-local fwd/bwd UDF over the batch, stage 2 = the optimizer UDF.
+  * ``pjit`` — what XLA does under one global jit, by hand: the blocks
+    are all-gathered into whole parameters, the rank's rows run forward
+    and backward, the whole gradients are reduce-scattered (summed over
+    the batch axes) back to blocks, and AdamW updates the blocks.  The
+    loss and metrics are the global token-weighted means, as over the
+    global batch: each rank's loss is weighted by its share of the
+    valid tokens before the backward.  Under ``layout="tp"`` the ranks of
+    one ``model`` group compute the same rows (the JAX package splits
+    the heads and FFN columns over them instead; the values are the
+    same).
+  * ``podwise`` (with ``multi_pod``) — each pod runs the ``pjit`` step
+    over its own ``("data", "model")`` ranks up to the gradient; then the
+    **only cross-pod traffic** is the explicit (optionally compressed)
+    gradient mean over ``pod`` (:func:`collectives.cross_pod_mean`), and
+    the loss and metrics are averaged over ``pod``.  Parameters and
+    state are replicated over ``pod``; the ``int8_ef`` residual ``ef`` is
+    each pod's own.
+
+The serve-step builders are not ported: the port's ``ServeEngine`` calls
+``model.prefill`` / ``model.decode_step`` itself.
+
+A training step is literally a two-stage Sphere job: stage 1 = local
+fwd/bwd UDF over the pod's chunk of the batch, shuffle = the cross-pod
+gradient reduction, stage 2 = optimizer UDF.
 """
 from __future__ import annotations
 
@@ -22,59 +43,136 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import model
-from repro_torch.parallel.sharding import ParallelConfig
+from repro_torch.parallel import collectives, sharded
+from repro_torch.parallel.sharding import (NamedSharding, ParallelConfig, P,
+                                           batch_spec, param_specs_for,
+                                           validate_spec)
 from repro_torch.train import optim
-from repro_torch.utils.pytree import tree_flatten_with_paths, tree_unflatten
+from repro_torch.utils.pytree import (tree_flatten_with_paths, tree_map,
+                                      tree_map_with_path, tree_unflatten)
 
-MESH_QUEUE = "needs a mesh: not ported yet (ROADMAP.md item 1.3c, the mesh)"
 METRIC_KEYS = ("nll", "z_loss", "accuracy", "tokens", "aux_loss")
-
-
-def _no_mesh(what: str):
-    raise NotImplementedError(f"{what} {MESH_QUEUE}")
+MOE_MESH = ("ROADMAP.md item 1.3g (the MoE on the LM mesh: its a2a "
+            "dispatch and the global token grouping)")
+ACCUM_MESH = ("ROADMAP.md item 1.3h (per-layer gathering and microbatch "
+              "accumulation on the LM mesh)")
 
 
 # ---------------------------------------------------------------------------
-# Sharding spec trees: mesh only
+# Sharding spec trees
 # ---------------------------------------------------------------------------
 
 def batch_specs_for(batch_tree, pcfg: ParallelConfig):
-    _no_mesh("batch_specs_for")
+    """Every batch leaf shards its leading (global-batch) dim — unless the
+    batch does not divide the data axes (e.g. long_500k's batch=1)."""
+    def leaf(s):
+        spec = batch_spec(pcfg, *([None] * (len(s.shape) - 1)))
+        return validate_spec(spec, s.shape, pcfg.axis_sizes)
+
+    return tree_map(leaf, batch_tree)
 
 
 def opt_state_specs_for(param_tree, pcfg: ParallelConfig,
                         ocfg: optim.AdamWConfig):
-    _no_mesh("opt_state_specs_for")
+    """The state's specs: each tree as its parameter; ``ef`` under
+    ``multi_pod`` ``P("pod", *spec)``, as in the JAX package (each pod's
+    own residual: a rank keeps the block its parameter spec gives)."""
+    pspecs = param_specs_for(param_tree, pcfg)
+    out = {"step": P(), "m": pspecs, "v": pspecs, "master": pspecs}
+    if ocfg.error_feedback:
+        out["ef"] = tree_map(
+            lambda s: P("pod", *s) if pcfg.multi_pod else s, pspecs)
+    return out
 
 
 def cache_specs_for(cache_tree, pcfg: ParallelConfig):
-    _no_mesh("cache_specs_for")
+    """PartitionSpecs for a decode cache / recurrent state tree.
+
+    Leaves are [G, B, ...]: group dim replicated, batch over (pod, data),
+    then for KV caches heads over ``model`` when divisible else the sequence
+    dim (flash-decoding); recurrent states shard their first model-divisible
+    feature dim.
+    """
+    if pcfg.mesh is None:
+        return tree_map(lambda s: P(), cache_tree)
+    b = pcfg.data_axes if len(pcfg.data_axes) > 1 else pcfg.data_axes[0]
+    msz = pcfg.model_size
+
+    def leaf(path: str, s):
+        name = path.split("/")[-1]
+        shape = s.shape
+        if name in ("k", "v", "xk", "xv"):
+            g, bb, S, K, D = shape
+            if K % msz == 0:
+                spec = P(None, b, None, "model", None)
+            elif S % msz == 0:
+                spec = P(None, b, "model", None, None)
+            else:
+                spec = P(None, b, None, None, None)
+        elif name == "kpos":
+            S = shape[2]
+            spec = P(None, b, "model") if S % msz == 0 else P(None, b, None)
+        else:
+            # recurrent state: [G, B, ...feature dims]
+            dims = [None, b]
+            placed = False
+            for d in shape[2:]:
+                if not placed and d % msz == 0 and d >= msz:
+                    dims.append("model")
+                    placed = True
+                else:
+                    dims.append(None)
+            spec = P(*dims)
+        return validate_spec(spec, shape, pcfg.axis_sizes)
+
+    return tree_map_with_path(leaf, cache_tree)
 
 
 def to_shardings(spec_tree, mesh):
-    _no_mesh("to_shardings")
+    """Each spec bound to ``mesh`` (None without a mesh)."""
+    if mesh is None:
+        return None
+    return tree_map(lambda s: NamedSharding(mesh, s), spec_tree)
 
 
 def train_state_specs(cfg: ModelConfig, pcfg: ParallelConfig,
                       ocfg: optim.AdamWConfig, batch_tree):
-    _no_mesh("train_state_specs")
+    pshapes = model.param_shapes(cfg)
+    return (param_specs_for(pshapes, pcfg),
+            opt_state_specs_for(pshapes, pcfg, ocfg),
+            batch_specs_for(batch_tree, pcfg))
+
+
+def local_batch(batch: dict, pcfg: ParallelConfig) -> dict:
+    """This rank's rows of a global batch: the leading dim split over the
+    data axes (``batch_spec``), row-major; the whole batch without a
+    mesh."""
+    if pcfg.mesh is None:
+        return batch
+    return {k: sharded.batch_rows(v, pcfg.mesh, pcfg.data_axes)
+            for k, v in batch.items()}
 
 
 # ---------------------------------------------------------------------------
 # Train step
 # ---------------------------------------------------------------------------
 
-def _loss_and_grads(leaves, template, batch, *, cfg, pcfg):
+def _loss_and_grads(leaves, template, batch, *, cfg, pcfg, loss_scale=None):
     """(loss, metrics, grads) of ``model.loss_fn`` at the parameters
-    ``leaves`` (in tree order), all detached."""
+    ``leaves`` (in tree order), all detached; the gradient is that of
+    ``loss * loss_scale`` where a scale is given."""
     params = tree_unflatten(template, leaves)
     loss, metrics = model.loss_fn(params, batch, cfg=cfg, pcfg=pcfg)
-    grads = torch.autograd.grad(loss, leaves)
+    # a leaf the batch does not reach (a vision frontend on text) gets
+    # zeros, as from jax.grad
+    grads = torch.autograd.grad(
+        loss if loss_scale is None else loss * loss_scale, leaves,
+        materialize_grads=True)
     return (loss.detach(), {k: v.detach() for k, v in metrics.items()},
             grads)
 
 
-def _value_and_grad_accum(params, batch, *, cfg, pcfg):
+def _value_and_grad_accum(params, batch, *, cfg, pcfg, loss_scale=None):
     """fwd/bwd with optional gradient accumulation over microbatches.
     Returns ((loss, metrics), grads), ``grads`` shaped like ``params``.
 
@@ -83,13 +181,15 @@ def _value_and_grad_accum(params, batch, *, cfg, pcfg):
     not require grad and the update may write them in place.  With
     ``accum_steps > 1`` the global batch is split along dim 0 and run
     microbatch by microbatch, accumulating fp32 grads: activation memory
-    divides by ``accum_steps``."""
+    divides by ``accum_steps``.  ``loss_scale`` (a mesh rank's share of
+    the tokens) scales the gradient, not the returned loss."""
     leaves = [p.detach().requires_grad_() for _, p in
               tree_flatten_with_paths(params)]
     n = pcfg.accum_steps
     if n <= 1:
         loss, metrics, grads = _loss_and_grads(leaves, params, batch,
-                                               cfg=cfg, pcfg=pcfg)
+                                               cfg=cfg, pcfg=pcfg,
+                                               loss_scale=loss_scale)
         return (loss, metrics), tree_unflatten(params, grads)
 
     micro = {k: x.reshape((n, x.shape[0] // n) + x.shape[1:])
@@ -103,7 +203,7 @@ def _value_and_grad_accum(params, batch, *, cfg, pcfg):
     for i in range(n):
         loss, metrics, grads = _loss_and_grads(
             leaves, params, {k: x[i] for k, x in micro.items()}, cfg=cfg,
-            pcfg=pcfg)
+            pcfg=pcfg, loss_scale=loss_scale)
         for a, g in zip(acc_g, grads):
             a.add_(g.float() / n)
         acc_l = acc_l + loss / n
@@ -111,22 +211,92 @@ def _value_and_grad_accum(params, batch, *, cfg, pcfg):
     return (acc_l, acc_m), tree_unflatten(params, acc_g)
 
 
+def _global_metrics(loss, metrics, mesh, batch_axes):
+    """The loss and metrics over the union of the batch ranks' rows: each
+    rank's token-weighted means summed as token-weighted sums (one
+    all-reduce), over the global token count, as ``losses.cross_entropy``
+    takes them over the global batch.  ``aux_loss`` is the same on every
+    batch rank (dense: 0; MoE: only where the ranks share rows)."""
+    n = metrics["tokens"].float()
+    aux = metrics["aux_loss"].float()
+    v = torch.stack([n * (loss.float() - aux), n * metrics["nll"],
+                     n * metrics["z_loss"], n * metrics["accuracy"], n])
+    v = sharded.all_reduce(v, mesh, batch_axes)
+    denom = torch.clamp(v[4], min=1.0)
+    out = {"nll": v[1] / denom, "z_loss": v[2] / denom,
+           "accuracy": v[3] / denom, "tokens": v[4], "aux_loss": aux}
+    return v[0] / denom + aux, out
+
+
+def _check_mesh(cfg: ModelConfig, pcfg: ParallelConfig, mesh,
+                batch_axes, podwise: bool) -> None:
+    split = mesh.axes_size(batch_axes) * (
+        mesh.shape.get("pod", 1) if podwise else 1)
+    if cfg.family == "moe" and split > 1:
+        raise NotImplementedError(
+            f"{cfg.name} on a mesh that splits the batch over {split} "
+            f"ranks: the MoE groups tokens and takes its aux loss over the "
+            f"global batch, not yet the ranks' rows ({MOE_MESH})")
+    if pcfg.accum_steps > 1 and split > 1:
+        raise NotImplementedError(
+            f"accum_steps={pcfg.accum_steps} on a mesh that splits the "
+            f"batch ({ACCUM_MESH})")
+
+
 def make_train_step(cfg: ModelConfig, pcfg: ParallelConfig,
                     ocfg: optim.AdamWConfig, lr_fn: Callable):
     """Returns step(params, opt_state, batch) -> (params, opt_state,
-    metrics), updating ``params`` and ``opt_state`` in place."""
+    metrics), updating ``params`` and ``opt_state`` in place.  On a mesh,
+    ``params`` and ``opt_state`` hold this rank's blocks and ``batch`` its
+    rows (:func:`local_batch`)."""
     if pcfg.mode not in ("pjit", "podwise"):
         raise ValueError(pcfg.mode)
-    if pcfg.mode == "podwise":
-        _no_mesh("the podwise train step (a manual pod axis)")
-    if pcfg.multi_pod:
-        _no_mesh("multi_pod training")
+    podwise = pcfg.mode == "podwise" and pcfg.multi_pod
+    mesh = pcfg.mesh
+    if podwise and (mesh is None or "pod" not in mesh.shape):
+        raise ValueError("the podwise step needs a mesh with a 'pod' axis "
+                         "(launch.mesh.make_debug_mesh(multi_pod=True))")
+
+    if mesh is None:
+        def step(params, opt_state, batch):
+            (loss, metrics), grads = _value_and_grad_accum(
+                params, batch, cfg=cfg, pcfg=pcfg)
+            new_params, new_opt, om = optim.apply_updates(
+                params, grads, opt_state, ocfg, lr_fn)
+            return new_params, new_opt, {**metrics, **om, "loss": loss}
+        return step
+
+    inner = pcfg.with_(multi_pod=False) if podwise else pcfg
+    batch_axes = mesh.mesh_axes(a for a in inner.data_axes
+                                if a in mesh.shape)
+    _check_mesh(cfg, pcfg, mesh, batch_axes, podwise)
+    pshapes = model.param_shapes(cfg)
+    specs = param_specs_for(pshapes, pcfg)
 
     def step(params, opt_state, batch):
+        whole = sharded.gather_tree(params, specs, pshapes, mesh)
+        tokens = (batch["labels"] >= 0).sum().float()
+        total = sharded.all_reduce(tokens.clone(), mesh, batch_axes)
+        share = tokens / torch.clamp(total, min=1.0)
         (loss, metrics), grads = _value_and_grad_accum(
-            params, batch, cfg=cfg, pcfg=pcfg)
+            whole, batch, cfg=cfg, pcfg=inner, loss_scale=share)
+        del whole
+        grads = sharded.reduce_scatter_grads(grads, specs, mesh, batch_axes)
+        loss, metrics = _global_metrics(loss, metrics, mesh, batch_axes)
+        new_ef = None
+        if podwise:
+            grads, new_ef = collectives.cross_pod_mean(
+                grads, mesh=mesh, axis="pod", compress=pcfg.compress_pod,
+                ef_state=opt_state.get("ef"))
+            npods = mesh.axes_size("pod")
+            loss = sharded.all_reduce(loss, mesh, "pod") / npods
+            metrics = {k: sharded.all_reduce(v, mesh, "pod") / npods
+                       for k, v in metrics.items()}
         new_params, new_opt, om = optim.apply_updates(
-            params, grads, opt_state, ocfg, lr_fn)
+            params, grads, opt_state, ocfg, lr_fn, specs=specs, mesh=mesh)
+        if new_ef is not None:
+            new_opt["ef"] = new_ef
         return new_params, new_opt, {**metrics, **om, "loss": loss}
 
+    step.specs = specs
     return step

@@ -8,7 +8,8 @@ NCCL mesh, ``partition_batch`` /
 ``ServeEngine`` and a training step; the encoder-decoder and vision
 configs' prefill, decode and serving) against the same calls on the CPU;
 the two LM kernels' gradients against autograd through their plain
-versions on the card.
+versions on the card; the LM mesh's collectives on CUDA tensors over two
+gloo ranks sharing the card.
 
 Every test here needs a CUDA device and skips itself without one (the
 check runs inside the ``cuda`` fixture, never at import).  The module
@@ -1176,3 +1177,25 @@ def test_cuda_materialize_holds_no_float32_copy_of_a_leaf(cuda):
     assert peak < 2 * leaf.nbytes, peak
     std = float(leaf.float().std())
     assert abs(std * 2048 ** 0.5 - 1.0) < 0.01, std
+
+
+def test_cuda_mesh_collectives_host_staged(cuda):
+    """Two gloo ranks sharing the card (``run_ranks``, host-staged):
+    ``cross_pod_mean`` on CUDA tensors, every mode, gives the bits the
+    same call gives on the CPU; ``shard_tree`` / ``gather_tree`` round
+    trip on the card; ``global_norm`` of blocks is the whole tree's
+    (rtol 1e-6: float32 sums in another order)."""
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    import torch_train_ranks
+    from repro_torch.launch.mesh import run_ranks
+    res = run_ranks(torch_train_ranks.cuda_mesh_suite, 2, timeout_s=120,
+                    join_timeout_s=300)
+    for out in res:
+        assert out["staged"] and out["device"].startswith("cuda")
+        for mode in ("none", "bf16", "int8_ef"):
+            (m_card, e_card), (m_cpu, e_cpu) = out[mode]
+            assert np.array_equal(m_card, m_cpu), mode
+            assert (e_card is None and e_cpu is None) \
+                or np.array_equal(e_card, e_cpu), mode
+        assert out["roundtrip"] and out["on_card"]
+        np.testing.assert_allclose(out["norm"], out["whole_norm"], rtol=1e-6)

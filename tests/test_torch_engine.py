@@ -295,6 +295,10 @@ def test_port_imports_no_jax_and_no_reference():
             "import repro_torch.launch.train, repro_torch.models.losses\n"
             "import repro_torch.core.spmd, repro_torch.launch.mesh\n"
             "import repro_torch.parallel.mesh_utils\n"
+            "import repro_torch.parallel.sharding\n"
+            "import repro_torch.parallel.sharded\n"
+            "import repro_torch.parallel.collectives\n"
+            "import repro_torch.train.elastic, repro_torch.train.step\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'repro' or m.startswith('repro.'))\n"
             "print(bad)\n"
@@ -312,6 +316,9 @@ def test_no_jax_or_reference_import_in_port_sources():
     files = sorted((ROOT / "src/repro_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
     assert len(files) > 20
+    for rel in ("parallel/collectives.py", "parallel/sharded.py",
+                "train/elastic.py"):
+        assert ROOT / "src/repro_torch" / rel in files
     hits = [f"{f}: {m.group(0)}" for f in files
             for m in bad.finditer(f.read_text())]
     assert not hits

@@ -126,12 +126,15 @@ def test_run_ranks_reports_a_rank_error(tmp_path):
 
 # ------------------------------------------------------ builders, guards
 def test_mesh_builders_need_a_group_and_name_the_queue():
+    """Every builder needs the default group; the production meshes name
+    the ranks they need."""
+    for build in (lmesh.make_flat_mesh, lmesh.make_debug_mesh):
+        with pytest.raises(RuntimeError, match="process group"):
+            build(device="cpu")
     with pytest.raises(RuntimeError, match="process group"):
-        lmesh.make_flat_mesh(device="cpu")
-    with pytest.raises(NotImplementedError, match="1.3c"):
-        lmesh.make_debug_mesh(multi_pod=True)
-    for multi in (False, True):
-        with pytest.raises(NotImplementedError, match="1.3c"):
+        lmesh.make_debug_mesh(multi_pod=True, device="cpu")
+    for multi, need in ((False, "256 ranks"), (True, "512 ranks")):
+        with pytest.raises(ValueError, match=need):
             lmesh.make_production_mesh(multi_pod=multi)
 
 
@@ -156,6 +159,18 @@ def test_mesh_utils():
     with pytest.raises(ValueError, match="host_group"):
         mesh_utils.Mesh(("data",), {"data": 2}, object(), 0, 2, "cuda:0",
                         "nccl")
+    # groups by axis: the whole mesh, this rank alone, or one of its own
+    g3 = mesh_utils.Mesh(("pod", "data", "model"),
+                         {"pod": 2, "data": 2, "model": 1}, "all", 3, 4,
+                         "cpu", "gloo", groups={("pod",): "p", ("data",): "d"})
+    assert g3.mesh_axes(("model", "data", "pod")) == ("pod", "data")
+    assert g3.group_for(("pod", "data", "model")) == "all"
+    assert g3.group_for("model") is None
+    assert (g3.group_for("pod"), g3.group_for("data")) == ("p", "d")
+    assert (g3.axes_size(("pod", "data")), g3.axes_index(("pod", "data")),
+            g3.axes_index(("data", "pod"))) == (4, 3, 3)
+    with pytest.raises(KeyError):
+        g3.mesh_axes("tensor")
 
 
 def test_engine_and_step_take_a_mesh(tmp_path):

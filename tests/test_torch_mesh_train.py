@@ -1,0 +1,407 @@
+"""The port's LM training step on a mesh of gloo ranks on the CPU, held
+to the JAX package's sharded step; checkpoints across meshes and
+packages; the elastic controller; the launcher's mesh flags.
+
+The ranks start through ``launch.mesh.run_ranks`` and run the bodies in
+``torch_train_ranks.py`` (no JAX).  The JAX references run meanwhile in
+subprocesses with 4 host devices (the recipe of
+``test_spmd_subprocess.py::test_sharded_train_step_matches_single_device``),
+from the same arrays: the parameters of the port's ``init_params`` at one
+seed, a numpy batch whose rows carry unequal valid-token counts.
+
+(a) The port's 4-rank ``pjit`` step on ``(data, model) = (2, 2)`` against
+    the JAX package's ``make_train_step`` on a ``(2, 2)`` host mesh, for
+    every dense shipped config (reduced, float32): the loss within 1e-5,
+    the gathered updated parameters within ``rtol=2e-4, atol=2e-5`` (the
+    bar of the JAX package's podwise test) plus the JAX package's own
+    spread under float32 rounding, carried through Adam's first step
+    (``_hold`` says how).  ``qwen2.5-3b`` runs both layouts against the JAX step
+    at the same layout, ``recurrentgemma-2b`` both against the JAX ``tp``
+    step (the JAX step's values do not depend on the layout), and the
+    other dense configs ``tp``.  The MoE configs raise ``NotImplementedError``
+    naming ROADMAP item 1.3g.
+(b) Podwise ``none`` on ``(pod, data, model) = (2, 2, 1)`` against
+    ``pjit`` on the same mesh and the JAX package's single-device step
+    (its own podwise mode fails on the installed jax, so it is no
+    reference), on a batch whose pods hold equal token counts.
+(e) The metrics are the global token-weighted means, the token count
+    the global one.
+"""
+import os
+import subprocess
+import sys
+import textwrap
+
+import numpy as np
+import pytest
+
+import torch_train_ranks as ranks
+from repro.train import SectorCheckpointer as JCheckpointer
+from repro_torch.launch import train as tlaunch
+from repro_torch.launch.mesh import run_ranks
+
+ROOT = os.path.join(os.path.dirname(__file__), "..")
+LOSS_TOL = 1e-5
+RTOL, ATOL = 2e-4, 2e-5
+GRAD_TOL = 1e-4         # the gradients, of each leaf's norm
+EPS = 1e-8              # AdamWConfig.eps of both packages
+
+
+def _adam_reach(m, d):
+    """How far apart AdamW's first step can put an element whose first
+    moment (0.1 x the clipped gradient) lies anywhere in ``[m - d, m +
+    d]``, in units of the learning rate: the step is ``lr * f(10 m)``
+    (bias-corrected moments) with ``f(x) = x / (|x| + eps)``, increasing
+    in ``m``.  Where ``d`` is well below ``|m|`` this is ~0: the step
+    keeps the gradient's sign whatever its rounding.  Where ``d`` spans
+    zero it reaches 2: the sign is float32 noise, and two summation
+    orders move the element in opposite directions."""
+    def f(x):
+        return x / (np.abs(x) + EPS)
+    return f(10 * (m + d)) - f(10 * (m - d))
+
+
+_JAX = """
+import sys, numpy as np, jax, jax.numpy as jnp
+from repro.configs import ARCHS
+from repro.launch.mesh import make_mesh_compat
+from repro.models import model
+from repro.parallel.sharding import ParallelConfig
+from repro.train import optim
+from repro.train.step import make_train_step
+from repro.utils.pytree import tree_flatten_with_paths
+import torch_train_ranks as R
+
+def use_mesh(mesh):
+    return jax.set_mesh(mesh) if hasattr(jax, "set_mesh") else mesh
+
+def run(arch, layout, mesh, masked):
+    tcfg = R.lm_cfg(arch)
+    cfg = ARCHS[arch].reduced().replace(param_dtype="float32",
+                                        compute_dtype="float32")
+    params = jax.tree.map(jnp.asarray, R.nest(R.init_numpy(tcfg)))
+    batch = {k: jnp.asarray(v)
+             for k, v in R.lm_batch(tcfg, masked=masked).items()}
+    ocfg = optim.AdamWConfig(lr=R.LR)
+    opt = optim.init_state(params, ocfg)
+    pcfg = ParallelConfig(mesh=mesh, remat="none", layout=layout)
+    step = make_train_step(cfg, pcfg, ocfg,
+                           optim.warmup_cosine(R.LR, R.WARMUP, R.TOTAL))
+    # the same step with the embedding one ulp off (signs from four
+    # seeds): how far the JAX package's own step moves under float32
+    # rounding
+    emb = np.asarray(params["embed"]["w"])
+
+    def ulp(seed):
+        sign = np.where(np.random.default_rng(seed).random(emb.shape) < 0.5,
+                        -1, 1)
+        return {**params, "embed": {**params["embed"], "w": jnp.asarray(
+            emb * (1 + 2.0 ** -23 * sign), jnp.float32)}}
+    fn = jax.jit(step)
+    out = {}
+    for tag, p in [("", params)] + [(t, ulp(i)) for i, t in enumerate("uvwx")]:
+        if mesh is None:
+            p2, o2, m = fn(p, opt, batch)
+        else:
+            with use_mesh(mesh):
+                p2, o2, m = fn(p, opt, batch)
+        out.update({f"{tag}m/{k}": np.asarray(v) for k, v in m.items()})
+        out.update({f"{tag}p/{q}": np.asarray(x)
+                    for q, x in tree_flatten_with_paths(p2)})
+        out.update({f"{tag}g/{q}": np.asarray(x)
+                    for q, x in tree_flatten_with_paths(o2["m"])})
+    return out
+
+cases, dest = eval(sys.argv[1]), sys.argv[2]
+mesh = make_mesh_compat((2, 2), ("data", "model"))
+res = {}
+for arch, layout in cases:
+    if layout == "single":
+        got = run(arch, "tp", None, R.POD_MASKED)
+    else:
+        got = run(arch, layout, mesh, ((1, 5), (6, 11)))
+    res.update({f"{arch}|{layout}|{k}": v for k, v in got.items()})
+np.savez(dest, **res)
+"""
+
+# the JAX cases, split over subprocesses that run side by side
+_JAX_SPLIT = (
+    [("recurrentgemma-2b", "tp")],
+    [("xlstm-1.3b", "tp"), ("qwen2.5-3b", "tp"), ("qwen2.5-3b", "fsdp")],
+    [(a, "tp") for a in ("gemma3-12b", "qwen3-8b", "deepseek-7b",
+                         "llava-next-mistral-7b", "seamless-m4t-large-v2")]
+    + [(ranks.PODWISE_ARCH, "single")],
+)
+
+
+def _start_jax(cases, dest):
+    env = dict(os.environ)
+    env["XLA_FLAGS"] = "--xla_force_host_platform_device_count=4"
+    env["PYTHONPATH"] = os.pathsep.join(
+        [os.path.join(ROOT, "src"), os.path.dirname(__file__)])
+    env["JAX_PLATFORMS"] = "cpu"
+    return subprocess.Popen(
+        [sys.executable, "-c", textwrap.dedent(_JAX), repr(cases), dest],
+        env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+
+@pytest.fixture(scope="module")
+def runs(tmp_path_factory):
+    """(the port's rank-0 results, the JAX references), computed side by
+    side."""
+    tmp = tmp_path_factory.mktemp("mesh_train")
+    procs = [(_start_jax(c, str(tmp / f"jax{i}.npz")), tmp / f"jax{i}.npz")
+             for i, c in enumerate(_JAX_SPLIT)]
+    try:
+        port = run_ranks(ranks.mesh_train_suite, 4, timeout_s=300,
+                         join_timeout_s=600)[0]
+    finally:
+        outs = [(p.communicate(timeout=600), dest) for p, dest in procs]
+    ref = {}
+    for ((_, err), dest), (p, _) in zip(outs, procs):
+        assert p.returncode == 0, err[-3000:]
+        ref.update(dict(np.load(dest)))
+    return port, ref
+
+
+def _ref(ref, arch, layout, tag=""):
+    pre = f"{arch}|{layout}|{tag}"
+
+    def part(kind):
+        return {k[len(pre) + 2:]: v for k, v in ref.items()
+                if k.startswith(pre + kind + "/")}
+    return ({k: float(v) for k, v in part("m").items()}, part("p"),
+            part("g"))
+
+
+def _hold(got, want, ulps=(), tokens=True):
+    """The loss and metrics; the first moments ``m`` (0.1 x the clipped
+    gradient) within ``GRAD_TOL`` of each leaf's norm (in norm); every
+    updated parameter within ``ATOL + RTOL * |p|`` (the bar of the JAX
+    package's podwise test), plus three times what the JAX package's own
+    step moves it when its embedding moves by one ulp (``ulps``, the JAX
+    steps from there, four draws of the signs; the largest), plus the
+    learning rate times :func:`_adam_reach` of the JAX package's ``m``
+    and three times its own spread over those draws.  All of it is read
+    off the JAX package's runs, none off the port's.  The ulp spread is
+    ~1e-7 of most configs' outputs and ~1e-3 of the xLSTM stack's at
+    random weights (the rule of ``test_torch_train.py``'s xLSTM tests);
+    the reach is ~0 except where the JAX package's own gradient changes
+    sign under that rounding (up to 100 elements of a reduced dense
+    config, 28,864 of the xLSTM's 542,256)."""
+    (gm, gp, gg), (wm, wp, wg) = got, want
+    ulps = ulps or (want,)
+
+    def spread(i, key):
+        return 3 * np.max([np.abs(np.asarray(u[i][key], np.float64)
+                                  - want[i][key]) for u in ulps], axis=0)
+
+    for k in ("loss", "nll", "z_loss", "accuracy"):
+        tol = LOSS_TOL * max(1.0, abs(wm[k])) + spread(0, k)
+        assert abs(gm[k] - wm[k]) <= tol, (k, gm[k], wm[k])
+    assert gm["tokens"] == wm["tokens"] or not tokens
+    np.testing.assert_allclose(gm["grad_norm"], wm["grad_norm"],
+                               rtol=1e-4 + spread(0, "grad_norm")
+                               / wm["grad_norm"])
+    assert set(gp) == set(wp) == set(gg) == set(wg)
+    for path in wp:
+        w = np.asarray(wg[path], np.float64)
+        assert np.linalg.norm(gg[path] - w) <= GRAD_TOL * np.linalg.norm(w) \
+            + 3 * max(np.linalg.norm(u[2][path] - w) for u in ulps), path
+        err = np.abs(gp[path] - wp[path])
+        bar = ATOL + RTOL * np.abs(wp[path]) + spread(1, path) \
+            + wm["lr"] * _adam_reach(w, spread(2, path))
+        assert np.all(err <= bar), (path, int((err > bar).sum()),
+                                    float((err / bar).max()))
+
+
+@pytest.mark.parametrize("arch,layout", [
+    (a, lay) for a, lays in ranks.PJIT_CASES.items() for lay in lays])
+def test_pjit_step_matches_jax_host_mesh(runs, arch, layout):
+    port, ref = runs
+    at = layout if (arch, layout) in _JAX_SPLIT[1] else "tp"
+    _hold(port["pjit"][arch, layout], _ref(ref, arch, at),
+          [_ref(ref, arch, at, t) for t in "uvwx"])
+
+
+def test_token_weighted_global_metrics(runs):
+    """(e): rows 1 and 6 carry 11 and 5 valid tokens of 16, on different
+    data ranks: the loss is the mean over the global valid tokens, not a
+    mean of the ranks' means (which differs here)."""
+    port, ref = runs
+    m = port["pjit"]["qwen2.5-3b", "tp"][0]
+    assert m["tokens"] == ranks.B * ranks.T - 5 - 11
+    wm = _ref(ref, "qwen2.5-3b", "tp")[0]
+    assert abs(m["nll"] - wm["nll"]) <= LOSS_TOL
+
+
+@pytest.mark.parametrize("arch", ranks.MOE_ARCHS)
+def test_moe_on_a_batch_splitting_mesh_names_its_item(runs, arch):
+    port, _ = runs
+    assert "1.3g" in port["raises"][arch]
+
+
+def test_moe_a2a_under_fsdp_names_its_item(runs):
+    port, _ = runs
+    assert "1.3g" in port["raises"]["a2a"]
+
+
+def test_podwise_none_matches_pjit_and_single_device(runs):
+    port, ref = runs
+    pod, pj = port["pod"]["podwise"], port["pod"]["pjit"]
+    want = _ref(ref, ranks.PODWISE_ARCH, "single")
+    ulps = [_ref(ref, ranks.PODWISE_ARCH, "single", t) for t in "uvwx"]
+    _hold(pj, want, ulps)
+    _hold(pod, want, ulps, tokens=False)
+    assert pod[0]["tokens"] * 2 == pj[0]["tokens"]    # the pods' mean
+    _hold(pod, pj, tokens=False)
+
+
+# ------------------------------------------------------------ (f), (g), (h)
+@pytest.fixture(scope="module")
+def ckpt_runs(tmp_path_factory):
+    """A single-device run's checkpoint at step 2, then the 2-rank
+    checkpoint suite and the 2-rank elastic suite."""
+    tmp = tmp_path_factory.mktemp("ckpt")
+    from repro_torch.configs import get_config
+    cfg = get_config(ranks.CKPT_ARCH).reduced()
+    tr, client = ranks._trainer(cfg, None, tmp / "single", tag="single")
+    tr.run(2)
+    single = {"tree": ranks.whole_tree(tr),
+              "files": ranks.ckpt_files(client, "single", 2),
+              "cursor": tr.pipeline.state_dict()}
+    mesh = run_ranks(ranks.ckpt_suite, 2, (str(tmp / "mesh"),
+                                           single["files"]),
+                     timeout_s=120, join_timeout_s=300)[0]
+    elastic = run_ranks(ranks.elastic_suite, 2, (str(tmp / "el"),),
+                        timeout_s=120, join_timeout_s=300)
+    return cfg, single, mesh, elastic, tmp
+
+
+def _same(a: dict, b: dict):
+    assert set(a) == set(b)
+    for k in a:
+        assert np.array_equal(a[k], b[k]), k
+
+
+def test_checkpoint_written_on_two_ranks_restores_on_one_and_in_jax(
+        ckpt_runs):
+    cfg, single, mesh, _, tmp = ckpt_runs
+    tr, client = ranks._trainer(cfg, None, tmp / "restore1", tag="ck")
+    ranks.upload(client, mesh["files"])
+    tr._build()
+    assert tr.step_idx == 2 and tr.pipeline.state_dict() == mesh["cursor"]
+    _same(ranks.whole_tree(tr), mesh["written"])
+    # the JAX package's checkpointer reads the same files
+    from conftest import make_cloud
+    from repro.configs import ARCHS
+    from repro.models import model as jmodel
+    from repro.train import optim as joptim
+    from repro.utils.pytree import tree_flatten_with_paths as jflat
+    _, _, jclient = make_cloud(tmp / "jax")
+    ranks.upload(jclient, mesh["files"])
+    jcfg = ARCHS[ranks.CKPT_ARCH].reduced()
+    shapes = jmodel.param_shapes(jcfg)
+    got = JCheckpointer(jclient, "ck").restore_latest(
+        {"params": shapes, "opt": joptim.state_shapes(
+            shapes, joptim.AdamWConfig())})
+    assert got["step"] == 2
+    flat = {p: np.asarray(x, np.float32) for p, x in
+            jflat({"opt": got["opt"], "params": got["params"]})}
+    _same(flat, mesh["written"])
+
+
+def test_checkpoint_written_on_one_device_restores_on_two_ranks(ckpt_runs):
+    _, single, mesh, _, _ = ckpt_runs
+    assert mesh["restored_step"] == 2
+    assert mesh["restored_cursor"] == single["cursor"]
+    _same(mesh["restored"], single["tree"])
+
+
+def test_elastic_restart_resumes_from_checkpoint(ckpt_runs):
+    *_, elastic, _ = ckpt_runs
+    r0, r1 = elastic[0]["restart"], elastic[1]["restart"]
+    assert r0["restarts"] == 1 and r0["final_step"] >= 12
+    assert r1["left_out"] and r1["final_step"] is None
+    losses = [loss for _, loss in r0["history"]]
+    assert losses[-1] < losses[0]
+    # the history from the restored step (4) is the uninterrupted run's
+    after = r0["history"][3:]
+    whole = dict(elastic[0]["whole"])
+    assert [s for s, _ in after] == [6, 8, 10, 12]
+    for s, loss in after:
+        np.testing.assert_allclose(loss, whole[s], rtol=1e-5, err_msg=s)
+
+
+def test_elastic_multiple_failures(ckpt_runs):
+    *_, elastic, _ = ckpt_runs
+    r0 = elastic[0]["twice"]
+    assert r0["restarts"] == 2 and r0["final_step"] >= 12
+    whole = dict(elastic[0]["whole"])
+    for s, loss in r0["history"][-2:]:
+        np.testing.assert_allclose(loss, whole[s], rtol=1e-5, err_msg=s)
+
+
+def test_elastic_gives_up_after_max_restarts(ckpt_runs):
+    *_, elastic, _ = ckpt_runs
+    for rank in (0, 1):
+        assert "raised" in elastic[rank]["give_up"]
+
+
+def test_launcher_podwise_int8_on_cpu_ranks(capsys):
+    assert tlaunch.main(["--arch", "recurrentgemma-2b", "--smoke",
+                         "--device", "cpu", "--ranks", "2", "--multi-pod",
+                         "--mode", "podwise", "--compress", "int8_ef",
+                         "--steps", "2", "--batch", "2", "--seq", "16",
+                         "--tokens", "20000"]) == 0
+    out = capsys.readouterr().out
+    assert "step     2 loss=" in out and "mode podwise" in out
+
+
+@pytest.mark.parametrize("arch",
+                         sorted(ranks.PJIT_CASES) + list(ranks.MOE_ARCHS))
+def test_spec_trees_match_jax(arch):
+    """The port's spec trees (``param_specs_for`` by the copied
+    ``_RULES``, the state's with ``ef`` under ``multi_pod``, the batch's,
+    a decode cache's) equal the JAX package's for every shipped config,
+    on a ``(pod, data, model) = (2, 2, 2)`` grid (JAX reads only its axis
+    names and sizes here)."""
+    from types import SimpleNamespace
+
+    from repro.configs import ARCHS
+    from repro.models import model as jmodel
+    from repro.parallel.sharding import ParallelConfig as JPC
+    from repro.train import optim as joptim
+    from repro.train import step as jstep
+    from repro.utils.pytree import tree_flatten_with_paths as jflat
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as tmodel
+    from repro_torch.parallel.mesh_utils import Mesh
+    from repro_torch.parallel.sharding import ParallelConfig as TPC
+    from repro_torch.train import optim as toptim
+    from repro_torch.train import step as tstep
+    from repro_torch.utils.pytree import tree_flatten_with_paths as tflat
+
+    axes, shape = ("pod", "data", "model"), (2, 2, 2)
+    jmesh = SimpleNamespace(axis_names=axes, devices=np.empty(shape))
+    tmesh = Mesh(axes, dict(zip(axes, shape)), object(), 0, 8, "cpu", "gloo")
+    jcfg, tcfg = ARCHS[arch], get_config(arch)
+
+    def same(j, t):
+        jl, tl = jflat(j), tflat(t)
+        assert [p for p, _ in jl] == [p for p, _ in tl]
+        for (p, a), (_, b) in zip(jl, tl):
+            assert tuple(a) == tuple(b), (p, a, b)
+
+    for layout in ("tp", "fsdp"):
+        jp = JPC(mesh=jmesh, multi_pod=True, layout=layout)
+        tp = TPC(mesh=tmesh, multi_pod=True, layout=layout)
+        jo = joptim.AdamWConfig(error_feedback=True)
+        to = toptim.AdamWConfig(error_feedback=True)
+        same(jstep.opt_state_specs_for(jmodel.param_shapes(jcfg), jp, jo),
+             tstep.opt_state_specs_for(tmodel.param_shapes(tcfg), tp, to))
+        batch = {"inputs": np.zeros((8, 16)), "labels": np.zeros((8, 16))}
+        same(jstep.batch_specs_for(batch, jp),
+             tstep.batch_specs_for(batch, tp))
+        same(jstep.cache_specs_for(jmodel.cache_shapes(jcfg, 8, 64), jp),
+             tstep.cache_specs_for(tmodel.cache_shapes(tcfg, 8, 64), tp))

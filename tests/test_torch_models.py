@@ -295,9 +295,9 @@ def test_forward_matches_prefill_logits():
 
 
 def test_mesh_raises_and_default_device_is_cuda(monkeypatch):
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(TypeError, match="Mesh"):
         ParallelConfig(mesh=object())
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(TypeError, match="Mesh"):
         T_NOP.with_(mesh=object())
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     _, tcfg = _cfgs("qwen2.5-3b")

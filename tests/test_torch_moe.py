@@ -154,8 +154,17 @@ def test_dispatch_modes_and_the_mesh():
     _, tp, _, tx = _setup()
     with pytest.raises(ValueError):
         tmoe.apply(tp, tx, cfg=tcfg, pcfg=TPC(moe_dispatch="ring"))
-    with pytest.raises(NotImplementedError, match="1.3c"):
-        TPC(mesh=object(), moe_dispatch="a2a")
+    from repro_torch.parallel.mesh_utils import Mesh
+    grid = Mesh(("data", "model"), {"data": 1, "model": 2}, object(), 0, 2,
+                "cpu", "gloo")
+    with pytest.raises(NotImplementedError, match="1.3g"):
+        tmoe.apply(tp, tx, cfg=tcfg, pcfg=TPC(mesh=grid, layout="fsdp",
+                                              moe_dispatch="a2a"))
+    # under tp the JAX package falls back to gather, and so does the port
+    oa, _ = tmoe.apply(tp, tx, cfg=tcfg, pcfg=TPC(mesh=grid,
+                                                  moe_dispatch="a2a"))
+    og, _ = tmoe.apply(tp, tx, cfg=tcfg, pcfg=TPC(moe_dispatch="gather"))
+    assert torch.equal(oa, og)
 
 
 def test_aux_loss_uniform_router():

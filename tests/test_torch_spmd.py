@@ -175,19 +175,23 @@ def test_kmeans_step_mesh_matches_jax(suite, world):
 
 
 def test_single_rank_mesh_and_sub_axis():
-    """A collective over an axis that does not span every rank needs a
-    group of its own: not ported (item 1.3c)."""
+    """A collective runs over its axis's own group: an axis of one rank
+    is the identity, whatever the other axes; a sub-axis group the mesh
+    was not built with raises."""
     from repro_torch.core import spmd
     from repro_torch.parallel.mesh_utils import Mesh, single_device_mesh
 
     one = single_device_mesh(device="cpu")
-    keys = torch.arange(8, dtype=torch.int32).view(torch.uint32)
+    keys = torch.arange(8, dtype=torch.int32).flip(0).view(torch.uint32)
     srt, valid = spmd.distributed_sort(keys, one)
     assert _u32(srt)[:8].tolist() == list(range(8)) and int(valid[0]) == 8
     two = Mesh(("data", "model"), {"data": 1, "model": 2}, object(), 0, 2,
                "cpu", "gloo")
-    with pytest.raises(NotImplementedError, match="1.3c"):
-        spmd.barrier_sort(keys, two)
+    assert _u32(spmd.barrier_sort(keys, two)).tolist() == list(range(8))
+    grid = Mesh(("data", "model"), {"data": 2, "model": 2}, object(), 0, 4,
+                "cpu", "gloo")
+    with pytest.raises(ValueError, match="make_mesh_compat"):
+        spmd.barrier_sort(keys, grid)
 
 
 def _u32(t):

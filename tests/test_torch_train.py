@@ -588,7 +588,12 @@ def test_opt_state_from_jax_keeps_types_and_bits():
     for (path, want), got in zip(j_flatten(js), _flat(ts)):
         assert np.array_equal(_np(got), np.asarray(want)), path
     with pytest.raises(ValueError):
-        opt_state_from_jax({**jax.tree.map(np.asarray, js), "ef": {}}, "cpu")
+        opt_state_from_jax({**jax.tree.map(np.asarray, js), "mu": {}}, "cpu")
+    # the int8_ef residual converts like the moments
+    je = joptim.init_state(jp, joptim.AdamWConfig(error_feedback=True))
+    te = opt_state_from_jax(jax.tree.map(np.asarray, je), "cpu")
+    for (path, want), got in zip(j_flatten(je), _flat(te)):
+        assert np.array_equal(_np(got), np.asarray(want)), path
 
 
 # ------------------------------------------------------------ checkpoints
@@ -816,31 +821,56 @@ def test_launcher_smoke_on_cpu(capsys):
 @pytest.mark.parametrize("flags", [["--multi-pod"], ["--mode", "podwise"],
                                    ["--compress", "int8_ef"],
                                    ["--compress", "bf16"]])
-def test_launcher_mesh_flags_raise(flags):
-    with pytest.raises(NotImplementedError, match="mesh"):
-        tlaunch.main(["--smoke", "--device", "cpu", *flags])
+def test_launcher_mesh_flags_raise(flags, capsys):
+    """A mesh flag runs the job on a mesh of ``--ranks`` gloo ranks (one
+    here); an unknown value raises."""
+    assert tlaunch.main(["--smoke", "--device", "cpu", "--steps", "1",
+                         "--batch", "1", "--seq", "8", "--tokens", "5000",
+                         *flags]) == 0
+    out = capsys.readouterr().out
+    assert "step     1 loss=" in out and "mesh: 1 ranks" in out
+    with pytest.raises(SystemExit):
+        tlaunch.main(["--smoke", "--device", "cpu", flags[0], "ring"]
+                     if len(flags) == 2 else [*flags, "--ranks", "x"])
 
 
 @pytest.mark.parametrize("what", ["podwise", "multi_pod", "int8_ef",
                                   "specs"])
 def test_mesh_modes_raise(what, tmp_path):
+    """What the mesh step still refuses: the podwise step without a mesh
+    with a pod axis; microbatch accumulation and the MoE on a mesh that
+    splits the batch (ROADMAP items 1.3h and 1.3g).  Without a mesh, an
+    ``int8_ef`` state carries ``ef`` and the spec trees are ``P()``."""
+    from repro_torch.parallel.mesh_utils import Mesh
+    from repro_torch.parallel.sharding import P
     _, tcfg = _cfgs("qwen2.5-3b")
     ocfg = optim.AdamWConfig()
     lr = optim.warmup_cosine(1e-3, 1, 4)
-    with pytest.raises(NotImplementedError, match="mesh"):
-        if what == "podwise":
-            tstep.make_train_step(tcfg, TPC(mesh=None, mode="podwise"),
-                                  ocfg, lr)
-        elif what == "multi_pod":
-            tstep.make_train_step(tcfg, TPC(mesh=None, multi_pod=True),
-                                  ocfg, lr)
-        elif what == "int8_ef":
-            tr, *_ = _mk_trainer(tmp_path)
-            Trainer(tr.cfg, TPC(mesh=None, compress_pod="int8_ef"),
-                    tr.tcfg, tr.pipeline, device="cpu")
-        else:
-            tstep.opt_state_specs_for(tmodel.param_shapes(tcfg),
-                                      TPC(mesh=None), ocfg)
+    grid = Mesh(("data", "model"), {"data": 2, "model": 1}, object(), 0, 2,
+                "cpu", "gloo")
+    if what == "podwise":
+        for mesh in (None, grid):
+            with pytest.raises(ValueError, match="pod"):
+                tstep.make_train_step(tcfg, TPC(mesh=mesh, mode="podwise",
+                                                multi_pod=True), ocfg, lr)
+    elif what == "multi_pod":
+        with pytest.raises(NotImplementedError, match="1.3h"):
+            tstep.make_train_step(tcfg, TPC(mesh=grid, accum_steps=2), ocfg,
+                                  lr)
+    elif what == "int8_ef":
+        tr, *_ = _mk_trainer(tmp_path)
+        tr8 = Trainer(tr.cfg, TPC(mesh=None, compress_pod="int8_ef"),
+                      tr.tcfg, tr.pipeline, device="cpu")
+        assert set(tr8.opt) == {"step", "m", "v", "master", "ef"}
+        assert not any(bool(x.any()) for x in _flat(tr8.opt["ef"]))
+        tr8.run(1)
+    else:
+        _, mcfg = _cfgs("qwen3-moe-30b-a3b")
+        with pytest.raises(NotImplementedError, match="1.3g"):
+            tstep.make_train_step(mcfg, TPC(mesh=grid), ocfg, lr)
+        specs = tstep.opt_state_specs_for(tmodel.param_shapes(tcfg),
+                                          TPC(mesh=None), ocfg)
+        assert specs["step"] == P() and specs["m"]["embed"]["w"] == P()
 
 
 def test_trainer_default_device_is_cuda(monkeypatch, tmp_path):

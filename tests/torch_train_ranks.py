@@ -1,0 +1,369 @@
+"""Rank bodies of the port's LM-mesh tests (``test_torch_mesh_train.py``,
+``test_torch_collectives.py``), and the inputs both packages share.
+
+``repro_torch.launch.mesh.run_ranks`` spawns each rank and imports its
+function from here by name, so this module imports only numpy, torch and
+the port: no JAX, no ``conftest``.  Every rank builds its inputs from the
+same seeds (the parameters by the port's ``init_params``, the batches
+from numpy), runs on the CPU over gloo, and returns plain data that the
+test process holds against the JAX package, which starts from the same
+arrays (:func:`init_numpy`, :func:`lm_batch`).
+"""
+from __future__ import annotations
+
+from pathlib import Path
+
+import numpy as np
+import torch
+
+SEED = 0
+B, T = 8, 16                     # the global batch of the step tests
+LR, WARMUP, TOTAL = 1e-2, 2, 10  # the JAX package's sharded-step test's
+# (arch, layouts): every dense shipped config at the tp layout (the JAX
+# step's values do not depend on the layout); two of them at both
+PJIT_CASES = {
+    "qwen2.5-3b": ("tp", "fsdp"),
+    "recurrentgemma-2b": ("tp", "fsdp"),
+    "gemma3-12b": ("tp",),
+    "qwen3-8b": ("tp",),
+    "deepseek-7b": ("tp",),
+    "llava-next-mistral-7b": ("tp",),
+    "seamless-m4t-large-v2": ("tp",),
+    "xlstm-1.3b": ("tp",),
+}
+MOE_ARCHS = ("qwen3-moe-30b-a3b", "dbrx-132b")
+PODWISE_ARCH = "qwen2.5-3b"
+# (c): a [4, 256] gradient, one row a pod
+POD_SHAPE = (4, 256)
+
+
+def lm_cfg(arch: str):
+    """The reduced float32 twin of ``arch`` (the port's config)."""
+    from repro_torch.configs import get_config
+    return get_config(arch).reduced().replace(param_dtype="float32",
+                                              compute_dtype="float32")
+
+
+def init_numpy(cfg, seed: int = SEED) -> dict:
+    """{path: array}: the port's ``init_params`` at ``seed`` on the CPU."""
+    from repro_torch.models import model
+    from repro_torch.utils.pytree import tree_flatten_with_paths
+    params = model.init_params(cfg, torch.Generator().manual_seed(seed),
+                               "cpu")
+    return {p: x.numpy() for p, x in tree_flatten_with_paths(params)}
+
+
+def nest(flat: dict) -> dict:
+    """A nested dict from {'/'-joined path: leaf}."""
+    out: dict = {}
+    for path, x in flat.items():
+        *head, last = path.split("/")
+        d = out
+        for k in head:
+            d = d.setdefault(k, {})
+        d[last] = x
+    return out
+
+
+def lm_batch(cfg, seed: int = 1, masked=((1, 5), (6, 11))) -> dict:
+    """The global batch: ``[B, T]`` tokens, labels with the first ``n``
+    of row ``r`` ignored (-1) for each ``(r, n)`` in ``masked``, so rows
+    carry unequal token counts; an encoder-decoder's ``enc_frames``."""
+    rng = np.random.default_rng(seed)
+    toks = rng.integers(0, cfg.vocab_size, (B, T)).astype(np.int32)
+    labels = toks.copy()
+    for r, n in masked:
+        labels[r, :n] = -1
+    out = {"inputs": toks, "labels": labels}
+    if cfg.is_encoder_decoder:
+        out["enc_frames"] = rng.normal(size=(B, T, cfg.d_model)) \
+            .astype(np.float32)
+    return out
+
+
+# podwise against pjit: each pod's rows hold the same valid tokens, so
+# the pods' plain mean is the token-weighted mean
+POD_MASKED = ((1, 5), (5, 5))
+
+
+def _flat_np(tree) -> dict:
+    from repro_torch.utils.pytree import tree_flatten_with_paths
+    return {p: x.detach().float().numpy() for p, x in
+            tree_flatten_with_paths(tree)}
+
+
+def _mesh_step(cfg, mesh, batch_np, **pcfg_kw):
+    """One port train step on ``mesh`` from :func:`init_numpy`; returns
+    (metrics, the whole updated parameters and first moments, each as
+    {path: array})."""
+    from repro_torch.convert import params_from_jax
+    from repro_torch.models import model
+    from repro_torch.parallel import sharded
+    from repro_torch.parallel.sharding import ParallelConfig, param_specs_for
+    from repro_torch.train import optim
+    from repro_torch.train import step as tstep
+    pcfg = ParallelConfig(mesh=mesh, remat="none", **pcfg_kw)
+    pshapes = model.param_shapes(cfg)
+    specs = param_specs_for(pshapes, pcfg)
+    params = params_from_jax(nest(init_numpy(cfg)), specs=specs, mesh=mesh)
+    ocfg = optim.AdamWConfig(lr=LR, error_feedback=(
+        pcfg.compress_pod == "int8_ef"))
+    opt = optim.init_state(params, ocfg)
+    step = tstep.make_train_step(cfg, pcfg, ocfg,
+                                 optim.warmup_cosine(LR, WARMUP, TOTAL))
+    batch = tstep.local_batch(
+        {k: torch.from_numpy(v) for k, v in batch_np.items()}, pcfg)
+    params, opt, metrics = step(params, opt, batch)
+    whole = sharded.gather_tree({"p": params, "m": opt["m"]},
+                                {"p": specs, "m": specs},
+                                {"p": pshapes, "m": pshapes}, mesh)
+    return ({k: float(v) for k, v in metrics.items()}, _flat_np(whole["p"]),
+            _flat_np(whole["m"]))
+
+
+# ------------------------------------------------------------ (a), (b), (e)
+def mesh_train_suite(rank: int, world: int):
+    """Every pjit case on a ``(data, model) = (2, 2)`` mesh; podwise
+    ``none`` and pjit on ``(pod, data, model) = (2, 2, 1)``; the MoE
+    configs' and the expert all-to-all's errors."""
+    from repro_torch.launch.mesh import make_mesh_compat
+    from repro_torch.models import moe
+    from repro_torch.parallel.sharding import ParallelConfig
+    mesh = make_mesh_compat((2, 2), ("data", "model"), device="cpu")
+    out = {"pjit": {}, "raises": {}}
+    for arch, layouts in PJIT_CASES.items():
+        cfg = lm_cfg(arch)
+        for layout in layouts:
+            out["pjit"][arch, layout] = _mesh_step(
+                cfg, mesh, lm_batch(cfg), layout=layout)
+    for arch in MOE_ARCHS:
+        try:
+            _mesh_step(lm_cfg(arch), mesh, lm_batch(lm_cfg(arch)))
+        except NotImplementedError as e:
+            out["raises"][arch] = str(e)
+    cfg = lm_cfg("qwen3-moe-30b-a3b")
+    x = torch.zeros((2, 4, cfg.d_model))
+    params = {"router": torch.zeros((cfg.d_model, cfg.n_experts))}
+    try:
+        moe.apply(params, x, cfg=cfg, pcfg=ParallelConfig(
+            mesh=mesh, layout="fsdp", moe_dispatch="a2a"))
+    except NotImplementedError as e:
+        out["raises"]["a2a"] = str(e)
+    pod = make_mesh_compat((2, 2, 1), ("pod", "data", "model"),
+                           device="cpu")
+    cfg = lm_cfg(PODWISE_ARCH)
+    batch = lm_batch(cfg, masked=POD_MASKED)
+    out["pod"] = {mode: _mesh_step(cfg, pod, batch, multi_pod=True,
+                                   mode=mode)
+                  for mode in ("pjit", "podwise")}
+    return out if rank == 0 else None
+
+
+# ------------------------------------------------------------ (c), (d)
+def pod_grads(seed: int = 0) -> np.ndarray:
+    return np.random.default_rng(seed).normal(size=POD_SHAPE) \
+        .astype(np.float32)
+
+
+def collectives_suite(rank: int, world: int):
+    """(c) ``cross_pod_mean`` over 4 pods, every mode, row ``rank`` of
+    :func:`pod_grads` a pod; the bytes each mode hands to the wire.
+    (d) ``global_norm`` of a tree's blocks on a ``(2, 2)`` mesh, a
+    replicated leaf and one whose spec ``validate_spec`` dropped
+    included."""
+    from repro_torch.launch.mesh import make_mesh_compat
+    from repro_torch.parallel import collectives, sharded
+    from repro_torch.parallel.sharding import P, validate_spec
+    from repro_torch.train import optim
+    pods = make_mesh_compat((world, 1, 1), ("pod", "data", "model"),
+                            device="cpu")
+    g = torch.from_numpy(pod_grads()[rank].copy())
+    out = {}
+    for mode in ("none", "bf16", "int8_ef"):
+        before = collectives.WIRE["pod"]
+        ef = {"w": torch.zeros_like(g)} if mode == "int8_ef" else None
+        mean, ef2 = collectives.cross_pod_mean(
+            {"w": g.clone()}, mesh=pods, compress=mode, ef_state=ef)
+        out[mode] = (mean["w"].numpy(), None if ef2 is None
+                     else ef2["w"].numpy(),
+                     collectives.WIRE["pod"] - before)
+    # the int8 residual carried into a second round
+    mean, ef3 = collectives.cross_pod_mean(
+        {"w": g.clone()}, mesh=pods, compress="int8_ef",
+        ef_state={"w": torch.from_numpy(out["int8_ef"][1].copy())})
+    out["int8_ef_2"] = (mean["w"].numpy(), ef3["w"].numpy())
+    out["ratio"] = collectives.pod_efficiency_ratio(2.0, 1.0)
+    # (d): whole leaves from one seed; each rank keeps its blocks
+    grid = make_mesh_compat((2, 2), ("data", "model"), device="cpu")
+    rng = np.random.default_rng(3)
+    whole = {"w": rng.normal(size=(8, 6)), "odd": rng.normal(size=(5, 4)),
+             "scale": rng.normal(size=(6,)), "one": rng.normal(size=(1,))}
+    whole = {k: torch.from_numpy(v.astype(np.float32))
+             for k, v in whole.items()}
+    sizes = dict(grid.shape)
+    specs = {"w": P("data", "model"), "scale": P(),
+             "odd": validate_spec(P("data", "model"), (5, 4), sizes),
+             "one": validate_spec(P("model"), (1,), sizes)}
+    blocks = sharded.shard_tree(whole, specs, grid)
+    out["norm"] = float(optim.global_norm(blocks, specs=specs, mesh=grid))
+    out["norm_specs"] = {k: tuple(v) for k, v in specs.items()}
+    out["block_shapes"] = {k: tuple(v.shape) for k, v in blocks.items()}
+    regathered = sharded.gather_tree(blocks, specs, whole, grid)
+    out["roundtrip"] = all(torch.equal(regathered[k], whole[k])
+                           for k in whole)
+    return out
+
+
+# ------------------------------------------------------------ (f), (g)
+def _trainer(cfg, mesh, tmp: Path, *, steps=2, ckpt_every=2, log_every=1,
+             seed=0, tag="ck", tokens=20_000, seq=16, batch=4):
+    """A Trainer on ``mesh`` (or one CPU device) over its own Sector
+    cloud under ``tmp``: a corpus from seed 1, the checkpointer ``tag``."""
+    from repro_torch.data import (DataPipeline, SectorTokenDataset,
+                                  write_synthetic_corpus)
+    from repro_torch.parallel.sharding import ParallelConfig
+    from repro_torch.train import SectorCheckpointer, Trainer, TrainerConfig
+    from torch_mesh_ranks import cloud
+    tmp.mkdir(parents=True, exist_ok=True)
+    master, client = cloud(tmp, chunk_records=640)
+    write_synthetic_corpus(client, "c", tokens, cfg.vocab_size, seed=1)
+    ds = SectorTokenDataset(master, client, "c", seq_len=seq)
+    pcfg = ParallelConfig(mesh=mesh, remat="none")
+    pipe = DataPipeline(ds, batch=batch, pcfg=pcfg, device="cpu")
+    return Trainer(cfg, pcfg, TrainerConfig(
+        steps=steps, ckpt_every=ckpt_every, log_every=log_every, lr=1e-3,
+        warmup=1, seed=seed), pipe, SectorCheckpointer(client, tag),
+        device="cpu"), client
+
+
+CKPT_ARCH = "qwen2.5-3b"
+
+
+def ckpt_files(client, tag: str, step: int) -> dict:
+    """{name: bytes} of one checkpoint's payload and manifest."""
+    base = f"ckpt/{tag}/step_{step:08d}"
+    return {n: client.download(n) for n in (base + ".bin",
+                                            base + ".manifest.json")}
+
+
+def upload(client, files: dict) -> None:
+    for name, data in files.items():
+        client.upload(name, data, replication=2)
+
+
+def whole_tree(trainer) -> dict:
+    """The trainer's {params, opt} as whole leaves {path: array}."""
+    from repro_torch.parallel import sharded
+    tree = trainer._tree()
+    if trainer.mesh is not None:
+        tree = sharded.gather_tree(tree, trainer._specs(),
+                                   trainer._shapes(), trainer.mesh)
+    return _flat_np(tree)
+
+
+def ckpt_suite(rank: int, world: int, tmp: str, single_files: dict):
+    """(f) on a ``(data, model) = (2, 1)`` mesh: train 2 steps and save
+    (rank 0 writes); restore a checkpoint written on one device."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_mesh_compat
+    mesh = make_mesh_compat((world, 1), ("data", "model"), device="cpu")
+    cfg = get_config(CKPT_ARCH).reduced()
+    tr, client = _trainer(cfg, mesh, Path(tmp) / f"w{rank}")
+    tr.run(2)
+    out = {"written": whole_tree(tr), "cursor": tr.pipeline.state_dict()}
+    if rank == 0:
+        out["files"] = ckpt_files(client, "ck", 2)
+    # the reverse: a checkpoint written on one device, in this rank's
+    # own cloud, restored onto the mesh
+    tr2, client2 = _trainer(cfg, mesh, Path(tmp) / f"r{rank}",
+                            tag="single")
+    assert tr2.step_idx == 0
+    upload(client2, single_files)
+    tr2._build()
+    out["restored_step"] = tr2.step_idx
+    out["restored"] = whole_tree(tr2)
+    out["restored_cursor"] = tr2.pipeline.state_dict()
+    return out if rank == 0 else None
+
+
+def elastic_suite(rank: int, world: int, tmp: str):
+    """(g): the JAX package's three elastic scenarios (a lost rank, two,
+    and giving up), each on a 2-rank mesh shrinking to 1; and the
+    uninterrupted 12 steps on the 2-rank mesh."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_mesh_compat
+    from repro_torch.train.elastic import ElasticController, HostFailure
+    cfg = get_config("qwen2.5-3b").reduced().replace(
+        param_dtype="float32", compute_dtype="float32")
+
+    def make_mesh(n):
+        return make_mesh_compat((n, 1), ("data", "model"), device="cpu",
+                                ranks=range(n))
+
+    out = {}
+    for name, fail_at, max_restarts in (("restart", [6], 3),
+                                        ("twice", [4, 8], 3),
+                                        ("give_up", [2, 4, 6], 1)):
+        tr, _ = _trainer(cfg, make_mesh(world), Path(tmp) / name / str(rank),
+                         steps=12, ckpt_every=4, log_every=2, seq=32,
+                         tokens=300_000)
+        ctl = ElasticController(tr, make_mesh=make_mesh,
+                                max_restarts=max_restarts)
+        try:
+            res = ctl.run_with_failures(12, fail_at=fail_at)
+            out[name] = {"restarts": res["restarts"],
+                         "final_step": res["final_step"],
+                         "left_out": res.get("left_out", False),
+                         "history": [(h["step"], h["loss"])
+                                     for h in res["history"]]}
+        except HostFailure as e:
+            out[name] = {"raised": str(e)}
+    tr, _ = _trainer(cfg, make_mesh(world), Path(tmp) / "whole" / str(rank),
+                     steps=12, ckpt_every=4, log_every=2, seq=32,
+                     tokens=300_000)
+    out["whole"] = [(h["step"], h["loss"]) for h in tr.run(12)]
+    return out
+
+
+# ------------------------------------------------------------ on the card
+def cuda_mesh_suite(rank: int, world: int):
+    """On the card, ranks sharing it over gloo (host-staged):
+    ``cross_pod_mean`` of every mode on CUDA tensors against the same
+    call on the same values on the CPU; ``shard_tree`` / ``gather_tree``
+    and ``global_norm`` of blocks on a ``(data, model) = (world, 1)``
+    mesh."""
+    import dataclasses
+
+    from repro_torch.launch.mesh import make_mesh_compat
+    from repro_torch.parallel import collectives, sharded
+    from repro_torch.parallel.sharding import P
+    from repro_torch.train import optim
+    pods = make_mesh_compat((world, 1, 1), ("pod", "data", "model"))
+    cpu = dataclasses.replace(pods, device=torch.device("cpu"))
+    g = np.random.default_rng(7).normal(size=(world, 3, 1000)) \
+        .astype(np.float32)[rank]
+    out = {"staged": pods.host_staged, "device": str(pods.device)}
+    for mode in ("none", "bf16", "int8_ef"):
+        res = []
+        for mesh in (pods, cpu):
+            x = torch.from_numpy(g.copy()).to(mesh.device)
+            ef = {"w": torch.zeros_like(x)} if mode == "int8_ef" else None
+            mean, ef2 = collectives.cross_pod_mean(
+                {"w": x}, mesh=mesh, compress=mode, ef_state=ef)
+            res.append((mean["w"].cpu().numpy(),
+                        None if ef2 is None else ef2["w"].cpu().numpy()))
+        out[mode] = res
+    grid = make_mesh_compat((world, 1), ("data", "model"))
+    whole = {"w": torch.randn(8, 6, generator=torch.Generator()
+                              .manual_seed(2)),
+             "b": torch.randn(5, generator=torch.Generator().manual_seed(3))}
+    specs = {"w": P("data", "model"), "b": P()}
+    blocks = sharded.shard_tree({k: v.cuda() for k, v in whole.items()},
+                                specs, grid)
+    back = sharded.gather_tree(blocks, specs, whole, grid)
+    out["roundtrip"] = all(torch.equal(back[k].cpu(), whole[k])
+                           for k in whole)
+    out["on_card"] = all(x.is_cuda for x in back.values())
+    out["norm"] = float(optim.global_norm(blocks, specs=specs, mesh=grid))
+    out["whole_norm"] = float(optim.global_norm(whole))
+    return out
