@@ -90,9 +90,12 @@ and passed over.
      ``[1, 3072, 16, 128]``, k / v ``[1, 3072, 2, 128]``, causal; within
      2e-5 in float32 and 2e-2 in bf16 (the bf16 kernel rounds p to bf16
      before the product with V, the plain version keeps it in float32),
-     and in bf16 also within what rounding p allows, plus 1e-4, of
-     ``attention_rounded_p``, which rounds p as the kernel does (see
-     ``rounded_p_excess``); TFLOP/s of the live pairs and the ratio to the
+     and in bf16 also within what rounding allows, plus 1e-4, of
+     ``attention_tile_p``, which rounds p as the kernel does, relative to
+     the running maximum after each 64-key tile (see ``tile_p_excess``;
+     the excess against ``attention_rounded_p``, p rounded relative to
+     the row's maximum, is printed beside it); TFLOP/s of the live pairs
+     and the ratio to the
      library's time at both shapes;
    - ``rg_lru_scan`` (at prefill a ring in shared memory per warp of 32
      channels filled by TMA; at decode one thread a channel), exact,
@@ -274,6 +277,29 @@ and passed over.
    equal, by exact checksums of their bits).  Prints the step's seconds
    and ``pod_efficiency_ratio`` against a one-rank step of the same cut
    model, a gloo-on-one-card figure.
+16.-20. **Serving the four configs held last, and ``qwen2.5-3b``,** at
+   full width in bf16 from ``--seed``, each on a fresh card after phase
+   13: ``gemma3-12b`` (hf:google/gemma-3-12b-pt: 48 layers in units of 5
+   local layers at window 1024 and one global, ``d_model`` 3840, GQA 16 /
+   8 heads of 256, qk-norm, the local RoPE theta 1e4, GeGLU, tied and
+   scaled embeddings, vocab 262,144; whole), ``qwen3-8b``
+   (hf:Qwen/Qwen3-8B: 36 layers, GQA 32 / 8 heads of 128; whole),
+   ``deepseek-7b`` (arXiv:2401.02954: 30 layers, MHA 32 / 32; whole),
+   ``dbrx-132b`` (hf:databricks/dbrx-base: its first 8 of 40 layers,
+   ``d_model`` 6144, GQA 48 / 8, 16 experts of width 10,752, top-4; the
+   cut is printed) and ``qwen2.5-3b`` (hf:Qwen/Qwen2.5-3B: 36 layers, GQA
+   16 / 2, QKV bias, tied embeddings; whole).  Each: ``flash_attention``
+   at its first attention layer's captured shape (``gemma3-12b``: the
+   first local and the first global layer), held and timed as in 11 (d),
+   the ``kernels`` line's ``flash_attention`` row carrying it under the
+   config's name and layer kind; the prefill's launches counted by layer
+   kind (48: 40 local, 8 global / 36 / 30 / 8 / 36); (a) phase 7's
+   requests, the launches exactly one a layer and prefill and no
+   ``rg_lru_scan``; (b) every layer of both long prompts from the kernel
+   route's input against ``plain_kernels()`` (12 (c)'s check, a unit of
+   several layers split into its layers; ``dbrx-132b``'s with the
+   routing pinned, as 11 (b)), the whole-stack plain logits printed; one
+   profiled decode step and one profiled prefill.
 
 The line before the last is one JSON object describing every kernel; the
 last line is
@@ -1555,12 +1581,86 @@ def rounded_p_excess(torch, got, q, k, v, causal, window):
             float((diff - 2 ** -8 * (o.abs() + w)).max()))
 
 
+TILE_KEYS = 64                          # flash_attention.cu's kTcKeys
+
+
+def _tile_p(torch, q, k, v, causal, window, heads: int = 8):
+    """``(o, w)`` as :func:`_rounded_p`, with p rounded as the bf16 kernel
+    rounds it: scores in log2 units (times ``log2(e) / sqrt(D)``), p
+    relative to the row's running maximum after each ``TILE_KEYS``-key
+    tile, tiles in ascending order, rounded to v's type before the
+    product with v; the row sum of the unrounded p; each tile's part
+    rescaled by ``2 ** (m_tile - m_row)``.  ``heads`` query heads at a
+    time (the scores of 48 heads at 3,072 tokens are 1.8 GB)."""
+    B, T, H, D = q.shape
+    S, K = k.shape[1], k.shape[2]
+    n_tiles = -(-S // TILE_KEYS)
+    pad = n_tiles * TILE_KEYS - S
+    # the kernel's float32 product: scale * kLog2e
+    scale_log2 = float(np.float32(1 / math.sqrt(D))
+                       * np.float32(math.log2(math.e)))
+    tpos = torch.arange(T, device=q.device)[:, None]
+    spos = torch.arange(S, device=q.device)[None, :]
+    live = torch.ones((T, S), dtype=torch.bool, device=q.device)
+    if causal:
+        live &= spos <= tpos
+    if window:
+        live &= tpos - spos < window
+    outs, ws = [], []
+    for h0 in range(0, H, heads):
+        hs = range(h0, min(H, h0 + heads))
+        qf = q[:, :, h0:hs[-1] + 1].float().transpose(1, 2)
+        kv = [x[:, :, [h // (H // K) for h in hs]].float().transpose(1, 2)
+              for x in (k, v)]
+        sc = (qf @ kv[0].transpose(2, 3)) * scale_log2
+        sc = sc.masked_fill(~live, -math.inf)
+        tiles = torch.nn.functional.pad(sc, (0, pad), value=-math.inf) \
+            .unflatten(-1, (n_tiles, TILE_KEYS))
+        run = torch.cummax(tiles.amax(-1), dim=-1).values  # [.., T, tiles]
+        row = run[..., -1:]
+        m_key = run.repeat_interleave(TILE_KEYS, dim=-1)[..., :S]
+        p = torch.exp2(sc - m_key).nan_to_num(0.0)   # -inf - -inf: no key
+        rescale = torch.exp2(m_key - row).nan_to_num(0.0)
+        l = (p * rescale).sum(-1, keepdim=True)
+        outs.append((p.to(v.dtype).float() * rescale) @ kv[1] / l)
+        ws.append((p * rescale) @ kv[1].abs() / l)
+    return (torch.cat(outs, 1).transpose(1, 2),
+            torch.cat(ws, 1).transpose(1, 2))
+
+
+def attention_tile_p(torch, q, k, v, causal, window):
+    """The bf16 flash kernel's numerics in plain PyTorch, float32 out, tile
+    for tile (:func:`_tile_p`): where every row's live keys lie in one
+    tile, :func:`attention_rounded_p`'s function."""
+    return _tile_p(torch, q, k, v, causal, window)[0]
+
+
+def tile_p_excess(torch, got, q, k, v, causal, window):
+    """``(max |got - o|, excess)`` for the bf16 kernel's output ``got``
+    against ``o`` of :func:`attention_tile_p`: ``excess`` is the largest
+    ``|got - o| - 2**-8 * (|o| + w)`` (the output's rounding, and a p on
+    a bf16 rounding edge that the kernel's float32 scores, summed in
+    another order, round the other way)."""
+    o, w = _tile_p(torch, q, k, v, causal, window)
+    diff = (got.float() - o).abs()
+    return (float(diff.max()),
+            float((diff - 2 ** -8 * (o.abs() + w)).max()))
+
+
 def check_attention(torch, q, k, v, causal, window):
     """The flash kernel against its plain version on (q, k, v): within
-    2e-2 (bf16) / 2e-5 (float32), in bf16 also within what rounding p
-    allows of ``attention_rounded_p``; ``ops.flash_attention`` is the
-    kernel.  Returns (max error, bf16 max error against the rounded-p
-    oracle, its excess beyond what rounding allows) (0, -1 in float32)."""
+    2e-2 (bf16) / 2e-5 (float32), in bf16 also within what rounding allows
+    (plus 1e-4) of ``attention_tile_p``, which rounds p tile for tile as
+    the kernel does; ``ops.flash_attention`` is the kernel.  Returns (max
+    error, bf16 max error against the tile oracle, its excess beyond what
+    rounding allows, the excess against ``attention_rounded_p``) (0, -1,
+    -1 in float32).  The last is printed, not held: that oracle rounds p
+    relative to the row's maximum, and its allowance of one bf16 step of
+    each p is exceeded where a row's weight sits on two or three keys and
+    the two roundings of a p fall a step apart in opposite directions
+    (``dbrx-132b``'s first layer: 1.03e-3 at one output of 18,874,368,
+    within the two steps' bound; the kernel equals a float64 emulation of
+    its tile loop there, rounded to bf16)."""
     from repro_torch.kernels.flash_attention import kernel, ops, ref
     got = kernel.flash_attention_fwd(q, k, v, causal=causal, window=window)
     want = ref.flash_attention_ref(q, k, v, causal=causal, window=window)
@@ -1571,18 +1671,20 @@ def check_attention(torch, q, k, v, causal, window):
           f"flash_attention beyond tolerance {tuple(q.shape)} "
           f"{tuple(k.shape)} {q.dtype} causal={causal} window={window}: "
           f"max err {err}")
-    err_r, excess = 0.0, -1.0
+    err_t, excess, excess_row = 0.0, -1.0, -1.0
     if q.dtype == torch.bfloat16:
-        err_r, excess = rounded_p_excess(torch, got, q, k, v, causal, window)
+        err_t, excess = tile_p_excess(torch, got, q, k, v, causal, window)
+        excess_row = rounded_p_excess(torch, got, q, k, v, causal,
+                                      window)[1]
         check(excess <= 1e-4,
-              f"flash_attention beyond what rounding p allows of the "
-              f"rounded-p oracle {tuple(q.shape)} {tuple(k.shape)} "
-              f"causal={causal} window={window}: max err {err_r}, "
+              f"flash_attention beyond what rounding allows of the "
+              f"tile-rounded-p oracle {tuple(q.shape)} {tuple(k.shape)} "
+              f"causal={causal} window={window}: max err {err_t}, "
               f"{excess} beyond")
     check(torch.equal(ops.flash_attention(q, k, v, causal=causal,
                                           window=window), got),
           "ops.flash_attention differs from the kernel")
-    return err, err_r, excess
+    return err, err_t, excess, excess_row
 
 
 def live_pairs(T: int, S: int, causal: bool, window: int) -> int:
@@ -1630,15 +1732,17 @@ def flash_phase(torch, captured):
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(13)
     worst = worst_rounded = 0.0
-    worst_excess = -1.0
+    worst_excess = worst_row = -1.0
     n_cases = 0
 
     def compare(q, k, v, causal, window):
-        nonlocal worst, worst_rounded, worst_excess, n_cases
-        err, err_r, excess = check_attention(torch, q, k, v, causal, window)
+        nonlocal worst, worst_rounded, worst_excess, worst_row, n_cases
+        err, err_r, excess, row = check_attention(torch, q, k, v, causal,
+                                                  window)
         worst = max(worst, err)
         worst_rounded = max(worst_rounded, err_r)
         worst_excess = max(worst_excess, excess)
+        worst_row = max(worst_row, row)
         n_cases += 1
 
     def rand(shape, dtype):
@@ -1675,8 +1779,9 @@ def flash_phase(torch, captured):
           f"sdpa_ms={lib:.4f} (max err vs plain {lib_err:.3e}; "
           f"{lib / ms:.3f}x the kernel's speed) "
           f"cases={n_cases} max_abs_err={worst:.3e} "
-          f"bf16_max_abs_err_vs_rounded_p={worst_rounded:.3e} "
-          f"(beyond what rounding p allows: {worst_excess:.3e})")
+          f"bf16_max_abs_err_vs_tile_rounded_p={worst_rounded:.3e} "
+          f"(beyond what rounding allows: {worst_excess:.3e}; against the "
+          f"row-rounded p: {worst_row:.3e})")
     # Qwen2.5-3B's global layer shape, random inputs
     gq, gk, gv = (rand(shape, torch.bfloat16) for shape in (
         (1, T, 16, 128), (1, T, 2, 128), (1, T, 2, 128)))
@@ -1694,8 +1799,9 @@ def flash_phase(torch, captured):
           f"plain_ms={g_plain:.4f} sdpa_ms={g_lib:.4f} (max err vs plain "
           f"{g_lib_err:.3e}; {g_lib / g_ms:.3f}x the kernel's speed); "
           f"all {n_cases} cases: max_abs_err={worst:.3e} "
-          f"bf16_max_abs_err_vs_rounded_p={worst_rounded:.3e} "
-          f"(beyond what rounding p allows: {worst_excess:.3e})")
+          f"bf16_max_abs_err_vs_tile_rounded_p={worst_rounded:.3e} "
+          f"(beyond what rounding allows: {worst_excess:.3e}; against the "
+          f"row-rounded p: {worst_row:.3e})")
     return row("flash_attention", worst, ms, plain, f_bound, f_by, lib)
 
 
@@ -2697,12 +2803,13 @@ def dispatch_check(torch, cfg, captured) -> None:
 
 
 def path_flash_times(torch, label, captured) -> dict:
-    """(11d, 12b, 13c): flash_attention at a serving path's shape (a
-    captured launch's q / k / v): held to its plain version and the
-    rounded-p oracle, and timed beside SDPA and its bound."""
+    """(11d, 12b, 13c, 16-20): flash_attention at a serving path's shape
+    (a captured launch's q / k / v): held to its plain version and the
+    tile-rounded-p oracle, and timed beside SDPA and its bound."""
     (q, k, v), kw = captured
     causal, window = kw["causal"], kw["window"]
-    err, err_r, excess = check_attention(torch, q, k, v, causal, window)
+    err, err_r, excess, row = check_attention(torch, q, k, v, causal,
+                                              window)
     ms, plain, lib, lib_err = attention_times(torch, q, k, v, causal, window)
     B, T, H, D = q.shape
     ops = 4 * D * H * live_pairs(T, k.shape[1], causal, window)
@@ -2714,8 +2821,9 @@ def path_flash_times(torch, label, captured) -> dict:
           f"({ops / (ms * 1e-3) / 1e12:.2f} TFLOP/s, {ms / bnd:.2f}x the "
           f"bound) plain_ms={plain:.4f} sdpa_ms={lib:.4f} (max err vs "
           f"plain {lib_err:.3e}; {lib / ms:.3f}x the kernel's speed) "
-          f"max_abs_err={err:.3e} bf16_max_abs_err_vs_rounded_p={err_r:.3e} "
-          f"(beyond what rounding p allows: {excess:.3e})")
+          f"max_abs_err={err:.3e} bf16_max_abs_err_vs_tile_rounded_p="
+          f"{err_r:.3e} (beyond what rounding allows: {excess:.3e}; "
+          f"against the row-rounded p: {row:.3e})")
     return {"shape": f"q {list(q.shape)} k/v {list(k.shape)}",
             "causal": causal, "max_abs_err": err, "ms": ms,
             "plain_ms": plain, "bound_ms": bnd, "bound_by": by,
@@ -2864,21 +2972,70 @@ def serve_frames(cfg, seed: int, n: int = N_REQUESTS, rows: int = SERVE_LEN):
             for _ in range(n)]
 
 
+def split_unit(torch, cfg, unit, x, kw) -> list:
+    """The layers of one pattern unit run one at a time by the kernel
+    route from the unit's input ``x``: ``[(one-layer unit, its kw, input,
+    output)]``, each layer as a unit of a one-symbol pattern (the same
+    ops as inside the unit)."""
+    from repro_torch.models import transformer
+    out = []
+    with torch.inference_mode():
+        for i, sym in enumerate(cfg.block_pattern):
+            one = {"layer0": unit[f"layer{i}"]}
+            kw1 = dict(kw, cfg=cfg.replace(block_pattern=(sym,),
+                                           n_layers=cfg.n_groups))
+            y = transformer._unit_apply(one, x, **kw1)[0]
+            out.append((one, kw1, x, y))
+            x = y
+    return out
+
+
+def layer_update(torch, unit, x, kw):
+    """(output, update) of one unit run from ``x`` by whatever route is
+    in force: the update is the float32 sum of what its blocks add to the
+    residual stream (self- and cross-attention, FFN or MoE outputs),
+    taken before each is rounded into the bf16 stream."""
+    from repro_torch.models import attention, mlp, moe, transformer
+    parts = []
+
+    def spy(module, pair):
+        real = module.apply
+
+        def call(*args, **kw_):
+            out = real(*args, **kw_)
+            parts.append((out[0] if pair else out).float())
+            return out
+        return patched(module, "apply", call)
+
+    with spy(attention, True), spy(mlp, False), spy(moe, True), \
+            torch.inference_mode():
+        y = transformer._unit_apply(unit, x, **kw)[0]
+    return y, sum(parts)
+
+
 def check_unit_layers(torch, cfg, params, batch, served=None) -> None:
-    """(12c): every layer of one kernel-route prefill of ``batch`` (the
-    encoder's units, then the decoder's with the memory), each run again
-    under ``plain_kernels()`` from its recorded input (and the same
-    memory): its update, output minus input, within ``LOGIT_TOL`` of the
-    update's largest magnitude, as phase 11 (b) holds its layers.  The
-    prefill's logits must be ``served`` (the served run's), where
-    given."""
+    """(12c; (b) of 16-18 and 20): every layer of one kernel-route
+    prefill of ``batch`` (the encoder's units, then the decoder's with the
+    memory), run again from its recorded input (and the same memory) by
+    the kernel route, which must give the recorded output, and under
+    ``plain_kernels()``: its update by the kernel route, the sum of what
+    its blocks add to the residual stream, within ``LOGIT_TOL`` of the
+    plain route's largest magnitude.  The update is taken before it is
+    rounded into the bf16 stream: where the stream grows to several times
+    the update (``gemma3-12b``: 6-7x by layer 40), one bf16 step of the
+    sum moves output minus input by up to 6% of the update, on either
+    route; that difference is printed beside it, not held.  A unit of
+    several layers (``gemma3-12b``'s five local and one global) is split
+    into its layers by ``split_unit``, whose last output must equal the
+    unit's bit for bit.  The prefill's logits must be ``served`` (the
+    served run's), where given."""
     from repro_torch.models import model, transformer
     real_unit = transformer._unit_apply
-    layers = []
+    units = []
 
     def record_unit(unit, x, **kw):
         out = real_unit(unit, x, **kw)
-        layers.append((unit, x.clone(), out[0].clone(), kw))
+        units.append((unit, x.clone(), out[0].clone(), kw))
         return out
 
     with patched(transformer, "_unit_apply", record_unit), \
@@ -2889,21 +3046,40 @@ def check_unit_layers(torch, cfg, params, batch, served=None) -> None:
               "a second kernel-route prefill gave other logits than the "
               "served one")
     n_enc = cfg.n_enc_layers // cfg.pattern_len
-    check(len(layers) == n_enc + cfg.n_groups,
-          f"{len(layers)} units recorded, expected {n_enc + cfg.n_groups}")
+    check(len(units) == n_enc + cfg.n_groups,
+          f"{len(units)} units recorded, expected {n_enc + cfg.n_groups}")
+    layers = []
+    for unit, x, y, kw in units:
+        if cfg.pattern_len == 1:
+            layers.append((unit, kw, x, y))
+            continue
+        parts = split_unit(torch, cfg, unit, x, kw)
+        check(torch.equal(parts[-1][3], y),
+              "a unit's layers run one at a time differ from the unit")
+        layers += parts
     worst = {"encode": 0.0, "prefill": 0.0}
-    with plain_kernels(), torch.inference_mode():
-        for unit, x, y, kw in layers:
-            want = real_unit(unit, x, **kw)[0]
-            upd, upd_want = y.float() - x.float(), want.float() - x.float()
-            worst[kw["mode"]] = max(
-                worst[kw["mode"]], float((upd - upd_want).abs().max())
-                / float(upd_want.abs().max()))
+    stream = growth = 0.0
+    for unit, kw, x, y in layers:
+        again, upd = layer_update(torch, unit, x, kw)
+        check(torch.equal(again, y), "a layer run again by the kernel "
+                                     "route gave another output")
+        with plain_kernels():
+            want, upd_want = layer_update(torch, unit, x, kw)
+        scale = float(upd_want.abs().max())
+        worst[kw["mode"]] = max(worst[kw["mode"]], float(
+            (upd - upd_want).abs().max()) / scale)
+        out_in = want.float() - x.float()
+        stream = max(stream, float((y.float() - want.float()).abs().max())
+                     / float(out_in.abs().max()))
+        growth = max(growth, float(x.float().abs().max()) / scale)
+    n_dec = len(layers) - n_enc
     print(f"serve: {cfg.name}: prompt {batch['inputs'].shape[1]}, "
-          f"{n_enc} encoder and {cfg.n_groups} decoder layers, each from the "
+          f"{n_enc} encoder and {n_dec} decoder layers, each from the "
           f"kernel route's input, its update by the plain route: worst max "
           f"abs diff {worst['encode']:.3e} (encoder) / {worst['prefill']:.3e}"
-          f" (decoder) of the update's scale (tolerance {LOGIT_TOL})")
+          f" (decoder) of the update's scale (tolerance {LOGIT_TOL}); "
+          f"output minus input {stream:.3e} of its scale, the stream up to "
+          f"{growth:.2f}x the update (printed, not held)")
     check(max(worst.values()) <= LOGIT_TOL,
           f"a layer's update by the kernel route differs from the plain "
           f"route's by {worst} of its scale")
@@ -3098,6 +3274,98 @@ def vlm_phase(torch, seed: int):
     profile_decode(torch, eng, steady_s)
     profile_prefill(torch, cfg, params, prompts[0])
     return launches, n_image, flash
+
+
+# ------------------------------------------------------------ phases 16-20
+# 16-19: the four configs held last; 20: qwen2.5-3b, the launchers'
+# default, held on the CPU since the LM slice and not served here before
+HELD_ARCHS = ("gemma3-12b", "qwen3-8b", "deepseek-7b", "dbrx-132b",
+              "qwen2.5-3b")
+# (19): dbrx-132b's first 8 of its 40 layers, at full width: 8 layers
+# and the embedding and head are 54.6 GB of bf16 weights; all 40 are 263
+# GB, which waits for the LM mesh across cards
+HELD_LAYERS = {"dbrx-132b": 8}
+
+
+def plain_ends(torch, cfg, params, prompt, got) -> None:
+    """The served last logits ``got`` of ``prompt`` beside a whole
+    prefill under ``plain_kernels()``: printed, not held (at random
+    weights a stack of 30-48 bf16 layers is chaotic under rounding,
+    ``PERF.md`` section 6)."""
+    from repro_torch.models import model
+    dev = params["embed"]["w"].device
+    with plain_kernels(), torch.inference_mode():
+        want, _ = model.prefill(
+            params, {"inputs": torch.tensor([prompt], device=dev)}, cfg=cfg,
+            max_len=SERVE_LEN)
+    want = want[0].float().cpu()
+    print(f"serve: {cfg.name}: prompt {len(prompt)}: end to end, last "
+          f"logits vs the plain route "
+          f"{float((got - want).abs().max()) / float(want.abs().max()):.3e}"
+          f" of their scale (argmax {int(got.argmax())}, "
+          f"{int(want.argmax())}; printed, not held)")
+
+
+def held_phase(torch, seed: int, arch: str):
+    """Phases 16-20: ``arch`` at its full width in bf16 (``dbrx-132b`` at
+    ``HELD_LAYERS`` of its layers), on a fresh card.  ``flash_attention``
+    at the first attention layer's captured shape (``gemma3-12b``: the
+    first local and the first global layer) held and timed as in phase 11
+    (d); the launches of that prefill counted by layer kind (local: a
+    window; global: none); phase 7's requests served (a); each layer of
+    both long prompts by the kernel route against the plain route (b:
+    ``check_unit_layers``, or ``check_moe_layers`` with the routing
+    pinned); one profiled decode step and one profiled prefill.  Returns
+    (serving launches, the flash timings by layer kind)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import kernel as fkernel
+    cfg = get_config(arch)
+    if arch in HELD_LAYERS:
+        print(f"lm: {arch}: the first {HELD_LAYERS[arch]} of its "
+              f"{cfg.n_layers} layers, at full width")
+        cfg = cfg.replace(n_layers=HELD_LAYERS[arch])
+    cfg, params = lm_model(torch, seed, cfg)
+    prompts = serve_prompts(cfg, seed)
+    pattern = cfg.block_pattern
+    hooks = {"global": (fkernel, "flash_attention_fwd", pattern.index("A"))}
+    if "L" in pattern:
+        hooks["local"] = (fkernel, "flash_attention_fwd", pattern.index("L"))
+    kinds = {"local": 0, "global": 0}
+    real = fkernel.flash_attention_fwd
+
+    def counting(q, k, v, *, causal, window):
+        kinds["local" if window else "global"] += 1
+        return real(q, k, v, causal=causal, window=window)
+
+    with patched(fkernel, "flash_attention_fwd", counting):
+        captured = capture_calls(torch, cfg, params, prompts[0], hooks)
+    want = {"local": cfg.n_groups * pattern.count("L"),
+            "global": cfg.n_groups * pattern.count("A")}
+    print(f"lm: {arch}: flash_attention launches of the prefill by layer "
+          f"kind {kinds} (expected {want})")
+    check(kinds == want, f"{arch}: flash_attention launches by layer kind "
+                         f"{kinds}, expected {want}")
+    with torch.inference_mode():
+        flash = {kind: path_flash_times(torch, f"{arch} {kind}",
+                                        captured[kind])
+                 for kind in sorted(hooks, reverse=True)}
+    del captured
+    torch.cuda.empty_cache()
+    eng, reqs, launches, last_logits, steady_s = serve_family(
+        torch, cfg, params, prompts)
+    served = dict(last_logits)
+    if cfg.family == "moe":
+        check_moe_layers(torch, cfg, params, prompts, last_logits)
+    else:
+        dev = params["embed"]["w"].device
+        for prompt in prompts[:len(LONG_PROMPTS)]:
+            check_unit_layers(torch, cfg, params, {
+                "inputs": torch.tensor([prompt], device=dev)},
+                served[len(prompt)])
+            plain_ends(torch, cfg, params, prompt, served[len(prompt)])
+    profile_decode(torch, eng, steady_s)
+    profile_prefill(torch, cfg, params, prompts[0])
+    return launches, flash
 
 
 # ------------------------------------------------------------ phases 14-15
@@ -3770,6 +4038,16 @@ def main() -> None:
     print(f"phase 13 done in {time.perf_counter() - t:.1f}s (at "
           f"{time.perf_counter() - t0:.1f}s)")
 
+    # phases 16-20: the four configs held last and qwen2.5-3b, served at
+    # full width (dbrx-132b at 8 of its 40 layers), each on a fresh card
+    held_launches = {}
+    for phase, arch in enumerate(HELD_ARCHS, 16):
+        t = fresh_card(torch, phase)
+        held_launches[arch], rows["flash_attention"][arch] = held_phase(
+            torch, args.seed, arch)
+        print(f"phase {phase} done in {time.perf_counter() - t:.1f}s (at "
+              f"{time.perf_counter() - t0:.1f}s)")
+
     for name, by_path in (
             ("bucket_partition_rows", {
                 "partition": p_launches[0],
@@ -3781,7 +4059,9 @@ def main() -> None:
                                  "serve_" + MOE_ARCH: moe_launches[0],
                                  "serve_" + ENCDEC_ARCH: encdec_launches[0],
                                  "serve_" + VLM_ARCH: vlm_launches[0],
-                                 "image_" + VLM_ARCH: image_launches}),
+                                 "image_" + VLM_ARCH: image_launches,
+                                 **{"serve_" + arch: n[0] for arch, n in
+                                    held_launches.items()}}),
             ("rg_lru_scan", {"serve": lm_launches[1],
                              "train": t_launches[1],
                              "train_mesh": sum(x[1] for x in mesh_launches)}),

@@ -577,7 +577,11 @@ def test_cuda_kmeans_sphere_through_kernel(cuda, tmp_path):
     (2, 64, 64, 2, 2, 32, True, 0), (2, 64, 64, 4, 2, 32, True, 24),
     (2, 50, 70, 2, 2, 32, False, 0), (2, 32, 96, 2, 1, 64, False, 24),
     (1, 300, 300, 10, 1, 256, True, 128), (1, 257, 257, 16, 2, 128, True, 0),
-    (3, 1, 1, 4, 4, 16, True, 0), (1, 129, 129, 2, 1, 12, True, 0)])
+    (3, 1, 1, 4, 4, 16, True, 0), (1, 129, 129, 2, 1, 12, True, 0),
+    # the head ratios and widths of gemma3-12b (local and global),
+    # deepseek-7b (MHA) and dbrx-132b
+    (1, 300, 300, 16, 8, 256, True, 128), (1, 300, 300, 16, 8, 256, True, 0),
+    (1, 257, 257, 32, 32, 128, True, 0), (1, 257, 257, 48, 8, 128, True, 0)])
 def test_cuda_flash_attention_matches_plain(cuda, dtype, B, T, S, H, K, D,
                                             causal, window):
     g = torch.Generator().manual_seed(T * 7 + D)

@@ -139,6 +139,68 @@ def test_rounded_p_oracle_matches_numpy(B, T, S, H, K, D, causal, window):
     assert np.abs(got - p_in_float32).max() >= 1e-3
 
 
+def _np_attention_tile_p(q, k, v, causal, window, tile=64):
+    """numpy, row by row and tile by tile as the bf16 kernel's loop: the
+    running maximum after each 64-key tile, p relative to it (in float64,
+    then float32, then bf16) into the accumulator and the unrounded p into
+    the sum, both rescaled when the maximum moves."""
+    B, T, H, D = q.shape
+    S, K = k.shape[1], k.shape[2]
+    q, k, v = (x.astype(np.float64) for x in (q, k, v))
+    out = np.zeros((B, T, H, D))
+    for b in range(B):
+        for h in range(H):
+            kh = h // (H // K)
+            s_all = q[b, :, h] @ k[b, :, kh].T / np.sqrt(D)
+            for t in range(T):
+                keys = np.arange(S)
+                live = np.ones(S, bool)
+                if causal:
+                    live &= keys <= t
+                if window:
+                    live &= t - keys < window
+                m, acc, lsum = -np.inf, np.zeros(D), 0.0
+                for k0 in range(0, S, tile):
+                    sl = slice(k0, k0 + tile)
+                    if not live[sl].any():
+                        continue
+                    s = s_all[t, sl][live[sl]]
+                    m_new = max(m, s.max())
+                    alpha = np.exp(m - m_new)
+                    p = np.exp(s - m_new)
+                    pr = p.astype(np.float32).astype(ml_dtypes.bfloat16)
+                    acc = acc * alpha + pr.astype(np.float64) @ v[
+                        b, k0:k0 + tile, kh][live[sl]]
+                    lsum = lsum * alpha + p.sum()
+                    m = m_new
+                out[b, t, h] = acc / lsum
+    return out
+
+
+@pytest.mark.parametrize("B,T,S,H,K,D,causal,window", [
+    (1, 200, 200, 4, 2, 32, True, 0), (1, 150, 150, 6, 1, 16, True, 70),
+    (2, 40, 130, 2, 2, 32, False, 0), (1, 64, 64, 4, 4, 16, True, 0)])
+def test_tile_p_oracle_matches_numpy(B, T, S, H, K, D, causal, window):
+    """``chip_smoke.attention_tile_p`` rounds p as the bf16 kernel does,
+    relative to the running maximum after each 64-key tile: within 2e-4
+    of a numpy loop over the tiles, and where every row's keys lie in one
+    tile (64 keys) within 2e-6 of ``attention_rounded_p``."""
+    rng = np.random.default_rng(T * 1000 + S + D + window)
+    q, k, v = (rng.standard_normal(shape).astype(ml_dtypes.bfloat16)
+               for shape in ((B, T, H, D), (B, S, K, D), (B, S, K, D)))
+    args = [_t(x, torch.bfloat16) for x in (q, k, v)]
+    got = chip_smoke.attention_tile_p(torch, *args, causal, window)
+    assert got.dtype == torch.float32 and got.shape == (B, T, H, D)
+    want = _np_attention_tile_p(q, k, v, causal, window)
+    np.testing.assert_allclose(got.numpy(), want, rtol=2e-4, atol=2e-4)
+    if S <= 64:
+        row = chip_smoke.attention_rounded_p(torch, *args, causal, window)
+        torch.testing.assert_close(got, row, rtol=2e-6, atol=2e-6)
+    err, excess = chip_smoke.tile_p_excess(torch, got.to(torch.bfloat16),
+                                           *args, causal, window)
+    assert err > 0 and excess <= 0
+
+
 def test_rounded_p_oracle_is_the_plain_version_in_float32():
     """On float32 inputs the rounding is a no-op: the oracle equals
     ``flash_attention_ref`` within 1e-6."""

@@ -8,10 +8,19 @@ requests include prompts longer than the window of 64 (so the ring
 caches and the window mask carry weight), two slots and more requests
 than slots; the encoder-decoder's requests come with frames and without
 (zeros, cast to bf16 by both engines), and the vision config serves text
-(neither engine splices patches).  Few distinct prompt lengths keep the
-JAX side's compiles down.
+(neither engine splices patches).  The configs held last
+(``tests/torch_held.py``) serve the same way: ``gemma3-12b``'s local
+layers keep rings of 64 slots that the prompts of 70 and 90 tokens wrap,
+``dbrx-132b`` routes each token to 2 of 8 experts (reduced), and the two
+variants keep MHA and a head width that is not ``d_model / n_heads``.
+Few distinct prompt lengths keep the JAX side's compiles down.
+
+At temperature > 0 the random streams differ on purpose (a
+``torch.Generator`` against split ``PRNGKey``s), so the sampler is held
+to the JAX package's by its support and its frequencies.
 """
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -28,6 +37,7 @@ from repro_torch.launch import serve as tlaunch
 from repro_torch.models import model as tmodel
 from repro_torch.serve import SamplerConfig, ServeEngine
 from repro_torch.utils.pytree import tree_flatten_with_paths
+from torch_held import HELD, reduced
 
 
 def _f32(cfg):
@@ -43,10 +53,12 @@ def _prompts(vocab, lengths, seed=0):
 @pytest.mark.parametrize("name", ["recurrentgemma-2b", "qwen2.5-3b",
                                   "xlstm-1.3b", "qwen3-moe-30b-a3b",
                                   "seamless-m4t-large-v2",
-                                  "llava-next-mistral-7b"])
+                                  "llava-next-mistral-7b"] + HELD)
 def test_serve_matches_jax_engine(name):
-    jcfg = _f32(ARCHS[name])
-    tcfg = _f32(tconfigs.get_config(name))
+    jcfg = reduced(ARCHS.__getitem__, name, param_dtype="float32",
+                   compute_dtype="float32")
+    tcfg = reduced(tconfigs.get_config, name, param_dtype="float32",
+                   compute_dtype="float32")
     jp = jmodel.init_params(jcfg, jax.random.PRNGKey(1))
     tp = params_from_jax(jax.tree.map(np.asarray, jp), "cpu")
     prompts = _prompts(jcfg.vocab_size, [90, 12, 70, 12, 90])
@@ -163,6 +175,63 @@ def test_slot_recycling_and_sampling():
     assert all(len(r.out) == 3 for r in reqs)
     assert all(0 <= t < cfg.padded_vocab for r in reqs for t in r.out)
     assert all(s is None for s in eng.slot_req)
+
+
+def _jax_distribution(logits, scfg):
+    """The JAX package's sampling distribution on ``logits`` [B, V]: the
+    softmax of its scaled logits, masked by ``lax.top_k``'s k-th value
+    (every entry equal to it kept), as ``repro.serve.sampler.sample``
+    hands them to ``jax.random.categorical``."""
+    lf = jnp.asarray(logits, jnp.float32) / scfg.temperature
+    if scfg.top_k:
+        kth = jax.lax.top_k(lf, scfg.top_k)[0][..., -1:]
+        lf = jnp.where(lf < kth, -1e30, lf)
+    return np.asarray(jax.nn.softmax(lf, axis=-1), np.float64)
+
+
+def test_sampler_at_temperature_matches_the_jax_distribution():
+    """``serve/sampler.py::sample`` at temperature 0.8 on fixed logits
+    whose k-th values tie (row 0: the 3rd and 4th largest; row 1: the
+    2nd to 4th), against the JAX package's sampler: at ``top_k=1`` both
+    give the argmax; at ``top_k`` 3 and 0 (the full softmax) the port's
+    20,000 draws a row never leave the JAX package's support and their
+    frequencies lie within 5 binomial standard errors of its
+    probabilities.  The JAX package's own draws (2,000 keys) stay in
+    that support too.  The random streams differ on purpose."""
+    from repro.serve.sampler import sample as jsample
+    from repro_torch.serve.sampler import sample as tsample
+    logits = np.array([[2.0, 0.5, 1.25, -1.0, 1.25, 3.0, 0.0, -0.5],
+                       [0.25, 1.5, -2.0, 1.5, 2.5, 1.5, 0.0, 1.0]],
+                      np.float32)
+    B, V = logits.shape
+    n = 20_000
+    draws = torch.from_numpy(np.repeat(logits, n, axis=0))
+    gen = torch.Generator().manual_seed(0)
+    keys = jax.random.split(jax.random.PRNGKey(0), 2_000)
+    jdraw = jax.jit(jax.vmap(lambda key, scfg=None: jsample(
+        jnp.asarray(logits), key, scfg), in_axes=(0, None)),
+        static_argnums=1)
+    one = SamplerConfig(temperature=0.8, top_k=1)
+    got = tsample(draws, gen, one).reshape(B, n)
+    assert bool((got == torch.from_numpy(logits.argmax(-1))[:, None]).all())
+    assert np.array_equal(np.asarray(jdraw(keys[:50], JSamplerConfig(
+        temperature=0.8, top_k=1))), np.broadcast_to(logits.argmax(-1),
+                                                     (50, B)))
+    for top_k, support in ((3, (4, 4)), (0, (V, V))):
+        want = _jax_distribution(logits, JSamplerConfig(temperature=0.8,
+                                                        top_k=top_k))
+        assert [int((w > 0).sum()) for w in want] == list(support)
+        jgot = np.asarray(jdraw(keys, JSamplerConfig(temperature=0.8,
+                                                     top_k=top_k)))
+        assert all((want[b, jgot[:, b]] > 0).all() for b in range(B))
+        got = tsample(draws, gen, SamplerConfig(temperature=0.8,
+                                                top_k=top_k))
+        assert got.dtype == torch.int32
+        freq = np.stack([np.bincount(row, minlength=V) / n
+                         for row in got.reshape(B, n).numpy()])
+        assert ((freq > 0) <= (want > 0)).all(), (top_k, freq, want)
+        se = np.sqrt(want * (1 - want) / n)
+        assert (np.abs(freq - want) <= 5 * se).all(), (top_k, freq, want)
 
 
 def test_launcher_smoke_on_cpu(capsys):

@@ -5,7 +5,10 @@ carried across leaf for leaf (``repro_torch.convert.params_from_jax``;
 the AdamW state by ``opt_state_from_jax``); tokens, labels and other
 inputs are made from one numpy seed and fed to both packages.  The
 configs are the reduced twins (``cfg.reduced()``) of
-``recurrentgemma-2b`` (R and L layers) and ``qwen2.5-3b`` (A layers).
+``recurrentgemma-2b`` (R and L layers) and ``qwen2.5-3b`` (A layers),
+the xLSTM and MoE families, and the dense configs held last
+(``gemma3-12b``, ``qwen3-8b``, ``deepseek-7b``; ``dbrx-132b`` in the
+train step of the new families).
 
 Tolerances:
 - float32 losses, metrics and gradients within 1e-5 (relative to the
@@ -70,6 +73,7 @@ from repro_torch.train import optim
 from repro_torch.train import step as tstep
 from repro_torch.train.checkpoint import deserialize, serialize
 from repro_torch.utils.pytree import tree_flatten_with_paths, tree_map
+from torch_held import DENSE
 
 F32_TOL = 1e-5
 GRAD_TOL = 1e-4
@@ -298,11 +302,13 @@ def _port_grads(name, dtype, fused, remat="full"):
 @pytest.mark.parametrize("name,fused", [("recurrentgemma-2b", True),
                                         ("qwen2.5-3b", True),
                                         ("qwen2.5-3b", False),
-                                        ("qwen3-moe-30b-a3b", True)])
+                                        ("qwen3-moe-30b-a3b", True)]
+                         + [(name, True) for name in DENSE])
 def test_loss_fn_and_grads_match_jax_float32(name, fused):
     """``loss_fn`` (the fused head chunked by 32 of the 48 tokens, or
     materialised logits), its metrics and every parameter's gradient,
-    with full remat in the port."""
+    with full remat in the port.  ``gemma3-12b``'s head is its scaled,
+    tied embedding, so ``embed/w`` sums both uses' gradients."""
     (jl, jm), jg = _jax_grads(name, "float32", fused)
     (tl, tm), tg = _port_grads(name, "float32", fused)
     _close(tl, jl)
@@ -362,7 +368,7 @@ def test_xlstm_loss_fn_and_grads_within_the_jax_spread():
             (path, err, spread)
 
 
-@pytest.mark.parametrize("name", ["recurrentgemma-2b", "qwen2.5-3b"])
+@pytest.mark.parametrize("name", ["recurrentgemma-2b", "qwen2.5-3b"] + DENSE)
 def test_loss_fn_grads_bf16_as_close_to_float32_as_jax(name):
     """bf16 parameters: each leaf's gradient is no farther (x2) from the
     float32 gradient of the same bf16-valued parameters than the JAX
@@ -536,7 +542,8 @@ def test_train_step_matches_jax(accum):
                 atol=1e-4 * np.abs(want).max() + 5e-2 * 1e-3, err_msg=path)
 
 
-@pytest.mark.parametrize("name", ["xlstm-1.3b", "qwen3-moe-30b-a3b"])
+@pytest.mark.parametrize("name", ["xlstm-1.3b", "qwen3-moe-30b-a3b",
+                                  "dbrx-132b"])
 def test_train_step_of_the_new_families_matches_jax(name):
     """One train step of reduced ``xlstm-1.3b`` / ``qwen3-moe-30b-a3b``
     (float32, full remat in the port) from the same parameters and AdamW
@@ -569,7 +576,7 @@ def test_train_step_of_the_new_families_matches_jax(name):
         spread = abs(float(um[k]) - float(jm[k])) / max(abs(float(jm[k])),
                                                         1e-30)
         _close(tm[k], jm[k], max(F32_TOL, 3 * spread))
-    assert (float(tm["aux_loss"]) > 0) == (name == "qwen3-moe-30b-a3b")
+    assert (float(tm["aux_loss"]) > 0) == (tcfg.family == "moe")
     assert int(ts["step"]) == int(js["step"]) == 2
     for (path, want), (_, ulp), got in zip(j_flatten(jp), j_flatten(up),
                                            _flat(tp)):
