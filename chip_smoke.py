@@ -300,6 +300,35 @@ and passed over.
    several layers split into its layers; ``dbrx-132b``'s with the
    routing pinned, as 11 (b)), the whole-stack plain logits printed; one
    profiled decode step and one profiled prefill.
+21. **The MoE on the LM training mesh,** right after phases 14-15 on a
+   card holding nothing of them: ``qwen3-moe-30b-a3b`` at full width
+   (hf:Qwen/Qwen3-30B-A3B: ``d_model`` 2048, 128 experts of width 768,
+   top-8, GQA 32 / 4 heads of 128) cut to 2 of its 48 layers
+   (1,868,573,184 parameters), phase 14's knobs, a global batch of 2 x
+   2,048 from ``--seed``.  (a) In this process: one forward and backward
+   on the global batch by the kernel route held to ``plain_kernels()``
+   (phase 8's bands at the mesh's rows); ``flash_attention`` at a row's
+   shape (``[1, 2048, 32, 128]`` over 4 kv heads, causal, captured there)
+   held and timed as in 11 (d); then each run's single-device reference,
+   its ranks emulated by threads on the card (``emulated_rows``: each
+   thread a rank's row, the MoE's collectives made of the threads'
+   tensors in one autograd graph, one backward of the token-weighted
+   sum).  (b) ``(data, model) = (2, 1)``, ``layout="tp"``, the ``einsum``
+   dispatch: the global group of 4,096 tokens spans both ranks (the ids
+   all-gathered, the aux statistics too).  (c) ``(1, 2)``,
+   ``layout="fsdp"``, ``moe_dispatch="a2a"``: 64 experts a rank, each
+   rank's 2,048 tokens routed as its own group at ``cap`` 160, the slot
+   buffers exchanged by an all-to-all over ``model``.  Each run spawns
+   two fresh gloo ranks and trains 2 steps through the ``Trainer`` (full
+   remat, fused head); each rank: step 1's loss and gradient norm and
+   each gradient block held to its reference as in 14 (the blocks within
+   one bf16 rounding of the emulated row sum; the distance from the
+   whole-batch gradient printed), 8 ``flash_attention`` launches (forward
+   and recompute of 2 layers, 2 steps), the loss falling; prints the step
+   seconds by part with the MoE's exchange inside the forward and
+   backward, the bytes a step by collective (``sharded.WIRE``) and the
+   peak memory.  The ``kernels`` line's ``flash_attention`` row carries
+   the row's timing and ``mesh_moe_tp`` / ``mesh_moe_a2a`` launches.
 
 The line before the last is one JSON object describing every kernel; the
 last line is
@@ -2130,22 +2159,69 @@ def scan_backward_phase(torch, captured):
     return row("rg_lru_scan_backward", worst, ms, plain, bnd, by)
 
 
+@contextlib.contextmanager
+def moe_routing(torch, routes: list, flips=None):
+    """Each ``moe._route`` call's expert ids and positions appended to
+    ``routes``; or, with ``flips`` (a list), replayed in call order: the
+    gates from this route's own router probabilities at the recorded
+    experts (renormalised), the recorded positions, and the aux loss of
+    the recorded top-1 choices, while ``flips`` gets the tokens whose
+    top-k this route would have changed."""
+    import torch.nn.functional as F
+
+    from repro_torch.models import moe
+    real = moe._route
+    pending = iter(routes)
+
+    def record(p, xg, cfg_):
+        out = real(p, xg, cfg_)
+        routes.append((out[1].clone(), out[2].clone()))
+        return out
+
+    def pinned(p, xg, cfg_):
+        eids_k, pos_k = next(pending)
+        probs = torch.softmax(xg.float() @ p["router"], dim=-1)
+        own = probs.topk(cfg_.top_k, dim=-1).indices
+        flips.append(int((own.sort(-1).values != eids_k.sort(-1).values)
+                         .any(-1).sum()))
+        gates = probs.gather(-1, eids_k)
+        gates = gates / torch.clamp(gates.sum(-1, keepdim=True), min=1e-9)
+        top1 = F.one_hot(eids_k[..., 0], cfg_.n_experts).float()
+        aux = cfg_.n_experts * torch.sum(
+            top1.mean(dim=(0, 1)) * probs.mean(dim=(0, 1))) \
+            * cfg_.router_aux_coef
+        return gates, eids_k, pos_k, aux
+
+    with patched(moe, "_route", record if flips is None else pinned):
+        yield
+
+
 def grad_check(torch, cfg, seed: int, batch, device="cuda",
                label="train"):
     """(a): one step's loss and gradients by the kernel route against the
     same step with ``plain_kernels()``, on the same batch and
-    parameters.  Returns the parameters and the kernel route's loss and
+    parameters.  An MoE's plain route takes the kernel route's routing
+    (``moe_routing``): its top-k choices and drops are discrete, and the
+    bf16 kernel's rounding moves tokens across near ties (11 (b) pins
+    them so too); the plain route left to route itself is printed
+    beside.  Returns the parameters and the kernel route's loss and
     gradient tree."""
     from repro_torch.models import model
     from repro_torch.train import step
     from repro_torch.utils.pytree import tree_flatten_with_paths
     params = model.init_params(cfg, torch.Generator().manual_seed(seed),
                                device)
+    moe_cfg = cfg.family == "moe"
+    routes, flips = [], []
     out = {}
-    for route in ("kernel", "plain"):
+    for route in ("kernel", "plain") + (("unpinned",) if moe_cfg else ()):
         t = time.perf_counter()
-        with (plain_kernels() if route == "plain"
-              else contextlib.nullcontext()):
+        with contextlib.ExitStack() as stack:
+            if route != "kernel":
+                stack.enter_context(plain_kernels())
+            if moe_cfg and route != "unpinned":
+                stack.enter_context(moe_routing(
+                    torch, routes, flips if route == "plain" else None))
             (loss, _), grads = step._value_and_grad_accum(
                 params, batch, cfg=cfg, pcfg=train_pcfg())
         out[route] = (float(loss), grads)
@@ -2165,6 +2241,15 @@ def grad_check(torch, cfg, seed: int, batch, device="cuda",
               f"gradient of {path}: kernel route against plain route "
               f"relative error {rel}, cosine {cos}")
     d_loss = abs(out["kernel"][0] - out["plain"][0])
+    if moe_cfg:
+        free = max(_rel(torch, g, w) for (_, g), (_, w) in zip(
+            flat, tree_flatten_with_paths(out.pop("unpinned")[1])))
+        print(f"{label}: the plain route took the kernel route's routing "
+              f"in {len(routes)} MoE calls (forward and recompute); "
+              f"tokens whose top-{cfg.top_k} it would change: "
+              f"{flips} of {batch['inputs'].numel()}; routing itself, its "
+              f"gradients differ from the kernel route's by {free:.3e} "
+              f"relative L2 at most")
     print(f"{label}: gradient check over {len(flat)} leaves (batch "
           f"{list(batch['inputs'].shape)}): loss diff {d_loss:.3e} "
           f"(tolerance {TRAIN_LOSS_TOL}); worst relative error "
@@ -2726,14 +2811,14 @@ def decode_consistency(torch, cfg, params, seed: int,
           f"of {S - 1} in chunks of 1, one decode)")
 
 
-def fresh_card(torch, phase: int) -> float:
+def fresh_card(torch, phase, what: str = "before it") -> float:
     """Release what earlier phases left cached; print what is still
     allocated.  Returns the phase's start on the host clock."""
     gc.collect()
     torch.cuda.empty_cache()
     free, total = torch.cuda.mem_get_info()
     print(f"phase {phase}: {torch.cuda.memory_allocated()} bytes allocated "
-          f"({torch.cuda.memory_reserved()} reserved) on the card before it; "
+          f"({torch.cuda.memory_reserved()} reserved) on the card {what}; "
           f"{free} of {total} bytes free")
     return time.perf_counter()
 
@@ -2856,10 +2941,10 @@ def check_moe_layers(torch, cfg, params, prompts, last_logits) -> None:
     random weights the 48-layer bf16 stack is chaotic (a router's top-8
     jumps across near ties, and the hidden states part further each
     layer), so end to end the routes part by more than the scale."""
-    from repro_torch.models import model, moe, transformer
+    from repro_torch.models import model, transformer
     served = dict(last_logits)
     dev = params["embed"]["w"].device
-    real_route, real_unit = moe._route, transformer._unit_apply
+    real_unit = transformer._unit_apply
 
     def prefill(prompt):
         with torch.inference_mode():
@@ -2871,18 +2956,13 @@ def check_moe_layers(torch, cfg, params, prompts, last_logits) -> None:
     for prompt in prompts[:len(LONG_PROMPTS)]:
         routes, layers = [], []
 
-        def record_route(p, xg, cfg_):
-            out = real_route(p, xg, cfg_)
-            routes.append((out[1].clone(), out[2].clone()))
-            return out
-
         def record_unit(unit, x, **kw):
             first = len(routes)
             out = real_unit(unit, x, **kw)
             layers.append((unit, x.clone(), out[0].clone(), first, kw))
             return out
 
-        with patched(moe, "_route", record_route), \
+        with moe_routing(torch, routes), \
                 patched(transformer, "_unit_apply", record_unit):
             got = prefill(prompt)
         check(torch.equal(got, served[len(prompt)]),
@@ -2896,19 +2976,8 @@ def check_moe_layers(torch, cfg, params, prompts, last_logits) -> None:
             rounded = prefill(prompt)
         worst, flips = 0.0, []
         for unit, x, y, first, kw in layers:
-            pending = iter(routes[first:first + 1])
-
-            def pinned(p, xg, cfg_):
-                _, eids, _, aux = real_route(p, xg, cfg_)
-                eids_k, pos_k = next(pending)
-                flips.append(int((eids.sort(-1).values
-                                  != eids_k.sort(-1).values).any(-1).sum()))
-                probs = torch.softmax(xg.float() @ p["router"], dim=-1)
-                gates = probs.gather(-1, eids_k)
-                return (gates / torch.clamp(gates.sum(-1, keepdim=True),
-                                            min=1e-9), eids_k, pos_k, aux)
-
-            with plain_kernels(), patched(moe, "_route", pinned), \
+            with plain_kernels(), \
+                    moe_routing(torch, routes[first:first + 1], flips), \
                     torch.inference_mode():
                 want = real_unit(unit, x, **kw)[0]
             upd, upd_want = (y.float() - x.float()), (want.float() - x.float())
@@ -3399,6 +3468,10 @@ MESH_SPANS = (("gather", "sharded", "gather_tree"),
               ("reduce_scatter", "sharded", "reduce_scatter_grads"),
               ("norm", "sharded", "global_norm_sq"),
               ("update", "optim", "apply_updates"))
+# the MoE's exchanges on a mesh (``sharded``'s autograd collectives'
+# wire functions), timed inside fwd_bwd: the ids' and aux statistics'
+# all-gather, its backward's reduce-scatter, the expert all-to-all
+MOE_EXCHANGE = ("gather_wire", "scatter_wire", "exchange_wire")
 
 
 def mesh_lm_pcfg(mesh, **kw):
@@ -3490,40 +3563,61 @@ def _checksums(torch, tree) -> list:
 
 def _mesh_spans(torch, spans: dict) -> contextlib.ExitStack:
     """``MESH_SPANS``' functions wrapped to append their seconds (the card
-    synchronised before and after) to ``spans[name]``."""
+    synchronised before and after) to ``spans[name]``; the MoE's
+    exchanges (``MOE_EXCHANGE``, forward, recompute and backward, inside
+    ``fwd_bwd``) are timed the same way and their sum over a step appended
+    to ``spans["moe_exchange"]`` when the step's ``fwd_bwd`` ends."""
     from repro_torch.parallel import sharded
     from repro_torch.train import optim, step
     modules = {"sharded": sharded, "step": step, "optim": optim}
     stack = contextlib.ExitStack()
+    inner = [0.0]
+
+    def timed_call(fn, a, kw):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn(*a, **kw)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t
+
     for name, mod, attr in MESH_SPANS:
         def timed(*a, _fn=getattr(modules[mod], attr), _name=name, **kw):
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            out = _fn(*a, **kw)
-            torch.cuda.synchronize()
-            spans.setdefault(_name, []).append(time.perf_counter() - t)
+            out, secs = timed_call(_fn, a, kw)
+            spans.setdefault(_name, []).append(secs)
+            if _name == "fwd_bwd":
+                spans.setdefault("moe_exchange", []).append(inner[0])
+                inner[0] = 0.0
             return out
         stack.enter_context(patched(modules[mod], attr, timed))
+    for attr in MOE_EXCHANGE:
+        def exchange(*a, _fn=getattr(sharded, attr), **kw):
+            out, secs = timed_call(_fn, a, kw)
+            inner[0] += secs
+            return out
+        stack.enter_context(patched(sharded, attr, exchange))
     return stack
 
 
-def _rank_train(torch, rank: int, seed: int, tmp: Path, cfg, seq) -> dict:
-    """(14) the full model, 2 steps on the ``(2, 1)`` mesh, each step's
-    parts timed (``MESH_SPANS``); the step-1 gradient blocks held against
-    the reference's row sum (``MESH_ROWSUM_REL``) and measured against
-    its whole-batch gradient."""
+def _rank_train(torch, rank: int, seed: int, tmp: Path, cfg, seq,
+                shape=(MESH_LM_RANKS, 1), run="", **pcfg_kw) -> dict:
+    """(14, 21) the model, 2 steps on the ``(data, model) = shape`` mesh
+    (phase 8's knobs and ``pcfg_kw``), each step's parts timed
+    (``MESH_SPANS``, the MoE's exchanges); the step-1 gradient blocks held
+    against the reference's row sum (``rowsum`` + ``run`` in its file,
+    ``MESH_ROWSUM_REL``) and measured against its whole-batch gradient."""
     from repro_torch.kernels.flash_attention import kernel as fkernel
     from repro_torch.kernels.rg_lru_scan import kernel as lkernel
     from repro_torch.launch.mesh import make_mesh_compat
     from repro_torch.parallel import sharded
     from repro_torch.train import Trainer, TrainerConfig, optim
     from repro_torch.utils.pytree import tree_flatten_with_paths, tree_leaves
-    mesh = make_mesh_compat((MESH_LM_RANKS, 1), ("data", "model"))
+    mesh = make_mesh_compat(shape, ("data", "model"))
     check(mesh.host_staged,
           f"rank {rank}: mesh on {mesh.device} over {mesh.backend}")
-    _, _, pipe = train_data(torch, tmp / f"train{rank}", cfg, seed, seq=seq)
+    _, _, pipe = train_data(torch, tmp / f"train{run}{rank}", cfg, seed,
+                            seq=seq)
     t = time.perf_counter()
-    trainer = Trainer(cfg, mesh_lm_pcfg(mesh), TrainerConfig(
+    trainer = Trainer(cfg, mesh_lm_pcfg(mesh, **pcfg_kw), TrainerConfig(
         steps=MESH_STEPS, ckpt_every=2 ** 62, log_every=1, seed=seed), pipe,
         device=mesh.device)
     torch.cuda.synchronize()
@@ -3536,9 +3630,10 @@ def _rank_train(torch, rank: int, seed: int, tmp: Path, cfg, seq) -> dict:
             for (path, g), s in zip(tree_flatten_with_paths(grads),
                                     tree_leaves(kw["specs"])):
                 sl = sharded.block_slices(s, want["whole"][path].shape, mesh)
-                for key in ("rowsum", "whole"):
+                for key, ref_key in (("rowsum", "rowsum" + run),
+                                     ("whole", "whole")):
                     worst[key] = max(worst.get(key, (0.0, "")), (
-                        _rel(torch, g, want[key][path][sl]), path))
+                        _rel(torch, g, want[ref_key][path][sl]), path))
             del want
         return update(params, grads, state, *a, **kw)
 
@@ -3806,6 +3901,7 @@ def mesh_lm_run(torch, seed: int, seq=MESH_SEQ):
         single_s = pod_single_step(torch, cut, seed, tmp / "single", seq)
         print(f"mesh: one-rank step of {cut.name} cut to {POD_LAYERS} layers "
               f"(one row of {seq}): {single_s:.4f}s")
+        fresh_card(torch, "14-15", "before the ranks start")
         t = time.perf_counter()
         res = run_ranks(lm_mesh_rank, MESH_LM_RANKS,
                         (seed, str(tmp), cfg, seq),
@@ -3895,6 +3991,271 @@ def mesh_lm_phase(torch, seed: int) -> tuple:
     return [out["train"]["launches"] for out in res]
 
 
+# ------------------------------------------------------------ phase 21
+MESH_MOE_LAYERS = 2             # of qwen3-moe-30b-a3b's 48, full width
+# run: (mesh shape over (data, model), layout, moe_dispatch)
+MESH_MOE_RUNS = {"tp": ((2, 1), "tp", "einsum"),
+                 "a2a": ((1, 2), "fsdp", "a2a")}
+
+
+class ThreadRanks:
+    """One emulated batch rank of a mesh's MoE layers, run by a thread of
+    this process on its own device (``moe.MeshRanks``' interface): the
+    collectives are made of the threads' own tensors, joined in one
+    autograd graph, a barrier between; ``size`` ranks, this one at
+    ``index``, ``model_size`` of them along ``model`` (1, or all)."""
+
+    def __init__(self, shared, index: int, size: int, model_size: int):
+        self.shared, self.index, self.size = shared, index, size
+        self.model_size = model_size
+        self.model_index = index if model_size > 1 else 0
+
+    def _swap(self, x) -> list:
+        sh = self.shared
+        sh.slots[self.index] = x
+        sh.barrier.wait()
+        got = list(sh.slots)
+        sh.barrier.wait()
+        return got
+
+    def gather(self, x):
+        import torch
+        return torch.cat(self._swap(x))
+
+    def exchange(self, x):
+        import torch
+        return torch.stack([g[self.model_index] for g in self._swap(x)])
+
+
+def emulated_rows(torch, cfg, params, batch, pcfg, size: int,
+                  model_size: int):
+    """What ``size`` mesh ranks compute, on this device: thread ``r`` runs
+    ``loss_fn`` on the batch's ``r``-th block of rows with its own
+    aliases of the parameters, its MoE layers' collectives made by
+    :class:`ThreadRanks` (``pcfg`` without remat: the one backward runs
+    in this thread); one backward of the token-weighted sum of the ranks'
+    losses.  Returns (the global loss as the mesh reports it, each leaf's
+    gradient as the float32 sum of the ranks')."""
+    import threading
+    from types import SimpleNamespace
+
+    from repro_torch.models import model, moe
+    from repro_torch.utils.pytree import (tree_flatten_with_paths,
+                                          tree_unflatten)
+    flat = [p for _, p in tree_flatten_with_paths(params)]
+    n = batch["labels"].shape[0] // size
+    tokens = (batch["labels"] >= 0).sum().float()
+    shared = SimpleNamespace(slots=[None] * size,
+                             barrier=threading.Barrier(size, timeout=600))
+    local = threading.local()
+    outs, errors = [None] * size, []
+
+    def rank(r):
+        local.ranks = ThreadRanks(shared, r, size, model_size)
+        try:
+            leaves = [p.detach().requires_grad_() for p in flat]
+            rows = {k: v[r * n:(r + 1) * n] for k, v in batch.items()}
+            loss, metrics = model.loss_fn(tree_unflatten(params, leaves),
+                                          rows, cfg=cfg, pcfg=pcfg)
+            share = (rows["labels"] >= 0).sum().float() / tokens
+            outs[r] = (leaves, loss, metrics["aux_loss"], share)
+        except Exception as e:       # the others leave the barrier too
+            errors.append(e)
+            shared.barrier.abort()
+
+    with patched(moe, "_batch_ranks", lambda _: local.ranks):
+        threads = [threading.Thread(target=rank, args=(r,))
+                   for r in range(size)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join()
+    if errors:
+        raise errors[0]
+    total = sum(share * loss for _, loss, _, share in outs)
+    grads = torch.autograd.grad(total, [x for o in outs for x in o[0]],
+                                materialize_grads=True)
+    L = len(flat)
+    acc = [sum(grads[r * L + i].float() for r in range(size))
+           for i in range(L)]
+    aux = outs[0][2].detach()
+    loss = float(sum(share * (loss.detach() - aux)
+                     for _, loss, _, share in outs) + aux)
+    return loss, acc
+
+
+def moe_mesh_reference(torch, cfg, seed: int, batch, tmp: Path):
+    """Phase 21's references on the card.  (a) one single-device forward
+    and backward on the global ``batch`` by the kernel route, held to the
+    plain route (``grad_check``, phase 8's bands) at the mesh's 2,048-token
+    rows; ``flash_attention`` at a row's shape, captured there, held and
+    timed.  Then each run's row sum (:func:`emulated_rows`): the ranks'
+    rows as the mesh computes them, positions and aux over the whole
+    batch (tp) or each rank's tokens routed as its own group, the aux
+    over both (a2a).  The whole-batch gradient and both row sums go to
+    ``tmp/ref.pt`` (bf16, whole leaves).  Returns ({run: the emulation's
+    loss and gradient norm, which the mesh's step 1 is held to}, the
+    flash timings)."""
+    from repro_torch.kernels.flash_attention import kernel as fkernel
+    from repro_torch.train import optim
+    from repro_torch.utils.pytree import tree_flatten_with_paths
+    t = time.perf_counter()
+    got = {}
+    real = fkernel.flash_attention_fwd
+
+    def spy(q, k, v, **kw):      # the first layer's forward, one row
+        if not got:
+            got["attn"] = (tuple(x[:1].detach().clone() for x in (q, k, v)),
+                           kw)
+        return real(q, k, v, **kw)
+
+    with patched(fkernel, "flash_attention_fwd", spy):
+        params, loss, grads = grad_check(torch, cfg, seed, batch,
+                                         label="mesh moe")
+    with torch.inference_mode():
+        flash = path_flash_times(torch, f"{cfg.name} training row",
+                                 got["attn"])
+    del got
+    flat = tree_flatten_with_paths(grads)
+    whole_norm = float(optim.global_norm(grads))
+    save = {"whole": {p: g.cpu() for p, g in flat}}
+    refs = {}
+    del grads
+    for run, ((d, m), layout, dispatch) in MESH_MOE_RUNS.items():
+        r0 = time.perf_counter()
+        pcfg = train_pcfg().with_(remat="none", layout=layout,
+                                  moe_dispatch=dispatch)
+        e_loss, acc = emulated_rows(torch, cfg, params, batch, pcfg, d * m,
+                                    m if layout == "fsdp" else 1)
+        e_norm = math.sqrt(sum(float(a.double().square().sum())
+                               for a in acc))
+        spread = {p: _rel(torch, g, a) for (p, g), a in zip(flat, acc)}
+        worst = max(spread, key=spread.get)
+        save["rowsum" + run] = {p: a.to(g.dtype).cpu()
+                                for (p, g), a in zip(flat, acc)}
+        del acc
+        torch.cuda.empty_cache()
+        refs[run] = {"loss": e_loss, "grad_norm": e_norm}
+        print(f"mesh moe: ({d}, {m}) {layout} {dispatch}: the ranks' rows "
+              f"emulated on the card: loss {e_loss:.6f} (whole batch "
+              f"{loss:.6f}) grad_norm {e_norm:.4f} (whole batch "
+              f"{whole_norm:.4f}); the whole batch's gradient "
+              f"differs from the token-weighted sum of the rows' by "
+              f"{spread[worst]:.3e} relative L2 at most ({worst}); "
+              f"{time.perf_counter() - r0:.2f}s")
+    del params, flat
+    t_save = time.perf_counter()
+    torch.save(save, tmp / "ref.pt")
+    del save
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"mesh moe: references in {time.perf_counter() - t:.2f}s "
+          f"(written to the temporary directory in "
+          f"{time.perf_counter() - t_save:.2f}s)")
+    return refs, flash
+
+
+def moe_mesh_rank(rank: int, world: int, seed: int, tmp: str, cfg, seq: int,
+                  run: str) -> dict:
+    """One of the 2 ranks of phase 21's ``run`` (started by
+    ``run_ranks``)."""
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    shape, layout, dispatch = MESH_MOE_RUNS[run]
+    t = time.perf_counter()
+    out = {"train": _rank_train(torch, rank, seed, Path(tmp), cfg, seq,
+                                shape=shape, run=run, layout=layout,
+                                moe_dispatch=dispatch)}
+    out["run_s"] = time.perf_counter() - t
+    return out
+
+
+def moe_mesh_phase(torch, seed: int) -> tuple:
+    """Phase 21: ``qwen3-moe-30b-a3b`` at full width cut to
+    ``MESH_MOE_LAYERS`` layers trained on two gloo ranks sharing the card,
+    each run (``MESH_MOE_RUNS``) spawning fresh ranks after the references
+    (:func:`moe_mesh_reference`).  Returns ({path: the ranks'
+    flash_attention launches}, the flash timings at a row's shape)."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.dataset import Cursor
+    from repro_torch.launch.mesh import run_ranks
+    from repro_torch.models import model
+    from repro_torch.utils.pytree import tree_leaves
+    full = get_config(MOE_ARCH)
+    cfg = full.replace(n_layers=MESH_MOE_LAYERS)
+    n_params = sum(math.prod(s.shape) for s in
+                   tree_leaves(model.param_shapes(cfg)))
+    seq = MESH_SEQ
+    print(f"mesh moe: {cfg.name} at full width (d_model {cfg.d_model}, "
+          f"{cfg.n_experts} experts of width {cfg.moe_d_ff}, top-"
+          f"{cfg.top_k}, {cfg.n_heads} / {cfg.n_kv_heads} heads of "
+          f"{cfg.d_head}), cut to {cfg.n_layers} of {full.n_layers} layers: "
+          f"{n_params} parameters, {16 * n_params} bytes of training state "
+          f"at 16 bytes a parameter; global batch {TRAIN_BATCH} x {seq}")
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_moe_mesh_"))
+    res, spawn = {}, {}
+    try:
+        _, ds, _ = train_data(torch, tmp / "ref", cfg, seed, seq=seq)
+        host, _ = next(ds.batches(TRAIN_BATCH, Cursor()))
+        refs, flash = moe_mesh_reference(torch, cfg, seed, {
+            k: torch.from_numpy(v).cuda() for k, v in host.items()}, tmp)
+        for run in MESH_MOE_RUNS:
+            fresh_card(torch, 21, f"before the {run} ranks start")
+            t = time.perf_counter()
+            res[run] = run_ranks(moe_mesh_rank, MESH_LM_RANKS,
+                                 (seed, str(tmp), cfg, seq, run),
+                                 timeout_s=600, join_timeout_s=900)
+            spawn[run] = time.perf_counter() - t
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    card = card_line()
+    launches = {}
+    for run, ((d, m), layout, dispatch) in MESH_MOE_RUNS.items():
+        for r, out in enumerate(res[run]):
+            tr = out["train"]
+            secs = [s for _, _, s in tr["steps"]]
+            parts = []
+            for i, s in enumerate(secs):
+                part = {n: tr["spans"][n][i] for n, _, _ in MESH_SPANS}
+                rest = s - sum(v for n, v in part.items() if n != "norm")
+                parts.append(f"step {i + 1}: " + " ".join(
+                    f"{n} {v:.4f}" for n, v in part.items())
+                    + f" (of fwd_bwd: moe_exchange "
+                    f"{tr['spans']['moe_exchange'][i]:.4f}) other "
+                    f"{rest:.4f}")
+            print(f"mesh moe {run} rank {r}/{MESH_LM_RANKS} ({cfg.name} cut "
+                  f"to {cfg.n_layers} layers, (data, model) = ({d}, {m}), "
+                  f"layout={layout}, moe_dispatch={dispatch}, gloo sharing "
+                  f"the card, host-staged; {card}): steps "
+                  + ", ".join(f"loss={l:.6f} grad_norm={n:.4f} "
+                              f"step_s={s:.4f}" for l, n, s in tr["steps"])
+                  + f"; max_memory_allocated={tr['peak']}; bytes a step: "
+                  + " ".join(f"{k} {v}" for k, v in tr["wire"].items())
+                  + f"; launches flash_attention={tr['launches'][0]}; "
+                  f"gradient blocks against the single device's sum of the "
+                  f"rows' gradients: worst {tr['worst']['rowsum'][0]:.3e} "
+                  f"relative L2 ({tr['worst']['rowsum'][1]}; bound "
+                  f"{MESH_ROWSUM_REL}), against its whole-batch gradient: "
+                  f"worst {tr['worst']['whole'][0]:.3e} "
+                  f"({tr['worst']['whole'][1]}); Trainer built in "
+                  f"{tr['build_s']:.2f}s")
+            print(f"mesh moe {run} rank {r} seconds by part (host clock, "
+                  f"the card synchronised around each; update includes "
+                  f"norm; other is the rest of the step): "
+                  f"{'; '.join(parts)}")
+        check_mesh_train(cfg, res[run], refs[run])
+        loss1, norm1, _ = res[run][0]["train"]["steps"][0]
+        print(f"mesh moe {run}: step-1 loss {loss1:.6f} against the "
+              f"single device's {refs[run]['loss']:.6f}, grad_norm "
+              f"{norm1:.4f} against "
+              f"{refs[run]['grad_norm']:.4f}; ranks {res[run][0]['run_s']:.1f}s, "
+              f"{spawn[run]:.1f}s with the spawn")
+        launches["mesh_moe_" + run] = sum(out["train"]["launches"][0]
+                                          for out in res[run])
+    return launches, flash
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--records", type=int, default=10_000_000)
@@ -3926,6 +4287,13 @@ def main() -> None:
     t = fresh_card(torch, 14)
     mesh_launches = mesh_lm_phase(torch, args.seed)
     print(f"phases 14-15 done in {time.perf_counter() - t:.1f}s (at "
+          f"{time.perf_counter() - t0:.1f}s)")
+
+    # phase 21: the MoE on the LM training mesh, on a card holding nothing
+    # of phases 14-15
+    t = fresh_card(torch, 21)
+    moe_mesh_launches, moe_mesh_flash = moe_mesh_phase(torch, args.seed)
+    print(f"phase 21 done in {time.perf_counter() - t:.1f}s (at "
           f"{time.perf_counter() - t0:.1f}s)")
 
     # phase 2: every kernel against its plain version on the card
@@ -4022,6 +4390,7 @@ def main() -> None:
     t = fresh_card(torch, 11)
     moe_launches, rows["flash_attention"][MOE_ARCH] = moe_phase(torch,
                                                                 args.seed)
+    rows["flash_attention"]["train_" + MOE_ARCH] = moe_mesh_flash
     print(f"phase 11 done in {time.perf_counter() - t:.1f}s (at "
           f"{time.perf_counter() - t0:.1f}s)")
 
@@ -4056,6 +4425,7 @@ def main() -> None:
                                  "train": t_launches[0],
                                  "train_mesh": sum(x[0] for x in
                                                    mesh_launches),
+                                 **moe_mesh_launches,
                                  "serve_" + MOE_ARCH: moe_launches[0],
                                  "serve_" + ENCDEC_ARCH: encdec_launches[0],
                                  "serve_" + VLM_ARCH: vlm_launches[0],

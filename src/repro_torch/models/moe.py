@@ -1,9 +1,9 @@
 """Mixture-of-Experts FFN with two dispatch formulations.
 
-The port of ``repro.models.moe`` on one device, in plain torch (the JAX
-package's dispatch is plain XLA, no kernel).  The token -> expert
-dispatch and combine is a Sphere shuffle inside the model: data moves to
-the UDF's home (the expert), is processed, and is shuffled back.
+The port of ``repro.models.moe`` in plain torch (the JAX package's
+dispatch is plain XLA, no kernel).  The token -> expert dispatch and
+combine is a Sphere shuffle inside the model: data moves to the UDF's
+home (the expert), is processed, and is shuffled back.
 
 Dispatch modes (``ParallelConfig.moe_dispatch``):
 
@@ -15,24 +15,41 @@ Dispatch modes (``ParallelConfig.moe_dispatch``):
     JAX package combines by a scatter-add; here each token sums its own
     ``k`` slots gathered back from the experts' outputs, so no atomic
     adds are involved and the result is deterministic.
-  * ``a2a`` — the explicit all-to-all of an expert-parallel mesh; it
-    runs ``gather`` where the JAX package falls back to it (no mesh, or
-    ``layout="tp"``, or one ``model`` rank).  The all-to-all itself, under
-    ``layout="fsdp"`` over several ``model`` ranks, is not ported
-    (``ROADMAP.md`` item 1.3g): it raises.
+  * ``a2a`` — the explicit expert all-to-all of a mesh under
+    ``layout="fsdp"`` over several ``model`` ranks (:func:`_apply_a2a`);
+    elsewhere (no mesh, ``layout="tp"``, one ``model`` rank) it runs
+    ``gather``, as the JAX package falls back.
 
 All share routing: top-k softmax gates (float32 router), position in
 expert by a stable sort in first-come order over the ``k``-major
 flattening, tokens past capacity dropped and the gates renormalised
 over the surviving slots.
+
+**On a mesh that splits the batch** (:func:`_batch_ranks`) each rank
+holds its rows of the global batch, and the layer gives what the JAX
+package's ``apply`` gives on the global ``[B, T, d]`` under ``pjit``
+(:func:`_apply_grouped`): the rank all-gathers every batch rank's expert
+ids (integers, no gradient), takes the positions over the global groups
+of ``min(GROUP_SIZE, B * T)`` tokens, keeps its own tokens' and
+dispatches and combines only those (each slot's FFN depends on its token
+alone, and an empty slot's output is 0, so no expert FLOP is repeated);
+the aux loss is taken from the ``[2, E]`` statistics summed over the
+batch ranks by an all-gather that autograd crosses, so each rank's share
+of the global aux gradient reaches its own router probabilities.  The
+train step weights each rank's loss by its token share before the
+backward; the shares sum to 1 and the gather's backward sums over the
+ranks, so the aux term is counted once.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.common import activation, sds
+from repro_torch.parallel import sharded
 from repro_torch.parallel.sharding import ParallelConfig
 
 CAPACITY_FACTOR = 1.25
@@ -74,9 +91,9 @@ def _positions_by_sort(flat: torch.Tensor) -> torch.Tensor:
     return torch.zeros_like(rank).scatter_(1, order, rank)
 
 
-def _route(params, xg, cfg: ModelConfig):
-    """xg: [G, S, d] -> gates [G,S,k], eids [G,S,k], pos-in-expert [G,S,k],
-    aux load-balance loss."""
+def _gates(params, xg, cfg: ModelConfig):
+    """xg: [..., d] -> router probabilities [..., E], top-k gates
+    renormalised [..., k] and expert ids [..., k]."""
     logits = xg.float() @ params["router"]                # [G,S,E]
     probs = torch.softmax(logits, dim=-1)
     # lax.top_k's order: descending, the lower expert first on a tie; a
@@ -85,6 +102,13 @@ def _route(params, xg, cfg: ModelConfig):
     top, order = torch.sort(probs, dim=-1, descending=True, stable=True)
     gates, eids = top[..., :cfg.top_k], order[..., :cfg.top_k]
     gates = gates / torch.clamp(gates.sum(-1, keepdim=True), min=1e-9)
+    return probs, gates, eids
+
+
+def _route(params, xg, cfg: ModelConfig):
+    """xg: [G, S, d] -> gates [G,S,k], eids [G,S,k], pos-in-expert [G,S,k],
+    aux load-balance loss."""
+    probs, gates, eids = _gates(params, xg, cfg)
 
     # position-in-expert over slots in priority order (all k=0 slots first)
     G, S, k = eids.shape
@@ -108,21 +132,65 @@ def _expert_ffn(params, xe, cfg: ModelConfig):
     return torch.einsum("gecf,efd->gecd", h, params["wo"])
 
 
+class MeshRanks:
+    """The batch ranks of a mesh as the MoE layer sees them: ``size``
+    ranks along ``axes`` (mesh order), this one at ``index`` (its rows
+    are the global batch's ``index``-th block, :func:`sharded.batch_rows`);
+    ``model_size`` / ``model_index`` along ``model`` where ``model`` splits
+    the batch (``layout="fsdp"``), else 1 / 0.  ``gather`` is the
+    autograd all-gather over the batch ranks, ``exchange`` the autograd
+    all-to-all over ``model``."""
+
+    def __init__(self, mesh, axes: tuple):
+        self.mesh, self.axes = mesh, axes
+        self.size = mesh.axes_size(axes)
+        self.index = mesh.axes_index(axes)
+        split = "model" in axes
+        self.model_size = mesh.shape["model"] if split else 1
+        self.model_index = mesh.axis_index("model") if split else 0
+
+    def gather(self, x: torch.Tensor) -> torch.Tensor:
+        return sharded.all_gather(x, self.mesh, self.axes)
+
+    def exchange(self, x: torch.Tensor) -> torch.Tensor:
+        return sharded.all_to_all(x, self.mesh, "model")
+
+
+def _batch_ranks(pcfg: ParallelConfig):
+    """:class:`MeshRanks` of ``pcfg``'s mesh over the axes that split the
+    batch (``data_axes``; ``pod`` only where the step is not podwise, whose
+    inner config leaves it out), or None without a mesh or where they are
+    one rank."""
+    mesh = pcfg.mesh
+    if mesh is None:
+        return None
+    named = tuple(a for a in pcfg.data_axes if mesh.shape.get(a, 1) > 1)
+    axes = mesh.mesh_axes(named)
+    if not axes:
+        return None
+    if axes != named:
+        raise ValueError(f"the batch axes {named} are not in the mesh's "
+                         f"order {mesh.axis_names}")
+    return MeshRanks(mesh, axes)
+
+
 def apply(params: dict, x: torch.Tensor, *, cfg: ModelConfig,
           pcfg: ParallelConfig):
-    """x: [B, T, d] -> (out [B, T, d], aux_loss scalar)."""
+    """x: [B, T, d] -> (out [B, T, d], aux_loss scalar).  On a mesh that
+    splits the batch, ``x`` is this rank's rows and the result its rows
+    of the global batch's (the aux loss the global one)."""
     mode = pcfg.moe_dispatch
     if mode not in DISPATCH_MODES:
         raise ValueError(mode)
+    ranks = _batch_ranks(pcfg)
     if mode == "a2a":
-        if pcfg.mesh is not None and pcfg.layout == "fsdp" \
-                and pcfg.model_size > 1 \
-                and cfg.n_experts % pcfg.model_size == 0:
-            raise NotImplementedError(
-                "moe_dispatch='a2a' over several model ranks under "
-                "layout='fsdp' (the expert all-to-all) is not ported: "
-                "ROADMAP.md item 1.3g (the MoE on the LM mesh)")
+        if ranks is not None and pcfg.layout == "fsdp" \
+                and ranks.model_size > 1 \
+                and cfg.n_experts % ranks.model_size == 0:
+            return _apply_a2a(params, x, cfg=cfg, ranks=ranks)
         mode = "gather"  # the JAX package's meshless / TP fallback
+    if ranks is not None:
+        return _apply_grouped(params, x, cfg=cfg, mode=mode, ranks=ranks)
     B, T, d = x.shape
     total = B * T
     group = min(GROUP_SIZE, total)
@@ -141,6 +209,134 @@ def apply(params: dict, x: torch.Tensor, *, cfg: ModelConfig,
         out = _apply_einsum(params, xg, gates, eids, pos, keep, C, cfg)
     else:
         out = _apply_gather(params, xg, gates, eids, pos, keep, C, cfg)
+    return out.reshape(B, T, d).to(x.dtype), aux
+
+
+def _aux_totals(probs, eids, ranks) -> torch.Tensor:
+    """The ``[2, E]`` sums over every batch rank's tokens of the top-1
+    one-hot and of the router probabilities, each rank's summed in rank
+    order (the same on every rank); the gradient reaches each rank's
+    own probabilities."""
+    E = probs.shape[-1]
+    top1 = torch.bincount(eids[..., 0].reshape(-1), minlength=E).float()
+    part = torch.stack([top1, probs.reshape(-1, E).sum(0)])
+    return ranks.gather(part[None]).sum(0)
+
+
+def _apply_grouped(params, x, *, cfg: ModelConfig, mode: str, ranks):
+    """``apply`` of the global batch, on this rank's rows ``x`` [b, T, d].
+
+    The global ``n * size`` tokens (rank ``i``'s the ``i``-th block) form
+    groups of ``min(GROUP_SIZE, n * size)`` as in ``apply``; each
+    rank's ``n`` tokens are cut into segments of ``gcd(n, group)``, each
+    inside one group.  The positions come from every rank's ids, so the
+    capacity, the dropped slots and the renormalised gates are the
+    global group's.  A segment's kept slots take the first places of
+    its own ``[E, C_l]`` buffer in the same first-come order: a slot's
+    output depends only on its token, so the values are the global
+    group's, and ``C_l`` (the segment's largest kept count an expert,
+    rounded up to 8) is ``C`` where a segment is a whole group."""
+    B, T, d = x.shape
+    E, k = cfg.n_experts, cfg.top_k
+    n = B * T
+    total = n * ranks.size
+    group = min(GROUP_SIZE, total)
+    while total % group:
+        group //= 2
+    C = capacity(group, cfg)
+    seg = math.gcd(n, group)
+    xg = x.reshape(n // seg, seg, d)
+    probs, gates, eids = _gates(params, xg, cfg)
+
+    # positions over the global groups, from every rank's ids
+    ids = ranks.gather(eids.reshape(n, k).to(torch.int32)).long()
+    G = total // group
+    flat = ids.view(G, group, k).transpose(1, 2).reshape(G, k * group)
+    pos = _positions_by_sort(flat).view(G, k, group).transpose(1, 2)
+    lo = ranks.index * n
+    pos = pos.reshape(total, k)[lo:lo + n].view(eids.shape)
+    keep = pos < C
+    gates = torch.where(keep, gates, 0.0)
+    gates = gates / torch.clamp(gates.sum(-1, keepdim=True), min=1e-9)
+
+    totals = _aux_totals(probs, eids, ranks)
+    aux = E * torch.sum((totals[0] / total) * (totals[1] / total)) \
+        * cfg.router_aux_coef
+
+    if seg < group:   # the segment's own slots, first come first placed
+        Gl = n // seg
+        slot = _positions_by_sort(eids.transpose(1, 2).reshape(Gl, k * seg))
+        slot = slot.view(Gl, k, seg).transpose(1, 2)
+        used = int(torch.where(keep, slot + 1, 0).max())
+        C_l = max(8, -(-used // 8) * 8)
+    else:
+        slot, C_l = pos, C
+    if mode == "einsum":
+        out = _apply_einsum(params, xg, gates, eids, slot, keep, C_l, cfg)
+    else:
+        out = _apply_gather(params, xg, gates, eids, slot, keep, C_l, cfg)
+    return out.reshape(B, T, d).to(x.dtype), aux
+
+
+def _apply_a2a(params, x, *, cfg: ModelConfig, ranks):
+    """The explicit Sphere-shuffle dispatch (the JAX package's
+    ``_apply_a2a``): this rank routes its own ``n`` tokens, packs
+    ``[M, E_loc, cap, d]`` slot buffers (experts in contiguous blocks of
+    ``E // M`` a ``model`` rank), exchanges them with one all-to-all over
+    ``model``, runs its ``E_loc`` experts on what it received, reverses
+    the exchange and combines.  Its semantics differ from ``apply``'s:
+    ``cap`` from the rank's own tokens, positions in token-major slot
+    order, the surviving slots weighted by their pre-drop gates (no
+    renormalisation), and the aux loss from the ``[2, E]`` sums over every
+    batch rank with ``frac_tok`` over the count of top-1 slots.  Dropped
+    slots land in an extra slot of each expert, sliced off (the JAX
+    package's out-of-range writes); the combine is each token's sum of
+    its ``k`` slots (the JAX scatter-add over tokens).  Only this rank's
+    experts reach its FFN, so the others' gradients are zero here and
+    the step's sum over the batch ranks puts each in place."""
+    B, T, d = x.shape
+    E, k = cfg.n_experts, cfg.top_k
+    M, m = ranks.model_size, ranks.model_index
+    E_loc = E // M
+    n = B * T
+    total = n * ranks.size
+    cap = max(8, -(-int(n * k * CAPACITY_FACTOR / E) // 8) * 8)
+    act = activation(cfg.act)
+    dev = x.device
+    xt = x.reshape(n, d)
+    probs, gates, eids = _gates(params, xt, cfg)          # [n, k]
+
+    flat_e = eids.reshape(n * k)                          # token-major
+    pos = _positions_by_sort(flat_e[None])[0]
+    keep = pos < cap
+    slot = flat_e * (cap + 1) + torch.where(keep, pos, cap)
+    tok = torch.arange(n, device=dev).repeat_interleave(k)
+    table = torch.zeros(E * (cap + 1), dtype=torch.long, device=dev)
+    table.scatter_(0, slot, tok)
+    filled = torch.zeros(E * (cap + 1), dtype=torch.bool, device=dev)
+    filled.scatter_(0, slot, keep)
+    table = table.view(E, cap + 1)[:, :cap]
+    filled = filled.view(E, cap + 1)[:, :cap]
+    send = torch.where(filled[..., None], xt[table], 0)   # [E, cap, d]
+    recv = ranks.exchange(send.view(M, E_loc, cap, d))
+
+    xe = recv.transpose(0, 1).reshape(E_loc, M * cap, d)
+    mine = slice(m * E_loc, (m + 1) * E_loc)
+    h = act(torch.einsum("ecd,edf->ecf", xe, params["wg"][mine])) \
+        * torch.einsum("ecd,edf->ecf", xe, params["wi"][mine])
+    ye = torch.einsum("ecf,efd->ecd", h, params["wo"][mine])
+    back = ye.view(E_loc, M, cap, d).transpose(0, 1).contiguous()
+    ret = ranks.exchange(back).reshape(E * cap, d)        # [E, cap, d]
+
+    w = (gates.reshape(n * k) * keep).to(ret.dtype)
+    contrib = ret[flat_e * cap + torch.where(keep, pos, 0)] * w[:, None]
+    contrib = torch.where(keep[:, None], contrib, 0)
+    out = contrib.view(n, k, d).sum(1)
+
+    totals = _aux_totals(probs, eids, ranks)
+    frac_tok = totals[0] / torch.clamp(totals[0].sum(), min=1.0)
+    mean_prob = totals[1] / max(total, 1)
+    aux = E * torch.sum(frac_tok * mean_prob) * cfg.router_aux_coef
     return out.reshape(B, T, d).to(x.dtype), aux
 
 

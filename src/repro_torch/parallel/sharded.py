@@ -18,13 +18,21 @@ included.
   over the batch axes that split the leaf, an all-reduce over those
   that do not;
 * :func:`global_norm_sq` is the squared norm of the whole tree from its
-  blocks, counting each block once however many ranks hold it.
+  blocks, counting each block once however many ranks hold it;
+* :func:`all_gather` and :func:`all_to_all` are collectives that
+  autograd crosses (the MoE's token grouping, aux statistics and expert
+  exchange on a mesh, ``models/moe.py``): the backward of each is the
+  matching reverse collective.
 
 Every rank calls each function on the same tree in the same order (the
 collectives pair up leaf by leaf; none is skipped for an empty block).
 On a gloo group whose ranks keep their tensors on a GPU the collectives
 copy through the host (``Mesh.host_staged``).  ``WIRE`` counts the bytes
 this rank hands to each kind of collective.
+
+The autograd collectives issue their reverse in the backward, and under
+``torch.utils.checkpoint`` their forward again in the recompute; every
+rank runs the same graph, so the ranks issue them in the same order.
 """
 from __future__ import annotations
 
@@ -41,8 +49,11 @@ from repro_torch.utils.pytree import (tree_flatten_with_paths, tree_leaves,
 
 # bytes this rank handed to the gathers, the reduce-scatters (and the
 # all-reduces that stand for them over an axis that does not split a
-# leaf) and the norm's exchange
-WIRE = {"gather": 0, "reduce_scatter": 0, "norm": 0}
+# leaf), the norm's exchange, and the autograd collectives (forward,
+# recompute and backward: ``all_gather`` the MoE's ids and aux
+# statistics, ``all_to_all`` its expert exchange)
+WIRE = {"gather": 0, "reduce_scatter": 0, "norm": 0, "all_gather": 0,
+        "all_to_all": 0}
 
 
 def _split_dims(spec, ndim: int, mesh: Mesh) -> List[Tuple[int, tuple]]:
@@ -248,3 +259,87 @@ def batch_rows(x: torch.Tensor, mesh: Optional[Mesh], batch_axes
     k = x.shape[0] // n
     i = mesh.axes_index(names)
     return x[i * k:(i + 1) * k]
+
+
+# ------------------------------------------------ collectives autograd crosses
+def gather_wire(x: torch.Tensor, mesh: Mesh, axes) -> torch.Tensor:
+    """Every rank's ``x`` along ``axes`` concatenated along dim 0, in the
+    group's rank order (row-major in mesh order); no autograd."""
+    group = mesh.group_for(axes)
+    if group is None:
+        return x
+    src = _to_wire(x, mesh)
+    out = torch.empty((mesh.axes_size(axes) * src.shape[0],)
+                      + tuple(src.shape[1:]), dtype=src.dtype,
+                      device=src.device)
+    dist.all_gather_into_tensor(out, src, group=group)
+    WIRE["all_gather"] += src.nbytes
+    return _from_wire(out, mesh)
+
+
+def scatter_wire(g: torch.Tensor, mesh: Mesh, axes) -> torch.Tensor:
+    """The reverse of :func:`gather_wire`: the sum over the ranks of
+    ``axes`` of each one's ``g``, this rank's block of dim 0 kept."""
+    group = mesh.group_for(axes)
+    if group is None:
+        return g
+    src = _to_wire(g, mesh)
+    n = mesh.axes_size(axes)
+    out = torch.empty((src.shape[0] // n,) + tuple(src.shape[1:]),
+                      dtype=src.dtype, device=src.device)
+    dist.reduce_scatter_tensor(out, src, op=dist.ReduceOp.SUM, group=group)
+    WIRE["all_gather"] += src.nbytes
+    return _from_wire(out, mesh)
+
+
+def exchange_wire(x: torch.Tensor, mesh: Mesh, axes) -> torch.Tensor:
+    """Block ``j`` of dim 0 goes to rank ``j`` of ``axes``; block ``j``
+    of the result came from rank ``j`` (``lax.all_to_all`` tiled over dim
+    0, which is its own reverse); moved as bytes."""
+    group = mesh.group_for(axes)
+    if group is None:
+        return x
+    src = _to_wire(x, mesh)
+    n = mesh.axes_size(axes)
+    raw = src.reshape(n, -1).view(torch.uint8)
+    out = torch.empty_like(raw)
+    dist.all_to_all_single(out, raw, group=group)
+    WIRE["all_to_all"] += src.nbytes
+    return _from_wire(out.view(src.dtype).view(src.shape), mesh)
+
+
+class _AllGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axes):
+        ctx.mesh, ctx.axes = mesh, axes
+        return gather_wire(x, mesh, axes)
+
+    @staticmethod
+    def backward(ctx, g):
+        return scatter_wire(g, ctx.mesh, ctx.axes), None, None
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axes):
+        ctx.mesh, ctx.axes = mesh, axes
+        return exchange_wire(x, mesh, axes)
+
+    @staticmethod
+    def backward(ctx, g):
+        return exchange_wire(g, ctx.mesh, ctx.axes), None, None
+
+
+def all_gather(x: torch.Tensor, mesh: Mesh, axes) -> torch.Tensor:
+    """Every rank's ``x`` (one shape on all) along ``axes`` concatenated
+    along dim 0 in rank order; the gradient of this rank's ``x`` is the
+    sum over the ranks of their gradients' block ``index`` (a
+    reduce-scatter)."""
+    return _AllGather.apply(x, mesh, mesh.mesh_axes(axes))
+
+
+def all_to_all(x: torch.Tensor, mesh: Mesh, axes) -> torch.Tensor:
+    """The tiled all-to-all over dim 0 (``x.shape[0]`` a multiple of the
+    ranks of ``axes``); its gradient is the same exchange of the
+    gradient."""
+    return _AllToAll.apply(x, mesh, mesh.mesh_axes(axes))

@@ -19,14 +19,20 @@ modes:
     valid tokens before the backward.  Under ``layout="tp"`` the ranks of
     one ``model`` group compute the same rows (the JAX package splits
     the heads and FFN columns over them instead; the values are the
-    same).
+    same).  An MoE layer groups tokens, drops slots and takes its aux
+    loss over the global batch, exchanging ids and statistics with the
+    other batch ranks, and under ``layout="fsdp"`` with
+    ``moe_dispatch="a2a"`` exchanges its slots with the other ``model``
+    ranks (:mod:`repro_torch.models.moe`).  Microbatch accumulation on a
+    mesh that splits the batch raises (``ACCUM_MESH``).
   * ``podwise`` (with ``multi_pod``) — each pod runs the ``pjit`` step
     over its own ``("data", "model")`` ranks up to the gradient; then the
     **only cross-pod traffic** is the explicit (optionally compressed)
     gradient mean over ``pod`` (:func:`collectives.cross_pod_mean`), and
-    the loss and metrics are averaged over ``pod``.  Parameters and
-    state are replicated over ``pod``; the ``int8_ef`` residual ``ef`` is
-    each pod's own.
+    the loss and metrics are averaged over ``pod``.  An MoE layer's
+    groups and aux loss are the pod's rows', as in the JAX package's
+    per-pod ``loss_fn``.  Parameters and state are replicated over
+    ``pod``; the ``int8_ef`` residual ``ef`` is each pod's own.
 
 The serve-step builders are not ported: the port's ``ServeEngine`` calls
 ``model.prefill`` / ``model.decode_step`` itself.
@@ -52,8 +58,6 @@ from repro_torch.utils.pytree import (tree_flatten_with_paths, tree_map,
                                       tree_map_with_path, tree_unflatten)
 
 METRIC_KEYS = ("nll", "z_loss", "accuracy", "tokens", "aux_loss")
-MOE_MESH = ("ROADMAP.md item 1.3g (the MoE on the LM mesh: its a2a "
-            "dispatch and the global token grouping)")
 ACCUM_MESH = ("ROADMAP.md item 1.3h (per-layer gathering and microbatch "
               "accumulation on the LM mesh)")
 
@@ -216,7 +220,8 @@ def _global_metrics(loss, metrics, mesh, batch_axes):
     rank's token-weighted means summed as token-weighted sums (one
     all-reduce), over the global token count, as ``losses.cross_entropy``
     takes them over the global batch.  ``aux_loss`` is the same on every
-    batch rank (dense: 0; MoE: only where the ranks share rows)."""
+    batch rank (dense: 0; MoE: the global batch's, from statistics summed
+    over the batch ranks, ``models/moe.py``)."""
     n = metrics["tokens"].float()
     aux = metrics["aux_loss"].float()
     v = torch.stack([n * (loss.float() - aux), n * metrics["nll"],
@@ -228,15 +233,10 @@ def _global_metrics(loss, metrics, mesh, batch_axes):
     return v[0] / denom + aux, out
 
 
-def _check_mesh(cfg: ModelConfig, pcfg: ParallelConfig, mesh,
-                batch_axes, podwise: bool) -> None:
+def _check_mesh(pcfg: ParallelConfig, mesh, batch_axes,
+                podwise: bool) -> None:
     split = mesh.axes_size(batch_axes) * (
         mesh.shape.get("pod", 1) if podwise else 1)
-    if cfg.family == "moe" and split > 1:
-        raise NotImplementedError(
-            f"{cfg.name} on a mesh that splits the batch over {split} "
-            f"ranks: the MoE groups tokens and takes its aux loss over the "
-            f"global batch, not yet the ranks' rows ({MOE_MESH})")
     if pcfg.accum_steps > 1 and split > 1:
         raise NotImplementedError(
             f"accum_steps={pcfg.accum_steps} on a mesh that splits the "
@@ -269,7 +269,7 @@ def make_train_step(cfg: ModelConfig, pcfg: ParallelConfig,
     inner = pcfg.with_(multi_pod=False) if podwise else pcfg
     batch_axes = mesh.mesh_axes(a for a in inner.data_axes
                                 if a in mesh.shape)
-    _check_mesh(cfg, pcfg, mesh, batch_axes, podwise)
+    _check_mesh(pcfg, mesh, batch_axes, podwise)
     pshapes = model.param_shapes(cfg)
     specs = param_specs_for(pshapes, pcfg)
 

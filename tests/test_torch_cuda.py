@@ -234,6 +234,43 @@ def test_cuda_mesh_round_on_one_rank_nccl(cuda, tmp_path):
         dist.destroy_process_group()
 
 
+def test_cuda_autograd_collectives_on_one_rank_nccl(cuda, tmp_path,
+                                                   monkeypatch):
+    """``sharded.all_gather`` and ``sharded.all_to_all`` (the MoE's
+    collectives that autograd crosses) over a one-rank NCCL group: the
+    forward and the backward are the identity, bit for bit, in bf16 and
+    float32; each counts its bytes in ``sharded.WIRE``.  A one-rank mesh
+    has no group of its axes (its collectives are skipped), so the mesh
+    here is handed the world group to run them."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_flat_mesh
+    from repro_torch.parallel import sharded
+    from repro_torch.parallel.mesh_utils import Mesh
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/store",
+                            rank=0, world_size=1)
+    try:
+        mesh = make_flat_mesh()
+        monkeypatch.setattr(Mesh, "group_for",
+                            lambda self, axes: dist.group.WORLD)
+        gen = torch.Generator().manual_seed(3)
+        for dtype in (torch.bfloat16, torch.float32):
+            for name, fn in (("all_gather", sharded.all_gather),
+                             ("all_to_all", sharded.all_to_all)):
+                x = torch.randn(4, 6, 5, generator=gen).to(dtype).to(cuda)
+                up = torch.randn(4, 6, 5, generator=gen).to(dtype).to(cuda)
+                x.requires_grad_()
+                before = sharded.WIRE[name]
+                y = fn(x, mesh, "data")
+                (g,) = torch.autograd.grad(y, x, up)
+                torch.cuda.synchronize()
+                assert y.is_cuda and torch.equal(y, x.detach()), name
+                assert torch.equal(g, up), name
+                assert sharded.WIRE[name] - before == 2 * x.nbytes, name
+    finally:
+        dist.destroy_process_group()
+
+
 @pytest.mark.parametrize("n,k,nb,high,bn", [
     (1000, 1, 2, 4, 64), (1000, 3, 6, 4, 101), (5000, 4, 16, 4, 2048),
     (70001, 3, 6, 2 ** 32, 2048), (3000, 3, 64, 3, 257), (1, 2, 3, 4, 1)])

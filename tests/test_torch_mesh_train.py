@@ -18,12 +18,19 @@ seed, a numpy batch whose rows carry unequal valid-token counts.
     (``_hold`` says how).  ``qwen2.5-3b`` runs both layouts against the JAX step
     at the same layout, ``recurrentgemma-2b`` both against the JAX ``tp``
     step (the JAX step's values do not depend on the layout), and the
-    other dense configs ``tp``.  The MoE configs raise ``NotImplementedError``
-    naming ROADMAP item 1.3g.
+    other dense configs ``tp``.  The MoE configs run ``tp`` with the
+    ``einsum`` dispatch (token groups, dropped slots and the aux loss over
+    the global batch, whose one group of 128 tokens spans every rank) and
+    ``fsdp`` with the expert all-to-all (``a2a``), each against the JAX
+    step at the same layout and dispatch, the aux loss too.
 (b) Podwise ``none`` on ``(pod, data, model) = (2, 2, 1)`` against
     ``pjit`` on the same mesh and the JAX package's single-device step
     (its own podwise mode fails on the installed jax, so it is no
-    reference), on a batch whose pods hold equal token counts.
+    reference), on a batch whose pods hold equal token counts.  The MoE
+    configs' podwise step groups and takes its aux over each pod's rows:
+    against the JAX package's single-device gradients of each pod's rows,
+    averaged, and its AdamW update of the mean (what its ``pod_body``
+    does).
 (e) The metrics are the global token-weighted means, the token count
     the global one.
 """
@@ -68,12 +75,28 @@ from repro.launch.mesh import make_mesh_compat
 from repro.models import model
 from repro.parallel.sharding import ParallelConfig
 from repro.train import optim
-from repro.train.step import make_train_step
+from repro.train.step import _value_and_grad_accum, make_train_step
 from repro.utils.pytree import tree_flatten_with_paths
 import torch_train_ranks as R
 
 def use_mesh(mesh):
     return jax.set_mesh(mesh) if hasattr(jax, "set_mesh") else mesh
+
+def pod_means(cfg, ocfg, lr_fn, pods):
+    # each pod's rows on one device, the gradients and metrics averaged
+    # over the pods, one AdamW update of the mean (the pod_body's values)
+    pcfg = ParallelConfig(mesh=None, remat="none")
+
+    def step(params, opt, batch):
+        n = batch["inputs"].shape[0] // pods
+        outs = [_value_and_grad_accum(
+            params, {k: v[i * n:(i + 1) * n] for k, v in batch.items()},
+            cfg=cfg, pcfg=pcfg) for i in range(pods)]
+        mean = lambda *xs: sum(xs) / pods
+        (loss, metrics), grads = jax.tree.map(mean, *outs)
+        p2, o2, om = optim.apply_updates(params, grads, opt, ocfg, lr_fn)
+        return p2, o2, {**metrics, **om, "loss": loss}
+    return step
 
 def run(arch, layout, mesh, masked):
     tcfg = R.lm_cfg(arch)
@@ -84,9 +107,14 @@ def run(arch, layout, mesh, masked):
              for k, v in R.lm_batch(tcfg, masked=masked).items()}
     ocfg = optim.AdamWConfig(lr=R.LR)
     opt = optim.init_state(params, ocfg)
-    pcfg = ParallelConfig(mesh=mesh, remat="none", layout=layout)
-    step = make_train_step(cfg, pcfg, ocfg,
-                           optim.warmup_cosine(R.LR, R.WARMUP, R.TOTAL))
+    lr_fn = optim.warmup_cosine(R.LR, R.WARMUP, R.TOTAL)
+    if layout == "pods":
+        step = pod_means(cfg, ocfg, lr_fn, 2)
+    else:
+        layout, _, dispatch = layout.partition("/")
+        pcfg = ParallelConfig(mesh=mesh, remat="none", layout=layout,
+                              moe_dispatch=dispatch or "einsum")
+        step = make_train_step(cfg, pcfg, ocfg, lr_fn)
     # the same step with the embedding one ulp off (signs from four
     # seeds): how far the JAX package's own step moves under float32
     # rounding
@@ -116,8 +144,9 @@ cases, dest = eval(sys.argv[1]), sys.argv[2]
 mesh = make_mesh_compat((2, 2), ("data", "model"))
 res = {}
 for arch, layout in cases:
-    if layout == "single":
-        got = run(arch, "tp", None, R.POD_MASKED)
+    if layout in ("single", "pods"):
+        got = run(arch, "tp" if layout == "single" else layout, None,
+                  R.POD_MASKED)
     else:
         got = run(arch, layout, mesh, ((1, 5), (6, 11)))
     res.update({f"{arch}|{layout}|{k}": v for k, v in got.items()})
@@ -131,6 +160,8 @@ _JAX_SPLIT = (
     [(a, "tp") for a in ("gemma3-12b", "qwen3-8b", "deepseek-7b",
                          "llava-next-mistral-7b", "seamless-m4t-large-v2")]
     + [(ranks.PODWISE_ARCH, "single")],
+    [(a, lay) for a in ranks.MOE_ARCHS
+     for lay in ("tp/einsum", "fsdp/a2a", "pods")],
 )
 
 
@@ -235,15 +266,67 @@ def test_token_weighted_global_metrics(runs):
     assert abs(m["nll"] - wm["nll"]) <= LOSS_TOL
 
 
+def _hold_moe(got, want, ulps, tokens=True):
+    """``_hold``, and the aux loss within ``LOSS_TOL`` (it is in the
+    loss, which ``_hold`` holds; here it is held apart)."""
+    _hold(got, want, ulps, tokens=tokens)
+    assert got[0]["aux_loss"] > 0
+    assert abs(got[0]["aux_loss"] - want[0]["aux_loss"]) \
+        <= LOSS_TOL * abs(want[0]["aux_loss"])
+
+
 @pytest.mark.parametrize("arch", ranks.MOE_ARCHS)
 def test_moe_on_a_batch_splitting_mesh_names_its_item(runs, arch):
-    port, _ = runs
-    assert "1.3g" in port["raises"][arch]
+    """The MoE step on the ``(2, 2)`` mesh under ``tp`` with the
+    ``einsum`` dispatch, whose token group (the global batch's 128
+    tokens) spans both data ranks, against the JAX package's step there
+    (once refused, naming ROADMAP item 1.3g)."""
+    port, ref = runs
+    at = "tp/einsum"
+    _hold_moe(port["moe"][arch, "tp"], _ref(ref, arch, at),
+              [_ref(ref, arch, at, t) for t in "uvwx"])
 
 
 def test_moe_a2a_under_fsdp_names_its_item(runs):
+    """Both MoE configs' step on the ``(2, 2)`` mesh under ``fsdp`` with
+    the expert all-to-all over ``model`` (``moe_dispatch="a2a"``: each
+    rank routes its 32 tokens, 4 experts a ``model`` rank), against the
+    JAX package's step with its ``_apply_a2a`` on the same host mesh
+    (once refused, naming ROADMAP item 1.3g)."""
+    port, ref = runs
+    at = "fsdp/a2a"
+    for arch in ranks.MOE_ARCHS:
+        _hold_moe(port["moe"][arch, "fsdp"], _ref(ref, arch, at),
+                  [_ref(ref, arch, at, t) for t in "uvwx"])
+
+
+@pytest.mark.parametrize("layout", [lay for lay, _ in ranks.MOE_STEPS])
+def test_moe_step_under_full_remat(runs, layout):
+    """The MoE step under ``remat="full"``, whose backward recomputes
+    each unit's forward with its collectives (the ids' all-gather, the
+    aux statistics', the expert all-to-all) between the ranks' backward
+    collectives: it completes on every rank and gives the step without
+    remat's values, bit for bit."""
     port, _ = runs
-    assert "1.3g" in port["raises"]["a2a"]
+    arch = ranks.MOE_ARCHS[0]
+    (gm, gp, gg), (wm, wp, wg) = port["moe_remat"][layout], \
+        port["moe"][arch, layout]
+    assert gm == wm
+    for got, want in ((gp, wp), (gg, wg)):
+        assert set(got) == set(want)
+        for k in want:
+            assert np.array_equal(got[k], want[k]), k
+
+
+@pytest.mark.parametrize("arch", ranks.MOE_ARCHS)
+def test_moe_podwise_none_matches_pod_means(runs, arch):
+    """(b) for the MoE: podwise ``none`` on ``(pod, data, model) = (2, 2,
+    1)``, each pod's token groups and aux loss over its own 4 rows (split
+    over its 2 data ranks), against the JAX package's single-device
+    gradients of each pod's rows averaged and its update of the mean."""
+    port, ref = runs
+    _hold_moe(port["pod_moe"][arch], _ref(ref, arch, "pods"),
+              [_ref(ref, arch, "pods", t) for t in "uvwx"])
 
 
 def test_podwise_none_matches_pjit_and_single_device(runs):

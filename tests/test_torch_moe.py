@@ -11,6 +11,12 @@ expert and the kept set exactly, the gates within 1e-6 (a float32
 softmax).  Outputs within rtol 1e-4 / atol 1e-5 (the JAX package's own
 ``tests/test_moe.py`` tolerance; sums in another order), gradients
 within 1e-5 of each leaf's largest magnitude.
+
+On a mesh (``test_mesh_apply_matches_jax``), 4 gloo ranks each run the
+layer on their rows (``torch_train_ranks.moe_mesh_suite``, no JAX) while
+the JAX package runs the global batch in a subprocess with 4 host
+devices: its ``_apply_a2a`` on the same host mesh for the expert
+all-to-all, its meshless ``apply`` for the global grouping.
 """
 import jax
 import jax.numpy as jnp
@@ -150,21 +156,140 @@ def test_a2a_without_a_mesh_is_gather():
 
 
 def test_dispatch_modes_and_the_mesh():
+    """An unknown mode raises.  On a ``(data, model) = (1, 2)`` mesh the
+    batch ranks are ``model``'s two under fsdp (where ``a2a`` runs the
+    expert all-to-all, held to the JAX package by
+    ``test_mesh_apply_matches_jax``) and none under tp, where ``a2a``
+    falls back to the meshless ``gather`` as in the JAX package."""
     _, tcfg = _cfgs()
     _, tp, _, tx = _setup()
     with pytest.raises(ValueError):
         tmoe.apply(tp, tx, cfg=tcfg, pcfg=TPC(moe_dispatch="ring"))
     from repro_torch.parallel.mesh_utils import Mesh
-    grid = Mesh(("data", "model"), {"data": 1, "model": 2}, object(), 0, 2,
+    grid = Mesh(("data", "model"), {"data": 1, "model": 2}, object(), 1, 2,
                 "cpu", "gloo")
-    with pytest.raises(NotImplementedError, match="1.3g"):
-        tmoe.apply(tp, tx, cfg=tcfg, pcfg=TPC(mesh=grid, layout="fsdp",
-                                              moe_dispatch="a2a"))
+    ranks = tmoe._batch_ranks(TPC(mesh=grid, layout="fsdp",
+                                  moe_dispatch="a2a"))
+    assert (ranks.axes, ranks.size, ranks.index) == (("model",), 2, 1)
+    assert (ranks.model_size, ranks.model_index) == (2, 1)
+    assert tmoe._batch_ranks(TPC(mesh=grid)) is None
     # under tp the JAX package falls back to gather, and so does the port
     oa, _ = tmoe.apply(tp, tx, cfg=tcfg, pcfg=TPC(mesh=grid,
                                                   moe_dispatch="a2a"))
     og, _ = tmoe.apply(tp, tx, cfg=tcfg, pcfg=TPC(moe_dispatch="gather"))
     assert torch.equal(oa, og)
+
+
+# ------------------------------------------------------------ on a mesh
+_JAX_MESH = """
+import sys, numpy as np, jax, jax.numpy as jnp
+from repro.configs import ARCHS
+from repro.models import moe
+from repro.parallel.sharding import ParallelConfig
+import torch_train_ranks as R
+
+cfg = ARCHS[R.MOE_ARCH].reduced().replace(param_dtype="float32",
+                                          compute_dtype="float32")
+res = {}
+for name, (shape, layout, dispatch, factor, bt, group) in \\
+        R.MOE_MESH_CASES.items():
+    p_np, x_np, ct_np = R.moe_inputs(cfg, bt)
+    moe.CAPACITY_FACTOR, moe.GROUP_SIZE = factor, group
+    if dispatch == "a2a":     # the expert all-to-all on the host mesh
+        kw = {}
+        if hasattr(jax.sharding, "AxisType"):
+            kw["axis_types"] = (jax.sharding.AxisType.Auto,) * 2
+        devs = np.array(jax.devices()[:shape[0] * shape[1]]).reshape(shape)
+        mesh = jax.sharding.Mesh(devs, ("data", "model"), **kw)
+        pcfg = ParallelConfig(mesh=mesh, layout=layout, moe_dispatch="a2a")
+    else:                     # the global batch on one device
+        mesh, pcfg = None, ParallelConfig(moe_dispatch=dispatch)
+    ct = jnp.asarray(ct_np)
+
+    def loss(p, x):
+        out, aux = moe.apply(p, x, cfg=cfg, pcfg=pcfg)
+        return jnp.sum(out * ct) + aux, (out, aux)
+    fn = jax.jit(jax.value_and_grad(loss, argnums=(0, 1), has_aux=True))
+    args = ({k: jnp.asarray(v) for k, v in p_np.items()}, jnp.asarray(x_np))
+    if mesh is None:
+        (_, (out, aux)), (gp, gx) = fn(*args)
+    else:
+        with (jax.set_mesh(mesh) if hasattr(jax, "set_mesh") else mesh):
+            (_, (out, aux)), (gp, gx) = fn(*args)
+    res[name + "|out"], res[name + "|aux"] = np.asarray(out), np.asarray(aux)
+    res[name + "|gx"] = np.asarray(gx)
+    res.update({f"{name}|g/{k}": np.asarray(v) for k, v in gp.items()})
+np.savez(sys.argv[1], **res)
+"""
+
+
+@pytest.fixture(scope="module")
+def mesh_runs(tmp_path_factory):
+    """(every rank's ``moe_mesh_suite`` results, the JAX references):
+    4 gloo ranks, and meanwhile the JAX package on 4 host devices in a
+    subprocess (``--xla_force_host_platform_device_count``)."""
+    import os
+    import subprocess
+    import sys
+    import textwrap
+
+    import torch_train_ranks as ranks
+    from repro_torch.launch.mesh import run_ranks
+    here = os.path.dirname(__file__)
+    dest = tmp_path_factory.mktemp("moe_mesh") / "jax.npz"
+    env = dict(os.environ, JAX_PLATFORMS="cpu",
+               XLA_FLAGS="--xla_force_host_platform_device_count=4",
+               PYTHONPATH=os.pathsep.join([os.path.join(here, "..", "src"),
+                                           here]))
+    proc = subprocess.Popen(
+        [sys.executable, "-c", textwrap.dedent(_JAX_MESH), str(dest)],
+        env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    try:
+        port = run_ranks(ranks.moe_mesh_suite, 4, timeout_s=120,
+                         join_timeout_s=300)
+    finally:
+        _, err = proc.communicate(timeout=300)
+    assert proc.returncode == 0, err[-3000:]
+    return port, dict(np.load(dest))
+
+
+def _mesh_cases():
+    import torch_train_ranks as ranks
+    return list(ranks.MOE_MESH_CASES)
+
+
+@pytest.mark.parametrize("case", _mesh_cases())
+def test_mesh_apply_matches_jax(mesh_runs, case):
+    """``moe.apply`` on each rank's rows of a host mesh of gloo ranks
+    against the JAX package on the global batch: ``a2a`` against its
+    ``_apply_a2a`` on the same host mesh under fsdp, ``einsum`` and
+    ``gather`` (and ``a2a``'s tp fallback) against the meshless
+    ``apply``.  The rows of the output and of the gradient by ``x`` at
+    ``TOL`` / 1e-5 of the largest magnitude, the aux loss (the same on
+    every rank) within 1e-6, and each parameter's gradient summed over
+    the batch ranks within 1e-5 of its largest magnitude.  At a factor
+    of 0.5 slots are dropped (the rows whose every slot is dropped come
+    out zero); in the straddle case a rank's tokens lie in two groups."""
+    import torch_train_ranks as ranks
+    port, ref = mesh_runs
+    got = [r[case] for r in port if case in r]
+    shape, *_, (B, T), _ = ranks.MOE_MESH_CASES[case]
+    assert len(got) == shape[0] * shape[1]
+    rows = {g["index"]: g for g in got}
+    assert sorted(rows) == list(range(len(rows)))
+    out = np.concatenate([rows[i]["out"] for i in sorted(rows)])
+    gx = np.concatenate([rows[i]["gx"] for i in sorted(rows)])
+    np.testing.assert_allclose(out, ref[case + "|out"], **TOL)
+    want = ref[case + "|gx"]
+    assert np.abs(gx - want).max() <= 1e-5 * np.abs(want).max()
+    for g in got:
+        assert abs(g["aux"] - float(ref[case + "|aux"])) <= 1e-6
+        for name, v in g["grads"].items():
+            want = ref[f"{case}|g/{name}"]
+            assert np.isfinite(v).all(), name
+            assert np.abs(v - want).max() <= 1e-5 * np.abs(want).max(), name
+    if case.endswith("drops"):
+        assert (np.abs(out).max(-1) == 0).any()
 
 
 def test_aux_loss_uniform_router():

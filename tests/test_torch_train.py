@@ -845,8 +845,8 @@ def test_launcher_mesh_flags_raise(flags, capsys):
                                   "specs"])
 def test_mesh_modes_raise(what, tmp_path):
     """What the mesh step still refuses: the podwise step without a mesh
-    with a pod axis; microbatch accumulation and the MoE on a mesh that
-    splits the batch (ROADMAP items 1.3h and 1.3g).  Without a mesh, an
+    with a pod axis; microbatch accumulation on a mesh that splits the
+    batch, the MoE's too (ROADMAP item 1.3h), whose plain step builds.  Without a mesh, an
     ``int8_ef`` state carries ``ef`` and the spec trees are ``P()``."""
     from repro_torch.parallel.mesh_utils import Mesh
     from repro_torch.parallel.sharding import P
@@ -873,8 +873,12 @@ def test_mesh_modes_raise(what, tmp_path):
         tr8.run(1)
     else:
         _, mcfg = _cfgs("qwen3-moe-30b-a3b")
-        with pytest.raises(NotImplementedError, match="1.3g"):
-            tstep.make_train_step(mcfg, TPC(mesh=grid), ocfg, lr)
+        step = tstep.make_train_step(mcfg, TPC(mesh=grid), ocfg, lr)
+        assert step.specs["blocks"]["layer0"]["moe"]["wi"] == P(
+            None, "model", "data", None)
+        with pytest.raises(NotImplementedError, match="1.3h"):
+            tstep.make_train_step(mcfg, TPC(mesh=grid, accum_steps=2),
+                                  ocfg, lr)
         specs = tstep.opt_state_specs_for(tmodel.param_shapes(tcfg),
                                           TPC(mesh=None), ocfg)
         assert specs["step"] == P() and specs["m"]["embed"]["w"] == P()

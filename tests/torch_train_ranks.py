@@ -32,6 +32,9 @@ PJIT_CASES = {
     "xlstm-1.3b": ("tp",),
 }
 MOE_ARCHS = ("qwen3-moe-30b-a3b", "dbrx-132b")
+# the MoE step's (layout, moe_dispatch) on the (2, 2) mesh: the global
+# grouping under tp, the expert all-to-all under fsdp
+MOE_STEPS = (("tp", "einsum"), ("fsdp", "a2a"))
 PODWISE_ARCH = "qwen2.5-3b"
 # (c): a [4, 256] gradient, one row a pod
 POD_SHAPE = (4, 256)
@@ -102,7 +105,7 @@ def _mesh_step(cfg, mesh, batch_np, **pcfg_kw):
     from repro_torch.parallel.sharding import ParallelConfig, param_specs_for
     from repro_torch.train import optim
     from repro_torch.train import step as tstep
-    pcfg = ParallelConfig(mesh=mesh, remat="none", **pcfg_kw)
+    pcfg = ParallelConfig(**{"mesh": mesh, "remat": "none", **pcfg_kw})
     pshapes = model.param_shapes(cfg)
     specs = param_specs_for(pshapes, pcfg)
     params = params_from_jax(nest(init_numpy(cfg)), specs=specs, mesh=mesh)
@@ -123,32 +126,30 @@ def _mesh_step(cfg, mesh, batch_np, **pcfg_kw):
 
 # ------------------------------------------------------------ (a), (b), (e)
 def mesh_train_suite(rank: int, world: int):
-    """Every pjit case on a ``(data, model) = (2, 2)`` mesh; podwise
-    ``none`` and pjit on ``(pod, data, model) = (2, 2, 1)``; the MoE
-    configs' and the expert all-to-all's errors."""
+    """Every pjit case on a ``(data, model) = (2, 2)`` mesh, the MoE
+    configs at each of ``MOE_STEPS``; podwise ``none`` and pjit on
+    ``(pod, data, model) = (2, 2, 1)``, and podwise ``none`` of the MoE
+    configs."""
     from repro_torch.launch.mesh import make_mesh_compat
-    from repro_torch.models import moe
-    from repro_torch.parallel.sharding import ParallelConfig
     mesh = make_mesh_compat((2, 2), ("data", "model"), device="cpu")
-    out = {"pjit": {}, "raises": {}}
+    out = {"pjit": {}, "moe": {}}
     for arch, layouts in PJIT_CASES.items():
         cfg = lm_cfg(arch)
         for layout in layouts:
             out["pjit"][arch, layout] = _mesh_step(
                 cfg, mesh, lm_batch(cfg), layout=layout)
     for arch in MOE_ARCHS:
-        try:
-            _mesh_step(lm_cfg(arch), mesh, lm_batch(lm_cfg(arch)))
-        except NotImplementedError as e:
-            out["raises"][arch] = str(e)
-    cfg = lm_cfg("qwen3-moe-30b-a3b")
-    x = torch.zeros((2, 4, cfg.d_model))
-    params = {"router": torch.zeros((cfg.d_model, cfg.n_experts))}
-    try:
-        moe.apply(params, x, cfg=cfg, pcfg=ParallelConfig(
-            mesh=mesh, layout="fsdp", moe_dispatch="a2a"))
-    except NotImplementedError as e:
-        out["raises"]["a2a"] = str(e)
+        cfg = lm_cfg(arch)
+        for layout, dispatch in MOE_STEPS:
+            out["moe"][arch, layout] = _mesh_step(
+                cfg, mesh, lm_batch(cfg), layout=layout,
+                moe_dispatch=dispatch)
+    # under full remat the backward runs each unit's forward again, its
+    # collectives too: every rank must issue them in the same order
+    cfg = lm_cfg(MOE_ARCHS[0])
+    out["moe_remat"] = {layout: _mesh_step(
+        cfg, mesh, lm_batch(cfg), layout=layout, moe_dispatch=dispatch,
+        remat="full") for layout, dispatch in MOE_STEPS}
     pod = make_mesh_compat((2, 2, 1), ("pod", "data", "model"),
                            device="cpu")
     cfg = lm_cfg(PODWISE_ARCH)
@@ -156,7 +157,90 @@ def mesh_train_suite(rank: int, world: int):
     out["pod"] = {mode: _mesh_step(cfg, pod, batch, multi_pod=True,
                                    mode=mode)
                   for mode in ("pjit", "podwise")}
+    out["pod_moe"] = {arch: _mesh_step(
+        lm_cfg(arch), pod, lm_batch(lm_cfg(arch), masked=POD_MASKED),
+        multi_pod=True, mode="podwise") for arch in MOE_ARCHS}
     return out if rank == 0 else None
+
+
+# ------------------------------------------------------------ the MoE layer
+MOE_ARCH = "qwen3-moe-30b-a3b"
+# name: (mesh shape over (data, model), layout, moe_dispatch, capacity
+# factor, (B, T), GROUP_SIZE): the expert all-to-all on (1, 2) and (2, 2)
+# under fsdp, the global grouping of einsum and gather under tp, each
+# also at a factor of 0.5 that drops slots; and gather under fsdp over
+# 4 batch ranks whose 24 tokens straddle groups of 32
+MOE_MESH_CASES = {
+    "a2a-1x2": ((1, 2), "fsdp", "a2a", 1.25, (B, T), 4096),
+    "a2a-1x2-drops": ((1, 2), "fsdp", "a2a", 0.5, (B, T), 4096),
+    "a2a-2x2": ((2, 2), "fsdp", "a2a", 1.25, (B, T), 4096),
+    "a2a-2x2-drops": ((2, 2), "fsdp", "a2a", 0.5, (B, T), 4096),
+    "einsum-tp": ((2, 2), "tp", "einsum", 1.25, (B, T), 4096),
+    "einsum-tp-drops": ((2, 2), "tp", "einsum", 0.5, (B, T), 4096),
+    "gather-tp": ((2, 2), "tp", "gather", 1.25, (B, T), 4096),
+    "gather-tp-drops": ((2, 2), "tp", "gather", 0.5, (B, T), 4096),
+    "gather-fsdp-straddle": ((2, 2), "fsdp", "gather", 1.25, (B, 12), 64),
+}
+
+
+def moe_inputs(cfg, shape, seed: int = 5) -> tuple:
+    """(the MoE layer's parameters, x [B, T, d], a cotangent of the output)
+    as float32 numpy arrays from ``seed``."""
+    rng = np.random.default_rng(seed)
+    d, e, f = cfg.d_model, cfg.n_experts, cfg.moe_d_ff
+
+    def normal(*s, scale=1.0):
+        return (rng.normal(size=s) * scale).astype(np.float32)
+    params = {"router": normal(d, e, scale=d ** -0.5),
+              "wi": normal(e, d, f, scale=d ** -0.5),
+              "wg": normal(e, d, f, scale=d ** -0.5),
+              "wo": normal(e, f, d, scale=f ** -0.5)}
+    return params, normal(*shape, d), normal(*shape, d)
+
+
+def moe_mesh_suite(rank: int, world: int):
+    """Every ``MOE_MESH_CASES`` case on this rank's rows: ``moe.apply``'s
+    output and aux, and the gradients of ``sum(out * ct) + aux`` (the aux
+    term weighted by 1 / the batch ranks, the token shares of equal
+    rows) by ``x`` (its rows) and by each parameter (summed over the
+    batch ranks)."""
+    from repro_torch.launch.mesh import make_mesh_compat
+    from repro_torch.models import moe
+    from repro_torch.parallel import sharded
+    from repro_torch.parallel.sharding import ParallelConfig
+    cfg = lm_cfg(MOE_ARCH)
+    axes = ("data", "model")
+    meshes = {(2, 2): make_mesh_compat((2, 2), axes, device="cpu"),
+              (1, 2): make_mesh_compat((1, 2), axes, device="cpu",
+                                       ranks=range(2))}
+    out = {}
+    saved = moe.CAPACITY_FACTOR, moe.GROUP_SIZE
+    for name, (shape, layout, dispatch, factor, bt, group) in \
+            MOE_MESH_CASES.items():
+        mesh = meshes[shape]
+        if mesh is None:
+            continue
+        pcfg = ParallelConfig(mesh=mesh, layout=layout, moe_dispatch=dispatch)
+        p_np, x_np, ct_np = moe_inputs(cfg, bt)
+        params = {k: torch.from_numpy(v).requires_grad_()
+                  for k, v in p_np.items()}
+        x = sharded.batch_rows(torch.from_numpy(x_np), mesh,
+                               pcfg.data_axes).clone().requires_grad_()
+        ct = sharded.batch_rows(torch.from_numpy(ct_np), mesh,
+                                pcfg.data_axes)
+        ranks = moe._batch_ranks(pcfg)
+        moe.CAPACITY_FACTOR, moe.GROUP_SIZE = factor, group
+        try:
+            o, aux = moe.apply(params, x, cfg=cfg, pcfg=pcfg)
+            ((o * ct).sum() + aux / ranks.size).backward()
+        finally:
+            moe.CAPACITY_FACTOR, moe.GROUP_SIZE = saved
+        out[name] = {
+            "index": ranks.index, "out": o.detach().numpy(),
+            "aux": float(aux), "gx": x.grad.numpy(),
+            "grads": {k: sharded.all_reduce(p.grad, mesh, ranks.axes)
+                      .numpy() for k, p in params.items()}}
+    return out
 
 
 # ------------------------------------------------------------ (c), (d)
