@@ -247,28 +247,41 @@ and passed over.
    (``launch.mesh.run_ranks``; every collective staged through the
    host).  Phases 14-15 run right after phase 1, while this process holds
    nothing on the card.  First, in this process, one single-device forward and
-   backward of phase 8's kind on the global batch of 2 x 2,048 tokens
-   (cut from 3,072: two ranks at 3,072 run out of the card's memory);
+   backward of phase 8's kind on the global batch of 2 x 3,072 tokens;
    each rank's slices of its gradient go to the temporary directory, and
    the same gradient as the token-weighted sum of the two rows' measures
    the single device's own bf16 spread, leaf by leaf.  Then the full
    ``recurrentgemma-2b`` (nothing cut in width, from ``--seed``) trains
    2 steps through the port's ``Trainer`` on ``(data, model) = (2, 1)``,
-   ``layout="tp"``, one row a rank, full remat, fused head.  Each rank:
+   ``layout="tp"``, one row a rank, full remat, fused head: the step
+   gathers the embedding and the final norm once and each pattern unit of
+   13 layers inside its remat wrapper (again in the recompute), and the
+   gathers' backward reduce-scatters each unit's gradient.  Each rank:
    step 1's loss within 2**-8 of itself of the single device's, the
    gradient norm within 1e-2 relative, each reduce-scattered gradient
-   block within 1e-2 relative L2 of the single device's slice (or twice
-   that leaf's own bf16 spread, where larger), exactly one row's kernel
-   launches (16, 36, 18 a step), the loss falling; prints each rank's
-   step seconds, tokens/s, peak memory and the bytes a step hands to the
-   gather, the reduce-scatter and the norm.  The reduced config trained 2
+   block within one bf16 rounding of the single device's token-weighted
+   row sum, exactly one row's kernel launches (16, 36, 18 a step), the
+   loss falling, the bytes a step handed to the gathers and the
+   reduce-scatters equal to what the leaf shapes predict
+   (``wire_prediction``); prints each rank's step seconds by part (the
+   gathers and reduce-scatters inside the forward and backward apart),
+   tokens/s, peak memory beside the whole-tree step's of PR 21 and the
+   bytes a step by collective.  (14b) The 13-layer cut on the same mesh
+   accumulating 2 microbatches (``accum_steps=2``) of a global batch of 4
+   x 3,072, one row a rank in each, 2 steps: each rank's step-1 blocks
+   within one bf16 rounding of a single-device reference that sums the
+   rows' gradients token-weighted within each microbatch and averages
+   the microbatches in float32, step 1's loss within 2**-8 of the
+   single-device accumulated step's, twice one row's launches, the same
+   prints.  The reduced config trained 2
    steps on the same mesh checkpoints at step 2 (rank 0 writes): a
    single-device ``Trainer`` restores it, leaf for leaf equal to the
    mesh's gathered tree.
 15. **The LM training mesh: ``podwise``** on ``(pod, data, model) = (2,
    1, 1)``, the model cut to one pattern unit (13 of 26 layers: two
    replicas of 26 layers at 16 bytes a parameter would not fit), one row
-   a pod: one forward and backward, then ``cross_pod_mean`` leaf by leaf
+   of 2,048 tokens a pod (each pod keeps the whole cut model: two at
+   3,072 run out of the card): one forward and backward, then ``cross_pod_mean`` leaf by leaf
    on those gradients in float32 with ``none`` (equal to the all-reduce
    mean), ``bf16`` (within bf16 rounding of the leaf's largest |g|) and
    ``int8_ef`` (within amax / 64, a residual left), the bytes over
@@ -318,16 +331,18 @@ and passed over.
    all-gathered, the aux statistics too).  (c) ``(1, 2)``,
    ``layout="fsdp"``, ``moe_dispatch="a2a"``: 64 experts a rank, each
    rank's 2,048 tokens routed as its own group at ``cap`` 160, the slot
-   buffers exchanged by an all-to-all over ``model``.  Each run spawns
+   buffers exchanged by an all-to-all over ``model``; the step gathers
+   a rank's 64 experts alone (over no axis on this mesh).  Each run spawns
    two fresh gloo ranks and trains 2 steps through the ``Trainer`` (full
    remat, fused head); each rank: step 1's loss and gradient norm and
    each gradient block held to its reference as in 14 (the blocks within
    one bf16 rounding of the emulated row sum; the distance from the
    whole-batch gradient printed), 8 ``flash_attention`` launches (forward
    and recompute of 2 layers, 2 steps), the loss falling; prints the step
-   seconds by part with the MoE's exchange inside the forward and
-   backward, the bytes a step by collective (``sharded.WIRE``) and the
-   peak memory.  The ``kernels`` line's ``flash_attention`` row carries
+   seconds by part with the gathers, the reduce-scatters and the MoE's
+   exchange inside the forward and backward, the bytes a step by
+   collective (``sharded.WIRE``; the gathers' and reduce-scatters' equal
+   to ``wire_prediction``'s) and the peak memory.  The ``kernels`` line's ``flash_attention`` row carries
    the row's timing and ``mesh_moe_tp`` / ``mesh_moe_a2a`` launches.
 
 The line before the last is one JSON object describing every kernel; the
@@ -3440,14 +3455,24 @@ def held_phase(torch, seed: int, arch: str):
 # ------------------------------------------------------------ phases 14-15
 MESH_LM_RANKS = 2               # gloo ranks sharing the card
 MESH_STEPS = 2
-# the mesh phases' rows: 2,048 tokens, cut from phase 8's 3,072 because
-# two ranks at 3,072 ran out of the 79.18 GiB of an NVIDIA H100 80GB HBM3
-# (700.00 W), 37.5 GiB a rank in the backward: its blocks, the state's
-# half, the whole gathered parameters and gradients, a row's
-# activations; per-layer gathering (ROADMAP.md item 1.3h) is what would
-# fit the full length
-MESH_SEQ = 2048
+# the mesh phases' rows: phase 8's 3,072 tokens.  At 3,072 the whole-tree
+# step (PR 21) ran out of the 79.18 GiB of an NVIDIA H100 80GB HBM3
+# (700.00 W), 37.5 GiB a rank in the backward, and ran at 2,048 (a peak
+# of 35.97 GB a rank): it held the whole bf16 tree (5.38 GB) and its whole
+# gradient (5.38 GB).  The step now gathers a pattern unit at a time
+# inside its remat wrapper: a rank holds the whole embedding (1.31 GB)
+# and its gradient, one unit of 13 layers (1,016,317,440 parameters,
+# 2.03 GB) and its gradient, about 4 GB less
+MESH_SEQ = 3072
+MESH_PEAK_WHOLE_TREE = 35.97e9  # PR 21's peak a rank at 2,048 tokens
 POD_LAYERS = 13                 # phase 15: one pattern unit of the 26 layers
+# phase 15's rows: its podwise step keeps the whole cut model on each pod
+# (nothing gathered), and a pod at 3,072 ran out of the card beside the
+# other (37.46 GiB allocated)
+POD_SEQ = 2048
+# (14b): the 13-layer cut on (data, model) = (2, 1) accumulating 2
+# microbatches of a global batch of 4 rows, one row a rank in each
+MESH_ACCUM, ACCUM_BATCH = 2, 4
 # (14): step 1's loss within 2**-8 of itself of the single-device loss
 # (bf16 activations: the two ranks' rows and the single device's batch
 # round at other places), grad_norm within 1e-2 relative.  Each rank's
@@ -3463,15 +3488,66 @@ MESH_LOSS_REL, MESH_NORM_REL, MESH_ROWSUM_REL = 2.0 ** -8, 1e-2, 2.0 ** -8
 BF16_MEAN_REL = 2.0 ** -7 * (1 + 2.0 ** -9)
 # the parts of a mesh step timed apart on the host clock (synchronised
 # before and after): the functions that make_train_step calls
-MESH_SPANS = (("gather", "sharded", "gather_tree"),
-              ("fwd_bwd", "step", "_value_and_grad_accum"),
-              ("reduce_scatter", "sharded", "reduce_scatter_grads"),
+MESH_SPANS = (("fwd_bwd", "step", "_value_and_grad_accum"),
               ("norm", "sharded", "global_norm_sq"),
               ("update", "optim", "apply_updates"))
-# the MoE's exchanges on a mesh (``sharded``'s autograd collectives'
-# wire functions), timed inside fwd_bwd: the ids' and aux statistics'
-# all-gather, its backward's reduce-scatter, the expert all-to-all
+# inside fwd_bwd, each summed over a step: the per-unit gathers' and
+# their backward reduce-scatters' wire calls (``sharded.gather_block``'s
+# forward, recompute and backward), and the MoE's exchanges
+# (``sharded``'s autograd collectives: the ids' and aux statistics'
+# all-gather, its backward's reduce-scatter, the expert all-to-all)
 MOE_EXCHANGE = ("gather_wire", "scatter_wire", "exchange_wire")
+MESH_INNER = {"gather": ("gather_leaf",),
+              "reduce_scatter": ("reduce_scatter_leaf",),
+              "moe_exchange": MOE_EXCHANGE}
+
+
+def wire_prediction(cfg, pcfg) -> dict:
+    """The bytes a rank of ``pcfg``'s ``(data, model)`` mesh should hand
+    to the gathers and to the reduce-scatters (with the all-reduces that
+    stand for them) in a train step, from the leaf shapes and specs
+    alone: each leaf split over more than one rank is gathered once a
+    microbatch outside the stack and, in the stack, once a unit and
+    again in its recompute under full remat; its gradient reduced once
+    a microbatch.  The experts under ``a2a`` are neither gathered nor
+    summed over ``model``.  The mesh may be a stand-in
+    (``mesh_shape_only``): only its axes' sizes are read."""
+    from repro_torch.models import model, moe
+    from repro_torch.parallel.sharding import param_specs_for
+    from repro_torch.utils.pytree import tree_flatten_with_paths
+    sizes = dict(pcfg.mesh.shape)
+    accum = pcfg.accum_steps
+    kept = ("model",) if moe.a2a_route(cfg, pcfg) else ()
+    batch = [a for a in pcfg.data_axes if sizes.get(a, 1) > 1]
+    shapes = model.param_shapes(cfg)
+    specs = dict(tree_flatten_with_paths(param_specs_for(shapes, pcfg)))
+    out = {"gather": 0, "reduce_scatter": 0}
+    for path, leaf in tree_flatten_with_paths(shapes):
+        item = leaf.dtype.itemsize
+        keep = kept if "/moe/w" in path else ()
+        split = [a for a in specs[path] if a is not None and sizes[a] > 1]
+        block = math.prod(leaf.shape) * item // math.prod(
+            sizes[a] for a in split)
+        summed = [a for a in batch if a not in keep]
+        split = [a for a in split if a not in keep]
+        if split:
+            passes = 2 if "blocks/" in path and pcfg.remat == "full" else 1
+            out["gather"] += block * passes * accum
+        scatter = [a for a in split if a in summed]
+        if scatter:
+            out["reduce_scatter"] += block * accum * math.prod(
+                sizes[a] for a in scatter)
+        if any(a not in split for a in summed):
+            out["reduce_scatter"] += block * accum
+    return out
+
+
+def mesh_shape_only(shape, axes=("data", "model")):
+    """A stand-in mesh of ``shape`` over ``axes`` (rank 0, no process
+    group behind it) for :func:`wire_prediction` off the card."""
+    from repro_torch.parallel.mesh_utils import Mesh
+    return Mesh(tuple(axes), dict(zip(axes, shape)), object(), 0,
+                math.prod(shape), "cpu", "gloo")
 
 
 def mesh_lm_pcfg(mesh, **kw):
@@ -3535,6 +3611,67 @@ def mesh_reference(torch, cfg, seed: int, batch, tmp: Path) -> dict:
     return {"loss": loss, "grad_norm": gnorm}
 
 
+def accum_reference(torch, cfg, seed: int, batch, tmp: Path) -> dict:
+    """(14b)'s reference on the card: the single-device step accumulating
+    ``MESH_ACCUM`` microbatches of ``batch`` (phase 8's knobs) from
+    ``seed``'s parameters, and what the mesh's ranks compute of it: in
+    each microbatch the rows' gradients weighted by each row's share of
+    its valid tokens and summed, rounded to the parameters' type as the
+    reduce-scatter hands it back; the microbatches' sums averaged in
+    float32.  Both gradients go to ``tmp/ref_accum.pt`` (``whole``
+    rounded to the parameters' type, ``rowsumaccum`` float32); returns
+    the accumulated step's loss and gradient norm."""
+    from repro_torch.models import model
+    from repro_torch.train import optim, step
+    from repro_torch.utils.pytree import tree_flatten_with_paths, tree_leaves
+    t = time.perf_counter()
+    params = model.init_params(cfg, torch.Generator().manual_seed(seed),
+                               batch["inputs"].device)
+    dtypes = [p.dtype for p in tree_leaves(params)]
+    (loss, _), grads = step._value_and_grad_accum(
+        params, batch, cfg=cfg, pcfg=train_pcfg().with_(
+            accum_steps=MESH_ACCUM))
+    gnorm = float(optim.global_norm(grads))
+    flat = tree_flatten_with_paths(grads)
+    del grads
+    acc = [torch.zeros(g.shape, dtype=torch.float32, device=g.device)
+           for _, g in flat]
+    k = batch["labels"].shape[0] // MESH_ACCUM
+    for i in range(MESH_ACCUM):
+        micro = {n: v[i * k:(i + 1) * k] for n, v in batch.items()}
+        tokens = (micro["labels"] >= 0).sum().float()
+        part = [torch.zeros_like(a) for a in acc]
+        for r in range(k):
+            row = {n: v[r:r + 1] for n, v in micro.items()}
+            _, g_r = step._value_and_grad_accum(
+                params, row, cfg=cfg, pcfg=train_pcfg(),
+                loss_scale=(row["labels"] >= 0).sum().float() / tokens)
+            for a, g in zip(part, tree_leaves(g_r)):
+                a.add_(g.float())
+            del g_r
+        for a, m, dt in zip(acc, part, dtypes):
+            a.add_(m.to(dt).float() / MESH_ACCUM)
+        del part
+    del params
+    spread = {p: _rel(torch, g, a) for (p, g), a in zip(flat, acc)}
+    torch.save({"whole": {p: g.to(dt).cpu()
+                          for (p, g), dt in zip(flat, dtypes)},
+                "rowsumaccum": {p: a.cpu() for a, (p, _) in zip(acc, flat)}},
+               tmp / "ref_accum.pt")
+    del acc, flat
+    gc.collect()
+    torch.cuda.empty_cache()
+    worst = max(spread, key=spread.get)
+    print(f"mesh accum: single-device step of {cfg.name} cut to "
+          f"{cfg.n_layers} layers accumulating {MESH_ACCUM} microbatches "
+          f"of batch {batch['inputs'].shape[0]} x {batch['inputs'].shape[1]}"
+          f": loss {float(loss):.6f} grad_norm {gnorm:.4f}; its gradient "
+          f"differs from the rows' token-weighted sums averaged over the "
+          f"microbatches by {spread[worst]:.3e} relative L2 at most "
+          f"({worst}); {time.perf_counter() - t:.2f}s")
+    return {"loss": float(loss), "grad_norm": gnorm}
+
+
 def pod_single_step(torch, cfg, seed: int, tmp: Path, seq) -> float:
     """Phase 15's one-rank reference: the cut model on the card, one row
     (a pod's share), 2 steps; returns the second step's seconds."""
@@ -3563,15 +3700,15 @@ def _checksums(torch, tree) -> list:
 
 def _mesh_spans(torch, spans: dict) -> contextlib.ExitStack:
     """``MESH_SPANS``' functions wrapped to append their seconds (the card
-    synchronised before and after) to ``spans[name]``; the MoE's
-    exchanges (``MOE_EXCHANGE``, forward, recompute and backward, inside
-    ``fwd_bwd``) are timed the same way and their sum over a step appended
-    to ``spans["moe_exchange"]`` when the step's ``fwd_bwd`` ends."""
+    synchronised before and after) to ``spans[name]``; the wire calls of
+    ``MESH_INNER`` inside ``fwd_bwd`` (forward, recompute and backward)
+    are timed the same way and each name's sum over a step appended to
+    ``spans[name]`` when the step's ``fwd_bwd`` ends."""
     from repro_torch.parallel import sharded
     from repro_torch.train import optim, step
     modules = {"sharded": sharded, "step": step, "optim": optim}
     stack = contextlib.ExitStack()
-    inner = [0.0]
+    inner = dict.fromkeys(MESH_INNER, 0.0)
 
     def timed_call(fn, a, kw):
         torch.cuda.synchronize()
@@ -3585,26 +3722,45 @@ def _mesh_spans(torch, spans: dict) -> contextlib.ExitStack:
             out, secs = timed_call(_fn, a, kw)
             spans.setdefault(_name, []).append(secs)
             if _name == "fwd_bwd":
-                spans.setdefault("moe_exchange", []).append(inner[0])
-                inner[0] = 0.0
+                for k in inner:
+                    spans.setdefault(k, []).append(inner[k])
+                    inner[k] = 0.0
             return out
         stack.enter_context(patched(modules[mod], attr, timed))
-    for attr in MOE_EXCHANGE:
-        def exchange(*a, _fn=getattr(sharded, attr), **kw):
-            out, secs = timed_call(_fn, a, kw)
-            inner[0] += secs
-            return out
-        stack.enter_context(patched(sharded, attr, exchange))
+    for name, attrs in MESH_INNER.items():
+        for attr in attrs:
+            def wire(*a, _fn=getattr(sharded, attr), _name=name, **kw):
+                out, secs = timed_call(_fn, a, kw)
+                inner[_name] += secs
+                return out
+            stack.enter_context(patched(sharded, attr, wire))
     return stack
 
 
+def span_parts(tr) -> str:
+    """A rank's steps by part, from ``_rank_train``'s spans."""
+    parts = []
+    for i, (_, _, s) in enumerate(tr["steps"]):
+        sp = {n: tr["spans"][n][i] for n in tr["spans"]}
+        rest = s - sp["fwd_bwd"] - sp["update"]
+        parts.append(
+            f"step {i + 1}: fwd_bwd {sp['fwd_bwd']:.4f} (of it: " + " ".join(
+                f"{n} {sp[n]:.4f}" for n in MESH_INNER)
+            + f"; compute and the rest {sp['fwd_bwd'] - sum(sp[n] for n in MESH_INNER):.4f})"
+            f" norm {sp['norm']:.4f} update {sp['update']:.4f} other "
+            f"{rest:.4f}")
+    return "; ".join(parts)
+
+
 def _rank_train(torch, rank: int, seed: int, tmp: Path, cfg, seq,
-                shape=(MESH_LM_RANKS, 1), run="", **pcfg_kw) -> dict:
-    """(14, 21) the model, 2 steps on the ``(data, model) = shape`` mesh
-    (phase 8's knobs and ``pcfg_kw``), each step's parts timed
-    (``MESH_SPANS``, the MoE's exchanges); the step-1 gradient blocks held
-    against the reference's row sum (``rowsum`` + ``run`` in its file,
-    ``MESH_ROWSUM_REL``) and measured against its whole-batch gradient."""
+                shape=(MESH_LM_RANKS, 1), run="", batch=TRAIN_BATCH,
+                ref="ref.pt", **pcfg_kw) -> dict:
+    """(14, 14b, 21) the model, 2 steps on the ``(data, model) = shape``
+    mesh over a global batch of ``batch`` rows (phase 8's knobs and
+    ``pcfg_kw``), each step's parts timed (``MESH_SPANS``, ``MESH_INNER``);
+    the step-1 gradient blocks held against the reference's row sum
+    (``rowsum`` + ``run`` in ``tmp / ref``, ``MESH_ROWSUM_REL``)
+    and measured against its whole-batch gradient (``whole``)."""
     from repro_torch.kernels.flash_attention import kernel as fkernel
     from repro_torch.kernels.rg_lru_scan import kernel as lkernel
     from repro_torch.launch.mesh import make_mesh_compat
@@ -3615,7 +3771,7 @@ def _rank_train(torch, rank: int, seed: int, tmp: Path, cfg, seq,
     check(mesh.host_staged,
           f"rank {rank}: mesh on {mesh.device} over {mesh.backend}")
     _, _, pipe = train_data(torch, tmp / f"train{run}{rank}", cfg, seed,
-                            seq=seq)
+                            batch=batch, seq=seq)
     t = time.perf_counter()
     trainer = Trainer(cfg, mesh_lm_pcfg(mesh, **pcfg_kw), TrainerConfig(
         steps=MESH_STEPS, ckpt_every=2 ** 62, log_every=1, seed=seed), pipe,
@@ -3626,7 +3782,7 @@ def _rank_train(torch, rank: int, seed: int, tmp: Path, cfg, seq,
 
     def held(params, grads, state, *a, **kw):
         if not worst:                       # step 1's gradient blocks
-            want = torch.load(tmp / "ref.pt", mmap=True)
+            want = torch.load(tmp / ref, mmap=True)
             for (path, g), s in zip(tree_flatten_with_paths(grads),
                                     tree_leaves(kw["specs"])):
                 sl = sharded.block_slices(s, want["whole"][path].shape, mesh)
@@ -3649,11 +3805,16 @@ def _rank_train(torch, rank: int, seed: int, tmp: Path, cfg, seq,
                 lkernel.backward_launches)
     wire = {k: v // MESH_STEPS for k, v in sharded.WIRE.items()}
     peak = torch.cuda.max_memory_allocated()
+    trainer_pcfg = trainer.pcfg
     del trainer
     gc.collect()
     torch.cuda.empty_cache()
     walls = [h["wall_s"] for h in hist]
     return {"build_s": build_s, "launches": launches, "wire": wire,
+            "predicted": wire_prediction(cfg, trainer_pcfg),
+            "mesh": "(data, model) = "
+            f"{tuple(shape)}" + "".join(f", {k}={v}" for k, v in
+                                        pcfg_kw.items()),
             "peak": peak, "worst": worst, "spans": spans,
             "steps": [(h["loss"], h["grad_norm"], s) for h, s in
                       zip(hist, np.diff([0.0] + walls))]}
@@ -3802,22 +3963,32 @@ def lm_mesh_rank(rank: int, world: int, seed: int, tmp: str, cfg,
     t = time.perf_counter()
     out = {"train": _rank_train(torch, rank, seed, tmp, cfg, seq)}
     out["train_s"] = time.perf_counter() - t
-    out["ckpt"] = _rank_ckpt(torch, rank, seed, tmp, cfg)
-    out["ckpt_s"] = time.perf_counter() - t - out["train_s"]
     t = time.perf_counter()
-    out["pod"] = _rank_pod(torch, rank, seed, tmp, cfg, seq)
+    out["accum"] = _rank_train(
+        torch, rank, seed, tmp, cfg.replace(n_layers=POD_LAYERS), seq,
+        run="accum", batch=ACCUM_BATCH, ref="ref_accum.pt",
+        accum_steps=MESH_ACCUM)
+    out["accum_s"] = time.perf_counter() - t
+    t = time.perf_counter()
+    out["ckpt"] = _rank_ckpt(torch, rank, seed, tmp, cfg)
+    out["ckpt_s"] = time.perf_counter() - t
+    t = time.perf_counter()
+    out["pod"] = _rank_pod(torch, rank, seed, tmp, cfg, POD_SEQ)
     out["pod_s"] = time.perf_counter() - t
     return out
 
 
-def check_mesh_train(cfg, res, ref) -> None:
-    """Phase 14's bands, per rank."""
+def check_mesh_train(cfg, res, ref, key="train", passes=1,
+                     falls=True) -> None:
+    """Phase 14's bands, per rank, on each rank's ``res[r][key]`` (a
+    row a rank and step, ``passes`` times: the microbatches); the loss
+    falling where ``falls``."""
     n_attn = cfg.n_groups * sum(s in "AL" for s in cfg.block_pattern)
     n_rec = cfg.n_groups * cfg.block_pattern.count("R")
-    want = (2 * n_attn * MESH_STEPS, 2 * n_rec * MESH_STEPS,
-            n_rec * MESH_STEPS)
+    want = tuple(passes * MESH_STEPS * n for n in
+                 (2 * n_attn, 2 * n_rec, n_rec))
     for r, out in enumerate(res):
-        tr = out["train"]
+        tr = out[key]
         loss1, norm1, _ = tr["steps"][0]
         check(abs(loss1 - ref["loss"]) <= MESH_LOSS_REL * abs(ref["loss"]),
               f"rank {r}: step-1 loss {loss1} against the single device's "
@@ -3833,11 +4004,44 @@ def check_mesh_train(cfg, res, ref) -> None:
               f"{MESH_ROWSUM_REL})")
         check(tr["launches"] == want,
               f"rank {r}: launches (flash_attention, rg_lru_scan, backward) "
-              f"{tr['launches']}, one row's are {want}")
+              f"{tr['launches']}, its rows' are {want}")
         losses = [s[0] for s in tr["steps"]]
         check(all(math.isfinite(x) for x in losses)
-              and losses[-1] < losses[0],
+              and (losses[-1] < losses[0] or not falls),
               f"rank {r}: the loss did not fall: {losses}")
+        check(all(tr["wire"][k] == v for k, v in tr["predicted"].items()),
+              f"rank {r}: bytes a step {tr['wire']}, the leaf shapes "
+              f"predict {tr['predicted']}")
+
+
+def report_mesh_train(label: str, cfg, tr, seq: int, rows: int,
+                      card: str, before: str = "") -> None:
+    """A rank's steps, peak, bytes (beside their prediction), launches,
+    gradient blocks against the references, and its steps by part."""
+    secs = [s for _, _, s in tr["steps"]]
+    steady = statistics.median(secs[1:])
+    tokens = rows * seq
+    print(f"{label} ({cfg.name}, {cfg.n_layers} layers, {tr['mesh']}, "
+          f"gloo sharing the card, host-staged; {card}): steps "
+          + ", ".join(f"loss={l:.6f} grad_norm={n:.4f} step_s={s:.4f}"
+                      for l, n, s in tr["steps"])
+          + f"; step_s (median after the first) {steady:.4f}, "
+          f"{tokens / steady:.1f} tokens/s a rank; max_memory_allocated="
+          f"{tr['peak']}{f' ({before})' if before else ''}; bytes a step: "
+          + " ".join(f"{k} {v}" for k, v in tr["wire"].items())
+          + " (predicted from the leaf shapes: " + " ".join(
+              f"{k} {v}" for k, v in tr["predicted"].items())
+          + f"); launches flash_attention={tr['launches'][0]} "
+          f"rg_lru_scan={tr['launches'][1]} rg_lru_scan backward="
+          f"{tr['launches'][2]}; gradient blocks against the single "
+          f"device's token-weighted sum of the rows' gradients: worst "
+          f"{tr['worst']['rowsum'][0]:.3e} relative L2 "
+          f"({tr['worst']['rowsum'][1]}; bound {MESH_ROWSUM_REL}), "
+          f"against its whole-batch gradient: worst "
+          f"{tr['worst']['whole'][0]:.3e} ({tr['worst']['whole'][1]}); "
+          f"Trainer built in {tr['build_s']:.2f}s")
+    print(f"{label} seconds by part (host clock, the card synchronised "
+          f"around each; other is the rest of the step): {span_parts(tr)}")
 
 
 def check_mesh_ckpt(torch, cfg, res, seed: int, tmp: Path) -> None:
@@ -3898,9 +4102,15 @@ def mesh_lm_run(torch, seed: int, seq=MESH_SEQ):
         ref = mesh_reference(torch, cfg, seed, {
             k: torch.from_numpy(v).cuda() for k, v in host.items()}, tmp)
         cut = cfg.replace(n_layers=POD_LAYERS)
-        single_s = pod_single_step(torch, cut, seed, tmp / "single", seq)
+        _, ds, _ = train_data(torch, tmp / "ref_accum", cut, seed,
+                              batch=ACCUM_BATCH, seq=seq)
+        host, _ = next(ds.batches(ACCUM_BATCH, Cursor()))
+        ref["accum"] = accum_reference(torch, cut, seed, {
+            k: torch.from_numpy(v).cuda() for k, v in host.items()}, tmp)
+        single_s = pod_single_step(torch, cut, seed, tmp / "single",
+                                   POD_SEQ)
         print(f"mesh: one-rank step of {cut.name} cut to {POD_LAYERS} layers "
-              f"(one row of {seq}): {single_s:.4f}s")
+              f"(one row of {POD_SEQ}): {single_s:.4f}s")
         fresh_card(torch, "14-15", "before the ranks start")
         t = time.perf_counter()
         res = run_ranks(lm_mesh_rank, MESH_LM_RANKS,
@@ -3914,7 +4124,7 @@ def mesh_lm_run(torch, seed: int, seq=MESH_SEQ):
 
 def mesh_lm_phase(torch, seed: int) -> tuple:
     """Phases 14-15.  Returns each rank's (flash, scan, scan backward)
-    launches of phase 14's run."""
+    launches of phase 14's run and of its accumulation run (14b)."""
     from repro_torch.parallel.collectives import pod_efficiency_ratio
     seq = MESH_SEQ
     cfg, ref, single_s, res, spawn_s = mesh_lm_run(torch, seed, seq)
@@ -3922,46 +4132,29 @@ def mesh_lm_phase(torch, seed: int) -> tuple:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_lm_mesh_") as tmp:
         tmp = Path(tmp)
         card = card_line()
-        tokens = seq                           # a rank's row
         for r, out in enumerate(res):
-            tr = out["train"]
-            secs = [s for _, _, s in tr["steps"]]
-            steady = statistics.median(secs[1:])
-            parts = []
-            for i, s in enumerate(secs):
-                part = {n: tr["spans"][n][i] for n, _, _ in MESH_SPANS}
-                rest = s - sum(v for n, v in part.items() if n != "norm")
-                parts.append(f"step {i + 1}: " + " ".join(
-                    f"{n} {v:.4f}" for n, v in part.items())
-                    + f" other {rest:.4f}")
-            print(f"mesh train rank {r}/{MESH_LM_RANKS} ({cfg.name}, "
-                  f"(data, model) = (2, 1), gloo sharing the card, "
-                  f"host-staged; {card}): steps "
-                  + ", ".join(f"loss={l:.6f} grad_norm={n:.4f} "
-                              f"step_s={s:.4f}" for l, n, s in tr["steps"])
-                  + f"; step_s (median after the first) {steady:.4f}, "
-                  f"{tokens / steady:.1f} tokens/s a rank "
-                  f"({MESH_LM_RANKS * tokens / steady:.1f} for the mesh); "
-                  f"max_memory_allocated={tr['peak']}; bytes a step: "
-                  f"gather {tr['wire']['gather']} reduce_scatter "
-                  f"{tr['wire']['reduce_scatter']} norm {tr['wire']['norm']};"
-                  f" launches flash_attention={tr['launches'][0]} "
-                  f"rg_lru_scan={tr['launches'][1]} rg_lru_scan backward="
-                  f"{tr['launches'][2]}; gradient blocks against the single "
-                  f"device's sum of the rows' gradients: worst "
-                  f"{tr['worst']['rowsum'][0]:.3e} relative L2 "
-                  f"({tr['worst']['rowsum'][1]}; bound {MESH_ROWSUM_REL}), "
-                  f"against its whole-batch gradient: worst "
-                  f"{tr['worst']['whole'][0]:.3e} ({tr['worst']['whole'][1]}"
-                  f"); Trainer built in {tr['build_s']:.2f}s")
-            print(f"mesh train rank {r} seconds by part (host clock, the "
-                  f"card synchronised around each; update includes norm; "
-                  f"other is the rest of the step): {'; '.join(parts)}")
+            report_mesh_train(
+                f"mesh train rank {r}/{MESH_LM_RANKS}", cfg, out["train"],
+                seq, 1, card, f"the whole-tree step's peak a rank at 2,048 "
+                f"tokens, PR 21: {MESH_PEAK_WHOLE_TREE:.4g}")
         check_mesh_train(cfg, res, ref)
         print(f"mesh train: step-1 loss {res[0]['train']['steps'][0][0]:.6f} "
               f"against the single device's {ref['loss']:.6f}, grad_norm "
               f"{res[0]['train']['steps'][0][1]:.4f} against "
               f"{ref['grad_norm']:.4f}")
+        for r, out in enumerate(res):
+            report_mesh_train(f"mesh accum rank {r}/{MESH_LM_RANKS}", cut,
+                              out["accum"], seq, ACCUM_BATCH
+                              // MESH_LM_RANKS, card)
+        # (the cut model's loss is held to the reference's, not to fall:
+        # its first step moves few of its bf16 weights)
+        check_mesh_train(cut, res, ref["accum"], key="accum",
+                         passes=MESH_ACCUM, falls=False)
+        print(f"mesh accum: step-1 loss "
+              f"{res[0]['accum']['steps'][0][0]:.6f} against the single "
+              f"device's accumulated step's {ref['accum']['loss']:.6f}, "
+              f"grad_norm {res[0]['accum']['steps'][0][1]:.4f} against "
+              f"{ref['accum']['grad_norm']:.4f}")
         check_mesh_ckpt(torch, cfg, res, seed, tmp)
         check_pod(res)
         for r, out in enumerate(res):
@@ -3985,14 +4178,18 @@ def mesh_lm_phase(torch, seed: int) -> tuple:
                   f" (a gloo-on-one-card figure: both pods share the card "
                   f"and stage through the host)")
         print(f"mesh: phases 14-15 ranks: train {res[0]['train_s']:.1f}s, "
-              f"checkpoint {res[0]['ckpt_s']:.1f}s, pod {res[0]['pod_s']:.1f}s;"
+              f"accum {res[0]['accum_s']:.1f}s, checkpoint "
+              f"{res[0]['ckpt_s']:.1f}s, pod {res[0]['pod_s']:.1f}s;"
               f" {spawn_s:.1f}s with the spawn; the pods hold equal "
               f"parameters after the podwise step")
-    return [out["train"]["launches"] for out in res]
+    return ([out["train"]["launches"] for out in res],
+            [out["accum"]["launches"] for out in res])
 
 
 # ------------------------------------------------------------ phase 21
 MESH_MOE_LAYERS = 2             # of qwen3-moe-30b-a3b's 48, full width
+MESH_MOE_SEQ = 2048             # a rank's row
+MESH_MOE_PEAK_WHOLE_TREE = 23.68e9  # PR 23's peak a rank
 # run: (mesh shape over (data, model), layout, moe_dispatch)
 MESH_MOE_RUNS = {"tp": ((2, 1), "tp", "einsum"),
                  "a2a": ((1, 2), "fsdp", "a2a")}
@@ -4186,7 +4383,7 @@ def moe_mesh_phase(torch, seed: int) -> tuple:
     cfg = full.replace(n_layers=MESH_MOE_LAYERS)
     n_params = sum(math.prod(s.shape) for s in
                    tree_leaves(model.param_shapes(cfg)))
-    seq = MESH_SEQ
+    seq = MESH_MOE_SEQ
     print(f"mesh moe: {cfg.name} at full width (d_model {cfg.d_model}, "
           f"{cfg.n_experts} experts of width {cfg.moe_d_ff}, top-"
           f"{cfg.top_k}, {cfg.n_heads} / {cfg.n_kv_heads} heads of "
@@ -4211,39 +4408,12 @@ def moe_mesh_phase(torch, seed: int) -> tuple:
         shutil.rmtree(tmp, ignore_errors=True)
     card = card_line()
     launches = {}
-    for run, ((d, m), layout, dispatch) in MESH_MOE_RUNS.items():
+    for run in MESH_MOE_RUNS:
         for r, out in enumerate(res[run]):
-            tr = out["train"]
-            secs = [s for _, _, s in tr["steps"]]
-            parts = []
-            for i, s in enumerate(secs):
-                part = {n: tr["spans"][n][i] for n, _, _ in MESH_SPANS}
-                rest = s - sum(v for n, v in part.items() if n != "norm")
-                parts.append(f"step {i + 1}: " + " ".join(
-                    f"{n} {v:.4f}" for n, v in part.items())
-                    + f" (of fwd_bwd: moe_exchange "
-                    f"{tr['spans']['moe_exchange'][i]:.4f}) other "
-                    f"{rest:.4f}")
-            print(f"mesh moe {run} rank {r}/{MESH_LM_RANKS} ({cfg.name} cut "
-                  f"to {cfg.n_layers} layers, (data, model) = ({d}, {m}), "
-                  f"layout={layout}, moe_dispatch={dispatch}, gloo sharing "
-                  f"the card, host-staged; {card}): steps "
-                  + ", ".join(f"loss={l:.6f} grad_norm={n:.4f} "
-                              f"step_s={s:.4f}" for l, n, s in tr["steps"])
-                  + f"; max_memory_allocated={tr['peak']}; bytes a step: "
-                  + " ".join(f"{k} {v}" for k, v in tr["wire"].items())
-                  + f"; launches flash_attention={tr['launches'][0]}; "
-                  f"gradient blocks against the single device's sum of the "
-                  f"rows' gradients: worst {tr['worst']['rowsum'][0]:.3e} "
-                  f"relative L2 ({tr['worst']['rowsum'][1]}; bound "
-                  f"{MESH_ROWSUM_REL}), against its whole-batch gradient: "
-                  f"worst {tr['worst']['whole'][0]:.3e} "
-                  f"({tr['worst']['whole'][1]}); Trainer built in "
-                  f"{tr['build_s']:.2f}s")
-            print(f"mesh moe {run} rank {r} seconds by part (host clock, "
-                  f"the card synchronised around each; update includes "
-                  f"norm; other is the rest of the step): "
-                  f"{'; '.join(parts)}")
+            report_mesh_train(
+                f"mesh moe {run} rank {r}/{MESH_LM_RANKS}", cfg,
+                out["train"], seq, 1, card, "the whole-tree step's, PR 23: "
+                f"{MESH_MOE_PEAK_WHOLE_TREE:.4g}")
         check_mesh_train(cfg, res[run], refs[run])
         loss1, norm1, _ = res[run][0]["train"]["steps"][0]
         print(f"mesh moe {run}: step-1 loss {loss1:.6f} against the "
@@ -4285,7 +4455,7 @@ def main() -> None:
     # of the full model need all but a few GiB of it, and after phases
     # 2-13 this process kept enough cached there that a rank ran out
     t = fresh_card(torch, 14)
-    mesh_launches = mesh_lm_phase(torch, args.seed)
+    mesh_launches, accum_launches = mesh_lm_phase(torch, args.seed)
     print(f"phases 14-15 done in {time.perf_counter() - t:.1f}s (at "
           f"{time.perf_counter() - t0:.1f}s)")
 
@@ -4425,6 +4595,8 @@ def main() -> None:
                                  "train": t_launches[0],
                                  "train_mesh": sum(x[0] for x in
                                                    mesh_launches),
+                                 "train_mesh_accum": sum(
+                                     x[0] for x in accum_launches),
                                  **moe_mesh_launches,
                                  "serve_" + MOE_ARCH: moe_launches[0],
                                  "serve_" + ENCDEC_ARCH: encdec_launches[0],
@@ -4434,10 +4606,14 @@ def main() -> None:
                                     held_launches.items()}}),
             ("rg_lru_scan", {"serve": lm_launches[1],
                              "train": t_launches[1],
-                             "train_mesh": sum(x[1] for x in mesh_launches)}),
+                             "train_mesh": sum(x[1] for x in mesh_launches),
+                             "train_mesh_accum": sum(
+                                 x[1] for x in accum_launches)}),
             ("rg_lru_scan_backward", {"train": t_launches[2],
                                       "train_mesh": sum(
-                                          x[2] for x in mesh_launches)})):
+                                          x[2] for x in mesh_launches),
+                                      "train_mesh_accum": sum(
+                                          x[2] for x in accum_launches)})):
         rows[name]["launches"] = sum(by_path.values())
         rows[name]["launches_by_path"] = by_path
     # the k-means path runs the fused entry and the partition path the

@@ -9,7 +9,9 @@ overlaps the step that runs; prefetch depth 2 also overlaps the
 host-side chunk reads.  On a mesh (``pcfg.mesh``) every rank reads the
 same global batch from Sector with the same cursor and keeps its rows
 (the JAX package places the global batch with ``batch_spec(pcfg,
-None)``: the leading dim split over the data axes).
+None)``: the leading dim split over the data axes), in the order the
+train step takes them (``train.step.local_batch``: its rows of each
+global microbatch in turn).
 """
 from __future__ import annotations
 
@@ -20,7 +22,6 @@ import torch
 
 from repro_torch.data.dataset import Cursor, SectorTokenDataset
 from repro_torch.device import mesh_device
-from repro_torch.parallel.sharded import batch_rows
 from repro_torch.parallel.sharding import ParallelConfig
 
 
@@ -35,10 +36,12 @@ class DataPipeline:
         self.cursor = Cursor()
 
     def _place(self, host_batch: dict) -> dict:
+        # imported here: the train package imports this module
+        from repro_torch.train.step import local_batch
         out = {}
-        for k, v in host_batch.items():
-            t = batch_rows(torch.from_numpy(v), self.pcfg.mesh,
-                           self.pcfg.data_axes)
+        rows = local_batch({k: torch.from_numpy(v)
+                            for k, v in host_batch.items()}, self.pcfg)
+        for k, t in rows.items():
             if self.device.type == "cuda":
                 t = t.pin_memory().to(self.device, non_blocking=True)
             else:

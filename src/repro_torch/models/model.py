@@ -14,6 +14,8 @@ step (``repro_torch.train.step``) takes its gradient.
 """
 from __future__ import annotations
 
+from functools import partial
+
 import torch
 
 from repro_torch.configs.base import ModelConfig
@@ -55,7 +57,34 @@ def _positions(tokens: torch.Tensor) -> torch.Tensor:
                         device=tokens.device)[None].expand(B, S)
 
 
-def _encode(params, frames, *, cfg, pcfg):
+def _stack_gather(gather, prefix: str):
+    """A unit's gather for ``stack_apply`` from a mesh step's ``gather``
+    (None without one)."""
+    return None if gather is None else partial(gather, prefix=prefix,
+                                               unit=True)
+
+
+def _gathered(params, batch: dict, gather, *, cfg):
+    """``params`` with every leaf outside the layer stacks whole, through
+    a mesh step's ``gather`` (``sharded.BlockGather``), and the stacks'
+    blocks as they are (``stack_apply`` gathers them a unit at a time);
+    a frontend the batch does not reach is left out.  ``params`` itself
+    without a gather."""
+    if gather is None:
+        return params
+    skip = {"blocks", "encoder"}
+    if cfg.frontend == "vision_patches" and "patch_embeds" not in batch:
+        skip.add("frontend")
+    out = gather({k: v for k, v in params.items() if k not in skip})
+    out["blocks"] = params["blocks"]
+    if "encoder" in params:
+        enc = params["encoder"]
+        out["encoder"] = {"blocks": enc["blocks"], **gather(
+            {"final_norm": enc["final_norm"]}, prefix="encoder")}
+    return out
+
+
+def _encode(params, frames, *, cfg, pcfg, gather=None):
     """The encoder memory ``[B, F, d]`` of ``frames [B, F, d]``: the frame
     projection, the encoder stack (non-causal) and its final norm."""
     x = transformer.project_frames(params, frames, cfg=cfg, pcfg=pcfg)
@@ -63,11 +92,12 @@ def _encode(params, frames, *, cfg, pcfg):
     x, _, _ = transformer.stack_apply(
         enc["blocks"], x, cfg=cfg, pcfg=pcfg,
         positions=_positions(x[..., 0]), mode="encode",   # [B, F]
-        n_groups=cfg.n_enc_layers // cfg.pattern_len)
+        n_groups=cfg.n_enc_layers // cfg.pattern_len,
+        gather=_stack_gather(gather, "encoder/blocks"))
     return common.rms_norm(x, enc["final_norm"]["scale"], cfg.norm_eps)
 
 
-def _embed_and_memory(params, batch: dict, *, cfg, pcfg):
+def _embed_and_memory(params, batch: dict, *, cfg, pcfg, gather=None):
     """The token embeddings, with vision patches spliced in where the
     batch carries them, and the encoder memory of an encoder-decoder's
     ``enc_frames`` (else None)."""
@@ -77,36 +107,49 @@ def _embed_and_memory(params, batch: dict, *, cfg, pcfg):
                                        batch["patch_pos"], cfg=cfg, pcfg=pcfg)
     memory = None
     if cfg.is_encoder_decoder:
-        memory = _encode(params, batch["enc_frames"], cfg=cfg, pcfg=pcfg)
+        memory = _encode(params, batch["enc_frames"], cfg=cfg, pcfg=pcfg,
+                         gather=gather)
     return x, memory
 
 
 def _backbone(params, batch: dict, *, cfg: ModelConfig,
-              pcfg: ParallelConfig, mode: str):
+              pcfg: ParallelConfig, mode: str, gather=None):
     """Embed + frontends + stack. Returns (pre-head hiddens, aux)."""
-    x, memory = _embed_and_memory(params, batch, cfg=cfg, pcfg=pcfg)
+    x, memory = _embed_and_memory(params, batch, cfg=cfg, pcfg=pcfg,
+                                  gather=gather)
     x, _, aux = transformer.stack_apply(
         params["blocks"], x, cfg=cfg, pcfg=pcfg,
-        positions=_positions(batch["inputs"]), mode=mode, memory=memory)
+        positions=_positions(batch["inputs"]), mode=mode, memory=memory,
+        gather=_stack_gather(gather, "blocks"))
     return x, aux
 
 
 def forward(params, batch: dict, *, cfg: ModelConfig,
-            pcfg: ParallelConfig = NO_PARALLEL, mode: str = "train"):
+            pcfg: ParallelConfig = NO_PARALLEL, mode: str = "train",
+            gather=None):
     """Full-sequence forward. Returns (logits, aux_loss)."""
-    x, aux = _backbone(params, batch, cfg=cfg, pcfg=pcfg, mode=mode)
+    params = _gathered(params, batch, gather, cfg=cfg)
+    x, aux = _backbone(params, batch, cfg=cfg, pcfg=pcfg, mode=mode,
+                       gather=gather)
     logits = transformer.lm_logits(params, x, cfg=cfg, pcfg=pcfg)
     return logits, aux
 
 
 def loss_fn(params, batch: dict, *, cfg: ModelConfig,
-            pcfg: ParallelConfig = NO_PARALLEL):
+            pcfg: ParallelConfig = NO_PARALLEL, gather=None):
     """Training loss of ``batch`` (``inputs``, ``labels`` [B, T] int32,
     -1 = ignore). Returns (loss, metrics).  With ``pcfg.fused_head`` (and
     no logit soft-cap) the head and the cross-entropy run chunk by chunk
-    (``fused_cross_entropy``); otherwise over materialised logits."""
+    (``fused_cross_entropy``); otherwise over materialised logits.
+
+    ``gather`` (port-only; a mesh train step's ``sharded.BlockGather``)
+    takes ``params`` as this rank's blocks: the leaves outside the
+    stacks are gathered whole here, once, and each pattern unit inside
+    ``transformer.stack_apply``.  Without it ``params`` are whole."""
     if pcfg.fused_head and not cfg.logit_softcap:
-        x, aux = _backbone(params, batch, cfg=cfg, pcfg=pcfg, mode="train")
+        params = _gathered(params, batch, gather, cfg=cfg)
+        x, aux = _backbone(params, batch, cfg=cfg, pcfg=pcfg, mode="train",
+                           gather=gather)
         x = common.rms_norm(x, params["final_norm"]["scale"], cfg.norm_eps)
         tied = cfg.tie_embeddings
         w = params["embed"]["w"] if tied else params["lm_head"]["w"]
@@ -116,7 +159,7 @@ def loss_fn(params, batch: dict, *, cfg: ModelConfig,
             unroll=pcfg.unroll_scans)
     else:
         logits, aux = forward(params, batch, cfg=cfg, pcfg=pcfg,
-                              mode="train")
+                              mode="train", gather=gather)
         loss, metrics = cross_entropy(logits, batch["labels"],
                                       real_vocab=cfg.vocab_size)
     metrics["aux_loss"] = aux

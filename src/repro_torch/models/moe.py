@@ -174,6 +174,18 @@ def _batch_ranks(pcfg: ParallelConfig):
     return MeshRanks(mesh, axes)
 
 
+def a2a_route(cfg: ModelConfig, pcfg: ParallelConfig) -> bool:
+    """Whether ``apply`` takes the expert all-to-all (:func:`_apply_a2a`):
+    ``moe_dispatch="a2a"`` under ``layout="fsdp"`` on a mesh of several
+    ``model`` ranks over which the experts split evenly.  A mesh train
+    step then gathers the experts over their other axes only
+    (``train/step.py``): each rank reads its own experts alone."""
+    ranks = _batch_ranks(pcfg)
+    return (pcfg.moe_dispatch == "a2a" and pcfg.layout == "fsdp"
+            and ranks is not None and ranks.model_size > 1
+            and cfg.n_experts % ranks.model_size == 0)
+
+
 def apply(params: dict, x: torch.Tensor, *, cfg: ModelConfig,
           pcfg: ParallelConfig):
     """x: [B, T, d] -> (out [B, T, d], aux_loss scalar).  On a mesh that
@@ -184,9 +196,7 @@ def apply(params: dict, x: torch.Tensor, *, cfg: ModelConfig,
         raise ValueError(mode)
     ranks = _batch_ranks(pcfg)
     if mode == "a2a":
-        if ranks is not None and pcfg.layout == "fsdp" \
-                and ranks.model_size > 1 \
-                and cfg.n_experts % ranks.model_size == 0:
+        if a2a_route(cfg, pcfg):
             return _apply_a2a(params, x, cfg=cfg, ranks=ranks)
         mode = "gather"  # the JAX package's meshless / TP fallback
     if ranks is not None:
@@ -291,9 +301,11 @@ def _apply_a2a(params, x, *, cfg: ModelConfig, ranks):
     batch rank with ``frac_tok`` over the count of top-1 slots.  Dropped
     slots land in an extra slot of each expert, sliced off (the JAX
     package's out-of-range writes); the combine is each token's sum of
-    its ``k`` slots (the JAX scatter-add over tokens).  Only this rank's
-    experts reach its FFN, so the others' gradients are zero here and
-    the step's sum over the batch ranks puts each in place."""
+    its ``k`` slots (the JAX scatter-add over tokens).  ``wi`` / ``wg`` /
+    ``wo`` are this rank's ``E_loc`` experts, as a mesh train step
+    gathers them (:func:`a2a_route`), or all ``E``, of which the rank
+    reads its own; the others' gradients are then zero here and a sum
+    over the batch ranks puts each in place."""
     B, T, d = x.shape
     E, k = cfg.n_experts, cfg.top_k
     M, m = ranks.model_size, ranks.model_index
@@ -321,10 +333,12 @@ def _apply_a2a(params, x, *, cfg: ModelConfig, ranks):
     recv = ranks.exchange(send.view(M, E_loc, cap, d))
 
     xe = recv.transpose(0, 1).reshape(E_loc, M * cap, d)
-    mine = slice(m * E_loc, (m + 1) * E_loc)
-    h = act(torch.einsum("ecd,edf->ecf", xe, params["wg"][mine])) \
-        * torch.einsum("ecd,edf->ecf", xe, params["wi"][mine])
-    ye = torch.einsum("ecf,efd->ecd", h, params["wo"][mine])
+    wi, wg, wo = (params[k] if params[k].shape[0] == E_loc
+                  else params[k][m * E_loc:(m + 1) * E_loc]
+                  for k in ("wi", "wg", "wo"))
+    h = act(torch.einsum("ecd,edf->ecf", xe, wg)) \
+        * torch.einsum("ecd,edf->ecf", xe, wi)
+    ye = torch.einsum("ecf,efd->ecd", h, wo)
     back = ye.view(E_loc, M, cap, d).transpose(0, 1).contiguous()
     ret = ranks.exchange(back).reshape(E * cap, d)        # [E, cap, d]
 

@@ -28,7 +28,7 @@ from __future__ import annotations
 
 import math
 from functools import partial
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
@@ -298,7 +298,8 @@ def _remat_wrap(fn, pcfg: ParallelConfig, mode: str):
 
 def stack_apply(blocks_params, x, *, cfg: ModelConfig, pcfg: ParallelConfig,
                 positions, mode: str, caches=None, memory=None,
-                n_groups: Optional[int] = None, max_len: int = 0):
+                n_groups: Optional[int] = None, max_len: int = 0,
+                gather: Optional[Callable] = None):
     """Run the full stack. Returns (x, new_caches, aux).
 
     ``caches`` is required for decode, ignored for train / encode, and
@@ -308,11 +309,22 @@ def stack_apply(blocks_params, x, *, cfg: ModelConfig, pcfg: ParallelConfig,
     config's: the decoder's).  The new caches are stacked over groups, as
     the JAX package's scan emits them; ``aux`` sums the units' aux losses
     (zero without MoE).
+
+    ``gather`` (a mesh train step's, port-only) makes one unit's whole
+    parameters from its slice of the stacked blocks; it runs inside the
+    unit's remat wrapper, as XLA gathers inside the JAX package's scan
+    body: under ``remat="full"`` the recompute gathers the unit again,
+    no whole unit outlives its forward, and its whole gradient lives
+    until its backward reduce-scatters it.  Under ``remat="none"``
+    autograd keeps each gathered unit for the backward, as it keeps any
+    activation, so every unit is whole until then.
     """
     n_groups = n_groups or cfg.n_groups
     emit_cache = mode == "prefill" or caches is not None
 
     def body(h, unit_params, unit_cache):
+        if gather is not None:
+            unit_params = gather(unit_params)
         return _unit_apply(unit_params, h, cfg=cfg, pcfg=pcfg,
                            positions=positions, mode=mode,
                            unit_cache=unit_cache, memory=memory,

@@ -12,8 +12,9 @@ blocks over them, row-major in the order named; a dim whose entry is
 included.
 
 * :func:`shard_tree` keeps each leaf's block (no communication);
-* :func:`gather_tree` all-gathers the blocks back to whole leaves;
-* :func:`reduce_scatter_grads` sums whole gradients over the batch axes
+* :func:`gather_tree` all-gathers the blocks back to whole leaves (the
+  checkpoints);
+* :func:`reduce_scatter_leaf` sums a whole gradient over the batch axes
   and leaves each rank its block of the sum: a ``SUM`` reduce-scatter
   over the batch axes that split the leaf, an all-reduce over those
   that do not;
@@ -22,7 +23,13 @@ included.
 * :func:`all_gather` and :func:`all_to_all` are collectives that
   autograd crosses (the MoE's token grouping, aux statistics and expert
   exchange on a mesh, ``models/moe.py``): the backward of each is the
-  matching reverse collective.
+  matching reverse collective;
+* :func:`gather_block` is :func:`gather_leaf` as autograd crosses it,
+  with :func:`reduce_scatter_leaf` for its backward, and
+  :class:`BlockGather` applies it to the subtrees a mesh train step
+  hands the model (``train/step.py``): the leaves outside the layer
+  stack once a microbatch, each pattern unit inside the unit's remat
+  wrapper, as XLA gathers inside the JAX package's ``lax.scan``.
 
 Every rank calls each function on the same tree in the same order (the
 collectives pair up leaf by leaf; none is skipped for an empty block).
@@ -44,8 +51,9 @@ import torch.distributed as dist
 
 from repro_torch.core.spmd import _from_wire, _to_wire
 from repro_torch.parallel.mesh_utils import Mesh
+from repro_torch.parallel.sharding import P
 from repro_torch.utils.pytree import (tree_flatten_with_paths, tree_leaves,
-                                      tree_unflatten)
+                                      tree_map_with_path, tree_unflatten)
 
 # bytes this rank handed to the gathers, the reduce-scatters (and the
 # all-reduces that stand for them over an axis that does not split a
@@ -196,27 +204,9 @@ def reduce_scatter_leaf(g: torch.Tensor, spec, mesh: Mesh,
         out = _from_wire(out.view(block_shape), mesh)
     else:
         out = local_block(g, spec, mesh)
+        if out is g and reduce:     # the all-reduce writes its own copy
+            out = g.clone(memory_format=torch.contiguous_format)
     return all_reduce(out, mesh, reduce, wire=(WIRE, "reduce_scatter"))
-
-
-def reduce_scatter_grads(grads, specs, mesh: Mesh, batch_axes):
-    """:func:`reduce_scatter_leaf` over a tree, leaf by leaf.  Each whole
-    gradient is dropped from ``grads`` (a dict tree, left holding None)
-    once its block is made, so whole and blocks never coexist beyond one
-    leaf."""
-    paths = [p for p, _ in tree_flatten_with_paths(grads)]
-    out = [reduce_scatter_leaf(_take(grads, path), s, mesh, batch_axes)
-           for path, s in zip(paths, tree_leaves(specs))]
-    return tree_unflatten(specs, out)
-
-
-def _take(tree: dict, path: str):
-    """The leaf at ``path``, left as None in ``tree``."""
-    *head, last = path.split("/")
-    for k in head:
-        tree = tree[k]
-    x, tree[last] = tree[last], None
-    return x
 
 
 def owns(spec, ndim: int, mesh: Mesh) -> bool:
@@ -343,3 +333,80 @@ def all_to_all(x: torch.Tensor, mesh: Mesh, axes) -> torch.Tensor:
     ranks of ``axes``); its gradient is the same exchange of the
     gradient."""
     return _AllToAll.apply(x, mesh, mesh.mesh_axes(axes))
+
+
+# ------------------------------------------------ a mesh step's parameters
+def without_axes(spec, shape, mesh: Mesh, keep) -> tuple:
+    """(``spec`` with the axes ``keep`` left out, the shape of the block
+    those axes alone cut from a whole leaf of ``shape``).  A dim split
+    over several axes must name the kept ones first (outermost), so that
+    the rest of its split is one contiguous run of the kept block."""
+    keep = tuple(a for a in keep if mesh.shape.get(a, 1) > 1)
+    if not keep:
+        return spec, tuple(shape)
+    entries, shape = list(spec), list(shape)
+    for d, names in _split_dims(spec, len(shape), mesh):
+        kept = tuple(a for a in names if a in keep)
+        if not kept:
+            continue
+        if names[:len(kept)] != kept:
+            raise ValueError(f"dim {d} of spec {spec} splits over {names}: "
+                             f"the kept axes {kept} must lead it")
+        rest = tuple(a for a in names if a not in keep)
+        entries[d] = (rest if len(rest) > 1 else rest[0]) if rest else None
+        shape[d] //= mesh.axes_size(kept)
+    return P(*entries), tuple(shape)
+
+
+class _GatherBlock(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, spec, shape, mesh, batch_axes):
+        ctx.spec, ctx.mesh, ctx.batch_axes = spec, mesh, batch_axes
+        return gather_leaf(x, spec, shape, mesh)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (reduce_scatter_leaf(g, ctx.spec, ctx.mesh, ctx.batch_axes),
+                None, None, None, None)
+
+
+def gather_block(x: torch.Tensor, spec, shape, mesh: Mesh, batch_axes,
+                 keep=()) -> torch.Tensor:
+    """The whole leaf of ``shape`` from this rank's block ``x``
+    (:func:`gather_leaf`), through autograd: the gradient of ``x`` is
+    :func:`reduce_scatter_leaf` of the whole one over ``batch_axes``,
+    the sum over the batch ranks cut to this rank's block.  Along the
+    axes ``keep`` nothing is gathered (the result is the block those
+    axes cut, :func:`without_axes`) and nothing is summed: the rank's
+    gradient there is already its block's whole one (an MoE's own
+    experts after the expert all-to-all's backward).  The bytes count
+    under ``WIRE``'s ``gather`` and ``reduce_scatter``."""
+    spec, shape = without_axes(spec, shape, mesh, keep)
+    kept = mesh.mesh_axes(keep)
+    axes = tuple(a for a in mesh.mesh_axes(batch_axes) if a not in kept)
+    return _GatherBlock.apply(x, spec, shape, mesh, axes)
+
+
+class BlockGather:
+    """A mesh train step's parameter gather, handed to ``model.loss_fn``:
+    ``gather(tree, prefix)`` is the subtree ``tree`` of this rank's
+    blocks at path ``prefix`` of the parameter tree, each leaf whole
+    (:func:`gather_block`); with ``unit=True`` ``tree`` is one group
+    ``[g]`` of the stacked leaves at ``prefix`` (the stacks' leading
+    group dim is never split, so its block is the unit's block).
+    ``keep(path)`` names the axes a leaf is not gathered over."""
+
+    def __init__(self, specs, shapes, mesh: Mesh, batch_axes, keep):
+        self.specs = dict(tree_flatten_with_paths(specs))
+        self.shapes = {p: tuple(s.shape)
+                       for p, s in tree_flatten_with_paths(shapes)}
+        self.mesh, self.batch_axes, self.keep = mesh, batch_axes, keep
+
+    def __call__(self, tree, prefix: str = "", unit: bool = False):
+        def one(path, x):
+            spec, shape = self.specs[path], self.shapes[path]
+            if unit:
+                spec, shape = P(*tuple(spec)[1:]), shape[1:]
+            return gather_block(x, spec, shape, self.mesh, self.batch_axes,
+                                self.keep(path))
+        return tree_map_with_path(one, tree, prefix)

@@ -10,21 +10,28 @@ followed by the AdamW update.  On a mesh (``pcfg.mesh``, one
 of the global batch (:func:`local_batch`), in the JAX package's two
 modes:
 
-  * ``pjit`` — what XLA does under one global jit, by hand: the blocks
-    are all-gathered into whole parameters, the rank's rows run forward
-    and backward, the whole gradients are reduce-scattered (summed over
-    the batch axes) back to blocks, and AdamW updates the blocks.  The
-    loss and metrics are the global token-weighted means, as over the
-    global batch: each rank's loss is weighted by its share of the
-    valid tokens before the backward.  Under ``layout="tp"`` the ranks of
-    one ``model`` group compute the same rows (the JAX package splits
-    the heads and FFN columns over them instead; the values are the
-    same).  An MoE layer groups tokens, drops slots and takes its aux
-    loss over the global batch, exchanging ids and statistics with the
-    other batch ranks, and under ``layout="fsdp"`` with
-    ``moe_dispatch="a2a"`` exchanges its slots with the other ``model``
-    ranks (:mod:`repro_torch.models.moe`).  Microbatch accumulation on a
-    mesh that splits the batch raises (``ACCUM_MESH``).
+  * ``pjit`` — what XLA does under one global jit, by hand: the rank's
+    rows run forward and backward on whole parameters gathered from the
+    blocks through autograd (:class:`sharded.BlockGather`): the leaves
+    outside the layer stack once a microbatch, each pattern unit inside
+    its remat wrapper (``transformer.stack_apply``), where XLA gathers
+    inside the JAX package's ``lax.scan``.  Each gather's backward
+    reduce-scatters the unit's whole gradient (summed over the batch
+    axes) back to blocks, and AdamW updates the blocks.  The loss and
+    metrics are the global token-weighted means, as over the global
+    batch: each rank's loss is weighted by its share of the valid tokens
+    before the backward.  Under ``layout="tp"`` the ranks of one
+    ``model`` group compute the same rows (the JAX package splits the
+    heads and FFN columns over them instead; the values are the same).
+    An MoE layer groups tokens, drops slots and takes its aux loss over
+    the global batch, exchanging ids and statistics with the other batch
+    ranks, and under ``layout="fsdp"`` with ``moe_dispatch="a2a"``
+    exchanges its slots with the other ``model`` ranks
+    (:mod:`repro_torch.models.moe`), whose experts it then gathers over
+    their other axes only.  With ``accum_steps = n`` a rank's rows are
+    its rows of each global microbatch in turn (:func:`local_batch`), and
+    each microbatch is weighted, reduced and averaged as the JAX
+    package's scan over the global microbatches does.
   * ``podwise`` (with ``multi_pod``) — each pod runs the ``pjit`` step
     over its own ``("data", "model")`` ranks up to the gradient; then the
     **only cross-pod traffic** is the explicit (optionally compressed)
@@ -43,12 +50,13 @@ gradient reduction, stage 2 = optimizer UDF.
 """
 from __future__ import annotations
 
+import re
 from typing import Callable
 
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import model
+from repro_torch.models import model, moe
 from repro_torch.parallel import collectives, sharded
 from repro_torch.parallel.sharding import (NamedSharding, ParallelConfig, P,
                                            batch_spec, param_specs_for,
@@ -58,8 +66,7 @@ from repro_torch.utils.pytree import (tree_flatten_with_paths, tree_map,
                                       tree_map_with_path, tree_unflatten)
 
 METRIC_KEYS = ("nll", "z_loss", "accuracy", "tokens", "aux_loss")
-ACCUM_MESH = ("ROADMAP.md item 1.3h (per-layer gathering and microbatch "
-              "accumulation on the LM mesh)")
+_EXPERTS = re.compile(r"moe/w[igo]$")
 
 
 # ---------------------------------------------------------------------------
@@ -148,25 +155,49 @@ def train_state_specs(cfg: ModelConfig, pcfg: ParallelConfig,
 
 
 def local_batch(batch: dict, pcfg: ParallelConfig) -> dict:
-    """This rank's rows of a global batch: the leading dim split over the
-    data axes (``batch_spec``), row-major; the whole batch without a
-    mesh."""
-    if pcfg.mesh is None:
+    """This rank's rows of a global batch, the whole batch without a
+    mesh.  The rows of each global microbatch ``i`` (``accum_steps = n``:
+    global rows ``[i B / n, (i + 1) B / n)``) split over the data axes
+    row-major (``batch_spec``), this rank's block of each concatenated in
+    turn, so that the step's ``i``-th microbatch of its rows is its share
+    of the JAX package's ``i``-th.  The podwise step first takes the
+    pod's block of the global batch and splits that (the JAX package's
+    ``pod_body``: the pod's rows, then their microbatches).  Raises where
+    a microbatch does not split evenly over the ranks."""
+    mesh = pcfg.mesh
+    if mesh is None:
         return batch
-    return {k: sharded.batch_rows(v, pcfg.mesh, pcfg.data_axes)
-            for k, v in batch.items()}
+    n = max(pcfg.accum_steps, 1)
+    podwise = pcfg.mode == "podwise" and pcfg.multi_pod
+    axes = pcfg.with_(multi_pod=False).data_axes if podwise \
+        else pcfg.data_axes
+
+    def rows(x):
+        if podwise:
+            x = sharded.batch_rows(x, mesh, ("pod",))
+        if x.shape[0] % n:
+            raise ValueError(f"a batch of {x.shape[0]} rows does not split "
+                             f"into accum_steps={n} microbatches")
+        k = x.shape[0] // n
+        parts = [sharded.batch_rows(x[i * k:(i + 1) * k], mesh, axes)
+                 for i in range(n)]
+        return parts[0] if n == 1 else torch.cat(parts)
+    return {k: rows(v) for k, v in batch.items()}
 
 
 # ---------------------------------------------------------------------------
 # Train step
 # ---------------------------------------------------------------------------
 
-def _loss_and_grads(leaves, template, batch, *, cfg, pcfg, loss_scale=None):
+def _loss_and_grads(leaves, template, batch, *, cfg, pcfg, loss_scale=None,
+                    gather=None):
     """(loss, metrics, grads) of ``model.loss_fn`` at the parameters
-    ``leaves`` (in tree order), all detached; the gradient is that of
-    ``loss * loss_scale`` where a scale is given."""
+    ``leaves`` (in tree order; a mesh step's blocks with its ``gather``),
+    all detached; the gradient is that of ``loss * loss_scale`` where a
+    scale is given."""
     params = tree_unflatten(template, leaves)
-    loss, metrics = model.loss_fn(params, batch, cfg=cfg, pcfg=pcfg)
+    loss, metrics = model.loss_fn(params, batch, cfg=cfg, pcfg=pcfg,
+                                  gather=gather)
     # a leaf the batch does not reach (a vision frontend on text) gets
     # zeros, as from jax.grad
     grads = torch.autograd.grad(
@@ -176,24 +207,48 @@ def _loss_and_grads(leaves, template, batch, *, cfg, pcfg, loss_scale=None):
             grads)
 
 
-def _value_and_grad_accum(params, batch, *, cfg, pcfg, loss_scale=None):
+def _value_and_grad_accum(params, batch, *, cfg, pcfg, loss_scale=None,
+                          gather=None):
     """fwd/bwd with optional gradient accumulation over microbatches.
     Returns ((loss, metrics), grads), ``grads`` shaped like ``params``.
 
     Gradients are taken with respect to detached aliases of the parameter
     tensors (the same storage, no copy), so the parameters themselves need
     not require grad and the update may write them in place.  With
-    ``accum_steps > 1`` the global batch is split along dim 0 and run
+    ``accum_steps > 1`` the batch is split along dim 0 and run
     microbatch by microbatch, accumulating fp32 grads: activation memory
-    divides by ``accum_steps``.  ``loss_scale`` (a mesh rank's share of
-    the tokens) scales the gradient, not the returned loss."""
+    divides by ``accum_steps``.  ``loss_scale`` scales the gradient, not
+    the returned loss.
+
+    With a mesh step's ``gather`` (:class:`sharded.BlockGather`)
+    ``params`` are this rank's blocks and ``batch`` its rows
+    (:func:`local_batch`): each microbatch's loss is weighted by the
+    rank's share of that microbatch's valid tokens over the batch ranks,
+    the gathers' backward hands back the blocks of the gradient summed
+    over them, and the loss and metrics returned are each global
+    microbatch's (:func:`_global_metrics`), averaged over the
+    microbatches as the JAX package's scan averages them."""
     leaves = [p.detach().requires_grad_() for _, p in
               tree_flatten_with_paths(params)]
     n = pcfg.accum_steps
+
+    def run(mb):
+        scale = loss_scale
+        if gather is not None:
+            tokens = (mb["labels"] >= 0).sum().float()
+            total = sharded.all_reduce(tokens.clone(), gather.mesh,
+                                       gather.batch_axes)
+            scale = tokens / torch.clamp(total, min=1.0)
+        loss, metrics, grads = _loss_and_grads(
+            leaves, params, mb, cfg=cfg, pcfg=pcfg, loss_scale=scale,
+            gather=gather)
+        if gather is not None:
+            loss, metrics = _global_metrics(loss, metrics, gather.mesh,
+                                            gather.batch_axes)
+        return loss, metrics, grads
+
     if n <= 1:
-        loss, metrics, grads = _loss_and_grads(leaves, params, batch,
-                                               cfg=cfg, pcfg=pcfg,
-                                               loss_scale=loss_scale)
+        loss, metrics, grads = run(batch)
         return (loss, metrics), tree_unflatten(params, grads)
 
     micro = {k: x.reshape((n, x.shape[0] // n) + x.shape[1:])
@@ -205,11 +260,10 @@ def _value_and_grad_accum(params, batch, *, cfg, pcfg, loss_scale=None):
     acc_m = {k: torch.zeros((), dtype=torch.float32, device=dev)
              for k in METRIC_KEYS}
     for i in range(n):
-        loss, metrics, grads = _loss_and_grads(
-            leaves, params, {k: x[i] for k, x in micro.items()}, cfg=cfg,
-            pcfg=pcfg, loss_scale=loss_scale)
+        loss, metrics, grads = run({k: x[i] for k, x in micro.items()})
         for a, g in zip(acc_g, grads):
             a.add_(g.float() / n)
+        del grads
         acc_l = acc_l + loss / n
         acc_m = {k: acc_m[k] + metrics[k] / n for k in acc_m}
     return (acc_l, acc_m), tree_unflatten(params, acc_g)
@@ -231,16 +285,6 @@ def _global_metrics(loss, metrics, mesh, batch_axes):
     out = {"nll": v[1] / denom, "z_loss": v[2] / denom,
            "accuracy": v[3] / denom, "tokens": v[4], "aux_loss": aux}
     return v[0] / denom + aux, out
-
-
-def _check_mesh(pcfg: ParallelConfig, mesh, batch_axes,
-                podwise: bool) -> None:
-    split = mesh.axes_size(batch_axes) * (
-        mesh.shape.get("pod", 1) if podwise else 1)
-    if pcfg.accum_steps > 1 and split > 1:
-        raise NotImplementedError(
-            f"accum_steps={pcfg.accum_steps} on a mesh that splits the "
-            f"batch ({ACCUM_MESH})")
 
 
 def make_train_step(cfg: ModelConfig, pcfg: ParallelConfig,
@@ -269,20 +313,18 @@ def make_train_step(cfg: ModelConfig, pcfg: ParallelConfig,
     inner = pcfg.with_(multi_pod=False) if podwise else pcfg
     batch_axes = mesh.mesh_axes(a for a in inner.data_axes
                                 if a in mesh.shape)
-    _check_mesh(pcfg, mesh, batch_axes, podwise)
     pshapes = model.param_shapes(cfg)
     specs = param_specs_for(pshapes, pcfg)
+    # an MoE's experts under the expert all-to-all: each rank reads its
+    # own alone, so they are gathered over their other axes only
+    experts = ("model",) if moe.a2a_route(cfg, inner) else ()
+    gather = sharded.BlockGather(
+        specs, pshapes, mesh, batch_axes,
+        keep=lambda path: experts if _EXPERTS.search(path) else ())
 
     def step(params, opt_state, batch):
-        whole = sharded.gather_tree(params, specs, pshapes, mesh)
-        tokens = (batch["labels"] >= 0).sum().float()
-        total = sharded.all_reduce(tokens.clone(), mesh, batch_axes)
-        share = tokens / torch.clamp(total, min=1.0)
         (loss, metrics), grads = _value_and_grad_accum(
-            whole, batch, cfg=cfg, pcfg=inner, loss_scale=share)
-        del whole
-        grads = sharded.reduce_scatter_grads(grads, specs, mesh, batch_axes)
-        loss, metrics = _global_metrics(loss, metrics, mesh, batch_axes)
+            params, batch, cfg=cfg, pcfg=inner, gather=gather)
         new_ef = None
         if podwise:
             grads, new_ef = collectives.cross_pod_mean(

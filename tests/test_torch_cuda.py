@@ -1240,3 +1240,63 @@ def test_cuda_mesh_collectives_host_staged(cuda):
                 or np.array_equal(e_card, e_cpu), mode
         assert out["roundtrip"] and out["on_card"]
         np.testing.assert_allclose(out["norm"], out["whole_norm"], rtol=1e-6)
+
+
+def test_cuda_mesh_accumulated_step_on_one_rank_nccl(cuda, tmp_path):
+    """The mesh train step with ``accum_steps=2`` on a one-rank NCCL mesh
+    (every gather and reduce-scatter the identity, each microbatch's
+    token share 1) against the meshless accumulated step on the card,
+    reduced recurrentgemma-2b in float32 under full remat, rows with
+    unequal valid tokens: the loss and metrics within 1e-6, the updated
+    parameters and first moments within 1e-6 of each leaf's scale (the
+    global norm sums its leaves in another order), and the same kernel
+    launches."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_mesh_compat
+    from repro_torch.parallel.sharding import ParallelConfig
+    from repro_torch.train import optim
+    from repro_torch.train import step as tstep
+    from repro_torch.utils.pytree import tree_flatten_with_paths
+    cfg, p_cpu = _lm("recurrentgemma-2b")
+    toks = np.random.default_rng(3).integers(0, cfg.vocab_size, (4, 65))
+    labels = toks[:, 1:].astype(np.int32)
+    labels[1, :20] = -1
+    batch = {"inputs": torch.from_numpy(toks[:, :-1].astype(np.int32)),
+             "labels": torch.from_numpy(labels)}
+    ocfg = optim.AdamWConfig(lr=1e-2)
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/store",
+                            rank=0, world_size=1)
+    out = {}
+    try:
+        meshes = {"single": None,
+                  "mesh": make_mesh_compat((1, 1), ("data", "model"))}
+        for name, mesh in meshes.items():
+            pcfg = ParallelConfig(mesh=mesh, remat="full", fused_head=True,
+                                  head_chunk=32, accum_steps=2)
+            params = _to(p_cpu, cuda)
+            opt = optim.init_state(params, ocfg)
+            step = tstep.make_train_step(cfg, pcfg, ocfg,
+                                         optim.warmup_cosine(1e-2, 2, 10))
+            before = (fkernel.launches, lkernel.launches,
+                      lkernel.backward_launches)
+            params, opt, metrics = step(
+                params, opt, _to(tstep.local_batch(batch, pcfg), cuda))
+            torch.cuda.synchronize()
+            out[name] = (
+                {k: float(v) for k, v in metrics.items()},
+                [x.cpu() for _, x in tree_flatten_with_paths(
+                    {"p": params, "m": opt["m"]})],
+                tuple(now - then for now, then in zip(
+                    (fkernel.launches, lkernel.launches,
+                     lkernel.backward_launches), before)))
+    finally:
+        dist.destroy_process_group()
+    (gm, got, gl), (wm, want, wl) = out["mesh"], out["single"]
+    assert gl == wl and gl[0] > 0 and gl[2] > 0
+    assert gm["tokens"] == wm["tokens"] == (4 * 64 - 20) / 2
+    for k in ("loss", "nll", "z_loss", "accuracy", "grad_norm"):
+        assert abs(gm[k] - wm[k]) <= 1e-6 * max(1.0, abs(wm[k])), k
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=0,
+                                   atol=1e-6 * float(w.abs().max()))

@@ -33,6 +33,12 @@ seed, a numpy batch whose rows carry unequal valid-token counts.
     does).
 (e) The metrics are the global token-weighted means, the token count
     the global one.
+(i) Microbatch accumulation on the mesh (``accum_steps=2``): ``pjit``
+    dense and MoE against the JAX package's accumulating step on its host
+    mesh, podwise ``none`` against its accumulating ``pod_body``.
+(j) The pieces of the per-unit gather: ``sharded.gather_block``'s
+    gradient, what a step gathers and hands to the wire, and the rows the
+    data pipeline gives each rank under accumulation.
 """
 import os
 import subprocess
@@ -82,10 +88,11 @@ import torch_train_ranks as R
 def use_mesh(mesh):
     return jax.set_mesh(mesh) if hasattr(jax, "set_mesh") else mesh
 
-def pod_means(cfg, ocfg, lr_fn, pods):
-    # each pod's rows on one device, the gradients and metrics averaged
-    # over the pods, one AdamW update of the mean (the pod_body's values)
-    pcfg = ParallelConfig(mesh=None, remat="none")
+def pod_means(cfg, ocfg, lr_fn, pods, accum):
+    # each pod's rows on one device (accumulated over its microbatches),
+    # the gradients and metrics averaged over the pods, one AdamW update
+    # of the mean (the pod_body's values)
+    pcfg = ParallelConfig(mesh=None, remat="none", accum_steps=accum)
 
     def step(params, opt, batch):
         n = batch["inputs"].shape[0] // pods
@@ -99,6 +106,10 @@ def pod_means(cfg, ocfg, lr_fn, pods):
     return step
 
 def run(arch, layout, mesh, masked):
+    # layout: "tp", "fsdp/a2a", "pods", ..., "@2" accumulating 2
+    # microbatches
+    layout, _, accum = layout.partition("@")
+    accum = int(accum or 1)
     tcfg = R.lm_cfg(arch)
     cfg = ARCHS[arch].reduced().replace(param_dtype="float32",
                                         compute_dtype="float32")
@@ -109,11 +120,12 @@ def run(arch, layout, mesh, masked):
     opt = optim.init_state(params, ocfg)
     lr_fn = optim.warmup_cosine(R.LR, R.WARMUP, R.TOTAL)
     if layout == "pods":
-        step = pod_means(cfg, ocfg, lr_fn, 2)
+        step = pod_means(cfg, ocfg, lr_fn, 2, accum)
     else:
         layout, _, dispatch = layout.partition("/")
         pcfg = ParallelConfig(mesh=mesh, remat="none", layout=layout,
-                              moe_dispatch=dispatch or "einsum")
+                              moe_dispatch=dispatch or "einsum",
+                              accum_steps=accum)
         step = make_train_step(cfg, pcfg, ocfg, lr_fn)
     # the same step with the embedding one ulp off (signs from four
     # seeds): how far the JAX package's own step moves under float32
@@ -144,7 +156,7 @@ cases, dest = eval(sys.argv[1]), sys.argv[2]
 mesh = make_mesh_compat((2, 2), ("data", "model"))
 res = {}
 for arch, layout in cases:
-    if layout in ("single", "pods"):
+    if layout.partition("@")[0] in ("single", "pods"):
         got = run(arch, "tp" if layout == "single" else layout, None,
                   R.POD_MASKED)
     else:
@@ -153,15 +165,22 @@ for arch, layout in cases:
 np.savez(dest, **res)
 """
 
+# the accumulating cases' JAX layouts ("@2": two microbatches)
+_ACCUM = {(a, lay): f"{lay}/{d}@{ranks.ACCUM}" if a in ranks.MOE_ARCHS
+          else f"{lay}@{ranks.ACCUM}" for a, lay, d in ranks.ACCUM_CASES}
+_POD_ACCUM = f"pods@{ranks.ACCUM}"
 # the JAX cases, split over subprocesses that run side by side
 _JAX_SPLIT = (
-    [("recurrentgemma-2b", "tp")],
+    [("recurrentgemma-2b", "tp")]
+    + [k[:1] + (v,) for k, v in _ACCUM.items() if k[0] == "qwen2.5-3b"]
+    + [(ranks.PODWISE_ARCH, _POD_ACCUM)],
     [("xlstm-1.3b", "tp"), ("qwen2.5-3b", "tp"), ("qwen2.5-3b", "fsdp")],
     [(a, "tp") for a in ("gemma3-12b", "qwen3-8b", "deepseek-7b",
                          "llava-next-mistral-7b", "seamless-m4t-large-v2")]
     + [(ranks.PODWISE_ARCH, "single")],
     [(a, lay) for a in ranks.MOE_ARCHS
-     for lay in ("tp/einsum", "fsdp/a2a", "pods")],
+     for lay in ("tp/einsum", "fsdp/a2a", "pods")]
+    + [k[:1] + (v,) for k, v in _ACCUM.items() if k[0] in ranks.MOE_ARCHS],
 )
 
 
@@ -338,6 +357,182 @@ def test_podwise_none_matches_pjit_and_single_device(runs):
     _hold(pod, want, ulps, tokens=False)
     assert pod[0]["tokens"] * 2 == pj[0]["tokens"]    # the pods' mean
     _hold(pod, pj, tokens=False)
+
+
+# ------------------------------------------------------------ (i), (j)
+@pytest.mark.parametrize("arch,layout",
+                         [(a, lay) for a, lay, _ in ranks.ACCUM_CASES])
+def test_accumulated_pjit_step_matches_jax_host_mesh(runs, arch, layout):
+    """(i) The ``pjit`` step with ``accum_steps=2`` on the ``(2, 2)`` gloo
+    mesh against the JAX package's ``make_train_step`` with
+    ``accum_steps=2`` on its ``(2, 2)`` host mesh: each rank runs its
+    rows of each global microbatch in turn, weighted by its share of that
+    microbatch's 59 or 53 valid tokens, and the MoE groups and takes its
+    aux loss over each global microbatch (``tp`` / ``einsum``, ``fsdp`` /
+    ``a2a``).  The per-microbatch means make a loss other than the
+    unaccumulated step's."""
+    port, ref = runs
+    at = _ACCUM[arch, layout]
+    hold = _hold_moe if arch in ranks.MOE_ARCHS else _hold
+    got = port["accum"][arch, layout]
+    hold(got, _ref(ref, arch, at), [_ref(ref, arch, at, t) for t in "uvwx"])
+    assert got[0]["tokens"] == (ranks.B * ranks.T - 5 - 11) / ranks.ACCUM
+    if arch == "qwen2.5-3b":
+        assert got[0]["nll"] != port["pjit"][arch, layout][0]["nll"]
+
+
+def test_podwise_none_accumulates_as_pod_body(runs):
+    """(i) Podwise ``none`` with ``accum_steps=2`` on ``(pod, data,
+    model) = (2, 2, 1)``: each pod's rows split into two microbatches of
+    2 rows (27 and 32 valid tokens in pod 0), one row a data rank, against
+    the JAX package's single-device accumulated gradients of each pod's
+    rows, averaged over the pods, and its update of the mean."""
+    port, ref = runs
+    want = _ref(ref, ranks.PODWISE_ARCH, _POD_ACCUM)
+    _hold(port["pod"]["podwise_accum"], want,
+          [_ref(ref, ranks.PODWISE_ARCH, _POD_ACCUM, t) for t in "uvwx"])
+
+
+def _expected_gathers(arch: str, kw: dict):
+    """(the whole shapes the step's gathers should make, the bytes this
+    rank should hand to them) on the ``(2, 2)`` mesh, from the leaf
+    shapes and specs: every leaf split over more than one rank once a
+    microbatch, a stacked leaf's unit (never the stacked leaf) in each
+    of its groups, twice under ``remat="full"``; an expert stack under
+    ``fsdp`` / ``a2a`` only over ``data``, each rank keeping its experts'
+    block along ``model``."""
+    from repro_torch.models import model as tmodel
+    from repro_torch.parallel.mesh_utils import Mesh
+    from repro_torch.parallel.sharding import ParallelConfig as TPC
+    from repro_torch.parallel.sharding import param_specs_for
+    from repro_torch.utils.pytree import tree_flatten_with_paths as flat
+    sizes = {"data": 2, "model": 2}
+    mesh = Mesh(("data", "model"), sizes, object(), 0, 4, "cpu", "gloo")
+    cfg = ranks.lm_cfg(arch)
+    shapes = tmodel.param_shapes(cfg)
+    specs = dict(flat(param_specs_for(shapes, TPC(mesh=mesh, **kw))))
+    a2a = kw.get("moe_dispatch") == "a2a" and kw.get("layout") == "fsdp"
+    reps = kw.get("accum_steps", 1)
+    out, nbytes = [], 0
+    for path, leaf in flat(shapes):
+        shape = list(leaf.shape)
+        numel = int(np.prod(shape))
+        gathered = False
+        for d, axis in enumerate(specs[path]):
+            if axis is None:
+                continue
+            numel //= sizes[axis]
+            if a2a and axis == "model" and "/moe/w" in path:
+                shape[d] //= sizes[axis]
+            else:
+                gathered = True
+        if not gathered:
+            continue
+        nbytes += numel * 4 * reps
+        if "blocks/" in path:
+            unit = 2 if kw.get("remat") == "full" else 1
+            out += [tuple(shape[1:])] * (shape[0] * unit * reps)
+            nbytes += numel * 4 * reps * (unit - 1)
+        else:
+            out += [tuple(shape)] * reps
+    return out, nbytes, {tuple(s.shape) for p, s in flat(shapes)
+                         if "blocks/" in p}
+
+
+_LOGGED = {("moe_remat", lay): (ranks.MOE_ARCHS[0], {
+    "layout": lay, "moe_dispatch": d, "remat": "full"})
+    for lay, d in ranks.MOE_STEPS}
+_LOGGED.update({("accum", a, lay): (a, {
+    "layout": lay, "moe_dispatch": d, "accum_steps": ranks.ACCUM})
+    for a, lay, d in ranks.ACCUM_CASES})
+
+
+@pytest.mark.parametrize("key", list(_LOGGED), ids=str)
+def test_step_gathers_each_unit_not_the_stack(runs, key):
+    """(j) A train step's gathers, recorded on rank 0: each leaf outside
+    the stack once a microbatch, each pattern unit inside its remat
+    wrapper (twice under full remat: the recompute gathers it again),
+    never a whole ``[n_groups, ...]`` stacked leaf, and under ``fsdp`` /
+    ``a2a`` the experts only over ``data``; ``WIRE["gather"]`` is the
+    bytes of those blocks."""
+    port, _ = runs
+    log = port["logs"][key]
+    arch, kw = _LOGGED[key]
+    shapes, nbytes, stacked = _expected_gathers(arch, kw)
+    assert not stacked & set(log["shapes"])
+    assert sorted(log["shapes"]) == sorted(shapes)
+    assert log["wire"]["gather"] == nbytes
+    assert log["wire"]["reduce_scatter"] > 0
+
+
+@pytest.mark.parametrize("case", range(len(ranks.GATHER_CASES)))
+def test_gather_block_gradient_is_the_reduce_scatter(runs, case):
+    """(j) ``sharded.gather_block`` on rank 0 of the ``(2, 2)`` gloo
+    mesh: the whole leaf (its experts' block where ``model`` is kept);
+    the gradient of its block equals ``reduce_scatter_leaf`` of the
+    whole cotangent, and the sum of the cotangents of the ranks it sums
+    over, cut to the block."""
+    port, _ = runs
+    got = port["gather_block"][case]
+    assert got["forward"]
+    assert got["grad"].shape == got["block"]
+    np.testing.assert_array_equal(got["grad"], got["rs"])
+    np.testing.assert_allclose(got["grad"], got["truth"], rtol=1e-6,
+                               atol=1e-6)
+
+
+@pytest.mark.parametrize("mode", ["pjit", "fsdp", "podwise"])
+def test_pipeline_rows_follow_the_microbatches(mode, tmp_path):
+    """(j) ``DataPipeline``'s rows on each rank of a 4-rank mesh with
+    ``accum_steps=2`` equal ``step.local_batch``'s of the same global
+    batch; concatenated over the ranks, microbatch by microbatch (the
+    pods first under podwise), they are the global batch in the JAX
+    package's microbatch order.  A microbatch that does not split over
+    the ranks raises."""
+    import torch
+
+    from repro_torch.data import (DataPipeline, SectorTokenDataset,
+                                  write_synthetic_corpus)
+    from repro_torch.data.dataset import Cursor
+    from repro_torch.parallel.mesh_utils import Mesh
+    from repro_torch.parallel.sharding import ParallelConfig as TPC
+    from repro_torch.train import step as tstep
+    from torch_mesh_ranks import cloud
+    master, client = cloud(tmp_path, chunk_records=640)
+    write_synthetic_corpus(client, "c", 20_000, 512, seed=1)
+    ds = SectorTokenDataset(master, client, "c", seq_len=8)
+    axes, shape, kw = {
+        "pjit": (("data", "model"), (4, 1), {}),
+        "fsdp": (("data", "model"), (2, 2), {"layout": "fsdp"}),
+        "podwise": (("pod", "data", "model"), (2, 2, 1),
+                    {"multi_pod": True, "mode": "podwise"})}[mode]
+    rows = []
+    for r in range(4):
+        mesh = Mesh(axes, dict(zip(axes, shape)), object(), r, 4, "cpu",
+                    "gloo")
+        pcfg = TPC(mesh=mesh, accum_steps=2, **kw)
+        got = next(iter(DataPipeline(ds, batch=16, pcfg=pcfg,
+                                     device="cpu")))
+        host, _ = next(ds.batches(16, Cursor()))
+        want = tstep.local_batch({k: torch.from_numpy(v)
+                                  for k, v in host.items()}, pcfg)
+        assert set(got) == set(want)
+        for k in want:
+            assert torch.equal(got[k], want[k]), (r, k)
+        rows.append(got["inputs"].numpy())
+        with pytest.raises(ValueError, match="rows"):
+            tstep.local_batch({"inputs": torch.zeros(12, 8)}, pcfg)
+    # global microbatch i of the JAX package's scan: rows [2i, 2i + 2)
+    # of each rank's 4 in rank order (the pod's rows of microbatch i
+    # of its pod's 8 under podwise)
+    if mode == "podwise":
+        order = [np.concatenate([rows[2 * p + d][2 * i:2 * i + 2]
+                                 for d in range(2)])
+                 for p in range(2) for i in range(2)]
+    else:
+        order = [np.concatenate([x[2 * i:2 * i + 2] for x in rows])
+                 for i in range(2)]
+    np.testing.assert_array_equal(np.concatenate(order), host["inputs"])
 
 
 # ------------------------------------------------------------ (f), (g), (h)

@@ -844,9 +844,10 @@ def test_launcher_mesh_flags_raise(flags, capsys):
 @pytest.mark.parametrize("what", ["podwise", "multi_pod", "int8_ef",
                                   "specs"])
 def test_mesh_modes_raise(what, tmp_path):
-    """What the mesh step still refuses: the podwise step without a mesh
-    with a pod axis; microbatch accumulation on a mesh that splits the
-    batch, the MoE's too (ROADMAP item 1.3h), whose plain step builds.  Without a mesh, an
+    """What the mesh step refuses, and what it no longer refuses: the
+    podwise step without a mesh with a pod axis raises; microbatch
+    accumulation on a mesh that splits the batch builds, the MoE's too
+    (once refused, naming ROADMAP item 1.3h).  Without a mesh, an
     ``int8_ef`` state carries ``ef`` and the spec trees are ``P()``."""
     from repro_torch.parallel.mesh_utils import Mesh
     from repro_torch.parallel.sharding import P
@@ -861,9 +862,10 @@ def test_mesh_modes_raise(what, tmp_path):
                 tstep.make_train_step(tcfg, TPC(mesh=mesh, mode="podwise",
                                                 multi_pod=True), ocfg, lr)
     elif what == "multi_pod":
-        with pytest.raises(NotImplementedError, match="1.3h"):
-            tstep.make_train_step(tcfg, TPC(mesh=grid, accum_steps=2), ocfg,
-                                  lr)
+        step = tstep.make_train_step(tcfg, TPC(mesh=grid, accum_steps=2),
+                                     ocfg, lr)
+        assert callable(step) and step.specs["embed"]["w"] == P(
+            "model", "data")
     elif what == "int8_ef":
         tr, *_ = _mk_trainer(tmp_path)
         tr8 = Trainer(tr.cfg, TPC(mesh=None, compress_pod="int8_ef"),
@@ -876,9 +878,9 @@ def test_mesh_modes_raise(what, tmp_path):
         step = tstep.make_train_step(mcfg, TPC(mesh=grid), ocfg, lr)
         assert step.specs["blocks"]["layer0"]["moe"]["wi"] == P(
             None, "model", "data", None)
-        with pytest.raises(NotImplementedError, match="1.3h"):
-            tstep.make_train_step(mcfg, TPC(mesh=grid, accum_steps=2),
-                                  ocfg, lr)
+        accum = tstep.make_train_step(mcfg, TPC(mesh=grid, accum_steps=2),
+                                      ocfg, lr)
+        assert accum.specs == step.specs
         specs = tstep.opt_state_specs_for(tmodel.param_shapes(tcfg),
                                           TPC(mesh=None), ocfg)
         assert specs["step"] == P() and specs["m"]["embed"]["w"] == P()

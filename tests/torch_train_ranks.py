@@ -87,6 +87,13 @@ def lm_batch(cfg, seed: int = 1, masked=((1, 5), (6, 11))) -> dict:
 # podwise against pjit: each pod's rows hold the same valid tokens, so
 # the pods' plain mean is the token-weighted mean
 POD_MASKED = ((1, 5), (5, 5))
+# microbatch accumulation on the (2, 2) mesh: (arch, layout, dispatch);
+# lm_batch's masked rows 1 and 6 put 59 and 53 valid tokens in the two
+# global microbatches, so their means differ from the global mean
+ACCUM = 2
+ACCUM_CASES = (("qwen2.5-3b", "tp", "einsum"), ("qwen2.5-3b", "fsdp", "einsum"),
+               ("qwen3-moe-30b-a3b", "tp", "einsum"),
+               ("qwen3-moe-30b-a3b", "fsdp", "a2a"))
 
 
 def _flat_np(tree) -> dict:
@@ -95,10 +102,25 @@ def _flat_np(tree) -> dict:
             tree_flatten_with_paths(tree)}
 
 
-def _mesh_step(cfg, mesh, batch_np, **pcfg_kw):
+def _recorded(sharded, log: dict):
+    """``sharded.gather_leaf`` wrapped to append to ``log["shapes"]`` the
+    whole shape of each gather that hands bytes to the wire."""
+    real = sharded.gather_leaf
+
+    def gather_leaf(x, spec, shape, mesh):
+        before = sharded.WIRE["gather"]
+        out = real(x, spec, shape, mesh)
+        if sharded.WIRE["gather"] > before:
+            log["shapes"].append(tuple(shape))
+        return out
+    return real, gather_leaf
+
+
+def _mesh_step(cfg, mesh, batch_np, log=None, **pcfg_kw):
     """One port train step on ``mesh`` from :func:`init_numpy`; returns
     (metrics, the whole updated parameters and first moments, each as
-    {path: array})."""
+    {path: array}).  ``log`` (a dict) takes the step's bytes by ``WIRE``
+    key and the shapes of its gathers (:func:`_recorded`)."""
     from repro_torch.convert import params_from_jax
     from repro_torch.models import model
     from repro_torch.parallel import sharded
@@ -116,7 +138,17 @@ def _mesh_step(cfg, mesh, batch_np, **pcfg_kw):
                                  optim.warmup_cosine(LR, WARMUP, TOTAL))
     batch = tstep.local_batch(
         {k: torch.from_numpy(v) for k, v in batch_np.items()}, pcfg)
-    params, opt, metrics = step(params, opt, batch)
+    if log is None:
+        params, opt, metrics = step(params, opt, batch)
+    else:
+        before = dict(sharded.WIRE)
+        log["shapes"] = []
+        real, sharded.gather_leaf = _recorded(sharded, log)
+        try:
+            params, opt, metrics = step(params, opt, batch)
+        finally:
+            sharded.gather_leaf = real
+        log["wire"] = {k: v - before[k] for k, v in sharded.WIRE.items()}
     whole = sharded.gather_tree({"p": params, "m": opt["m"]},
                                 {"p": specs, "m": specs},
                                 {"p": pshapes, "m": pshapes}, mesh)
@@ -147,9 +179,20 @@ def mesh_train_suite(rank: int, world: int):
     # under full remat the backward runs each unit's forward again, its
     # collectives too: every rank must issue them in the same order
     cfg = lm_cfg(MOE_ARCHS[0])
-    out["moe_remat"] = {layout: _mesh_step(
-        cfg, mesh, lm_batch(cfg), layout=layout, moe_dispatch=dispatch,
-        remat="full") for layout, dispatch in MOE_STEPS}
+    out["logs"] = {}
+    out["moe_remat"] = {}
+    for layout, dispatch in MOE_STEPS:
+        log = out["logs"]["moe_remat", layout] = {}
+        out["moe_remat"][layout] = _mesh_step(
+            cfg, mesh, lm_batch(cfg), log, layout=layout,
+            moe_dispatch=dispatch, remat="full")
+    out["accum"] = {}
+    for arch, layout, dispatch in ACCUM_CASES:
+        cfg = lm_cfg(arch)
+        log = out["logs"]["accum", arch, layout] = {}
+        out["accum"][arch, layout] = _mesh_step(
+            cfg, mesh, lm_batch(cfg), log, layout=layout,
+            moe_dispatch=dispatch, accum_steps=ACCUM)
     pod = make_mesh_compat((2, 2, 1), ("pod", "data", "model"),
                            device="cpu")
     cfg = lm_cfg(PODWISE_ARCH)
@@ -157,10 +200,72 @@ def mesh_train_suite(rank: int, world: int):
     out["pod"] = {mode: _mesh_step(cfg, pod, batch, multi_pod=True,
                                    mode=mode)
                   for mode in ("pjit", "podwise")}
+    out["pod"]["podwise_accum"] = _mesh_step(
+        cfg, pod, batch, multi_pod=True, mode="podwise", accum_steps=ACCUM)
     out["pod_moe"] = {arch: _mesh_step(
         lm_cfg(arch), pod, lm_batch(lm_cfg(arch), masked=POD_MASKED),
         multi_pod=True, mode="podwise") for arch in MOE_ARCHS}
+    out["gather_block"] = gather_block_cases(mesh)
     return out if rank == 0 else None
+
+
+# (spec, whole shape, batch axes, axes kept): a leaf split over both
+# axes, an expert stack kept whole over model (the a2a route), a
+# replicated leaf (its backward an all-reduce), and a leaf split over
+# model under tp, whose model ranks compute the same rows
+GATHER_CASES = (
+    (("data", "model"), (8, 6), ("data", "model"), ()),
+    (("model", "data", None), (4, 6, 2), ("data", "model"), ("model",)),
+    ((), (6,), ("data", "model"), ()),
+    (("model", None), (4, 3), ("data",), ()),
+)
+
+
+def gather_block_cases(mesh) -> list:
+    """Each of ``GATHER_CASES`` on this rank of the ``(2, 2)`` mesh: the
+    gathered leaf against the whole one (or its block over the kept
+    axes); the gradient of ``sum(gathered * C_r)`` for a cotangent
+    ``C_r`` of rank ``r``'s own against ``reduce_scatter_leaf`` of
+    ``C_r`` and against the sum of the ``C`` of the ranks that share
+    this rank's block and rows' reduction, read off numpy (every rank
+    makes every ``C`` from its seed)."""
+    from repro_torch.parallel import sharded
+    from repro_torch.parallel.sharding import P
+    out = []
+    for i, (spec, shape, batch, keep) in enumerate(GATHER_CASES):
+        spec = P(*spec)
+        whole = np.random.default_rng(10 + i).normal(size=shape) \
+            .astype(np.float32)
+        x = sharded.local_block(torch.from_numpy(whole), spec, mesh) \
+            .clone().requires_grad_()
+        y = sharded.gather_block(x, spec, shape, mesh, batch, keep)
+        part, pshape = sharded.without_axes(spec, shape, mesh, keep)
+        kept = sharded.block_slices(P(*[
+            e if e in keep else None for e in spec]), shape, mesh)
+        cots = [np.random.default_rng(100 * i + r).normal(size=pshape)
+                .astype(np.float32) for r in range(mesh.size)]
+        mine = torch.from_numpy(cots[mesh.rank])
+        (y * mine).sum().backward()
+        want = sharded.reduce_scatter_leaf(
+            mine.clone(), part, mesh,
+            tuple(a for a in batch if a not in keep))
+        # the ranks whose gradients sum into this rank's block: those on
+        # the same coordinates along every axis but the summed ones
+        summed = [a for a in batch if a not in keep]
+        dims = tuple(mesh.shape.values())
+        me = np.unravel_index(mesh.rank, dims)
+        peers = [r for r in range(mesh.size) if all(
+            c == m for a, c, m in zip(mesh.axis_names,
+                                      np.unravel_index(r, dims), me)
+            if a not in summed)]
+        total = torch.from_numpy(sum(cots[r] for r in peers))
+        truth = sharded.block_slices(part, pshape, mesh)
+        out.append({"forward": bool(torch.equal(
+                        y.detach(), torch.from_numpy(whole)[kept])),
+                    "shape": tuple(y.shape), "block": tuple(x.shape),
+                    "grad": x.grad.numpy(), "rs": want.numpy(),
+                    "truth": total[truth].numpy()})
+    return out
 
 
 # ------------------------------------------------------------ the MoE layer
