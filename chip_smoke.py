@@ -344,6 +344,46 @@ and passed over.
    collective (``sharded.WIRE``; the gathers' and reduce-scatters' equal
    to ``wire_prediction``'s) and the peak memory.  The ``kernels`` line's ``flash_attention`` row carries
    the row's timing and ``mesh_moe_tp`` / ``mesh_moe_a2a`` launches.
+14c. **Tensor-parallel training,** after phases 14-15: the 13-layer cut
+   of ``recurrentgemma-2b`` (``POD_LAYERS``) on ``(data, model) = (1,
+   2)``, ``layout="tp"``, one row of ``MESH_SEQ`` tokens, 2 steps (phase
+   8's knobs): each rank computes the attention, FFN and RG-LRU layers on
+   its half of the heads and widths.  The reference, in this process: the
+   single-device step, and the same step with the two ``model`` ranks
+   emulated on the card (``emulated_model_ranks``: each rank's layer
+   called with its blocks, the partial outputs added in bf16 where the
+   ranks' all-reduce adds them, the inputs' gradients summed as
+   ``copy_to_model`` sums them).  Each rank: step 1's loss and gradient
+   norm and each gradient block held to the emulation as in 14 (within
+   one bf16 rounding; the plain step's distance printed), one row's
+   launches, the bytes a step equal to ``wire_prediction``'s (gathers,
+   reduce-scatters and the sums over ``model``), the step by part with the
+   sums over ``model`` apart.
+22. **Serving on the mesh,** after phase 21: ``recurrentgemma-2b`` and
+   ``qwen2.5-3b`` at full width served on two gloo ranks sharing the card
+   at ``(data, model) = (1, 2)``, ``layout="tp"`` (``ServeEngine`` on
+   each rank's blocks: ``recurrentgemma-2b``'s ring caches split over the
+   sequence, ``qwen2.5-3b``'s over its kv heads), 4 requests of
+   ``LONG_PROMPTS`` lengths, ``MAX_NEW`` greedy tokens each, over
+   ``SERVE_SLOTS`` slots of ``SERVE_LEN``.  The single-device engine runs
+   first in this process and is freed before the ranks start.  Each rank:
+   (a) every layer of the first pattern unit teacher-forced from the
+   single device's input, its update within ``TP_LAYER_TOL`` of the
+   single device's; (b) each request's prefill last logits and the first
+   decode step's logits (given the single device's tokens) within
+   ``LOGIT_TOL`` of the single device with its two ranks emulated by
+   threads (``threaded_serve``: the ranks' serve steps, their sums over
+   ``model`` made of the threads' tensors), the plain single device's
+   distance printed (``qwen2.5-3b``'s 36 random-weight bf16 layers are
+   chaotic under the ranks' rounding); (c) exactly one ``flash_attention``
+   launch a layer and prefill and one ``rg_lru_scan`` launch an R layer
+   and prefill or decode call.  Then, in this process, ``flash_attention``
+   at a rank's captured shapes (``[1, 3072, 5, 256]`` over 1 kv head with
+   the window; ``[1, 3072, 8, 128]`` over 1) held and timed as in 11 (d)
+   and ``rg_lru_scan`` at ``[1, 3072, 1280]`` and ``[4, 1, 1280]`` held
+   exactly and timed.  Prints each rank's TTFT, decode tokens/s, peak
+   memory and the bytes and seconds of its sums over ``model`` beside the
+   serve's.
 
 The line before the last is one JSON object describing every kernel; the
 last line is
@@ -3493,27 +3533,39 @@ MESH_SPANS = (("fwd_bwd", "step", "_value_and_grad_accum"),
               ("update", "optim", "apply_updates"))
 # inside fwd_bwd, each summed over a step: the per-unit gathers' and
 # their backward reduce-scatters' wire calls (``sharded.gather_block``'s
-# forward, recompute and backward), and the MoE's exchanges
-# (``sharded``'s autograd collectives: the ids' and aux statistics'
-# all-gather, its backward's reduce-scatter, the expert all-to-all)
+# forward, recompute and backward), the MoE's exchanges (``sharded``'s
+# autograd collectives: the ids' and aux statistics' all-gather, its
+# backward's reduce-scatter, the expert all-to-all), and the tensor-
+# parallel layers' sums over ``model`` (``sharded.model_sum``: their
+# outputs forward and in the recompute, their inputs' gradients)
 MOE_EXCHANGE = ("gather_wire", "scatter_wire", "exchange_wire")
 MESH_INNER = {"gather": ("gather_leaf",),
               "reduce_scatter": ("reduce_scatter_leaf",),
-              "moe_exchange": MOE_EXCHANGE}
+              "moe_exchange": MOE_EXCHANGE,
+              "tp_all_reduce": ("model_sum",)}
 
 
-def wire_prediction(cfg, pcfg) -> dict:
+def wire_prediction(cfg, pcfg, rows: int = 0, seq: int = 0) -> dict:
     """The bytes a rank of ``pcfg``'s ``(data, model)`` mesh should hand
-    to the gathers and to the reduce-scatters (with the all-reduces that
-    stand for them) in a train step, from the leaf shapes and specs
-    alone: each leaf split over more than one rank is gathered once a
-    microbatch outside the stack and, in the stack, once a unit and
-    again in its recompute under full remat; its gradient reduced once
-    a microbatch.  The experts under ``a2a`` are neither gathered nor
-    summed over ``model``.  The mesh may be a stand-in
-    (``mesh_shape_only``): only its axes' sizes are read."""
+    to the gathers, to the reduce-scatters (with the all-reduces that
+    stand for them) and to the tensor-parallel sums in a train step of
+    ``rows`` global rows of ``seq`` tokens, from the leaf shapes and
+    specs alone: each leaf split over more than one rank is gathered once
+    a microbatch outside the stack and, in the stack, once a unit and
+    again in its recompute under full remat; its gradient reduced once a
+    microbatch.  The experts under ``a2a``, and under ``tp`` the leaves a
+    layer computes on its ``model`` block (``step.tp_leaf``), are neither
+    gathered nor summed over ``model``.  Each layer computed on a
+    ``model`` block sums its output ``[rows, seq, d]`` over ``model``
+    (again in the recompute) and its input's gradient; the replicated
+    leaves inside it (qk-norm scales, ``wk`` / ``wv`` whose kv heads do
+    not split, the RG-LRU gates) their gradients.  The mesh may be a
+    stand-in (``mesh_shape_only``): only its axes' sizes are read."""
+    import re
+
     from repro_torch.models import model, moe
-    from repro_torch.parallel.sharding import param_specs_for
+    from repro_torch.parallel.sharding import param_specs_for, tp_block
+    from repro_torch.train import step
     from repro_torch.utils.pytree import tree_flatten_with_paths
     sizes = dict(pcfg.mesh.shape)
     accum = pcfg.accum_steps
@@ -3521,10 +3573,15 @@ def wire_prediction(cfg, pcfg) -> dict:
     batch = [a for a in pcfg.data_axes if sizes.get(a, 1) > 1]
     shapes = model.param_shapes(cfg)
     specs = dict(tree_flatten_with_paths(param_specs_for(shapes, pcfg)))
-    out = {"gather": 0, "reduce_scatter": 0}
+    out = {"gather": 0, "reduce_scatter": 0, "tp_all_reduce": 0}
+    heads = tp_block(pcfg, cfg.n_heads) is not None
+    lru = tp_block(pcfg, cfg.lru_width or cfg.d_model) is not None
+    inside = re.compile(r"^blocks/.*/(attn/(q_norm|k_norm|wk|wv|bk|bv)"
+                        r"|rglru/gate_[ax]/w)$")
     for path, leaf in tree_flatten_with_paths(shapes):
         item = leaf.dtype.itemsize
-        keep = kept if "/moe/w" in path else ()
+        keep = ("model",) if step.tp_leaf(path, cfg, pcfg) \
+            else kept if "/moe/w" in path else ()
         split = [a for a in specs[path] if a is not None and sizes[a] > 1]
         block = math.prod(leaf.shape) * item // math.prod(
             sizes[a] for a in split)
@@ -3539,6 +3596,30 @@ def wire_prediction(cfg, pcfg) -> dict:
                 sizes[a] for a in scatter)
         if any(a not in split for a in summed):
             out["reduce_scatter"] += block * accum
+        if keep != ("model",) and inside.search(path) and (
+                heads if "/attn/" in path else lru):
+            out["tp_all_reduce"] += math.prod(leaf.shape) * item * accum
+    # the layers' sums: forward (and recompute) and the input's gradient
+    n_batch = math.prod(sizes[a] for a in batch)
+    act = rows // n_batch // accum * seq * cfg.d_model * {
+        "bfloat16": 2, "float16": 2, "float32": 4}[cfg.compute_dtype]
+    blocks = 0
+    for sym in cfg.block_pattern:
+        if sym in "AL":
+            blocks += heads
+            blocks += cfg.family != "moe" \
+                and tp_block(pcfg, cfg.d_ff) is not None
+        elif sym == "R":
+            blocks += lru + (tp_block(pcfg, cfg.d_ff) is not None)
+    fwd = 2 if pcfg.remat == "full" else 1
+    # the recompute stops once it has remade every tensor the backward
+    # saved (torch.utils.checkpoint's early stop): a unit whose last
+    # layer ends in a split FFN skips that FFN's last product and sum
+    last = cfg.block_pattern[-1]
+    skip = pcfg.remat == "full" and last in "ALR" and cfg.family != "moe" \
+        and tp_block(pcfg, cfg.d_ff) is not None
+    out["tp_all_reduce"] += (blocks * (fwd + 1) - skip) * cfg.n_groups \
+        * act * accum
     return out
 
 
@@ -3811,7 +3892,7 @@ def _rank_train(torch, rank: int, seed: int, tmp: Path, cfg, seq,
     torch.cuda.empty_cache()
     walls = [h["wall_s"] for h in hist]
     return {"build_s": build_s, "launches": launches, "wire": wire,
-            "predicted": wire_prediction(cfg, trainer_pcfg),
+            "predicted": wire_prediction(cfg, trainer_pcfg, batch, seq),
             "mesh": "(data, model) = "
             f"{tuple(shape)}" + "".join(f", {k}={v}" for k, v in
                                         pcfg_kw.items()),
@@ -4426,6 +4507,681 @@ def moe_mesh_phase(torch, seed: int) -> tuple:
     return launches, flash
 
 
+# ------------------------------------------------------------ phase 22
+MESH_SERVE_ARCHS = (LM_ARCH, "qwen2.5-3b")
+MESH_SERVE_SHAPE = (1, 2)       # (data, model): two gloo ranks, layout tp
+# (22a): a layer's update on the mesh against the single device's from
+# the same bf16 input, of the single device's largest |update|.  Each of
+# the layer's two blocks (attention or RG-LRU, then the FFN) ends in a
+# product through rows that the mesh splits: each rank's partial product
+# is rounded to bf16 and the two are added in bf16, where the single
+# device rounds the whole sum once, so each block's output moves by up
+# to u (|p_0| + |p_1| + 2 |o|) with u = 2**-8 (the partials no larger
+# than the output's scale: 4u of it); the FFN's input carries the
+# attention block's difference, rounded into the bf16 stream: 8u = 2**-5
+TP_LAYER_TOL = 2.0 ** -5
+
+
+def serve_mesh_prompts(cfg, seed: int) -> list:
+    """Phase 22's 4 requests: prompts of ``LONG_PROMPTS`` lengths (past
+    the 2,048 window), twice, tokens from ``seed``."""
+    rng = np.random.default_rng([seed, 22])
+    return [rng.integers(0, cfg.vocab_size, n).tolist()
+            for n in LONG_PROMPTS * 2]
+
+
+def block_update(torch, unit, x, kw):
+    """The float32 sum of what a one-layer unit's blocks (attention,
+    RG-LRU, FFN) add to the residual stream from ``x``, each before it is
+    rounded into the bf16 stream (``layer_update`` with the RG-LRU
+    block)."""
+    from repro_torch.models import attention, mlp, rglru, transformer
+    parts = []
+
+    def spy(module, pair):
+        real = module.apply
+
+        def call(*args, **kw_):
+            out = real(*args, **kw_)
+            parts.append((out[0] if pair else out).float())
+            return out
+        return patched(module, "apply", call)
+
+    with spy(attention, True), spy(mlp, False), spy(rglru, True), \
+            torch.inference_mode():
+        transformer._unit_apply(unit, x, **kw)
+    return sum(parts)
+
+
+def one_layer_kw(cfg, sym: str, pcfg, T: int, dev) -> dict:
+    """``_unit_apply``'s keywords for one layer ``sym`` run alone in a
+    prefill of ``T`` tokens (as ``split_unit`` cuts a unit)."""
+    import torch
+    return {"cfg": cfg.replace(block_pattern=(sym,), n_layers=cfg.n_groups),
+            "pcfg": pcfg, "mode": "prefill", "max_len": SERVE_LEN,
+            "positions": torch.arange(T, dtype=torch.int32,
+                                      device=dev)[None]}
+
+
+def unit_layer_records(torch, cfg, params, prompt) -> list:
+    """(22a)'s single-device side: the first pattern unit's input in a
+    prefill of ``prompt``, then each of its layers run alone from the
+    single device's input to it: [(layer index, input, update)]."""
+    from repro_torch.models import model, transformer
+    from repro_torch.parallel.sharding import NO_PARALLEL
+    from repro_torch.utils.pytree import tree_map
+    dev = params["embed"]["w"].device
+    real = transformer._unit_apply
+    got = {}
+
+    def first(unit, x, **kw):
+        got.setdefault("x", x.clone())
+        return real(unit, x, **kw)
+
+    with patched(transformer, "_unit_apply", first), torch.inference_mode():
+        model.prefill(params, {"inputs": torch.tensor([prompt], device=dev)},
+                      cfg=cfg, max_len=SERVE_LEN)
+    unit = tree_map(lambda a: a[0], params["blocks"])
+    x, out = got["x"], []
+    for i, sym in enumerate(cfg.block_pattern):
+        one = {"layer0": unit[f"layer{i}"]}
+        kw = one_layer_kw(cfg, sym, NO_PARALLEL, x.shape[1], dev)
+        with torch.inference_mode():
+            y = transformer._unit_apply(one, x, **kw)[0]
+        out.append((i, x.cpu(), block_update(torch, one, x, kw).cpu()))
+        x = y
+    return out
+
+
+def threaded_serve(torch, cfg, params, prompts, first_tokens) -> dict:
+    """(22b)'s reference: the serving mesh's ranks emulated by threads of
+    this process on its device, as ``emulated_rows`` emulates a training
+    mesh.  Thread ``r`` holds rank ``r``'s serving parameters (its blocks
+    of the leaves the layers compute on, cut from ``params``; every other
+    leaf shared whole) and its cache blocks, prefills each prompt into its
+    slot with ``step.make_prefill_step`` and runs one
+    ``step.make_decode_step`` with ``first_tokens``; its sums and
+    all-gathers over ``model`` (``sharded.model_sum``, ``gather_wire``)
+    exchange the threads' tensors, summed in rank order in their type, as
+    the two ranks' all-reduce sums them.  Returns rank 0's prefill logits
+    ``[n, V]`` and first decode step's logits ``[slots, V]``."""
+    import threading
+    from types import SimpleNamespace
+
+    import torch.distributed as dist
+
+    from repro_torch.models import model
+    from repro_torch.parallel import sharded
+    from repro_torch.parallel.mesh_utils import Mesh
+    from repro_torch.parallel.sharding import ParallelConfig, param_specs_for
+    from repro_torch.serve import ServeEngine
+    from repro_torch.train import step
+    from repro_torch.utils.pytree import (tree_flatten_with_paths,
+                                          tree_map_with_path)
+    size = MESH_SERVE_SHAPE[1]
+    dev = params["embed"]["w"].device
+    shared = SimpleNamespace(slots=[None] * size,
+                             barrier=threading.Barrier(size, timeout=600))
+    local = threading.local()
+    real_gather = sharded.gather_wire
+
+    def swap(x) -> list:
+        shared.slots[local.rank] = x
+        shared.barrier.wait()
+        got = list(shared.slots)
+        shared.barrier.wait()
+        return got
+
+    def model_sum(x, mesh, op=dist.ReduceOp.SUM):
+        # a new tensor: another thread may still read this one's x
+        got = swap(x)
+        out = got[0]
+        for g in got[1:]:
+            out = torch.maximum(out, g) if op == dist.ReduceOp.MAX \
+                else out + g
+        return out
+
+    def gather_wire(x, mesh, axes):
+        if mesh.mesh_axes(axes) != ("model",):
+            return real_gather(x, mesh, axes)
+        return torch.cat(swap(x))
+
+    outs, errors = [None] * size, []
+
+    def rank(r):
+        local.rank = r
+        try:
+            mesh = Mesh(("data", "model"), {"data": 1, "model": size},
+                        object(), r, size, dev, "gloo")
+            pcfg = ParallelConfig(mesh=mesh)
+            specs = dict(tree_flatten_with_paths(
+                param_specs_for(model.param_shapes(cfg), pcfg)))
+            mine = tree_map_with_path(
+                lambda path, x: sharded.local_block(x, specs[path], mesh)
+                if step.tp_leaf(path, cfg, pcfg) else x, params)
+            with torch.inference_mode():
+                prefill = step.make_prefill_step(cfg, pcfg, SERVE_LEN)
+                pool = step.init_cache_blocks(cfg, pcfg, SERVE_SLOTS,
+                                              SERVE_LEN)
+                logits = []
+                for slot, prompt in enumerate(prompts):
+                    lg, cache = prefill(mine, {"inputs": torch.tensor(
+                        [prompt], device=dev)})
+                    ServeEngine._insert(pool, cache, slot)
+                    logits.append(lg[0].float().cpu())
+                tok = torch.as_tensor(first_tokens, dtype=torch.int32,
+                                      device=dev)[:, None]
+                pos = torch.tensor([len(p) for p in prompts],
+                                   dtype=torch.int32, device=dev)
+                dec, _ = step.make_decode_step(cfg, pcfg)(mine, pool, tok,
+                                                          pos)
+            outs[r] = (torch.stack(logits).numpy(), dec.float().cpu().numpy())
+        except Exception as e:      # the others leave the barrier too
+            errors.append(e)
+            shared.barrier.abort()
+
+    with patched(sharded, "model_sum", model_sum), \
+            patched(sharded, "gather_wire", gather_wire):
+        threads = [threading.Thread(target=rank, args=(r,))
+                   for r in range(size)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join()
+    if errors:
+        raise errors[0]
+    return {"emul_prefill": outs[0][0], "emul_decode": outs[0][1]}
+
+
+def mesh_serve_run(torch, cfg, params, prompts, pcfg, first_tokens=None,
+                   device="cuda"):
+    """The requests through the port's ``ServeEngine`` on ``pcfg`` (a
+    mesh's blocks, or one device), greedy, one host-clock time a step.
+    Records each prefill's last logits, and the first decode step's
+    logits given ``first_tokens`` (default the engine's own), in a decode
+    call of its own beside the engine's.  Returns (requests, steps,
+    records, peak memory, the engine's parameters)."""
+    from repro_torch.serve import SamplerConfig, ServeEngine
+    eng = ServeEngine(cfg, params, pcfg, max_batch=SERVE_SLOTS,
+                      max_len=SERVE_LEN, scfg=SamplerConfig(), device=device)
+    rec = {"prefill": [], "decode": None, "decode_calls": 0}
+    real_prefill, real_decode = eng._prefill, eng._decode
+
+    def prefill(p, batch):
+        logits, cache = real_prefill(p, batch)
+        rec["prefill"].append(logits[0].float().cpu())
+        return logits, cache
+
+    def decode(p, cache, tok, pos):
+        if rec["decode"] is None:
+            given = tok if first_tokens is None else torch.as_tensor(
+                first_tokens, dtype=tok.dtype, device=tok.device)[:, None]
+            logits, _ = real_decode(p, cache, given, pos)
+            rec["decode"] = logits.float().cpu()
+            rec["tokens"] = given[:, 0].cpu()
+            rec["decode_calls"] += 1
+        rec["decode_calls"] += 1
+        return real_decode(p, cache, tok, pos)
+
+    eng._prefill, eng._decode = prefill, decode
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reqs = [eng.submit(p, max_new=MAX_NEW) for p in prompts]
+    steps = []
+    while eng.queue or any(r is not None for r in eng.slot_req):
+        queued = len(eng.queue)
+        t = time.perf_counter()
+        active = eng.step()
+        steps.append((time.perf_counter() - t, queued - len(eng.queue),
+                      active))
+    return reqs, steps, rec, torch.cuda.max_memory_allocated(), eng.params
+
+
+def lru_times(torch, label, a, b, h0) -> dict:
+    """rg_lru_scan on (a, b, h0): equal to its plain version, timed as in
+    phase 2 beside its bound."""
+    from repro_torch.kernels.rg_lru_scan import kernel, ref
+    got, want = kernel.lru_scan(a, b, h0), ref.lru_scan_ref(a, b, h0)
+    check(all(torch.equal(g, w) for g, w in zip(got, want)),
+          f"rg_lru_scan {label} {tuple(a.shape)} differs from its plain "
+          f"version")
+    ms = timed_ms(torch, lambda: kernel.lru_scan(a, b, h0))
+    plain = timed_ms(torch, lambda: ref.lru_scan_ref(a, b, h0))
+    n_bytes = 3 * a.nbytes + 2 * h0.nbytes
+    bnd, by = bound_ms(n_bytes, 2 * a.numel())
+    print(f"kernel rg_lru_scan {label} {list(a.shape)}: kernel_ms={ms:.4f} "
+          f"bound_ms={bnd:.6f} ({n_bytes} bytes; {ms / bnd:.2f}x the bound) "
+          f"plain_ms={plain:.4f} max_abs_err=0")
+    return {"shape": list(a.shape), "max_abs_err": 0.0, "ms": ms,
+            "plain_ms": plain, "bound_ms": bnd, "bound_by": by,
+            "library_ms": None}
+
+
+def serve_mesh_rank(rank: int, world: int, seed: int, tmp: str, cfg,
+                    device=None) -> dict:
+    """One of phase 22's 2 ranks (started by ``run_ranks``): its blocks of
+    ``cfg``'s parameters from ``seed``, the requests served on the
+    ``(1, 2)`` mesh, the teacher-forced layers (22a) against the single
+    device's records; rank 0 writes its first flash_attention and its
+    first prefill and decode rg_lru_scan inputs to ``tmp``.  ``device``
+    (the card by default) is the ranks' device: a CPU rehearsal passes
+    ``"cpu"``."""
+    import torch
+    from repro_torch.kernels.flash_attention import kernel as fkernel
+    from repro_torch.kernels.rg_lru_scan import kernel as lkernel
+    from repro_torch.launch.mesh import make_mesh_compat
+    from repro_torch.models import model
+    from repro_torch.parallel import sharded
+    from repro_torch.parallel.sharding import ParallelConfig, param_specs_for
+    from repro_torch.utils.pytree import tree_flatten_with_paths, tree_map
+    tmp = Path(tmp)
+    mesh = make_mesh_compat(MESH_SERVE_SHAPE, ("data", "model"),
+                            device=device)
+    check(mesh.host_staged or device is not None,
+          f"rank {rank}: mesh on {mesh.device} over {mesh.backend}")
+    arch = cfg.name
+    pcfg = ParallelConfig(mesh=mesh)
+    specs = dict(tree_flatten_with_paths(
+        param_specs_for(model.param_shapes(cfg), pcfg)))
+    t = time.perf_counter()
+    params = model.init_params(
+        cfg, torch.Generator().manual_seed(seed), mesh.device,
+        keep=lambda path, x: sharded.local_block(x, specs[path], mesh))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t
+    ref = torch.load(tmp / f"serve_{arch}.pt")
+    prompts = serve_mesh_prompts(cfg, seed)
+    captured = {}
+    real_flash, real_scan = fkernel.flash_attention_fwd, lkernel.lru_scan
+
+    def flash(q, k, v, **kw):
+        captured.setdefault("attn", ((q.clone(), k.clone(), v.clone()), kw))
+        return real_flash(q, k, v, **kw)
+
+    def scan(a, b, h0):
+        key = "decode" if a.shape[1] == 1 else "prefill"
+        captured.setdefault(key, (a.clone(), b.clone(), h0.clone()))
+        return real_scan(a, b, h0)
+
+    tp = {"calls": 0, "s": 0.0}
+    real_sum = sharded.model_sum
+
+    def model_sum(x, *a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = real_sum(x, *a, **kw)
+        torch.cuda.synchronize()
+        tp["calls"] += 1
+        tp["s"] += time.perf_counter() - t0
+        return out
+
+    for k in sharded.WIRE:
+        sharded.WIRE[k] = 0
+    fkernel.launches = lkernel.launches = 0
+    t = time.perf_counter()
+    with patched(fkernel, "flash_attention_fwd", flash), \
+            patched(lkernel, "lru_scan", scan), \
+            patched(sharded, "model_sum", model_sum):
+        reqs, steps, rec, peak, sp = mesh_serve_run(
+            torch, cfg, params, prompts, pcfg, ref["tokens"], mesh.device)
+    serve_s = time.perf_counter() - t
+    launches = (fkernel.launches, lkernel.launches)
+    wire = dict(sharded.WIRE)
+    # (22a): each layer of the first unit from the single device's input
+    unit = tree_map(lambda a: a[0], sp["blocks"])
+    worst = (0.0, -1)
+    for i, x, want in ref["layers"]:
+        one = {"layer0": unit[f"layer{i}"]}
+        x = x.to(mesh.device)
+        kw = one_layer_kw(cfg, cfg.block_pattern[i], pcfg, x.shape[1],
+                          mesh.device)
+        got = block_update(torch, one, x, kw).cpu()
+        worst = max(worst, (float((got - want).abs().max())
+                            / float(want.abs().max()), i))
+    if rank == 0:
+        torch.save({k: v for k, v in captured.items()}, tmp / f"kern_{arch}.pt")
+    n_attn = cfg.n_groups * sum(s in "AL" for s in cfg.block_pattern)
+    n_rec = cfg.n_groups * cfg.block_pattern.count("R")
+    return {"launches": launches, "want_launches": (
+                n_attn * len(prompts),
+                n_rec * (len(prompts) + rec["decode_calls"])),
+            "prefill": torch.stack(rec["prefill"]).numpy(),
+            "decode": rec["decode"].numpy(),
+            "tokens": [r.out for r in reqs], "ttft": [
+                r.t_first - r.t_submit for r in reqs],
+            "prefill_s": [r.t_first - r.t_admit for r in reqs],
+            "steps": steps, "peak": peak, "wire": wire, "tp": tp,
+            "serve_s": serve_s, "init_s": init_s, "layers": worst,
+            "blocks": sum(x.nbytes for _, x in
+                          tree_flatten_with_paths(params)),
+            "serving_bytes": sum(x.nbytes for _, x in
+                                 tree_flatten_with_paths(sp))}
+
+
+def serve_mesh_phase(torch, seed: int, cfgs=None, device="cuda") -> dict:
+    """Phase 22: each of ``MESH_SERVE_ARCHS`` at full width (or the
+    configs ``cfgs``) served on two gloo ranks sharing the card at
+    ``(data, model) = (1, 2)``, layout ``tp``, against the single-device
+    engine at one seed, run first in this process.  Returns {arch: (the
+    ranks' flash_attention and rg_lru_scan launches, the kernels' timings
+    at a rank's shapes)}.  A CPU rehearsal passes reduced ``cfgs`` and
+    ``device="cpu"`` (with ``torch.cuda``'s synchronize and memory calls
+    stubbed, in the ranks too, and the kernel timings skipped)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import kernel as fkernel
+    from repro_torch.launch.mesh import run_ranks
+    from repro_torch.parallel.sharding import NO_PARALLEL
+    card = card_line()
+    out = {}
+    for cfg in cfgs or [get_config(a) for a in MESH_SERVE_ARCHS]:
+        arch = cfg.name
+        t_arch = time.perf_counter()
+        cfg, params = lm_model(torch, seed, cfg, device)
+        prompts = serve_mesh_prompts(cfg, seed)
+        fkernel.launches = 0
+        reqs, steps, rec, peak, _ = mesh_serve_run(
+            torch, cfg, params, prompts, NO_PARALLEL, device=device)
+        single = {"ttft": [r.t_first - r.t_submit for r in reqs],
+                  "steps": steps}
+        steady = [(sec, act) for sec, adm, act in steps if adm == 0]
+        print(f"serve mesh: {arch} single device ({card}): ttft_s "
+              f"{[round(x, 4) for x in single['ttft']]} (prompts "
+              f"{[len(p) for p in prompts]}) decode_tok_per_s_steady "
+              f"{sum(a for _, a in steady) / sum(s for s, _ in steady):.1f} "
+              f"max_memory_allocated={peak}")
+        layers = unit_layer_records(torch, cfg, params, prompts[0])
+        emul = threaded_serve(torch, cfg, params, prompts, rec["tokens"])
+        tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_serve_mesh_"))
+        try:
+            torch.save({"prefill": torch.stack(rec["prefill"]),
+                        "decode": rec["decode"], "tokens": rec["tokens"],
+                        "layers": layers}, tmp / f"serve_{arch}.pt")
+            want = {"prefill": torch.stack(rec["prefill"]).numpy(),
+                    "decode": rec["decode"].numpy(),
+                    "tokens": [r.out for r in reqs], **emul}
+            del params, layers, reqs, rec
+            fresh_card(torch, 22, f"before the {arch} ranks start")
+            t = time.perf_counter()
+            res = run_ranks(serve_mesh_rank, MESH_LM_RANKS,
+                            (seed, str(tmp), cfg,
+                             None if device == "cuda" else device),
+                            timeout_s=600, join_timeout_s=900)
+            spawn_s = time.perf_counter() - t
+            kern = torch.load(tmp / f"kern_{arch}.pt")
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+        for r, got in enumerate(res):
+            check_serve_mesh_rank(arch, r, got, want, single, card)
+        if device != "cuda":
+            out[arch] = ([got["launches"] for got in res], {})
+            continue
+        timings = {"flash": path_flash_times(
+            torch, f"{arch} tensor-parallel rank", tuple(
+                (tuple(x.cuda() for x in kern["attn"][0]), kern["attn"][1])))}
+        if "prefill" in kern:
+            timings["scan_prefill"] = lru_times(
+                torch, f"{arch} tensor-parallel rank prefill",
+                *(x.cuda() for x in kern["prefill"]))
+            timings["scan_decode"] = lru_times(
+                torch, f"{arch} tensor-parallel rank decode",
+                *(x.cuda() for x in kern["decode"]))
+        del kern
+        out[arch] = ([got["launches"] for got in res], timings)
+        print(f"serve mesh: {arch} done in "
+              f"{time.perf_counter() - t_arch:.1f}s ({spawn_s:.1f}s with "
+              f"the ranks' spawn)")
+    return out
+
+
+def check_serve_mesh_rank(arch, r, got, want, single, card) -> None:
+    """Phase 22's bands on rank ``r``'s results, and its lines."""
+    scale = float(np.abs(want["prefill"]).max())
+    err_p = float(np.abs(got["prefill"] - want["prefill"]).max())
+    dscale = float(np.abs(want["decode"]).max())
+    err_d = float(np.abs(got["decode"] - want["decode"]).max())
+    rel, layer = got["layers"]
+    same = sum(a == b for a, b in zip(got["tokens"], want["tokens"]))
+    emul_p = float(np.abs(got["prefill"] - want["emul_prefill"]).max())
+    emul_d = float(np.abs(got["decode"] - want["emul_decode"]).max())
+    steady = [(sec, act) for sec, adm, act in got["steps"] if adm == 0]
+    tp = got["tp"]
+    print(f"serve mesh: {arch} rank {r}/{MESH_LM_RANKS} ((data, model) = "
+          f"{MESH_SERVE_SHAPE}, layout tp, gloo sharing the card, "
+          f"host-staged; {card}): ttft_s "
+          f"{[round(x, 4) for x in got['ttft']]} (single device "
+          f"{[round(x, 4) for x in single['ttft']]}) prefill_s "
+          f"{[round(x, 4) for x in got['prefill_s']]} "
+          f"decode_tok_per_s_steady "
+          f"{sum(a for _, a in steady) / sum(s for s, _ in steady):.1f} "
+          f"max_memory_allocated={got['peak']} (the rank's blocks "
+          f"{got['blocks']} bytes, its serving parameters "
+          f"{got['serving_bytes']}); tp_all_reduce {tp['calls']} calls "
+          f"{got['wire']['tp_all_reduce']} bytes {tp['s']:.3f}s of the "
+          f"serve's {got['serve_s']:.3f}s (the rest: compute, the "
+          f"engine and the other collectives: "
+          + " ".join(f"{k} {v}" for k, v in got["wire"].items()
+                     if v and k != "tp_all_reduce")
+          + f" bytes); launches flash_attention={got['launches'][0]} "
+          f"rg_lru_scan={got['launches'][1]}; the prefill logits "
+          f"{emul_p:.3e} and the first decode step's {emul_d:.3e} from the "
+          f"single device's with its model ranks emulated by threads "
+          f"(scale {scale:.3f} / {dscale:.3f}; tolerance {LOGIT_TOL} of it),"
+          f" {err_p:.3e} and {err_d:.3e} from the plain single device's "
+          f"(printed: bf16 rounding through the random-weight stack); the "
+          f"first unit's layers teacher-forced: worst update {rel:.3e} of "
+          f"the plain single device's scale (layer {layer}; tolerance "
+          f"{TP_LAYER_TOL}); greedy streams equal to the single device's: "
+          f"{same} of {len(want['tokens'])}; parameters made in "
+          f"{got['init_s']:.2f}s")
+    check(emul_p <= LOGIT_TOL * scale,
+          f"{arch} rank {r}: prefill logits {emul_p} from the emulated "
+          f"ranks'")
+    check(emul_d <= LOGIT_TOL * dscale,
+          f"{arch} rank {r}: the first decode step's logits {emul_d} from "
+          f"the emulated ranks'")
+    check(rel <= TP_LAYER_TOL, f"{arch} rank {r}: layer {layer}'s update "
+          f"{rel} of its scale from the single device's")
+    check(got["launches"] == got["want_launches"]
+          and min(got["launches"][0], 1) == 1,
+          f"{arch} rank {r}: launches (flash_attention, rg_lru_scan) "
+          f"{got['launches']}, the path's are {got['want_launches']}")
+    check(all(len(t) == MAX_NEW for t in got["tokens"]),
+          f"{arch} rank {r}: a request ended short")
+
+
+# the leaves a tensor-parallel layer computes on its model block, and the
+# dim the block cuts (the JAX specs' "model" entry)
+TP_CUTS = {"attn": {"wq": 1, "bq": 0, "wo": 0},
+           "kv": {"wk": 1, "wv": 1, "bk": 0, "bv": 0},
+           "mlp": {"wi": 1, "wg": 1, "wo": 0},
+           "rglru": {"in_x": 1, "in_g": 1, "conv_w": 1, "a_param": 0,
+                     "out": 0}}
+
+
+@contextlib.contextmanager
+def emulated_model_ranks(torch, size: int, device):
+    """What ``size`` ``model`` ranks of a ``layout="tp"`` mesh compute,
+    on this device in one autograd graph, for calls off a mesh: each
+    attention, dense-FFN and RG-LRU layer that would split is called once
+    a rank, with the rank's blocks cut from the whole leaves (contiguous
+    copies, as a rank holds them) and a stand-in mesh at the rank's
+    ``model`` coordinate; ``sharded.copy_to_model`` and
+    ``reduce_from_model`` are the identity inside, and the ranks' outputs
+    are added in their type, as the all-reduce of two ranks adds them.
+    The layer's input enters each rank's call through an identity node of
+    its own, whose gradient autograd sums over that rank's uses as the
+    rank's ``copy_to_model`` output sums them; the input's gradient is
+    then the ranks' two added in their type, as ``copy_to_model``'s
+    all-reduce adds them, and a replicated leaf used by every rank gets
+    the same sum.  The caches a prefill emits are rank
+    0's blocks (for the logits alone)."""
+    from repro_torch.models import attention, mlp, rglru
+    from repro_torch.parallel import sharded
+    from repro_torch.parallel.mesh_utils import Mesh
+    from repro_torch.parallel.sharding import tp_block
+    meshes = [Mesh(("data", "model"), {"data": 1, "model": size}, object(),
+                   r, size, device, "gloo") for r in range(size)]
+
+    def cut(p, tables, r):
+        out = dict(p)
+        for table in tables:
+            for name, dim in table.items():
+                if name in p:
+                    n = p[name].shape[dim] // size
+                    out[name] = p[name].narrow(dim, r * n, n).contiguous()
+        return out
+
+    def wrap(module, tables_of, pair):
+        real = module.apply
+
+        def call(p, x, *a, pcfg, **kw):
+            tables = None if pcfg.mesh is not None else tables_of(
+                pcfg.with_(mesh=meshes[0], layout="tp"), kw)
+            if not tables:
+                return real(p, x, *a, pcfg=pcfg, **kw)
+            outs = [real(cut(p, tables, r), x.view_as(x), *a,
+                         pcfg=pcfg.with_(mesh=meshes[r], layout="tp"),
+                         **rank_kw(kw, r)) for r in range(size)]
+            if not pair:
+                return sum(outs[1:], outs[0])
+            return sum((o[0] for o in outs[1:]), outs[0][0]), outs[0][1]
+        return patched(module, "apply", call)
+
+    def rank_kw(kw, r):
+        """A recurrent state (a prefill's zeros) cut to the rank's slice
+        of the width."""
+        if kw.get("state") is None:
+            return kw
+        return dict(kw, state={k: v.chunk(size, dim=-1)[r].contiguous()
+                               for k, v in kw["state"].items()})
+
+    def attn_tables(pc, kw):
+        cfg = kw["cfg"]
+        if kw.get("memory_kv") is not None or kw["mode"] == "encode" \
+                or not tp_block(pc, cfg.n_heads):
+            return None
+        kv = tp_block(pc, cfg.n_kv_heads) is not None
+        return [TP_CUTS["attn"]] + ([TP_CUTS["kv"]] if kv else [])
+
+    def mlp_tables(pc, kw):
+        ok = kw.get("tp", True) and tp_block(pc, kw["cfg"].d_ff)
+        return [TP_CUTS["mlp"]] if ok else None
+
+    def lru_tables(pc, kw):
+        cfg = kw["cfg"]
+        ok = tp_block(pc, cfg.lru_width or cfg.d_model)
+        return [TP_CUTS["rglru"]] if ok else None
+
+    with wrap(attention, attn_tables, True), wrap(mlp, mlp_tables, False), \
+            wrap(rglru, lru_tables, True), \
+            patched(sharded, "copy_to_model", lambda x, mesh: x), \
+            patched(sharded, "reduce_from_model", lambda x, mesh: x):
+        yield
+
+
+# ------------------------------------------------------------ run 14c
+TP_TRAIN_SHAPE = (1, 2)         # (data, model), layout tp
+TP_TRAIN_BATCH = 1              # one row of MESH_SEQ tokens
+
+
+def tp_reference(torch, cfg, seed: int, batch, tmp: Path) -> dict:
+    """(14c)'s reference on the card: one single-device forward and
+    backward of phase 8's kind on ``batch``, and the same step with its
+    two ``model`` ranks emulated on this device
+    (:func:`emulated_model_ranks`: each rank's partial products rounded
+    and added where the mesh rounds and adds them), whose gradient the
+    ranks' blocks are held to (``rowsumtp``); the plain step's is
+    ``whole``.  Both go to ``tmp/ref_tp.pt`` (whole leaves, each rank
+    cuts its blocks); returns the emulation's loss and gradient norm."""
+    from repro_torch.models import model
+    from repro_torch.train import optim, step
+    from repro_torch.utils.pytree import tree_flatten_with_paths
+    t = time.perf_counter()
+    params = model.init_params(cfg, torch.Generator().manual_seed(seed),
+                               batch["inputs"].device)
+    (loss, _), grads = step._value_and_grad_accum(params, batch, cfg=cfg,
+                                                  pcfg=train_pcfg())
+    whole = {p: g.cpu() for p, g in tree_flatten_with_paths(grads)}
+    plain = (float(loss), float(optim.global_norm(grads)))
+    del grads
+    with emulated_model_ranks(torch, TP_TRAIN_SHAPE[1],
+                              batch["inputs"].device):
+        (loss, _), grads = step._value_and_grad_accum(
+            params, batch, cfg=cfg, pcfg=train_pcfg())
+    gnorm = float(optim.global_norm(grads))
+    emul = {p: g.cpu() for p, g in tree_flatten_with_paths(grads)}
+    del params, grads
+    spread = {p: _rel(torch, whole[p], emul[p]) for p in emul}
+    worst = max(spread, key=spread.get)
+    torch.save({"whole": whole, "rowsumtp": emul}, tmp / "ref_tp.pt")
+    del whole, emul
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"mesh tp: single-device step of {cfg.name} cut to "
+          f"{cfg.n_layers} layers, batch {batch['inputs'].shape[0]} x "
+          f"{batch['inputs'].shape[1]}: loss {plain[0]:.6f} grad_norm "
+          f"{plain[1]:.4f}; its {TP_TRAIN_SHAPE[1]} model ranks emulated: "
+          f"loss {float(loss):.6f} grad_norm {gnorm:.4f}, the gradient "
+          f"{spread[worst]:.3e} relative L2 at most from the plain step's "
+          f"({worst}; bf16 rounding of the ranks' partial sums); "
+          f"{time.perf_counter() - t:.2f}s")
+    return {"loss": float(loss), "grad_norm": gnorm}
+
+
+def tp_train_rank(rank: int, world: int, seed: int, tmp: str, cfg,
+                  seq: int) -> dict:
+    """One of (14c)'s 2 ranks (started by ``run_ranks``)."""
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    t = time.perf_counter()
+    out = {"tp": _rank_train(torch, rank, seed, Path(tmp), cfg, seq,
+                             shape=TP_TRAIN_SHAPE, run="tp",
+                             batch=TP_TRAIN_BATCH, ref="ref_tp.pt",
+                             layout="tp")}
+    out["run_s"] = time.perf_counter() - t
+    return out
+
+
+def tp_train_phase(torch, seed: int) -> list:
+    """(14c): the 13-layer cut of ``recurrentgemma-2b`` trained 2 steps on
+    ``(data, model) = (1, 2)``, layout ``tp``, one row of ``MESH_SEQ``
+    tokens: each rank computes the attention, FFN and RG-LRU layers on
+    its ``model`` block.  Returns each rank's (flash, scan, scan
+    backward) launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.dataset import Cursor
+    from repro_torch.launch.mesh import run_ranks
+    cut = get_config(LM_ARCH).replace(n_layers=POD_LAYERS)
+    seq = MESH_SEQ
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_tp_mesh_"))
+    try:
+        _, ds, _ = train_data(torch, tmp / "ref", cut, seed,
+                              batch=TP_TRAIN_BATCH, seq=seq)
+        host, _ = next(ds.batches(TP_TRAIN_BATCH, Cursor()))
+        ref = tp_reference(torch, cut, seed, {
+            k: torch.from_numpy(v).cuda() for k, v in host.items()}, tmp)
+        fresh_card(torch, "14c", "before the ranks start")
+        t = time.perf_counter()
+        res = run_ranks(tp_train_rank, MESH_LM_RANKS,
+                        (seed, str(tmp), cut, seq), timeout_s=600,
+                        join_timeout_s=900)
+        spawn_s = time.perf_counter() - t
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    card = card_line()
+    for r, out in enumerate(res):
+        report_mesh_train(f"mesh tp rank {r}/{MESH_LM_RANKS}", cut, out["tp"],
+                          seq, TP_TRAIN_BATCH, card)
+    check_mesh_train(cut, res, ref, key="tp", falls=False)
+    print(f"mesh tp: step-1 loss {res[0]['tp']['steps'][0][0]:.6f} against "
+          f"the single device's {ref['loss']:.6f}, grad_norm "
+          f"{res[0]['tp']['steps'][0][1]:.4f} against "
+          f"{ref['grad_norm']:.4f}; ranks {res[0]['run_s']:.1f}s, "
+          f"{spawn_s:.1f}s with the spawn")
+    return [out["tp"]["launches"] for out in res]
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--records", type=int, default=10_000_000)
@@ -4459,11 +5215,23 @@ def main() -> None:
     print(f"phases 14-15 done in {time.perf_counter() - t:.1f}s (at "
           f"{time.perf_counter() - t0:.1f}s)")
 
+    # (14c): tensor-parallel training, 2 ranks at (data, model) = (1, 2)
+    t = fresh_card(torch, "14c")
+    tp_launches = tp_train_phase(torch, args.seed)
+    print(f"run 14c done in {time.perf_counter() - t:.1f}s (at "
+          f"{time.perf_counter() - t0:.1f}s)")
+
     # phase 21: the MoE on the LM training mesh, on a card holding nothing
     # of phases 14-15
     t = fresh_card(torch, 21)
     moe_mesh_launches, moe_mesh_flash = moe_mesh_phase(torch, args.seed)
     print(f"phase 21 done in {time.perf_counter() - t:.1f}s (at "
+          f"{time.perf_counter() - t0:.1f}s)")
+
+    # phase 22: serving on the mesh, 2 ranks at (data, model) = (1, 2)
+    t = fresh_card(torch, 22)
+    serve_mesh = serve_mesh_phase(torch, args.seed)
+    print(f"phase 22 done in {time.perf_counter() - t:.1f}s (at "
           f"{time.perf_counter() - t0:.1f}s)")
 
     # phase 2: every kernel against its plain version on the card
@@ -4561,6 +5329,12 @@ def main() -> None:
     moe_launches, rows["flash_attention"][MOE_ARCH] = moe_phase(torch,
                                                                 args.seed)
     rows["flash_attention"]["train_" + MOE_ARCH] = moe_mesh_flash
+    for arch, (_, timings) in serve_mesh.items():
+        rows["flash_attention"]["serve_mesh_" + arch] = timings["flash"]
+        if "scan_prefill" in timings:
+            rows["rg_lru_scan"]["serve_mesh_prefill"] = \
+                timings["scan_prefill"]
+            rows["rg_lru_scan"]["serve_mesh_decode"] = timings["scan_decode"]
     print(f"phase 11 done in {time.perf_counter() - t:.1f}s (at "
           f"{time.perf_counter() - t0:.1f}s)")
 
@@ -4603,17 +5377,27 @@ def main() -> None:
                                  "serve_" + VLM_ARCH: vlm_launches[0],
                                  "image_" + VLM_ARCH: image_launches,
                                  **{"serve_" + arch: n[0] for arch, n in
-                                    held_launches.items()}}),
+                                    held_launches.items()},
+                                 "train_mesh_tp": sum(x[0] for x in
+                                                      tp_launches),
+                                 **{"serve_mesh_" + arch: sum(
+                                     x[0] for x in n) for arch, (n, _) in
+                                    serve_mesh.items()}}),
             ("rg_lru_scan", {"serve": lm_launches[1],
                              "train": t_launches[1],
                              "train_mesh": sum(x[1] for x in mesh_launches),
                              "train_mesh_accum": sum(
-                                 x[1] for x in accum_launches)}),
+                                 x[1] for x in accum_launches),
+                             "train_mesh_tp": sum(x[1] for x in tp_launches),
+                             "serve_mesh_" + LM_ARCH: sum(
+                                 x[1] for x in serve_mesh[LM_ARCH][0])}),
             ("rg_lru_scan_backward", {"train": t_launches[2],
                                       "train_mesh": sum(
                                           x[2] for x in mesh_launches),
                                       "train_mesh_accum": sum(
-                                          x[2] for x in accum_launches)})):
+                                          x[2] for x in accum_launches),
+                                      "train_mesh_tp": sum(
+                                          x[2] for x in tp_launches)})):
         rows[name]["launches"] = sum(by_path.values())
         rows[name]["launches_by_path"] = by_path
     # the k-means path runs the fused entry and the partition path the

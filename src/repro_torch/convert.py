@@ -97,12 +97,14 @@ def params_from_jax(tree_of_numpy, device=None, *, specs=None, mesh=None):
     return tensor_from_numpy(tree_of_numpy, device)
 
 
-def cache_from_jax(tree_of_numpy, device=None):
+def cache_from_jax(tree_of_numpy, device=None, *, specs=None, mesh=None):
     """The JAX package's decode cache (KV caches, ring ``kpos``, the
     RG-LRU, mLSTM and sLSTM states, float32 beside the bf16 conv tails,
     an encoder-decoder's cross ``xk`` / ``xv``), as numpy, as the port's
-    cache on ``device`` (default CUDA)."""
-    return params_from_jax(tree_of_numpy, device)
+    cache on ``device`` (default CUDA).  With a ``mesh`` (and ``specs``,
+    ``train.step.cache_specs_for`` of the cache) each leaf is this rank's
+    block, as a serving rank holds it, on the mesh's device."""
+    return params_from_jax(tree_of_numpy, device, specs=specs, mesh=mesh)
 
 
 def opt_state_from_jax(tree_of_numpy, device=None, *, specs=None,

@@ -21,6 +21,34 @@ Decode attends a single query against a **full cache** ([B, S, K, D],
 positions implicit) or a **ring cache** ([B, W, K, D] plus an explicit
 ``kpos`` slot-position array) for windowed layers, in plain torch, as
 the JAX package computes it outside any kernel.
+
+**Tensor parallelism.**  Under ``layout="tp"`` on a mesh whose ``model``
+size divides ``n_heads`` (``sharding.tp_block``: the test of the JAX
+package's ``heads_spec``), the causal self-attention (train, prefill and
+decode; not the encoder's nor the cross-attention, which stay whole)
+runs on this rank's block of the q heads: ``params`` hold the column
+blocks of ``wq`` (``bq``) and the row block of ``wo``, the input enters
+through ``sharded.copy_to_model`` and the partial products through the
+rank's rows of ``wo`` are summed over ``model``
+(``sharded.reduce_from_model``).  K and V: where ``model`` divides
+``n_kv_heads`` the rank projects its own kv heads (the blocks of ``wk``
+/ ``wv``); otherwise (``recurrentgemma-2b``: one kv head) the leaves
+come whole, gathered over ``model`` as XLA must, and every rank projects
+K and V whole; the replicated leaves inside the layer (those and the
+qk-norm scales) enter through ``copy_to_model``, so their gradient is
+the sum over the ranks.  The decode cache is the rank's block of
+``train/step.py``'s ``cache_specs_for``: its kv heads where they split,
+else a block of the sequence (the serving mesh requires the sequence to
+split then).  Over a sequence-split cache, decode computes what XLA's
+partitioner makes of ``decode_attention``: every rank's q heads
+gathered, the row maximum reduced over ``model``, the exponentials of
+the rank's block, their sum reduced, p normalised and rounded to V's
+type, the rank's ``p V`` summed over ``model``; a block without a valid
+key adds zeros.  The new token's K / V lands only in the block that owns
+its slot.  ``kpos`` follows the spec's rule (split over the sequence
+wherever the slots divide), also where K / V split heads (``gemma3-12b``'s
+local layers): there decode all-gathers it over ``model`` first and
+keeps the block of the updated one.
 """
 from __future__ import annotations
 
@@ -28,6 +56,7 @@ import math
 from typing import Optional
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
@@ -35,7 +64,9 @@ from repro_torch.device import resolve_device
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.models import common
 from repro_torch.models.common import sds, soft_cap
-from repro_torch.parallel.sharding import ParallelConfig, constrain, heads_spec
+from repro_torch.parallel import sharded
+from repro_torch.parallel.sharding import (ParallelConfig, constrain,
+                                           heads_spec, tp_block)
 
 NEG_INF = -1e30
 ATTN_IMPLS = ("scan", "rect", "triangular", "pallas")
@@ -64,23 +95,26 @@ def shapes(cfg: ModelConfig, *, cross: bool = False) -> dict:
     return out
 
 
-def _project_q(p, x, cfg: ModelConfig):
+def _project_q(p, x, cfg: ModelConfig, n_heads: int = 0):
+    """q of ``n_heads`` heads (default the config's; a tensor-parallel
+    rank's block of ``wq`` holds fewer)."""
     q = x @ p["wq"]
     if cfg.qkv_bias:
         q = q + p["bq"]
-    q = q.reshape(x.shape[:-1] + (cfg.n_heads, cfg.d_head))
+    q = q.reshape(x.shape[:-1] + (n_heads or cfg.n_heads, cfg.d_head))
     if cfg.qk_norm:
         q = common.rms_norm(q, p["q_norm"], cfg.norm_eps)
     return q
 
 
-def _project_kv(p, x, cfg: ModelConfig):
+def _project_kv(p, x, cfg: ModelConfig, n_kv_heads: int = 0):
     k = x @ p["wk"]
     v = x @ p["wv"]
     if cfg.qkv_bias:
         k, v = k + p["bk"], v + p["bv"]
-    k = k.reshape(x.shape[:-1] + (cfg.n_kv_heads, cfg.d_head))
-    v = v.reshape(x.shape[:-1] + (cfg.n_kv_heads, cfg.d_head))
+    kv = n_kv_heads or cfg.n_kv_heads
+    k = k.reshape(x.shape[:-1] + (kv, cfg.d_head))
+    v = v.reshape(x.shape[:-1] + (kv, cfg.d_head))
     if cfg.qk_norm:
         k = common.rms_norm(k, p["k_norm"], cfg.norm_eps)
     return k, v
@@ -246,6 +280,12 @@ def apply(
     if is_local and getattr(cfg, "rope_theta_local", 0):
         theta = cfg.rope_theta_local
     cross = memory_kv is not None
+    heads = None if cross or mode == "encode" \
+        else tp_block(pcfg, cfg.n_heads)
+    if heads is not None:
+        return _apply_tp(params, x, heads, cfg=cfg, pcfg=pcfg, window=window,
+                         theta=theta, positions=positions, mode=mode,
+                         cache=cache, max_len=max_len)
 
     q = _project_q(params, x, cfg)
     if not cross:
@@ -325,3 +365,148 @@ def _prefill_cache(k, v, positions, *, window, max_len):
         k = F.pad(k, pad)
         v = F.pad(v, pad)
     return {"k": k, "v": v}
+
+
+# ---------------------------------------------------------------------------
+# Tensor-parallel route (this rank's q heads; module doc)
+# ---------------------------------------------------------------------------
+
+def _seq_block(x, index: int, size: int, dim: int = 1):
+    """Block ``index`` of ``size`` along ``dim``."""
+    n = x.shape[dim] // size
+    return x.narrow(dim, index * n, n)
+
+
+def _gather_model(x, mesh, dim: int):
+    """The ``model`` ranks' ``x`` concatenated along ``dim`` in rank order
+    (no autograd: decode runs under inference)."""
+    moved = x.movedim(dim, 0).contiguous()
+    return sharded.gather_wire(moved, mesh, ("model",)).movedim(0, dim)
+
+
+def _tp_kv_heads(k, v, cfg: ModelConfig, index: int, size: int):
+    """The kv heads of this rank's q heads from whole ``k`` / ``v``: the
+    one head of an MQA layer, else the head of each q head in turn."""
+    if k.shape[2] == 1:
+        return k, v
+    hm = cfg.n_heads // size
+    idx = torch.arange(index * hm, (index + 1) * hm, device=k.device) \
+        // (cfg.n_heads // cfg.n_kv_heads)
+    return k[:, :, idx], v[:, :, idx]
+
+
+def _apply_tp(params, x, heads, *, cfg: ModelConfig, pcfg: ParallelConfig,
+              window, theta, positions, mode, cache, max_len):
+    mesh = pcfg.mesh
+    index, size = heads
+    hm = cfg.n_heads // size
+    kv_split = tp_block(pcfg, cfg.n_kv_heads) is not None
+    km = cfg.n_kv_heads // size if kv_split else cfg.n_kv_heads
+    x = sharded.copy_to_model(x, mesh)
+    p = dict(params)
+    whole = ["q_norm", "k_norm"] if cfg.qk_norm else []
+    if not kv_split:
+        whole += ["wk", "wv"] + (["bk", "bv"] if cfg.qkv_bias else [])
+    for name in whole:
+        p[name] = sharded.copy_to_model(params[name], mesh)
+    q = common.apply_rope(_project_q(p, x, cfg, hm), positions, theta)
+    k_new, v_new = _project_kv(p, x, cfg, km)
+    k_new = common.apply_rope(k_new, positions, theta)
+    if mode == "decode":
+        out, new_cache = _decode_tp(q, k_new, v_new, cache, positions[:, 0],
+                                    cfg=cfg, pcfg=pcfg, window=window,
+                                    kv_split=kv_split, index=index,
+                                    size=size)
+    else:
+        k, v = (k_new, v_new) if kv_split else \
+            _tp_kv_heads(k_new, v_new, cfg, index, size)
+        out = chunked_attention(q, k, v, causal=True, window=window,
+                                q_chunk=pcfg.q_chunk, kv_chunk=pcfg.kv_chunk,
+                                impl=pcfg.attn_impl, softcap=cfg.attn_softcap)
+        new_cache = None
+        if mode == "prefill":
+            new_cache = _prefill_cache(k_new, v_new, positions, window=window,
+                                       max_len=max_len or k_new.shape[1])
+            slots = new_cache["k"].shape[1]
+            if not kv_split and slots % size == 0:
+                new_cache["k"] = _seq_block(new_cache["k"], index, size)
+                new_cache["v"] = _seq_block(new_cache["v"], index, size)
+            if "kpos" in new_cache and slots % size == 0:
+                new_cache["kpos"] = _seq_block(new_cache["kpos"], index, size)
+            new_cache = {n: c.contiguous() for n, c in new_cache.items()}
+    B, T = x.shape[0], x.shape[1]
+    out = out.reshape(B, T, hm * cfg.d_head) @ params["wo"]
+    return sharded.reduce_from_model(out, mesh), new_cache
+
+
+def _decode_tp(q, k_new, v_new, cache, pos, *, cfg, pcfg, window, kv_split,
+               index, size):
+    """One decode step of this rank's q heads over its cache block."""
+    mesh = pcfg.mesh
+    if kv_split:
+        # the rank's kv heads, every slot; kpos (a ring's) perhaps a block
+        # of the slots: whole for the step, the block kept
+        cache = dict(cache)
+        kp_split = "kpos" in cache \
+            and cache["kpos"].shape[1] != cache["k"].shape[1]
+        if kp_split:
+            cache["kpos"] = _gather_model(cache["kpos"], mesh, 1)
+        new_cache = update_cache(cache, k_new, v_new, pos,
+                                 mode=pcfg.cache_write)
+        out = decode_attention(q, new_cache, pos, window=window,
+                               softcap=cfg.attn_softcap)
+        if kp_split:
+            new_cache["kpos"] = _seq_block(new_cache["kpos"], index,
+                                           size).contiguous()
+        return out, new_cache
+    return _decode_seq_split(q, k_new, v_new, cache, pos, cfg=cfg,
+                             pcfg=pcfg, window=window, index=index,
+                             size=size)
+
+
+def _decode_seq_split(q, k_new, v_new, cache, pos, *, cfg, pcfg, window,
+                      index, size):
+    mesh = pcfg.mesh
+    k, v = cache["k"], cache["v"]
+    sm = k.shape[1]
+    lo = index * sm
+    ring = "kpos" in cache
+    slots = sm * size
+    slot = (pos % slots) if ring else pos
+    local = torch.where((slot >= lo) & (slot < lo + sm), slot - lo,
+                        torch.full_like(slot, -1))
+    new_cache = dict(cache)
+    new_cache["k"] = _masked_write(k, k_new, local)
+    new_cache["v"] = _masked_write(v, v_new, local)
+    pos_b = pos[:, None]
+    if ring:
+        new_cache["kpos"] = _masked_write(cache["kpos"][..., None],
+                                          pos[:, None, None], local)[..., 0]
+        kpos = new_cache["kpos"]
+        valid = (kpos >= 0) & (kpos <= pos_b)
+    else:
+        kpos = lo + torch.arange(sm, device=q.device)[None, :]
+        valid = kpos <= pos_b
+    if window:
+        valid = valid & (pos_b - kpos < window)
+    # every rank's q heads, then this block's share of the softmax
+    q_all = _gather_model(q, mesh, 2)                     # [B, 1, H, D]
+    B, _, H, D = q_all.shape
+    K = k.shape[2]
+    kk, vv = new_cache["k"], new_cache["v"]
+    qg = q_all.reshape(B, 1, K, H // K, D)
+    s = torch.einsum("btkgd,bskd->bkgts", qg.float(), kk.float()) \
+        * (1.0 / math.sqrt(D))
+    if cfg.attn_softcap:
+        s = soft_cap(s, cfg.attn_softcap)
+    s = torch.where(valid[:, None, None, None, :], s,
+                    torch.full_like(s, NEG_INF))
+    top = sharded.model_sum(s.amax(dim=-1, keepdim=True).contiguous(), mesh,
+                            op=dist.ReduceOp.MAX)
+    e = torch.exp(s - top)                # 0 where a key is not valid
+    total = sharded.model_sum(e.sum(dim=-1, keepdim=True), mesh)
+    p = (e / total).to(vv.dtype).float()
+    out = torch.einsum("bkgts,bskd->btkgd", p, vv.float()).contiguous()
+    out = sharded.model_sum(out, mesh).reshape(B, 1, H, D).to(q.dtype)
+    hm = H // size
+    return out[:, :, index * hm:(index + 1) * hm], new_cache

@@ -175,6 +175,11 @@ def prefill(params, batch: dict, *, cfg: ModelConfig,
     then holds the memory's cross K / V) or ``patch_embeds`` /
     ``patch_pos`` (vision patches, optional).
 
+    Under ``layout="tp"`` on a mesh (the serving mesh, ``train/step.py``
+    ``make_prefill_step``) ``params`` are a rank's serving parameters
+    and the cache is the rank's ``model`` block of each leaf
+    (``cache_specs_for``).
+
     Returns (last_logits, cache)."""
     tokens = batch["inputs"]
     S = tokens.shape[1]

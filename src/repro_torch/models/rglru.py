@@ -16,6 +16,23 @@ step at a time with the carried state.  The full residual block is
 Griffin's:
 
     y = W_out( RG-LRU(conv1d(W_x x)) * gelu(W_g x) )
+
+Under ``layout="tp"`` on a mesh whose ``model`` size divides the LRU
+width (``sharding.tp_block``), ``p`` holds this rank's blocks of
+``in_x``, ``in_g``, ``conv_w`` and ``a_param`` (a contiguous slice of
+the width) and of ``out`` (its rows), the recurrent state its slice of
+``h`` and ``conv``: every op but the two gates is elementwise over the
+width, so the rank runs the conv, the gates and ``rg_lru_scan`` on its
+slice ``[B, T, W / model]`` and the partial products through its rows
+of ``out`` are summed over ``model`` (``sharded.reduce_from_model``).
+The gates are block-diagonal over ``N_GATE_BLOCKS`` blocks, and the JAX
+rule for ``gate_a`` / ``gate_x`` (``P(None, None, "model")``) splits the
+output columns of every block, not the blocks: the rank needs its
+``N_GATE_BLOCKS / model`` whole blocks, so those two leaves come whole
+(gathered over ``model`` as well) and the rank takes its blocks; their
+gradient is summed over ``model`` (``sharded.copy_to_model``), so each
+rank's whole gradient is the layer's.  A ``model`` size that does not
+divide ``N_GATE_BLOCKS`` would cut a block between ranks and raises.
 """
 from __future__ import annotations
 
@@ -26,6 +43,8 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.rg_lru_scan import ops as lru_ops
 from repro_torch.models import common
 from repro_torch.models.common import block_diag_apply, block_diag_shapes, sds
+from repro_torch.parallel import sharded
+from repro_torch.parallel.sharding import NO_PARALLEL, ParallelConfig, tp_block
 
 RGLRU_C = 8.0
 N_GATE_BLOCKS = 8
@@ -73,11 +92,41 @@ def _lru(p, x, h0, *, chunk: int = 0, unroll: bool = False):
     return h.to(x.dtype), h_t
 
 
+def _rank_gates(p, pcfg: ParallelConfig, split) -> dict:
+    """``p`` with the gates cut to this rank's ``N_GATE_BLOCKS / model``
+    blocks (the whole leaves through ``copy_to_model``)."""
+    index, size = split
+    if N_GATE_BLOCKS % size:
+        raise NotImplementedError(
+            f"the RG-LRU gates' {N_GATE_BLOCKS} blocks do not split over "
+            f"{size} model ranks (ROADMAP item 1.3f part 2)")
+    k = N_GATE_BLOCKS // size
+    out = dict(p)
+    for name in ("gate_a", "gate_x"):
+        w = sharded.copy_to_model(p[name]["w"], pcfg.mesh)
+        out[name] = {"w": w[index * k:(index + 1) * k]}
+    return out
+
+
 def apply(p, x, *, cfg: ModelConfig, state=None, chunk: int = 0,
-          unroll: bool = False):
-    """Full Griffin recurrent block. x: [B,T,d] -> (out, new_state | None)."""
+          unroll: bool = False, pcfg: ParallelConfig = NO_PARALLEL):
+    """Full Griffin recurrent block. x: [B,T,d] -> (out, new_state | None);
+    on a ``tp`` mesh on this rank's slice of the width (module doc)."""
     B, T, d = x.shape
     w = cfg.lru_width or d
+    split = tp_block(pcfg, w)
+    if split is not None:
+        p = _rank_gates(p, pcfg, split)
+        x = sharded.copy_to_model(x, pcfg.mesh)
+        w //= split[1]
+    out, new_state = _block(p, x, w, state, chunk, unroll)
+    if split is not None:
+        out = sharded.reduce_from_model(out, pcfg.mesh)
+    return out, new_state
+
+
+def _block(p, x, w, state, chunk, unroll):
+    B = x.shape[0]
     branch = x @ p["in_x"]
     gate = F.gelu((x @ p["in_g"]).float(), approximate="tanh").to(x.dtype)
     if state is None:

@@ -12,7 +12,11 @@ the encoder memory, whose projected K / V the decode cache keeps
 (``xk`` / ``xv``).  The modality frontends are the JAX package's stubs:
 ``project_frames`` (one linear map of precomputed audio frames) and
 ``splice_patches`` (a two-layer projector of precomputed vision patches,
-spliced into the token stream).
+spliced into the token stream).  Under ``layout="tp"`` on a mesh the
+attention, dense-FFN and RG-LRU layers of the decoder stack compute on
+this rank's block of their width (their modules say how); the encoder
+stack (``mode="encode"``), the cross blocks, the MoE FFNs and the xLSTM
+blocks compute whole.
 
 Parameters (and decode caches / recurrent states) for the unit are
 stacked with a leading group dim, as in the JAX package, so the two
@@ -38,7 +42,8 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import attention, mlp, moe, rglru, xlstm
 from repro_torch.models.common import rms_norm, sds, soft_cap
-from repro_torch.parallel.sharding import ParallelConfig, batch_spec, constrain
+from repro_torch.parallel.sharding import (ParallelConfig, batch_spec,
+                                           constrain, tp_block)
 from repro_torch.utils.pytree import tree_map, tree_map_with_path
 
 # ---------------------------------------------------------------------------
@@ -192,7 +197,14 @@ def _unit_apply(unit_params, x, *, cfg: ModelConfig, pcfg: ParallelConfig,
             return unit_cache[f"layer{i}"]["rec"]
         if mode != "prefill":
             return None
-        return _zero_state(_STATE_SHAPES[sym](cfg, B), x.device)
+        state = _zero_state(_STATE_SHAPES[sym](cfg, B), x.device)
+        split = tp_block(pcfg, cfg.lru_width or cfg.d_model) \
+            if sym == "R" else None
+        if split is not None:    # the rank's slice of the width
+            index, size = split
+            state = {k: v.chunk(size, dim=-1)[index].contiguous()
+                     for k, v in state.items()}
+        return state
 
     for i, sym in enumerate(cfg.block_pattern):
         lp = unit_params[f"layer{i}"]
@@ -221,7 +233,8 @@ def _unit_apply(unit_params, x, *, cfg: ModelConfig, pcfg: ParallelConfig,
                 ffn, aux_i = moe.apply(lp["moe"], h, cfg=cfg, pcfg=pcfg)
                 aux = aux + aux_i
             else:
-                ffn = mlp.apply(lp["mlp"], h, cfg=cfg, pcfg=pcfg)
+                ffn = mlp.apply(lp["mlp"], h, cfg=cfg, pcfg=pcfg,
+                                tp=mode != "encode")
             x = x + ffn
             if new_cache is not None:
                 layer_new = {"attn": attn_cache if attn_cache is not None
@@ -234,7 +247,7 @@ def _unit_apply(unit_params, x, *, cfg: ModelConfig, pcfg: ParallelConfig,
             out, st = rglru.apply(lp["rglru"], h, cfg=cfg,
                                   state=rec_state(i, sym),
                                   chunk=pcfg.lru_chunk,
-                                  unroll=pcfg.unroll_scans)
+                                  unroll=pcfg.unroll_scans, pcfg=pcfg)
             x = x + out
             h = rms_norm(x, lp["norm2"]["scale"], eps)
             x = x + mlp.apply(lp["mlp"], h, cfg=cfg, pcfg=pcfg)

@@ -24,6 +24,12 @@ included.
   autograd crosses (the MoE's token grouping, aux statistics and expert
   exchange on a mesh, ``models/moe.py``): the backward of each is the
   matching reverse collective;
+* :func:`copy_to_model` and :func:`reduce_from_model` bracket a layer
+  that computes on this rank's block of its width under
+  ``layout="tp"`` (``models/attention.py``, ``mlp.py``, ``rglru.py``):
+  the first is the identity forward and sums the gradient over
+  ``model`` backward, the second sums the partial outputs over
+  ``model`` forward and is the identity backward;
 * :func:`gather_block` is :func:`gather_leaf` as autograd crosses it,
   with :func:`reduce_scatter_leaf` for its backward, and
   :class:`BlockGather` applies it to the subtrees a mesh train step
@@ -59,9 +65,12 @@ from repro_torch.utils.pytree import (tree_flatten_with_paths, tree_leaves,
 # all-reduces that stand for them over an axis that does not split a
 # leaf), the norm's exchange, and the autograd collectives (forward,
 # recompute and backward: ``all_gather`` the MoE's ids and aux
-# statistics, ``all_to_all`` its expert exchange)
+# statistics, ``all_to_all`` its expert exchange), and the sums over
+# ``model`` of the tensor-parallel layers (``tp_all_reduce``: their
+# outputs forward and in the recompute, their inputs' gradients backward,
+# and at decode a sequence-split cache's softmax statistics and product)
 WIRE = {"gather": 0, "reduce_scatter": 0, "norm": 0, "all_gather": 0,
-        "all_to_all": 0}
+        "all_to_all": 0, "tp_all_reduce": 0}
 
 
 def _split_dims(spec, ndim: int, mesh: Mesh) -> List[Tuple[int, tuple]]:
@@ -318,6 +327,51 @@ class _AllToAll(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         return exchange_wire(g, ctx.mesh, ctx.axes), None, None
+
+
+class _CopyToModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh):
+        ctx.mesh = mesh
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return model_sum(g.clone(memory_format=torch.contiguous_format),
+                         ctx.mesh), None
+
+
+class _ReduceFromModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh):
+        return model_sum(x.clone(memory_format=torch.contiguous_format), mesh)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def model_sum(x: torch.Tensor, mesh: Mesh, op=dist.ReduceOp.SUM
+              ) -> torch.Tensor:
+    """``x`` reduced over ``model`` in its own type, written into ``x``
+    (no autograd); its bytes count under ``WIRE["tp_all_reduce"]``."""
+    return all_reduce(x, mesh, ("model",), op=op,
+                      wire=(WIRE, "tp_all_reduce"))
+
+
+def copy_to_model(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """``x`` itself forward; backward, the sum over the ``model`` ranks of
+    their gradients (an all-reduce in the gradient's type): where the
+    ranks each compute on their own block of a layer's width from the
+    same ``x``, ``x``'s gradient is the sum of theirs."""
+    return _CopyToModel.apply(x, mesh)
+
+
+def reduce_from_model(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """The sum over the ``model`` ranks of their ``x`` (an all-reduce in
+    ``x``'s type, as XLA sums the partial products of a row-split matrix
+    in their own type); backward the identity."""
+    return _ReduceFromModel.apply(x, mesh)
 
 
 def all_gather(x: torch.Tensor, mesh: Mesh, axes) -> torch.Tensor:

@@ -14,9 +14,13 @@ across pods. Policy (paper-faithful wide-area design):
 
 A spec says which block of a leaf each rank keeps
 (:mod:`repro_torch.parallel.sharded` cuts and joins the blocks).  The
-model code computes on whole tensors, so the activation hints
-(``constrain``) are the identity: a rank's tensors are already its own.
-The mesh is a :class:`repro_torch.parallel.mesh_utils.Mesh`.
+activation hints (``constrain``) are the identity: a rank's tensors are
+already its own.  Where the JAX specs split heads or FFN columns over
+``model`` (:func:`tp_block`), the attention, dense-FFN and RG-LRU layers
+compute on the rank's block of their width and sum over ``model``
+(``sharded.copy_to_model`` / ``reduce_from_model``); everything else is
+computed whole.  The mesh is a
+:class:`repro_torch.parallel.mesh_utils.Mesh`.
 """
 from __future__ import annotations
 
@@ -149,6 +153,19 @@ def heads_spec(pcfg: ParallelConfig, n_heads: int, *, batch_dims=1, trailing=1):
     axes += ["model" if use_tp else None]
     axes += [None] * trailing
     return P(*axes)
+
+
+def tp_block(pcfg: ParallelConfig, width: int) -> Optional[Tuple[int, int]]:
+    """(this rank's coordinate along ``model``, the ``model`` size) where
+    the JAX activation specs split ``width`` (heads, FFN columns, the LRU
+    width) over ``model``, else None: the test of ``heads_spec``, a
+    mesh whose ``model`` axis has several ranks, ``layout="tp"`` and a
+    width that the ``model`` size divides.  The rank's slice of the width
+    is ``[index * width / size, (index + 1) * width / size)``."""
+    if pcfg.mesh is None or pcfg.model_size <= 1 or pcfg.layout != "tp" \
+            or not _divisible(width, pcfg.model_size):
+        return None
+    return pcfg.mesh.axis_index("model"), pcfg.model_size
 
 
 def kv_cache_spec(pcfg: ParallelConfig, n_kv: int, seq: int) -> P:

@@ -14,6 +14,23 @@ prefix (``dynamic_update_slice``), leaving the rest of the slot's rows
 to the last request, which decode then attends (``ROADMAP.md`` §3).
 Finished slots (EOS or token budget) are recycled immediately.
 
+On a serving mesh (``pcfg.mesh``: one ``torch.distributed`` rank per
+process, ``layout="tp"``, ``train.step.check_serving_mesh``) ``params``
+are this rank's blocks (``param_specs_for``).  The engine gathers once,
+when it starts, every leaf but those the layers compute on a ``model``
+block, and those over the batch axes alone (``step.serve_params``); it
+gathers no weight while it serves.  Its cache is its block of the pool
+(``step.cache_specs_for``): its slots, over the batch axes, and along
+``model`` its kv heads, or its block of the sequence, or its slice of
+the RG-LRU width.  Every rank runs the same loop over the same queue.
+A batch-1 prefill runs on every rank (one prompt does not split over the
+batch axes), each ``model`` group computing it on its blocks, and only
+the ranks whose slots hold the request keep its cache.  A decode step
+runs each rank's slots; the logits are gathered over the batch axes,
+and every rank samples from the same values with its generator seeded
+0, so every rank's slot bookkeeping is the same.  The prefill and
+decode run through ``step.make_prefill_step`` / ``make_decode_step``.
+
 Everything runs under ``torch.inference_mode()``.  Each request carries
 host-clock stamps (``time.perf_counter``): ``t_submit``, ``t_admit``
 (its prefill starts) and ``t_first`` (its first token is on the host).
@@ -29,9 +46,9 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
-from repro_torch.models import model
 from repro_torch.parallel.sharding import NO_PARALLEL, ParallelConfig
 from repro_torch.serve.sampler import SamplerConfig, sample
+from repro_torch.train import step as steps
 from repro_torch.utils.pytree import tree_leaves, tree_map
 
 
@@ -55,16 +72,20 @@ class ServeEngine:
                  eos_id: int = -1,
                  scfg: SamplerConfig = SamplerConfig(),
                  device=None):
-        """``params`` must lie on ``device`` (default CUDA); sampling
+        """``params`` must lie on ``device`` (default CUDA; on a mesh the
+        mesh's device, and ``params`` are this rank's blocks); sampling
         draws from a generator on ``device`` seeded 0 (the JAX package's
         ``PRNGKey(0)``)."""
-        self.device = resolve_device(device)
+        mesh = pcfg.mesh
+        self.device = mesh.device if mesh is not None \
+            else resolve_device(device)
         leaf = tree_leaves(params)[0]
         if leaf.device.type != self.device.type:
             raise ValueError(f"params are on {leaf.device}, the engine on "
                              f"{self.device}")
+        steps.check_serving_mesh(cfg, pcfg, max_len)
         self.cfg = cfg
-        self.params = params
+        self.params = steps.serve_params(cfg, pcfg, params)
         self.pcfg = pcfg
         self.max_batch = max_batch
         self.max_len = max_len
@@ -74,8 +95,14 @@ class ServeEngine:
         self.generator.manual_seed(0)
         cross = max_len if cfg.is_encoder_decoder else 0
         with torch.inference_mode():
-            self.cache = model.init_cache(cfg, max_batch, max_len,
-                                          cross_len=cross, device=self.device)
+            self.cache = steps.init_cache_blocks(
+                cfg, pcfg, max_batch, max_len, cross_len=cross,
+                device=self.device)
+        # the pool's slots this rank holds (all of them off a mesh)
+        self._held = steps.serve_rows(torch.arange(max_batch),
+                                      pcfg)[0].tolist()
+        self._prefill = steps.make_prefill_step(cfg, pcfg, max_len)
+        self._decode = steps.make_decode_step(cfg, pcfg)
         self.pos = np.zeros(max_batch, np.int32)
         self.tok = np.zeros(max_batch, np.int32)
         self.slot_req: List[Optional[Request]] = [None] * max_batch
@@ -122,10 +149,9 @@ class ServeEngine:
                 # bf16 whatever the compute type, as the JAX engine does
                 batch["enc_frames"] = torch.as_tensor(frames).to(
                     self.device).to(torch.bfloat16)
-            last_logits, cache1 = model.prefill(self.params, batch,
-                                                cfg=self.cfg, pcfg=self.pcfg,
-                                                max_len=self.max_len)
-            self._insert(self.cache, cache1, slot)
+            last_logits, cache1 = self._prefill(self.params, batch)
+            if slot in self._held:
+                self._insert(self.cache, cache1, slot - self._held[0])
             tok = int(sample(last_logits, self.generator, self.scfg)[0])
             req.t_first = time.perf_counter()
             req.out.append(tok)
@@ -143,9 +169,7 @@ class ServeEngine:
             return 0
         tok = torch.from_numpy(self.tok[:, None].copy()).to(self.device)
         pos = torch.from_numpy(self.pos.copy()).to(self.device)
-        logits, self.cache = model.decode_step(self.params, self.cache, tok,
-                                               pos, cfg=self.cfg,
-                                               pcfg=self.pcfg)
+        logits, self.cache = self._decode(self.params, self.cache, tok, pos)
         nxt = sample(logits, self.generator, self.scfg).cpu().numpy()
         for slot in active:
             req = self.slot_req[slot]

@@ -21,9 +21,12 @@ modes:
     metrics are the global token-weighted means, as over the global
     batch: each rank's loss is weighted by its share of the valid tokens
     before the backward.  Under ``layout="tp"`` the ranks of one
-    ``model`` group compute the same rows (the JAX package splits the
-    heads and FFN columns over them instead; the values are the same).
-    An MoE layer groups tokens, drops slots and takes its aux loss over
+    ``model`` group compute the same rows, the attention, dense-FFN and
+    RG-LRU layers each on the rank's block of their width, where the
+    JAX package's activation specs split heads and FFN columns over
+    ``model`` (:func:`tp_leaf`): those leaves are gathered over the
+    batch axes alone, each ``model`` rank keeping its block, whose
+    gradient is its own.  An MoE layer groups tokens, drops slots and takes its aux loss over
     the global batch, exchanging ids and statistics with the other batch
     ranks, and under ``layout="fsdp"`` with ``moe_dispatch="a2a"``
     exchanges its slots with the other ``model`` ranks
@@ -41,8 +44,16 @@ modes:
     per-pod ``loss_fn``.  Parameters and state are replicated over
     ``pod``; the ``int8_ef`` residual ``ef`` is each pod's own.
 
-The serve-step builders are not ported: the port's ``ServeEngine`` calls
-``model.prefill`` / ``model.decode_step`` itself.
+The serve steps (:func:`make_prefill_step`, :func:`make_serve_step`, and
+the port's :func:`make_decode_step`, which returns the logits for
+sampling) run on one device or on a serving mesh of ``torch.distributed``
+ranks under ``layout="tp"`` (:func:`check_serving_mesh`).  There a
+rank's parameters are :func:`serve_params` (every leaf whole but the
+blocks the layers compute on, each whole over the batch axes), its
+cache the block :func:`cache_specs_for` gives it
+(:func:`init_cache_blocks`), its rows of the batch those the batch
+axes give it, and the logits come back whole, gathered over the batch
+axes.
 
 A training step is literally a two-stage Sphere job: stage 1 = local
 fwd/bwd UDF over the pod's chunk of the batch, shuffle = the cross-pod
@@ -60,13 +71,34 @@ from repro_torch.models import model, moe
 from repro_torch.parallel import collectives, sharded
 from repro_torch.parallel.sharding import (NamedSharding, ParallelConfig, P,
                                            batch_spec, param_specs_for,
-                                           validate_spec)
+                                           tp_block, validate_spec)
 from repro_torch.train import optim
 from repro_torch.utils.pytree import (tree_flatten_with_paths, tree_map,
                                       tree_map_with_path, tree_unflatten)
 
 METRIC_KEYS = ("nll", "z_loss", "accuracy", "tokens", "aux_loss")
 _EXPERTS = re.compile(r"moe/w[igo]$")
+# the decoder stack's leaves a layer computes on its model block, by the
+# widths that must split (the encoder's and the cross blocks' stay whole)
+_TP_LEAVES = ((re.compile(r"^blocks/.*/attn/(wq|bq|wo)$"), ("heads",)),
+              (re.compile(r"^blocks/.*/attn/(wk|wv|bk|bv)$"),
+               ("heads", "kv_heads")),
+              (re.compile(r"^blocks/.*/mlp/w[igo]$"), ("ffn",)),
+              (re.compile(r"^blocks/.*/rglru/(in_x|in_g|conv_w|a_param|out)$"),
+               ("lru",)))
+
+
+def tp_leaf(path: str, cfg: ModelConfig, pcfg: ParallelConfig) -> bool:
+    """Whether the leaf at ``path`` is one whose ``model`` block a layer
+    computes on (``sharding.tp_block`` of its widths: the attention's
+    heads, and its kv heads for ``wk`` / ``wv``; the FFN's; the LRU
+    width), so that a rank keeps only that block along ``model``."""
+    widths = {"heads": cfg.n_heads, "kv_heads": cfg.n_kv_heads,
+              "ffn": cfg.d_ff, "lru": cfg.lru_width or cfg.d_model}
+    for pat, need in _TP_LEAVES:
+        if pat.search(path):
+            return all(tp_block(pcfg, widths[w]) is not None for w in need)
+    return False
 
 
 # ---------------------------------------------------------------------------
@@ -315,12 +347,16 @@ def make_train_step(cfg: ModelConfig, pcfg: ParallelConfig,
                                 if a in mesh.shape)
     pshapes = model.param_shapes(cfg)
     specs = param_specs_for(pshapes, pcfg)
-    # an MoE's experts under the expert all-to-all: each rank reads its
-    # own alone, so they are gathered over their other axes only
+    # an MoE's experts under the expert all-to-all, and the leaves the
+    # tensor-parallel layers compute on their model block: each rank
+    # reads its own block alone, so they are gathered over their other
+    # axes only
     experts = ("model",) if moe.a2a_route(cfg, inner) else ()
-    gather = sharded.BlockGather(
-        specs, pshapes, mesh, batch_axes,
-        keep=lambda path: experts if _EXPERTS.search(path) else ())
+    keep = {p: ("model",) if tp_leaf(p, cfg, inner)
+            else experts if _EXPERTS.search(p) else ()
+            for p, _ in tree_flatten_with_paths(pshapes)}
+    gather = sharded.BlockGather(specs, pshapes, mesh, batch_axes,
+                                 keep=keep.__getitem__)
 
     def step(params, opt_state, batch):
         (loss, metrics), grads = _value_and_grad_accum(
@@ -342,3 +378,169 @@ def make_train_step(cfg: ModelConfig, pcfg: ParallelConfig,
 
     step.specs = specs
     return step
+
+
+# ---------------------------------------------------------------------------
+# Serve steps
+# ---------------------------------------------------------------------------
+
+def check_serving_mesh(cfg: ModelConfig, pcfg: ParallelConfig,
+                       max_len: int) -> None:
+    """Raise unless ``cfg`` serves on ``pcfg``'s mesh: a stack of ``A``,
+    ``L`` and ``R`` layers with dense FFNs and no encoder, under
+    ``layout="tp"``; with several ``model`` ranks, heads that split over
+    them, and a cache whose kv heads split or else whose sequence does
+    (a cache that neither splits would stay whole, ``cache_specs_for``),
+    and an RG-LRU conv state that splits by width."""
+    if pcfg.mesh is None:
+        return
+    if cfg.family == "moe" or cfg.is_encoder_decoder \
+            or not set(cfg.block_pattern) <= {"A", "L", "R"}:
+        raise NotImplementedError(
+            f"{cfg.name} does not serve on a mesh yet (only stacks of A, L "
+            f"and R layers with dense FFNs and no encoder): ROADMAP item "
+            f"1.3f part 2")
+    if pcfg.layout != "tp":
+        raise NotImplementedError(
+            f"the serving mesh runs layout='tp', not {pcfg.layout!r}: ROADMAP "
+            f"item 1.3f part 2")
+    m = pcfg.model_size
+    if m == 1:
+        return
+    attn = [s for s in cfg.block_pattern if s in "AL"]
+    if attn and cfg.n_heads % m:
+        raise ValueError(f"{cfg.n_heads} heads do not split over {m} model "
+                         f"ranks")
+    for sym in set(attn) if max_len else ():
+        ring = sym == "L" and cfg.local_window and cfg.local_window < max_len
+        slots = cfg.local_window if ring else max_len
+        if cfg.n_kv_heads % m and slots % m:
+            raise ValueError(
+                f"the {sym} layers' cache of {slots} slots splits neither its "
+                f"{cfg.n_kv_heads} kv heads nor its sequence over {m} model "
+                f"ranks")
+    taps = cfg.conv1d_width - 1
+    if "R" in cfg.block_pattern and taps >= m and taps % m == 0:
+        raise ValueError(f"the RG-LRU conv state's {taps} taps, not its "
+                         f"width, would split over {m} model ranks")
+
+
+def _batch_axes(pcfg: ParallelConfig) -> tuple:
+    mesh = pcfg.mesh
+    if mesh is None:
+        return ()
+    return mesh.mesh_axes(a for a in pcfg.data_axes if a in mesh.shape)
+
+
+def serve_rows(x: torch.Tensor, pcfg: ParallelConfig):
+    """(this rank's rows of the global ``x``, whether they are a block):
+    the leading dim split over the batch axes where it divides them, as
+    ``validate_spec`` keeps a cache's batch split; else every row (and
+    without a mesh)."""
+    axes = _batch_axes(pcfg)
+    if not axes or x.shape[0] % pcfg.mesh.axes_size(axes):
+        return x, False
+    return sharded.batch_rows(x, pcfg.mesh, axes), True
+
+
+def serve_params(cfg: ModelConfig, pcfg: ParallelConfig, params):
+    """What a serving rank computes with, from its blocks ``params``
+    (``param_specs_for``): each leaf the layers compute on a ``model``
+    block (:func:`tp_leaf`) gathered over the batch axes alone, every
+    other leaf gathered whole; once, when serving starts (no weight is
+    gathered while it serves).  ``params`` itself without a mesh."""
+    mesh = pcfg.mesh
+    if mesh is None:
+        return params
+    shapes = dict(tree_flatten_with_paths(model.param_shapes(cfg)))
+    specs = dict(tree_flatten_with_paths(
+        param_specs_for(model.param_shapes(cfg), pcfg)))
+
+    def one(path, x):
+        keep = ("model",) if tp_leaf(path, cfg, pcfg) else ()
+        spec, shape = sharded.without_axes(specs[path], shapes[path].shape,
+                                           mesh, keep)
+        return sharded.gather_leaf(x, spec, shape, mesh)
+    with torch.inference_mode():
+        return tree_map_with_path(one, params)
+
+
+def init_cache_blocks(cfg: ModelConfig, pcfg: ParallelConfig, batch: int,
+                      seq: int, *, cross_len: int = 0, device=None):
+    """A zeroed decode cache of ``batch`` slots and ``seq`` positions
+    (``model.init_cache`` on ``device``); on a mesh this rank's block of
+    each leaf (:func:`cache_specs_for`), on the mesh's device."""
+    from repro_torch.models import transformer
+    from repro_torch.models.common import sds
+    if pcfg.mesh is None:
+        return model.init_cache(cfg, batch, seq, cross_len=cross_len,
+                                device=device)
+    mesh = pcfg.mesh
+    shapes = model.cache_shapes(cfg, batch, seq, cross_len=cross_len)
+    specs = cache_specs_for(shapes, pcfg)
+
+    def block(s, spec):
+        sl = sharded.block_slices(spec, s.shape, mesh)
+        return sds(tuple(len(range(*c.indices(n)))
+                         for c, n in zip(sl, s.shape)), s.dtype)
+    return transformer._zero_state(tree_map(block, shapes, specs),
+                                   mesh.device)
+
+
+def _global_logits(logits, pcfg: ParallelConfig, split: bool):
+    """A step's logits in float32, gathered over the batch axes where the
+    batch was split over them."""
+    logits = logits.float()
+    if split:
+        logits = sharded.gather_wire(logits, pcfg.mesh, _batch_axes(pcfg))
+    return logits
+
+
+def make_decode_step(cfg: ModelConfig, pcfg: ParallelConfig):
+    """Port-only: ``decode(params, cache, token [B, 1], pos [B]) ->
+    (logits [B, Vp] float32, new_cache)``.  On a mesh ``token`` and
+    ``pos`` are the global batch's (every rank holds them), ``params``
+    are :func:`serve_params`, ``cache`` this rank's block; the rank
+    decodes its rows, and the logits are gathered over the batch axes,
+    so every rank returns the global batch's."""
+    def decode(params, cache, token, pos):
+        rows, split = serve_rows(token, pcfg)
+        logits, new_cache = model.decode_step(
+            params, cache, rows, serve_rows(pos, pcfg)[0], cfg=cfg,
+            pcfg=pcfg)
+        return _global_logits(logits, pcfg, split), new_cache
+    return decode
+
+
+def make_serve_step(cfg: ModelConfig, pcfg: ParallelConfig):
+    """Greedy decode step: (params, cache, token [B,1], pos [B]) ->
+    (next_token [B,1], new_cache); on a mesh as :func:`make_decode_step`
+    takes its arguments."""
+    decode = make_decode_step(cfg, pcfg)
+
+    def serve_step(params, cache, token, pos):
+        logits, new_cache = decode(params, cache, token, pos)
+        nxt = torch.argmax(logits, dim=-1).to(torch.int32)[:, None]
+        return nxt, new_cache
+
+    return serve_step
+
+
+def make_prefill_step(cfg: ModelConfig, pcfg: ParallelConfig,
+                      max_len: int = 0):
+    """``prefill_step(params, batch) -> (last_logits float32, cache)``; on
+    a mesh ``batch`` is the global batch, ``params`` :func:`serve_params`,
+    the cache this rank's block (its rows, where the batch splits over
+    the batch axes; a batch that does not split, as one prompt, runs
+    whole on every rank) and the last logits the global batch's,
+    gathered over the batch axes."""
+    check_serving_mesh(cfg, pcfg, max_len)
+
+    def prefill_step(params, batch):
+        rows, split = {}, False
+        for k, v in batch.items():
+            rows[k], split = serve_rows(v, pcfg)
+        logits, cache = model.prefill(params, rows, cfg=cfg, pcfg=pcfg,
+                                      max_len=max_len)
+        return _global_logits(logits, pcfg, split), cache
+    return prefill_step

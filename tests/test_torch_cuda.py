@@ -618,7 +618,12 @@ def test_cuda_kmeans_sphere_through_kernel(cuda, tmp_path):
     # the head ratios and widths of gemma3-12b (local and global),
     # deepseek-7b (MHA) and dbrx-132b
     (1, 300, 300, 16, 8, 256, True, 128), (1, 300, 300, 16, 8, 256, True, 0),
-    (1, 257, 257, 32, 32, 128, True, 0), (1, 257, 257, 48, 8, 128, True, 0)])
+    (1, 257, 257, 32, 32, 128, True, 0), (1, 257, 257, 48, 8, 128, True, 0),
+    # a tensor-parallel rank's heads on a (data, model) = (1, 2) mesh:
+    # recurrentgemma-2b's 5 of 10 over its one kv head with the window,
+    # qwen2.5-3b's 8 of 16 over its one of 2 kv heads
+    (1, 300, 300, 5, 1, 256, True, 128), (1, 3072, 3072, 5, 1, 256, True, 2048),
+    (1, 257, 257, 8, 1, 128, True, 0)])
 def test_cuda_flash_attention_matches_plain(cuda, dtype, B, T, S, H, K, D,
                                             causal, window):
     g = torch.Generator().manual_seed(T * 7 + D)
@@ -777,7 +782,9 @@ def test_cuda_flash_attention_refuses_what_it_cannot_take(cuda):
     (4, 1, 48), (2, 63, 48), (3, 64, 1000), (4, 65, 2560), (1, 3072, 48),
     (4, 3072, 1000), (2, 385, 2560),
     # W not a multiple of 4: the direct loop
-    (3, 200, 13), (1, 70, 7)])
+    (3, 200, 13), (1, 70, 7),
+    # a tensor-parallel rank's half of recurrentgemma-2b's LRU width
+    (1, 3072, 1280), (4, 1, 1280)])
 def test_cuda_rg_lru_scan_matches_plain_exactly(cuda, B, T, W):
     g = torch.Generator().manual_seed(B * 100 + T)
     a = (torch.rand((B, T, W), generator=g) * 0.299 + 0.7).to(cuda)
@@ -970,7 +977,8 @@ def test_cuda_vision_prefill_with_patches(cuda):
 
 
 # --------------------------------------------------------------- training
-@pytest.mark.parametrize("B,T,W", [(1, 3072, 2560), (2, 65, 48), (3, 1, 13),
+@pytest.mark.parametrize("B,T,W", [(1, 3072, 2560), (1, 3072, 1280),
+                                   (2, 65, 48), (3, 1, 13),
                                    (2, 200, 1000)])
 def test_cuda_rg_lru_scan_backward_matches_plain(cuda, B, T, W):
     """The Function's backward on the card (the kernel on the

@@ -37,8 +37,15 @@ seed, a numpy batch whose rows carry unequal valid-token counts.
     dense and MoE against the JAX package's accumulating step on its host
     mesh, podwise ``none`` against its accumulating ``pod_body``.
 (j) The pieces of the per-unit gather: ``sharded.gather_block``'s
-    gradient, what a step gathers and hands to the wire, and the rows the
-    data pipeline gives each rank under accumulation.
+    gradient, what a step gathers and hands to the wire (under ``tp`` no
+    leaf of a tensor-parallel layer over ``model``; the layers' sums over
+    ``model``), and the rows the data pipeline gives each rank under
+    accumulation.
+(k) The serving mesh (``layout="tp"``) on ``(2, 2)`` and ``(1, 2)``
+    against the JAX package's serve steps and ``ServeEngine`` on its host
+    mesh, the cache blocks, the sequence-split decode, the
+    tensor-parallel collectives, the configs it refuses, the launcher's
+    rank body.
 """
 import os
 import subprocess
@@ -152,11 +159,46 @@ def run(arch, layout, mesh, masked):
                     for q, x in tree_flatten_with_paths(o2["m"])})
     return out
 
+def serve(arch, mesh):
+    # the serve steps and the engine on the host mesh, greedy
+    from repro.serve import SamplerConfig, ServeEngine
+    from repro.train.step import make_prefill_step, make_serve_step
+    tcfg = R.serve_cfg(arch)
+    cfg = ARCHS[arch].reduced().replace(param_dtype="float32",
+                                        compute_dtype="float32",
+                                        n_layers=tcfg.n_layers)
+    params = jax.tree.map(jnp.asarray, R.nest(R.init_numpy(tcfg)))
+    pcfg = ParallelConfig(mesh=mesh)
+    toks = jnp.asarray(R.serve_batch(tcfg))
+    pos = jnp.full((R.SERVE_B,), R.SERVE_T, jnp.int32)
+    with use_mesh(mesh):
+        logits, cache = jax.jit(make_prefill_step(cfg, pcfg, R.SERVE_LEN))(
+            params, {"inputs": toks})
+        nxt, _ = jax.jit(make_serve_step(cfg, pcfg))(params, cache,
+                                                     toks[:, -1:], pos)
+    cache = jax.tree.map(np.asarray, cache)
+    # the engine off the mesh (its values are the mesh's; its programs
+    # compile in two thirds of the time), its decode step from the
+    # prefill's cache (the pool's shapes: SERVE_B = SERVE_SLOTS)
+    eng = ServeEngine(cfg, params, max_batch=R.SERVE_SLOTS,
+                      max_len=R.SERVE_LEN, scfg=SamplerConfig())
+    dec, _ = eng._decode(params, cache, toks[:, -1:], pos)
+    reqs = [eng.submit(p, max_new=R.SERVE_NEW) for p in R.serve_prompts(tcfg)]
+    eng.run()
+    out = {"prefill": np.asarray(logits), "decode": np.asarray(dec),
+           "next": np.asarray(nxt), "tokens": np.asarray([r.out
+                                                         for r in reqs])}
+    out.update({f"cache/{q}": np.asarray(x)
+                for q, x in tree_flatten_with_paths(cache)})
+    return out
+
 cases, dest = eval(sys.argv[1]), sys.argv[2]
 mesh = make_mesh_compat((2, 2), ("data", "model"))
 res = {}
 for arch, layout in cases:
-    if layout.partition("@")[0] in ("single", "pods"):
+    if layout == "serve":
+        got = serve(arch, mesh)
+    elif layout.partition("@")[0] in ("single", "pods"):
         got = run(arch, "tp" if layout == "single" else layout, None,
                   R.POD_MASKED)
     else:
@@ -173,11 +215,12 @@ _POD_ACCUM = f"pods@{ranks.ACCUM}"
 _JAX_SPLIT = (
     [("recurrentgemma-2b", "tp")]
     + [k[:1] + (v,) for k, v in _ACCUM.items() if k[0] == "qwen2.5-3b"]
-    + [(ranks.PODWISE_ARCH, _POD_ACCUM)],
-    [("xlstm-1.3b", "tp"), ("qwen2.5-3b", "tp"), ("qwen2.5-3b", "fsdp")],
+    + [(ranks.PODWISE_ARCH, _POD_ACCUM), ("qwen2.5-3b", "serve")],
+    [("xlstm-1.3b", "tp"), ("qwen2.5-3b", "tp"), ("qwen2.5-3b", "fsdp"),
+     ("recurrentgemma-2b", "serve")],
     [(a, "tp") for a in ("gemma3-12b", "qwen3-8b", "deepseek-7b",
                          "llava-next-mistral-7b", "seamless-m4t-large-v2")]
-    + [(ranks.PODWISE_ARCH, "single")],
+    + [(ranks.PODWISE_ARCH, "single"), ("gemma3-12b", "serve")],
     [(a, lay) for a in ranks.MOE_ARCHS
      for lay in ("tp/einsum", "fsdp/a2a", "pods")]
     + [k[:1] + (v,) for k, v in _ACCUM.items() if k[0] in ranks.MOE_ARCHS],
@@ -393,6 +436,60 @@ def test_podwise_none_accumulates_as_pod_body(runs):
           [_ref(ref, ranks.PODWISE_ARCH, _POD_ACCUM, t) for t in "uvwx"])
 
 
+def _tp_split(path: str, cfg, kw: dict, m: int = 2) -> bool:
+    """Whether a ``tp`` step's layer computes on its ``model`` block of
+    the leaf at ``path``: the decoder stack's attention where the JAX
+    package's ``heads_spec`` splits the heads (``wk`` / ``wv`` where the
+    kv heads split too), its dense FFN where ``model`` divides ``d_ff``,
+    its RG-LRU block where it divides the LRU width (``gate_a`` /
+    ``gate_x`` excepted: their spec splits every block's columns)."""
+    if kw.get("layout", "tp") != "tp" or not path.startswith("blocks/"):
+        return False
+    layer, leaf = path.split("/")[-2:]
+    heads = cfg.n_heads % m == 0
+    if layer == "attn":
+        return heads and (leaf in ("wq", "bq", "wo")
+                          or cfg.n_kv_heads % m == 0)
+    if layer == "mlp":
+        return cfg.d_ff % m == 0
+    if layer == "rglru":
+        return leaf in ("in_x", "in_g", "conv_w", "a_param", "out") \
+            and cfg.lru_width % m == 0
+    return False
+
+
+def _expected_tp_bytes(arch: str, kw: dict) -> int:
+    """The bytes a rank of a ``tp`` step on the ``(2, 2)`` mesh should
+    hand to the tensor-parallel sums (float32): each layer computed on a
+    ``model`` block sums its output ``[rows, T, d]`` over ``model`` in the
+    forward (again in the recompute under full remat) and its input's
+    gradient in the backward; the replicated leaves inside such a layer
+    (the qk-norm scales, ``wk`` / ``wv`` where the kv heads do not
+    split, the RG-LRU gates) sum their gradients."""
+    cfg = ranks.lm_cfg(arch)
+    if kw.get("layout", "tp") != "tp":
+        return 0
+    m, accum = 2, kw.get("accum_steps", 1)
+    act = ranks.B // 2 // accum * ranks.T * cfg.d_model
+    passes = (2 if kw.get("remat") == "full" else 1) + 1
+    n = 0
+    for sym in cfg.block_pattern:
+        if sym in "AL" and cfg.n_heads % m == 0:
+            n += act * passes + 2 * cfg.d_head * cfg.qk_norm
+            if cfg.n_kv_heads % m:
+                n += 2 * cfg.kv_dim * (cfg.d_model + cfg.qkv_bias)
+        if sym == "R" and cfg.lru_width % m == 0:
+            n += act * passes + 2 * cfg.lru_width ** 2 // 8
+        if sym in "ALR" and cfg.family != "moe" and cfg.d_ff % m == 0:
+            n += act * passes
+    # under full remat the recompute stops once the backward's saved
+    # tensors are remade: a unit ending in a split FFN skips its last sum
+    if kw.get("remat") == "full" and cfg.family != "moe" \
+            and cfg.d_ff % m == 0:
+        n -= act
+    return 4 * n * cfg.n_groups * accum
+
+
 def _expected_gathers(arch: str, kw: dict):
     """(the whole shapes the step's gathers should make, the bytes this
     rank should hand to them) on the ``(2, 2)`` mesh, from the leaf
@@ -400,7 +497,9 @@ def _expected_gathers(arch: str, kw: dict):
     microbatch, a stacked leaf's unit (never the stacked leaf) in each
     of its groups, twice under ``remat="full"``; an expert stack under
     ``fsdp`` / ``a2a`` only over ``data``, each rank keeping its experts'
-    block along ``model``."""
+    block along ``model``, and under ``tp`` the leaves a layer computes
+    on its ``model`` block (:func:`_tp_split`) likewise: none of them is
+    gathered over ``model``."""
     from repro_torch.models import model as tmodel
     from repro_torch.parallel.mesh_utils import Mesh
     from repro_torch.parallel.sharding import ParallelConfig as TPC
@@ -422,7 +521,8 @@ def _expected_gathers(arch: str, kw: dict):
             if axis is None:
                 continue
             numel //= sizes[axis]
-            if a2a and axis == "model" and "/moe/w" in path:
+            if axis == "model" and (a2a and "/moe/w" in path
+                                    or _tp_split(path, cfg, kw)):
                 shape[d] //= sizes[axis]
             else:
                 gathered = True
@@ -445,6 +545,7 @@ _LOGGED = {("moe_remat", lay): (ranks.MOE_ARCHS[0], {
 _LOGGED.update({("accum", a, lay): (a, {
     "layout": lay, "moe_dispatch": d, "accum_steps": ranks.ACCUM})
     for a, lay, d in ranks.ACCUM_CASES})
+_LOGGED.update({("pjit", a): (a, {"layout": "tp"}) for a in ranks.TP_LOGGED})
 
 
 @pytest.mark.parametrize("key", list(_LOGGED), ids=str)
@@ -452,9 +553,13 @@ def test_step_gathers_each_unit_not_the_stack(runs, key):
     """(j) A train step's gathers, recorded on rank 0: each leaf outside
     the stack once a microbatch, each pattern unit inside its remat
     wrapper (twice under full remat: the recompute gathers it again),
-    never a whole ``[n_groups, ...]`` stacked leaf, and under ``fsdp`` /
-    ``a2a`` the experts only over ``data``; ``WIRE["gather"]`` is the
-    bytes of those blocks."""
+    never a whole ``[n_groups, ...]`` stacked leaf, under ``fsdp`` /
+    ``a2a`` the experts only over ``data``, and under ``tp`` no leaf of an
+    attention, dense-FFN or RG-LRU layer over ``model`` where the JAX
+    activation specs split its width (its ``model`` block is gathered
+    over ``data`` alone); ``WIRE["gather"]`` is the bytes of those
+    blocks, ``WIRE["tp_all_reduce"]`` those of the layers' sums over
+    ``model`` (:func:`_expected_tp_bytes`)."""
     port, _ = runs
     log = port["logs"][key]
     arch, kw = _LOGGED[key]
@@ -463,6 +568,7 @@ def test_step_gathers_each_unit_not_the_stack(runs, key):
     assert sorted(log["shapes"]) == sorted(shapes)
     assert log["wire"]["gather"] == nbytes
     assert log["wire"]["reduce_scatter"] > 0
+    assert log["wire"]["tp_all_reduce"] == _expected_tp_bytes(arch, kw)
 
 
 @pytest.mark.parametrize("case", range(len(ranks.GATHER_CASES)))
@@ -533,6 +639,154 @@ def test_pipeline_rows_follow_the_microbatches(mode, tmp_path):
         order = [np.concatenate([x[2 * i:2 * i + 2] for x in rows])
                  for i in range(2)]
     np.testing.assert_array_equal(np.concatenate(order), host["inputs"])
+
+
+# ------------------------------------------------------------ (k) serving
+SERVE_TOL = 1e-4        # the logits, of the JAX package's largest |logit|
+
+
+def _serve_ref(ref, arch):
+    pre = f"{arch}|serve|"
+    return {k[len(pre):]: v for k, v in ref.items() if k.startswith(pre)}
+
+
+@pytest.mark.parametrize("arch,shape", ranks.SERVE_CASES, ids=str)
+def test_serving_mesh_matches_jax_host_mesh(runs, arch, shape):
+    """(k) The serve steps on the gloo mesh (``layout="tp"``), rank 0,
+    against the JAX package's ``make_prefill_step`` / ``make_serve_step``
+    and its ``decode_step`` jitted on its ``(2, 2)`` host mesh, float32:
+    the prefill's last logits of 4 prompts of 80 tokens (past the window
+    of 64: ring caches; ``qwen2.5-3b`` also on ``(1, 4)``, whose 2 kv
+    heads do not split over 4) and one decode step's logits within
+    ``SERVE_TOL`` of the scale, its greedy tokens equal; and the
+    ``ServeEngine``'s greedy token streams of 6 requests over 4 slots
+    equal to the JAX ``ServeEngine``'s (off its mesh: the same values).
+    The serve steps gather no weight (``serve_params`` gathered them
+    once).  The configs are cut to one pattern unit
+    (``torch_train_ranks.serve_cfg``)."""
+    port, ref = runs
+    got, want = port["serve"][arch, shape], _serve_ref(ref, arch)
+    for key in ("prefill", "decode"):
+        scale = np.abs(want[key]).max()
+        assert got[key].shape == want[key].shape, key
+        assert np.abs(got[key] - want[key]).max() <= SERVE_TOL * scale, key
+    np.testing.assert_array_equal(got["next"], want["next"])
+    assert got["tokens"] == want["tokens"].tolist()
+    # the serve steps gather no weight; the layers sum over model
+    assert got["wire"]["gather"] == 0 and got["wire"]["tp_all_reduce"] > 0
+
+
+@pytest.mark.parametrize("arch,shape", ranks.SERVE_CASES, ids=str)
+def test_serving_cache_blocks_follow_cache_specs(runs, arch, shape):
+    """(k) Rank 0's block of the prefill's cache is the JAX package's
+    cache cut by ``cache_specs_for`` (``convert.cache_from_jax`` onto the
+    rank's blocks): its kv heads over ``model`` (``qwen2.5-3b``, and
+    ``gemma3-12b``, whose ring ``kpos`` splits over the sequence), or its
+    block of the sequence (``recurrentgemma-2b``'s one kv head,
+    ``qwen2.5-3b``'s two on ``(1, 4)``), the
+    RG-LRU state by width; and the engine's pool holds its blocks of a
+    4-slot cache."""
+    from repro_torch.convert import cache_from_jax
+    from repro_torch.models import model as tmodel
+    from repro_torch.parallel import sharded
+    from repro_torch.parallel.mesh_utils import Mesh
+    from repro_torch.parallel.sharding import ParallelConfig as TPC
+    from repro_torch.train import step as tstep
+    from repro_torch.utils.pytree import tree_flatten_with_paths as flat
+    got = runs[0]["serve"][arch, shape]
+    mesh = Mesh(("data", "model"), dict(zip(("data", "model"), shape)),
+                object(), 0, shape[0] * shape[1], "cpu", "gloo")
+    pcfg = TPC(mesh=mesh)
+    cfg = ranks.serve_cfg(arch)
+    specs = tstep.cache_specs_for(
+        tmodel.cache_shapes(cfg, ranks.SERVE_B, ranks.SERVE_LEN), pcfg)
+    jax_cache = ranks.nest({k[len("cache/"):]: v for k, v in
+                            _serve_ref(runs[1], arch).items()
+                            if k.startswith("cache/")})
+    want = dict(flat(cache_from_jax(jax_cache, specs=specs, mesh=mesh)))
+    assert set(got["cache"]) == set(want)
+    for path, w in want.items():
+        w = w.numpy()
+        assert got["cache"][path].shape == w.shape, path
+        tol = SERVE_TOL * max(np.abs(w).max(), 1)
+        assert np.abs(got["cache"][path] - w).max() <= tol, path
+    pool = tmodel.cache_shapes(cfg, ranks.SERVE_SLOTS, ranks.SERVE_LEN)
+    for path, s in flat(tstep.cache_specs_for(pool, pcfg)):
+        whole = dict(flat(pool))[path].shape
+        block = tuple(len(range(*c.indices(n))) for c, n in zip(
+            sharded.block_slices(s, whole, mesh), whole))
+        assert got["pool"][path] == block, path
+    k = [v for p, v in got["cache"].items() if p.endswith("/k")][0]
+    assert k.shape[1] == ranks.SERVE_B // shape[0]
+
+
+def test_sequence_split_decode_adds_nothing_for_an_empty_block(runs):
+    """(k) A decode step over a ring cache split over the sequence
+    (``attention._decode_seq_split``, the ``(1, 2)`` mesh): the row
+    maximum and the exponentials' sum reduced over ``model``, the
+    rank's ``p V`` summed, equal to ``decode_attention`` on the whole
+    cache for this rank's heads, where rank 0's block holds no key of one
+    row and only keys outside the window of another; the new token
+    written to the block that owns its slot alone."""
+    got = runs[0]["seq_decode"]
+    assert got["index"] == 0 and got["block_valid"] == [False, False, True]
+    assert np.all(np.isfinite(got["got"]))
+    np.testing.assert_allclose(got["got"], got["want"], rtol=1e-6,
+                               atol=1e-6)
+    assert got["cache"]
+
+
+def test_copy_to_model_and_reduce_from_model(runs):
+    """(k) ``sharded.copy_to_model`` then each ``model`` rank's product
+    with its own ``w`` then ``reduce_from_model``, on rank 0 of the
+    ``(2, 2)`` mesh, against one process: the output is the sum of the
+    ranks' products, ``x``'s gradient the sum of theirs, ``w``'s the
+    rank's own; the bytes are the output's (forward) and ``x``'s gradient
+    (backward)."""
+    got = runs[0]["tp_collectives"]
+    x, W, C = got["x"], got["W"], got["C"]
+    np.testing.assert_allclose(got["out"], sum(x @ w for w in W),
+                               rtol=1e-6, atol=1e-6)
+    np.testing.assert_allclose(got["gx"], sum(C @ w.T for w in W),
+                               rtol=1e-6, atol=1e-6)
+    np.testing.assert_allclose(got["gw"], x.T @ C, rtol=1e-6, atol=1e-6)
+    assert got["wire"] == got["out"].nbytes + got["gx"].nbytes
+
+
+@pytest.mark.parametrize("arch", ["xlstm-1.3b", "qwen3-moe-30b-a3b",
+                                  "seamless-m4t-large-v2", "dbrx-132b"])
+def test_serving_mesh_refuses_other_configs(arch):
+    """(k) A config outside the serving mesh's list (a stack with other
+    than ``A`` / ``L`` / ``R`` layers, MoE FFNs or an encoder) raises
+    ``NotImplementedError`` naming ROADMAP item 1.3f part 2, from the
+    serve steps and the engine; so does ``layout="fsdp"``."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as tmodel
+    from repro_torch.parallel.mesh_utils import Mesh
+    from repro_torch.parallel.sharding import ParallelConfig as TPC
+    from repro_torch.serve import ServeEngine
+    from repro_torch.train import step as tstep
+    mesh = Mesh(("data", "model"), {"data": 2, "model": 2}, object(), 0, 4,
+                "cpu", "gloo")
+    cfg = get_config(arch).reduced()
+    with pytest.raises(NotImplementedError, match="1.3f part 2"):
+        tstep.make_prefill_step(cfg, TPC(mesh=mesh), 96)
+    params = tmodel.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    with pytest.raises(NotImplementedError, match="1.3f part 2"):
+        ServeEngine(cfg, params, TPC(mesh=mesh), max_len=96)
+    with pytest.raises(NotImplementedError, match="1.3f part 2"):
+        tstep.check_serving_mesh(get_config("qwen2.5-3b").reduced(),
+                                 TPC(mesh=mesh, layout="fsdp"), 96)
+
+
+def test_serve_launcher_rank_on_a_two_by_two_mesh(runs):
+    """(k) The serving launcher's rank body (``--ranks 4``: the ``(2, 2)``
+    mesh) serves every request, each with its new tokens."""
+    got = runs[0]["launcher"]
+    assert len(got["reqs"]) == 4
+    assert all(len(o) == 4 for _, _, o in got["reqs"])
 
 
 # ------------------------------------------------------------ (f), (g), (h)

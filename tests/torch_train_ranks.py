@@ -84,6 +84,8 @@ def lm_batch(cfg, seed: int = 1, masked=((1, 5), (6, 11))) -> dict:
     return out
 
 
+# the pjit cases whose gathers and tensor-parallel sums are recorded
+TP_LOGGED = ("recurrentgemma-2b", "qwen2.5-3b")
 # podwise against pjit: each pod's rows hold the same valid tokens, so
 # the pods' plain mean is the token-weighted mean
 POD_MASKED = ((1, 5), (5, 5))
@@ -168,8 +170,11 @@ def mesh_train_suite(rank: int, world: int):
     for arch, layouts in PJIT_CASES.items():
         cfg = lm_cfg(arch)
         for layout in layouts:
+            log = None
+            if layout == "tp" and arch in TP_LOGGED:
+                log = out.setdefault("logs", {})["pjit", arch] = {}
             out["pjit"][arch, layout] = _mesh_step(
-                cfg, mesh, lm_batch(cfg), layout=layout)
+                cfg, mesh, lm_batch(cfg), log, layout=layout)
     for arch in MOE_ARCHS:
         cfg = lm_cfg(arch)
         for layout, dispatch in MOE_STEPS:
@@ -179,7 +184,6 @@ def mesh_train_suite(rank: int, world: int):
     # under full remat the backward runs each unit's forward again, its
     # collectives too: every rank must issue them in the same order
     cfg = lm_cfg(MOE_ARCHS[0])
-    out["logs"] = {}
     out["moe_remat"] = {}
     for layout, dispatch in MOE_STEPS:
         log = out["logs"]["moe_remat", layout] = {}
@@ -206,6 +210,22 @@ def mesh_train_suite(rank: int, world: int):
         lm_cfg(arch), pod, lm_batch(lm_cfg(arch), masked=POD_MASKED),
         multi_pod=True, mode="podwise") for arch in MOE_ARCHS}
     out["gather_block"] = gather_block_cases(mesh)
+    out["tp_collectives"] = tp_collective_case(mesh)
+    # the serving mesh on (2, 2), (1, 4) and, on ranks 0 and 1, (1, 2)
+    meshes = {(2, 2): mesh,
+              (1, 4): make_mesh_compat((1, 4), ("data", "model"),
+                                       device="cpu"),
+              (1, 2): make_mesh_compat((1, 2), ("data", "model"),
+                                       device="cpu", ranks=range(2))}
+    pair = meshes[1, 2]
+    out["serve"] = {}
+    for arch, shape in SERVE_CASES:
+        if meshes[shape] is not None:
+            out["serve"][arch, shape] = serve_case(serve_cfg(arch),
+                                                   meshes[shape])
+    if pair is not None:
+        out["seq_decode"] = seq_split_decode_case(pair)
+    out["launcher"] = _launcher_rank(rank, world)
     return out if rank == 0 else None
 
 
@@ -556,3 +576,163 @@ def cuda_mesh_suite(rank: int, world: int):
     out["norm"] = float(optim.global_norm(blocks, specs=specs, mesh=grid))
     out["whole_norm"] = float(optim.global_norm(whole))
     return out
+
+
+# ------------------------------------------------------------ serving mesh
+# the configs the serving mesh holds to the JAX package: the sequence-split
+# ring caches and the RG-LRU width split, heads-split caches, and a
+# heads-split cache whose ring kpos splits over the sequence
+SERVE_ARCHS = ("recurrentgemma-2b", "qwen2.5-3b", "gemma3-12b")
+# (arch, (data, model)): each on (2, 2) and (1, 2); qwen2.5-3b also on
+# (1, 4), where its 2 kv heads do not split: whole K / V, a cache split
+# over the sequence, 2 q heads a rank over one kv head
+SERVE_CASES = [(a, s) for a in SERVE_ARCHS for s in ((2, 2), (1, 2))] \
+    + [("qwen2.5-3b", (1, 4))]
+SERVE_B, SERVE_T = 4, 80        # the prefill batch, past the window of 64
+SERVE_LEN = 96                  # the cache's capacity
+SERVE_SLOTS, SERVE_NEW = 4, 6
+SERVE_LENGTHS = (20, 70) * 3    # 6 requests over 4 slots
+
+
+def serve_cfg(arch: str):
+    """:func:`lm_cfg` cut to one pattern unit where the reduced config
+    repeats a unit of several layers (every layer kind stays)."""
+    cfg = lm_cfg(arch)
+    if cfg.pattern_len > 1 and cfg.n_groups > 1:
+        cfg = cfg.replace(n_layers=cfg.pattern_len)
+    return cfg
+
+
+def serve_batch(cfg) -> np.ndarray:
+    return np.random.default_rng(3).integers(
+        0, cfg.vocab_size, (SERVE_B, SERVE_T)).astype(np.int32)
+
+
+def serve_prompts(cfg) -> list:
+    rng = np.random.default_rng(2)
+    return [[int(t) for t in rng.integers(0, cfg.vocab_size, n)]
+            for n in SERVE_LENGTHS]
+
+
+def serve_case(cfg, mesh) -> dict:
+    """The serve steps and the engine on ``mesh`` (``layout="tp"``) from
+    :func:`init_numpy`'s blocks: the prefill's last logits of
+    :func:`serve_batch` (capacity ``SERVE_LEN``), one decode step's logits
+    and greedy tokens from its cache, the greedy token streams of
+    :func:`serve_prompts`, the prefill's cache blocks and the shapes of
+    the pool's; the bytes the serve steps handed to each collective."""
+    from repro_torch.convert import params_from_jax
+    from repro_torch.models import model
+    from repro_torch.parallel import sharded
+    from repro_torch.parallel.sharding import ParallelConfig, param_specs_for
+    from repro_torch.serve import SamplerConfig, ServeEngine
+    from repro_torch.train import step as tstep
+    from repro_torch.utils.pytree import tree_flatten_with_paths
+    pcfg = ParallelConfig(mesh=mesh)
+    blocks = params_from_jax(nest(init_numpy(cfg)), specs=param_specs_for(
+        model.param_shapes(cfg), pcfg), mesh=mesh)
+    params = tstep.serve_params(cfg, pcfg, blocks)
+    toks = torch.from_numpy(serve_batch(cfg))
+    pos = torch.full((SERVE_B,), SERVE_T, dtype=torch.int32)
+    before = dict(sharded.WIRE)
+    with torch.inference_mode():
+        logits, cache = tstep.make_prefill_step(cfg, pcfg, SERVE_LEN)(
+            params, {"inputs": toks})
+        dec, _ = tstep.make_decode_step(cfg, pcfg)(params, cache,
+                                                   toks[:, -1:], pos)
+        nxt, _ = tstep.make_serve_step(cfg, pcfg)(params, cache,
+                                                  toks[:, -1:], pos)
+    wire = {k: v - before[k] for k, v in sharded.WIRE.items()}
+    eng = ServeEngine(cfg, blocks, pcfg, max_batch=SERVE_SLOTS,
+                      max_len=SERVE_LEN, scfg=SamplerConfig())
+    reqs = [eng.submit(p, max_new=SERVE_NEW) for p in serve_prompts(cfg)]
+    eng.run()
+    return {"prefill": logits.numpy(), "decode": dec.numpy(),
+            "next": nxt.numpy(), "tokens": [r.out for r in reqs],
+            "wire": wire,
+            "cache": {p: x.numpy()
+                      for p, x in tree_flatten_with_paths(cache)},
+            "pool": {p: tuple(x.shape)
+                     for p, x in tree_flatten_with_paths(eng.cache)}}
+
+
+def tp_collective_case(mesh) -> dict:
+    """``copy_to_model`` then each ``model`` rank's own product, then
+    ``reduce_from_model``: the output and the gradients of ``sum(out *
+    C)`` by ``x`` and by this rank's ``w``, beside the inputs every rank
+    makes from one seed (``W`` holds each ``model`` rank's ``w``)."""
+    from repro_torch.parallel import sharded
+    rng = np.random.default_rng(21)
+    x_np = rng.normal(size=(3, 5)).astype(np.float32)
+    w_np = rng.normal(size=(2, 5, 4)).astype(np.float32)
+    c_np = rng.normal(size=(3, 4)).astype(np.float32)
+    i = mesh.axis_index("model")
+    x = torch.from_numpy(x_np).requires_grad_()
+    w = torch.from_numpy(w_np[i].copy()).requires_grad_()
+    before = sharded.WIRE["tp_all_reduce"]
+    out = sharded.reduce_from_model(sharded.copy_to_model(x, mesh) @ w, mesh)
+    (out * torch.from_numpy(c_np)).sum().backward()
+    return {"x": x_np, "W": w_np, "C": c_np, "index": i,
+            "out": out.detach().numpy(), "gx": x.grad.numpy(),
+            "gw": w.grad.numpy(),
+            "wire": sharded.WIRE["tp_all_reduce"] - before}
+
+
+def seq_split_decode_case(mesh) -> dict:
+    """One decode step of a ring cache split over the sequence on the
+    ``(1, 2)`` mesh against ``decode_attention`` on the whole cache, from
+    one seed: 4 heads over 1 kv head, 64 slots, window 64.  Rank 0's
+    block (slots 0-31) holds no key of row 0 (``kpos = -1``) and only
+    keys outside the window of row 1; row 2's new token lands in it."""
+    from repro_torch.models import attention
+    from repro_torch.parallel.sharding import ParallelConfig
+    cfg = serve_cfg("recurrentgemma-2b")
+    pcfg = ParallelConfig(mesh=mesh)
+    rng = np.random.default_rng(22)
+    B, S, D = 3, cfg.local_window, cfg.d_head
+    H = cfg.n_heads
+    pos = np.array([122, 160, 135], np.int32)
+    # the positions each row holds, each at slot p % S
+    held = (range(96, 122), list(range(64, 96)) + list(range(97, 128)),
+            range(72, 135))
+    kpos = np.full((B, S), -1, np.int32)
+    for b, ps in enumerate(held):
+        for q_pos in ps:
+            kpos[b, q_pos % S] = q_pos
+    whole = {"k": torch.from_numpy(rng.normal(size=(B, S, 1, D))
+                                   .astype(np.float32)),
+             "v": torch.from_numpy(rng.normal(size=(B, S, 1, D))
+                                   .astype(np.float32)),
+             "kpos": torch.from_numpy(kpos)}
+    q = torch.from_numpy(rng.normal(size=(B, 1, H, D)).astype(np.float32))
+    kn = torch.from_numpy(rng.normal(size=(B, 1, 1, D)).astype(np.float32))
+    vn = torch.from_numpy(rng.normal(size=(B, 1, 1, D)).astype(np.float32))
+    p = torch.from_numpy(pos)
+    i, n = mesh.axis_index("model"), 2
+    new_whole = attention.update_cache(whole, kn, vn, p)
+    want = attention.decode_attention(q, new_whole, p,
+                                      window=cfg.local_window)
+    block = {k: attention._seq_block(v, i, n).contiguous()
+             for k, v in whole.items()}
+    hm = H // n
+    with torch.inference_mode():
+        got, new_block = attention._decode_seq_split(
+            q[:, :, i * hm:(i + 1) * hm], kn, vn, block, p, cfg=cfg,
+            pcfg=pcfg, window=cfg.local_window, index=i, size=n)
+    valid = (kpos >= 0) & (kpos <= pos[:, None]) \
+        & (pos[:, None] - kpos < cfg.local_window)
+    return {"got": got.numpy(), "want": want[:, :, i * hm:(i + 1) * hm]
+            .numpy(), "index": i,
+            "block_valid": valid[:, i * S // n:(i + 1) * S // n]
+            .any(axis=1).tolist(),
+            "cache": all(torch.equal(new_block[k], attention._seq_block(
+                new_whole[k], i, n)) for k in whole)}
+
+
+def _launcher_rank(rank: int, world: int) -> dict:
+    """The serving launcher's rank body on the suite's 4 ranks (the
+    ``(2, 2)`` mesh of ``--ranks 4``), with few requests."""
+    from repro_torch.launch import serve as slaunch
+    return slaunch._serve_rank(rank, world, [
+        "--arch", "qwen2.5-3b", "--smoke", "--device", "cpu", "--ranks",
+        str(world), "--requests", "4", "--max-new", "4"])
