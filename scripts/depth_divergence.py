@@ -19,6 +19,21 @@ Each line prints the largest difference over the largest magnitude.  What
 grows with depth is the stack's own sensitivity to rounding, not an error
 of either route: it says how deep an end-to-end comparison of two
 roundings can go before it measures the random weights.
+
+    python3 scripts/depth_divergence.py --card
+
+On one CUDA card (the kernels built as ``chip_smoke.py`` builds them),
+about three minutes: the same question for gradients, at full width and
+from seed 0, read and not held (every check only prints):
+
+- ``xlstm-1.3b``'s first pattern unit in float32, card against CPU
+  (``chip_smoke.xlstm_card_check``) on one row of 8 to 512 tokens;
+- one bf16 step of ``seamless-m4t-large-v2`` (2 x 3,072 tokens and
+  frames) at 1, 4 and 24 layers and ``llava-next-mistral-7b`` (with
+  patches) at 1, 4 and 12: the flash kernel's route against
+  ``chip_smoke.tile_p_attention`` (a plain version rounding p as the
+  kernel does), and at the deepest also against ``plain_kernels()``
+  (``chip_smoke.grad_check``).
 """
 from __future__ import annotations
 
@@ -83,7 +98,34 @@ def rounded_p_drift(arch: str, depth: int, device, T: int = 512) -> float:
     return ratio(plain, other)
 
 
+def card_readings() -> None:
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    chip_smoke.check = lambda cond, msg: None    # readings, not checks
+    print(chip_smoke.card_line(), flush=True)
+    chip_smoke.build_all(ROOT / "build" / "repro_torch")
+    for seq in (8, 16, 32, 64, 128, 512):
+        chip_smoke.xlstm_card_check(torch, get_config("xlstm-1.3b"), 0,
+                                    seq=seq)
+    for arch, depths in (("seamless-m4t-large-v2", (1, 4, 24)),
+                         ("llava-next-mistral-7b", (1, 4, 12))):
+        for depth in depths:
+            cfg = chip_smoke.family_depth(get_config(arch), depth)
+            batch = chip_smoke.family_batch(torch, cfg, 0)
+            refs = [chip_smoke.tile_p_attention]
+            if depth == depths[-1]:
+                refs.append(chip_smoke.plain_kernels)
+            for ref in refs:
+                chip_smoke.grad_check(torch, cfg, 0, batch, reference=ref,
+                                      label=f"{arch} bf16 {depth} layers")
+            del batch
+            chip_smoke.fresh_card(torch, "depth_divergence")
+
+
 def main() -> None:
+    if sys.argv[1:] == ["--card"]:
+        card_readings()
+        return
     dev = torch.device("cpu")
     for depth in (8, 16, 48):
         print(f"xlstm-1.3b float32, {depth} layers: forward vs prefill "

@@ -17,24 +17,31 @@ Griffin's:
 
     y = W_out( RG-LRU(conv1d(W_x x)) * gelu(W_g x) )
 
-Under ``layout="tp"`` on a mesh whose ``model`` size divides the LRU
-width (``sharding.tp_block``), ``p`` holds this rank's blocks of
-``in_x``, ``in_g``, ``conv_w`` and ``a_param`` (a contiguous slice of
-the width) and of ``out`` (its rows), the recurrent state its slice of
-``h`` and ``conv``: every op but the two gates is elementwise over the
-width, so the rank runs the conv, the gates and ``rg_lru_scan`` on its
-slice ``[B, T, W / model]`` and the partial products through its rows
-of ``out`` are summed over ``model`` (``sharded.reduce_from_model``).
-The gates are block-diagonal over ``N_GATE_BLOCKS`` blocks, and the JAX
-rule for ``gate_a`` / ``gate_x`` (``P(None, None, "model")``) splits the
-output columns of every block, not the blocks: the rank needs its
-``N_GATE_BLOCKS / model`` whole blocks, so those two leaves come whole
-(gathered over ``model`` as well) and the rank takes its blocks; their
-gradient is summed over ``model`` (``sharded.copy_to_model``), so each
-rank's whole gradient is the layer's.  A ``model`` size that does not
-divide ``N_GATE_BLOCKS`` would cut a block between ranks and raises.
+Under ``layout="tp"`` on a mesh whose ``model`` size divides both the
+LRU width and ``N_GATE_BLOCKS`` (:func:`lru_split`), ``p`` holds this
+rank's blocks of ``in_x``, ``in_g``, ``conv_w`` and ``a_param`` (a
+contiguous slice of the width) and of ``out`` (its rows), the recurrent
+state its slice of ``h`` and ``conv``: every op but the two gates is
+elementwise over the width, so the rank runs the conv, the gates and
+``rg_lru_scan`` on its slice ``[B, T, W / model]`` and the partial
+products through its rows of ``out`` are summed over ``model``
+(``sharded.reduce_from_model``).  The gates are block-diagonal over
+``N_GATE_BLOCKS`` blocks, and the JAX rule for ``gate_a`` / ``gate_x``
+(``P(None, None, "model")``) splits the output columns of every block,
+not the blocks: the rank needs its ``N_GATE_BLOCKS / model`` whole
+blocks, so those two leaves come whole (gathered over ``model`` as well)
+and the rank takes its blocks; their gradient is summed over ``model``
+(``sharded.copy_to_model``), so each rank's whole gradient is the
+layer's.  A ``model`` size that divides the width but not
+``N_GATE_BLOCKS`` would cut a block between ranks: there the layer
+computes whole on every ``model`` rank, on whole leaves and a whole
+state, as every rank computes the embedding, so each rank's gradient is
+already the layer's and nothing is summed over ``model``.  A true split
+of the gate columns is ROADMAP item 1.3f part 2.
 """
 from __future__ import annotations
+
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -92,14 +99,22 @@ def _lru(p, x, h0, *, chunk: int = 0, unroll: bool = False):
     return h.to(x.dtype), h_t
 
 
+def lru_split(cfg: ModelConfig, pcfg: ParallelConfig
+              ) -> Optional[Tuple[int, int]]:
+    """(this rank's coordinate along ``model``, the ``model`` size) where
+    the layer computes on the rank's slice of the LRU width
+    (``sharding.tp_block`` of the width, and a ``model`` size that
+    divides ``N_GATE_BLOCKS``), else None: the layer computes whole."""
+    split = tp_block(pcfg, cfg.lru_width or cfg.d_model)
+    if split is None or N_GATE_BLOCKS % split[1]:
+        return None
+    return split
+
+
 def _rank_gates(p, pcfg: ParallelConfig, split) -> dict:
     """``p`` with the gates cut to this rank's ``N_GATE_BLOCKS / model``
     blocks (the whole leaves through ``copy_to_model``)."""
     index, size = split
-    if N_GATE_BLOCKS % size:
-        raise NotImplementedError(
-            f"the RG-LRU gates' {N_GATE_BLOCKS} blocks do not split over "
-            f"{size} model ranks (ROADMAP item 1.3f part 2)")
     k = N_GATE_BLOCKS // size
     out = dict(p)
     for name in ("gate_a", "gate_x"):
@@ -114,7 +129,7 @@ def apply(p, x, *, cfg: ModelConfig, state=None, chunk: int = 0,
     on a ``tp`` mesh on this rank's slice of the width (module doc)."""
     B, T, d = x.shape
     w = cfg.lru_width or d
-    split = tp_block(pcfg, w)
+    split = lru_split(cfg, pcfg)
     if split is not None:
         p = _rank_gates(p, pcfg, split)
         x = sharded.copy_to_model(x, pcfg.mesh)

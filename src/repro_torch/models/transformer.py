@@ -43,7 +43,7 @@ from repro_torch.device import resolve_device
 from repro_torch.models import attention, mlp, moe, rglru, xlstm
 from repro_torch.models.common import rms_norm, sds, soft_cap
 from repro_torch.parallel.sharding import (ParallelConfig, batch_spec,
-                                           constrain, tp_block)
+                                           constrain)
 from repro_torch.utils.pytree import tree_map, tree_map_with_path
 
 # ---------------------------------------------------------------------------
@@ -198,8 +198,7 @@ def _unit_apply(unit_params, x, *, cfg: ModelConfig, pcfg: ParallelConfig,
         if mode != "prefill":
             return None
         state = _zero_state(_STATE_SHAPES[sym](cfg, B), x.device)
-        split = tp_block(pcfg, cfg.lru_width or cfg.d_model) \
-            if sym == "R" else None
+        split = rglru.lru_split(cfg, pcfg) if sym == "R" else None
         if split is not None:    # the rank's slice of the width
             index, size = split
             state = {k: v.chunk(size, dim=-1)[index].contiguous()

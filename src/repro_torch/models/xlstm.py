@@ -125,7 +125,11 @@ def _mlstm_chunk(carry, qkvif):
     logD = bt[..., :, None] - bt[..., None, :] + it[..., None, :] \
         - mt[..., :, None]
     tri = torch.ones((L, L), dtype=torch.bool, device=q.device).tril()
-    D = torch.where(tri, torch.exp(logD), 0.0)            # [B,H,L,L]
+    # masked before the exp: above the diagonal logD grows with the
+    # chunk and overflows, and exp's gradient there (0 * inf) would be
+    # NaN (the JAX package masks after the exp, and its gradient is NaN
+    # from L = 64 on); the values are the same
+    D = torch.exp(torch.where(tri, logD, -math.inf))      # [B,H,L,L]
     scores = (qf @ kf.transpose(-1, -2)) * D
     h_intra = scores @ vf
     den_intra = scores.sum(-1)                             # [B,H,L]

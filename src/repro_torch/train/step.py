@@ -67,7 +67,7 @@ from typing import Callable
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import model, moe
+from repro_torch.models import model, moe, rglru
 from repro_torch.parallel import collectives, sharded
 from repro_torch.parallel.sharding import (NamedSharding, ParallelConfig, P,
                                            batch_spec, param_specs_for,
@@ -92,12 +92,15 @@ def tp_leaf(path: str, cfg: ModelConfig, pcfg: ParallelConfig) -> bool:
     """Whether the leaf at ``path`` is one whose ``model`` block a layer
     computes on (``sharding.tp_block`` of its widths: the attention's
     heads, and its kv heads for ``wk`` / ``wv``; the FFN's; the LRU
-    width), so that a rank keeps only that block along ``model``."""
-    widths = {"heads": cfg.n_heads, "kv_heads": cfg.n_kv_heads,
-              "ffn": cfg.d_ff, "lru": cfg.lru_width or cfg.d_model}
+    width where ``rglru.lru_split`` splits it), so that a rank keeps
+    only that block along ``model``."""
+    splits = {"heads": tp_block(pcfg, cfg.n_heads),
+              "kv_heads": tp_block(pcfg, cfg.n_kv_heads),
+              "ffn": tp_block(pcfg, cfg.d_ff),
+              "lru": rglru.lru_split(cfg, pcfg)}
     for pat, need in _TP_LEAVES:
         if pat.search(path):
-            return all(tp_block(pcfg, widths[w]) is not None for w in need)
+            return all(splits[w] is not None for w in need)
     return False
 
 
@@ -128,18 +131,22 @@ def opt_state_specs_for(param_tree, pcfg: ParallelConfig,
     return out
 
 
-def cache_specs_for(cache_tree, pcfg: ParallelConfig):
-    """PartitionSpecs for a decode cache / recurrent state tree.
+def cache_specs_for(cache_tree, pcfg: ParallelConfig, cfg: ModelConfig):
+    """PartitionSpecs for a decode cache / recurrent state tree of ``cfg``.
 
     Leaves are [G, B, ...]: group dim replicated, batch over (pod, data),
     then for KV caches heads over ``model`` when divisible else the sequence
     dim (flash-decoding); recurrent states shard their first model-divisible
-    feature dim.
+    feature dim, except that under ``layout="tp"`` an RG-LRU state stays
+    whole over ``model`` where the layer computes whole
+    (``rglru.lru_split``): the blocks the port's layers hold.
     """
     if pcfg.mesh is None:
         return tree_map(lambda s: P(), cache_tree)
     b = pcfg.data_axes if len(pcfg.data_axes) > 1 else pcfg.data_axes[0]
     msz = pcfg.model_size
+    whole_state = pcfg.layout == "tp" and "R" in cfg.block_pattern \
+        and rglru.lru_split(cfg, pcfg) is None
 
     def leaf(path: str, s):
         name = path.split("/")[-1]
@@ -158,7 +165,7 @@ def cache_specs_for(cache_tree, pcfg: ParallelConfig):
         else:
             # recurrent state: [G, B, ...feature dims]
             dims = [None, b]
-            placed = False
+            placed = whole_state
             for d in shape[2:]:
                 if not placed and d % msz == 0 and d >= msz:
                     dims.append("model")
@@ -391,7 +398,8 @@ def check_serving_mesh(cfg: ModelConfig, pcfg: ParallelConfig,
     ``layout="tp"``; with several ``model`` ranks, heads that split over
     them, and a cache whose kv heads split or else whose sequence does
     (a cache that neither splits would stay whole, ``cache_specs_for``),
-    and an RG-LRU conv state that splits by width."""
+    and an RG-LRU conv state that splits by width where the layer splits
+    (``rglru.lru_split``; else the layer and its state are whole)."""
     if pcfg.mesh is None:
         return
     if cfg.family == "moe" or cfg.is_encoder_decoder \
@@ -420,7 +428,8 @@ def check_serving_mesh(cfg: ModelConfig, pcfg: ParallelConfig,
                 f"{cfg.n_kv_heads} kv heads nor its sequence over {m} model "
                 f"ranks")
     taps = cfg.conv1d_width - 1
-    if "R" in cfg.block_pattern and taps >= m and taps % m == 0:
+    if "R" in cfg.block_pattern and rglru.lru_split(cfg, pcfg) is not None \
+            and taps >= m and taps % m == 0:
         raise ValueError(f"the RG-LRU conv state's {taps} taps, not its "
                          f"width, would split over {m} model ranks")
 
@@ -477,7 +486,7 @@ def init_cache_blocks(cfg: ModelConfig, pcfg: ParallelConfig, batch: int,
                                 device=device)
     mesh = pcfg.mesh
     shapes = model.cache_shapes(cfg, batch, seq, cross_len=cross_len)
-    specs = cache_specs_for(shapes, pcfg)
+    specs = cache_specs_for(shapes, pcfg, cfg)
 
     def block(s, spec):
         sl = sharded.block_slices(spec, s.shape, mesh)

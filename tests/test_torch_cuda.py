@@ -1039,6 +1039,82 @@ def test_cuda_flash_attention_backward_matches_plain(cuda, dtype, B, T, H,
                                    atol=tol * scale)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,T,S,H,K", [(2, 200, 300, 4, 2),
+                                       (1, 130, 65, 16, 16)])
+def test_cuda_flash_attention_backward_non_causal_cross(cuda, dtype, B, T, S,
+                                                        H, K):
+    """The Function's gradient on the routes seamless-m4t-large-v2 trains
+    through: D = 64, non-causal, keys from another stream (S != T, the
+    cross-attention over the encoder memory), against autograd through
+    the whole-batch plain version, within the bounds of
+    ``test_cuda_flash_attention_backward_matches_plain``."""
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    g = torch.Generator().manual_seed(T + S)
+    q, up = (torch.randn((B, T, H, 64), generator=g).to(dtype).to(cuda)
+             for _ in range(2))
+    k, v = (torch.randn((B, S, K, 64), generator=g).to(dtype).to(cuda)
+            for _ in range(2))
+    grads = {}
+    for fn in (flash_ops.flash_attention, flash_attention_ref):
+        ins = [t.clone().requires_grad_() for t in (q, k, v)]
+        f0 = fkernel.launches
+        out = fn(*ins, causal=False, window=0)
+        grads[fn] = torch.autograd.grad(out, ins, up)
+        assert fkernel.launches - f0 == (fn is flash_ops.flash_attention)
+    tol = 1e-5 if dtype == torch.float32 else 1e-2
+    for got, want in zip(grads[flash_ops.flash_attention],
+                         grads[flash_attention_ref]):
+        assert got.shape == want.shape
+        scale = float(want.float().abs().max())
+        torch.testing.assert_close(got.float(), want.float(), rtol=0,
+                                   atol=tol * scale)
+
+
+def test_cuda_xlstm_unit_gradient_matches_cpu(cuda):
+    """One pattern unit of reduced ``xlstm-1.3b`` (7 mLSTM layers and an
+    sLSTM, float32, full remat, the fused head), as ``chip_smoke.py``'s
+    phase 25 checks it at full width: the loss and every gradient on the
+    card within 1e-3 (relative L2) of the CPU's, all finite, on 2 x 8
+    tokens.  The row is short because the random-weight stack amplifies
+    float32 rounding with its length: a one-ulp move of the embeddings
+    moves the CPU's own gradients by at most 2.4e-4 of a leaf here, and
+    by 2.9e-2 at 256 tokens.  The sLSTM's ``b_i`` gradient is zero in
+    exact arithmetic (a shift of the input-gate bias moves the
+    stabiliser by as much and leaves c, n and h = c / n as they are), so
+    on either device it stays below 1e-5 of ``b_f``'s in norm."""
+    from repro_torch.parallel.sharding import ParallelConfig
+    from repro_torch.train import step as tstep
+    from repro_torch.utils.pytree import tree_flatten_with_paths
+    cfg, _ = _lm("xlstm-1.3b")
+    cfg = cfg.replace(n_layers=cfg.pattern_len)
+    p_cpu = tmodel.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    pcfg = ParallelConfig(mesh=None, remat="full", fused_head=True,
+                          head_chunk=64)
+    toks = np.random.default_rng(2).integers(0, cfg.vocab_size, (2, 9))
+    batch = {"inputs": torch.from_numpy(toks[:, :-1].astype(np.int32)),
+             "labels": torch.from_numpy(toks[:, 1:].astype(np.int32))}
+    out = {}
+    for dev, params in (("cpu", p_cpu), ("cuda", _to(p_cpu, cuda))):
+        (loss, _), grads = tstep._value_and_grad_accum(
+            params, _to(batch, dev), cfg=cfg, pcfg=pcfg)
+        out[dev] = (float(loss), {path: g.cpu().double() for path, g in
+                                  tree_flatten_with_paths(grads)})
+    (loss, got), (want_loss, want) = out["cuda"], out["cpu"]
+    assert abs(loss - want_loss) <= 1e-3 * abs(want_loss)
+    assert sorted(got) == sorted(want)
+    for path, w in want.items():
+        g = got[path]
+        assert torch.isfinite(g).all(), path
+        if path.endswith("slstm/b_i"):
+            b_f = path.rsplit("/", 1)[0] + "/b_f"
+            for tree in (got, want):
+                assert float(tree[path].norm()) <= 1e-5 * float(
+                    tree[b_f].norm()), path
+            continue
+        assert float((g - w).norm()) <= 1e-3 * float(w.norm()), path
+
+
 @pytest.mark.parametrize("remat", ["none", "full", "dots"])
 def test_cuda_train_step_through_kernels(cuda, remat):
     """Loss and every gradient of reduced recurrentgemma-2b (float32) on

@@ -46,6 +46,11 @@ seed, a numpy batch whose rows carry unequal valid-token counts.
     mesh, the cache blocks, the sequence-split decode, the
     tensor-parallel collectives, the configs it refuses, the launcher's
     rank body.
+(l) A ``tp`` mesh whose ``model`` size divides the LRU width but not the
+    RG-LRU gates' 8 blocks (``(1, 3)``, ``lru_width = 48``): the layer
+    computes whole on every ``model`` rank; the train step against the
+    JAX package's step on its host mesh, the serve steps and engine
+    against its serve steps and engine.
 """
 import os
 import subprocess
@@ -118,8 +123,8 @@ def run(arch, layout, mesh, masked):
     layout, _, accum = layout.partition("@")
     accum = int(accum or 1)
     tcfg = R.lm_cfg(arch)
-    cfg = ARCHS[arch].reduced().replace(param_dtype="float32",
-                                        compute_dtype="float32")
+    cfg = R.reduced(ARCHS.__getitem__, arch).replace(
+        param_dtype="float32", compute_dtype="float32")
     params = jax.tree.map(jnp.asarray, R.nest(R.init_numpy(tcfg)))
     batch = {k: jnp.asarray(v)
              for k, v in R.lm_batch(tcfg, masked=masked).items()}
@@ -164,9 +169,9 @@ def serve(arch, mesh):
     from repro.serve import SamplerConfig, ServeEngine
     from repro.train.step import make_prefill_step, make_serve_step
     tcfg = R.serve_cfg(arch)
-    cfg = ARCHS[arch].reduced().replace(param_dtype="float32",
-                                        compute_dtype="float32",
-                                        n_layers=tcfg.n_layers)
+    cfg = R.reduced(ARCHS.__getitem__, arch).replace(
+        param_dtype="float32", compute_dtype="float32",
+        n_layers=tcfg.n_layers)
     params = jax.tree.map(jnp.asarray, R.nest(R.init_numpy(tcfg)))
     pcfg = ParallelConfig(mesh=mesh)
     toks = jnp.asarray(R.serve_batch(tcfg))
@@ -217,7 +222,8 @@ _JAX_SPLIT = (
     + [k[:1] + (v,) for k, v in _ACCUM.items() if k[0] == "qwen2.5-3b"]
     + [(ranks.PODWISE_ARCH, _POD_ACCUM), ("qwen2.5-3b", "serve")],
     [("xlstm-1.3b", "tp"), ("qwen2.5-3b", "tp"), ("qwen2.5-3b", "fsdp"),
-     ("recurrentgemma-2b", "serve")],
+     ("recurrentgemma-2b", "serve"), (ranks.LRU_WHOLE, "tp"),
+     (ranks.LRU_WHOLE, "serve")],
     [(a, "tp") for a in ("gemma3-12b", "qwen3-8b", "deepseek-7b",
                          "llava-next-mistral-7b", "seamless-m4t-large-v2")]
     + [(ranks.PODWISE_ARCH, "single"), ("gemma3-12b", "serve")],
@@ -699,7 +705,7 @@ def test_serving_cache_blocks_follow_cache_specs(runs, arch, shape):
     pcfg = TPC(mesh=mesh)
     cfg = ranks.serve_cfg(arch)
     specs = tstep.cache_specs_for(
-        tmodel.cache_shapes(cfg, ranks.SERVE_B, ranks.SERVE_LEN), pcfg)
+        tmodel.cache_shapes(cfg, ranks.SERVE_B, ranks.SERVE_LEN), pcfg, cfg)
     jax_cache = ranks.nest({k[len("cache/"):]: v for k, v in
                             _serve_ref(runs[1], arch).items()
                             if k.startswith("cache/")})
@@ -711,7 +717,7 @@ def test_serving_cache_blocks_follow_cache_specs(runs, arch, shape):
         tol = SERVE_TOL * max(np.abs(w).max(), 1)
         assert np.abs(got["cache"][path] - w).max() <= tol, path
     pool = tmodel.cache_shapes(cfg, ranks.SERVE_SLOTS, ranks.SERVE_LEN)
-    for path, s in flat(tstep.cache_specs_for(pool, pcfg)):
+    for path, s in flat(tstep.cache_specs_for(pool, pcfg, cfg)):
         whole = dict(flat(pool))[path].shape
         block = tuple(len(range(*c.indices(n))) for c, n in zip(
             sharded.block_slices(s, whole, mesh), whole))
@@ -779,6 +785,56 @@ def test_serving_mesh_refuses_other_configs(arch):
     with pytest.raises(NotImplementedError, match="1.3f part 2"):
         tstep.check_serving_mesh(get_config("qwen2.5-3b").reduced(),
                                  TPC(mesh=mesh, layout="fsdp"), 96)
+
+
+def test_tp_step_computes_an_lru_whole_where_its_gate_blocks_do_not_split(
+        runs):
+    """(l) ``torch_train_ranks.LRU_WHOLE`` on ``(data, model) = (1, 3)``,
+    ``layout="tp"``: 3 ranks divide the LRU width of 48 but not the
+    gates' 8 blocks, so ``rglru.lru_split`` is None and the layer
+    computes whole (its leaves gathered over ``model`` too) while the
+    attention computes on one of the 3 heads a rank.  One step, rank 0,
+    against the JAX package's step by ``_hold``'s bars; the attention's
+    sums over ``model`` ran, and nothing raised over the gate blocks."""
+    port, ref = runs
+    got = port["lru_whole"]
+    assert got["split"] is None
+    _hold(got["step"], _ref(ref, ranks.LRU_WHOLE, "tp"),
+          [_ref(ref, ranks.LRU_WHOLE, "tp", t) for t in "uvwx"])
+    assert got["wire"]["tp_all_reduce"] > 0
+
+
+def test_serving_mesh_computes_an_lru_whole_where_its_gate_blocks_do_not_split(
+        runs):
+    """(l) The serve steps and the engine of ``LRU_WHOLE`` (one pattern
+    unit) on the ``(1, 3)`` mesh, rank 0, against the JAX package's on
+    its host mesh, by ``test_serving_mesh_matches_jax_host_mesh``'s
+    bars: ``check_serving_mesh`` takes the config, and the RG-LRU state
+    of the prefill's cache and of the pool stays whole over ``model``
+    (``cache_specs_for(..., cfg)``), at the LRU width of 48."""
+    from repro_torch.models import model as tmodel
+    from repro_torch.utils.pytree import tree_flatten_with_paths as flat
+    port, ref = runs
+    got = port["lru_whole"]["serve"]
+    want = _serve_ref(ref, ranks.LRU_WHOLE)
+    for key in ("prefill", "decode"):
+        scale = np.abs(want[key]).max()
+        assert got[key].shape == want[key].shape, key
+        assert np.abs(got[key] - want[key]).max() <= SERVE_TOL * scale, key
+    np.testing.assert_array_equal(got["next"], want["next"])
+    assert got["tokens"] == want["tokens"].tolist()
+    cfg = ranks.serve_cfg(ranks.LRU_WHOLE)
+    pool = dict(flat(tmodel.cache_shapes(cfg, ranks.SERVE_SLOTS,
+                                         ranks.SERVE_LEN)))
+    rec = [p for p in pool if "/rec/" in p]
+    assert rec
+    for path in rec:
+        w = want["cache/" + path]
+        assert got["cache"][path].shape == w.shape, path
+        assert np.abs(got["cache"][path] - w).max() <= SERVE_TOL * max(
+            np.abs(w).max(), 1), path
+        assert got["pool"][path] == tuple(pool[path].shape), path
+        assert pool[path].shape[-1] == cfg.lru_width
 
 
 def test_serve_launcher_rank_on_a_two_by_two_mesh(runs):
@@ -936,4 +992,5 @@ def test_spec_trees_match_jax(arch):
         same(jstep.batch_specs_for(batch, jp),
              tstep.batch_specs_for(batch, tp))
         same(jstep.cache_specs_for(jmodel.cache_shapes(jcfg, 8, 64), jp),
-             tstep.cache_specs_for(tmodel.cache_shapes(tcfg, 8, 64), tp))
+             tstep.cache_specs_for(tmodel.cache_shapes(tcfg, 8, 64), tp,
+                                   tcfg))

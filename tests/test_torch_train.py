@@ -115,16 +115,29 @@ def _params(name, dtype="float32"):
     return _CACHE["params", name, dtype]
 
 
-def _batch(vocab, B=2, T=48, seed=0, ignore=5):
+def _batch(vocab, B=2, T=48, seed=0, ignore=5, cfg=None):
     """(JAX batch, the port's batch): random tokens, the first ``ignore``
-    labels of row 0 set to -1."""
+    labels of row 0 set to -1; with ``cfg`` the frontend's inputs as
+    ``models/inputs.py::train_batch_specs`` shapes them, float32 from
+    the same seed: an encoder-decoder's ``enc_frames`` [B, T, d_model],
+    a vision config's ``patch_embeds`` [B, P, d_model] and distinct
+    ``patch_pos`` [B, P] in each row."""
     rng = np.random.default_rng(seed)
     toks = rng.integers(0, vocab, (B, T + 1)).astype(np.int32)
     inputs, labels = toks[:, :-1].copy(), toks[:, 1:].copy()
     labels[0, :ignore] = -1
-    return ({"inputs": jnp.asarray(inputs), "labels": jnp.asarray(labels)},
-            {"inputs": torch.from_numpy(inputs),
-             "labels": torch.from_numpy(labels)})
+    host = {"inputs": inputs, "labels": labels}
+    if cfg is not None and cfg.is_encoder_decoder:
+        host["enc_frames"] = rng.standard_normal(
+            (B, T, cfg.d_model)).astype(np.float32)
+    if cfg is not None and cfg.frontend == "vision_patches":
+        P = cfg.frontend_positions
+        host["patch_embeds"] = rng.standard_normal(
+            (B, P, cfg.d_model)).astype(np.float32)
+        host["patch_pos"] = np.stack([rng.choice(T, P, replace=False)
+                                      for _ in range(B)]).astype(np.int32)
+    return ({k: jnp.asarray(v) for k, v in host.items()},
+            {k: torch.from_numpy(v) for k, v in host.items()})
 
 
 def _flat(tree):
@@ -368,6 +381,45 @@ def test_xlstm_loss_fn_and_grads_within_the_jax_spread():
             (path, err, spread)
 
 
+def _global_norm(leaves):
+    return float(np.sqrt(sum(np.sum(np.asarray(g, np.float64) ** 2)
+                             for g in leaves)))
+
+
+def test_xlstm_gradient_norm_grows_with_depth_as_in_jax():
+    """Reduced ``xlstm-1.3b`` at all 48 of its layers (float32, the fused
+    head, 2 x 48 tokens: below 64, from which the JAX package's mLSTM
+    gradient is NaN): the global gradient norm grows with depth in the
+    JAX package itself, in each draw more than 20 times its norm at the
+    reduced 16 layers (35 to 125 times), and the port's grows so too and
+    lies within three times the JAX package's own spread there (in log:
+    the most its norm moves when its embedding table moves by one ulp,
+    over two draws of the signs; the random-weight stack of 48 layers is
+    chaotic in float32, and those draws move the norm by a factor of
+    about 3.6).  The full-width stack's gradient norm on the card grows
+    so too."""
+    name = "xlstm-1.3b"
+    jcfg, tcfg = (c.replace(n_layers=48) for c in _cfgs(name))
+    jp = jmodel.init_params(jcfg, jax.random.PRNGKey(0))
+    tp = params_from_jax(jax.tree.map(np.asarray, jp), "cpu")
+    jb, tb = _batch(jcfg.vocab_size)
+    pcfg = JPC(mesh=None, remat="none", fused_head=True, head_chunk=32)
+    grad = jax.jit(jax.value_and_grad(
+        lambda p: jmodel.loss_fn(p, jb, cfg=jcfg, pcfg=pcfg), has_aux=True))
+    draws = [_global_norm(g for _, g in j_flatten(grad(p)[1]))
+             for p in (jp, _one_ulp(jp, 0), _one_ulp(jp, 1))]
+    want = draws[0]
+    spread = max(abs(np.log(d / want)) for d in draws[1:])
+    _, g16 = _jax_grads(name, "float32", True)
+    shallow = _global_norm(g for _, g in j_flatten(g16))
+    _, tg = tstep._value_and_grad_accum(
+        tp, tb, cfg=tcfg, pcfg=TPC(mesh=None, remat="full", fused_head=True,
+                                   head_chunk=32))
+    got = _global_norm(_np(g) for g in _flat(tg))
+    assert min(draws + [got]) > 20 * shallow, (draws, got, shallow)
+    assert abs(np.log(got / want)) <= 3 * spread, (got, want, spread)
+
+
 @pytest.mark.parametrize("name", ["recurrentgemma-2b", "qwen2.5-3b"] + DENSE)
 def test_loss_fn_grads_bf16_as_close_to_float32_as_jax(name):
     """bf16 parameters: each leaf's gradient is no farther (x2) from the
@@ -543,10 +595,14 @@ def test_train_step_matches_jax(accum):
 
 
 @pytest.mark.parametrize("name", ["xlstm-1.3b", "qwen3-moe-30b-a3b",
-                                  "dbrx-132b"])
+                                  "dbrx-132b", "seamless-m4t-large-v2",
+                                  "llava-next-mistral-7b"])
 def test_train_step_of_the_new_families_matches_jax(name):
-    """One train step of reduced ``xlstm-1.3b`` / ``qwen3-moe-30b-a3b``
-    (float32, full remat in the port) from the same parameters and AdamW
+    """One train step of reduced ``xlstm-1.3b`` / ``qwen3-moe-30b-a3b`` /
+    ``dbrx-132b``, and of ``seamless-m4t-large-v2`` (with frames) and
+    ``llava-next-mistral-7b`` (with patches, ``_batch(cfg=)``), as the
+    JAX package trains those two through ``make_train_step`` (float32,
+    full remat in the port) from the same parameters and AdamW
     state (after one JAX step, so the moments are not zero), on the same
     batch: the step's metrics (the MoE aux loss among them) and the
     parameters after it (each leaf in norm), by the bounds of
@@ -564,10 +620,10 @@ def test_train_step_of_the_new_families_matches_jax(name):
     tfn = tstep.make_train_step(tcfg, TPC(mesh=None, remat="full"), ocfg_t,
                                 lr_t)
     jp, js, _ = jfn(jp, joptim.init_state(jp, ocfg_j),
-                    _batch(jcfg.vocab_size, B=2, T=16, seed=11)[0])
+                    _batch(jcfg.vocab_size, B=2, T=16, seed=11, cfg=jcfg)[0])
     tp = params_from_jax(jax.tree.map(np.asarray, jp), "cpu")
     ts = opt_state_from_jax(jax.tree.map(np.asarray, js), "cpu")
-    jb, tb = _batch(jcfg.vocab_size, B=2, T=16, seed=12)
+    jb, tb = _batch(jcfg.vocab_size, B=2, T=16, seed=12, cfg=jcfg)
     up, _, um = jfn(_one_ulp(jp, 0), js, jb)
     jp, js, jm = jfn(jp, js, jb)
     tp, ts, tm = tfn(tp, ts, tb)

@@ -98,6 +98,41 @@ def test_mlstm_chunkwise_matches_jax_and_the_oracle(chunk, monkeypatch):
     _close(toracle, jxlstm.mlstm_sequential_oracle(jp, jx, cfg=jcfg))
 
 
+@pytest.mark.parametrize("T", [64, 256])
+def test_mlstm_gradient_is_finite_where_the_chunk_overflows_exp(
+        T, monkeypatch):
+    """One chunk of ``T`` tokens (the default ``CHUNK``): above the
+    diagonal of the intra-chunk ``[L, L]`` matrix ``logD`` overflows
+    ``exp`` from L = 64 on.  The port masks it before the ``exp`` (the
+    JAX package after, and its gradient is NaN there), so the gradient
+    of ``sum(out * ct)`` by ``x`` and by every parameter is finite, and
+    within 1e-4 of each one's norm of the JAX package's at chunks of 8,
+    where no entry overflows (the chunk length changes only the
+    rounding)."""
+    jcfg, tcfg = _cfgs()
+    jp, tp = _params(jxlstm.mlstm_shapes)
+    jx, tx = _x(2, T, seed=T)
+    ct = np.random.default_rng(3).standard_normal(
+        (2, T, jcfg.d_model)).astype(np.float32)
+    tp = {k: v.requires_grad_() if isinstance(v, torch.Tensor)
+          else {kk: vv.requires_grad_() for kk, vv in v.items()}
+          for k, v in tp.items()}
+    tx.requires_grad_()
+    tout, _ = txlstm.mlstm_apply(tp, tx, cfg=tcfg)
+    (tout * torch.from_numpy(ct)).sum().backward()
+    monkeypatch.setattr(jxlstm, "CHUNK", 8)
+    jgx, jgp = jax.grad(lambda x, p: jnp.sum(
+        jxlstm.mlstm_apply(p, x, cfg=jcfg)[0] * ct), argnums=(0, 1))(jx, jp)
+    got = [("x", tx.grad)] + [(q, g.grad) for q, g in
+                              tree_flatten_with_paths(tp)]
+    want = [("x", jgx)] + list(j_flatten(jgp))
+    assert [q for q, _ in got] == [q for q, _ in want]
+    for (path, g), (_, w) in zip(got, want):
+        g, w = g.numpy().astype(np.float64), np.asarray(w, np.float64)
+        assert np.isfinite(g).all(), path
+        assert np.linalg.norm(g - w) <= 1e-4 * np.linalg.norm(w), path
+
+
 def test_mlstm_chunk_rule_halves_to_a_divisor(monkeypatch):
     """T = 12 with CHUNK 8 runs chunks of 4 (the rule ``while T % L: L
     //= 2``), an odd T chunks of 1; ``unroll`` changes nothing."""

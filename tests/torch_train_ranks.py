@@ -40,11 +40,28 @@ PODWISE_ARCH = "qwen2.5-3b"
 POD_SHAPE = (4, 256)
 
 
+# (l): a tp mesh whose model size divides the LRU width but not the
+# RG-LRU gates' 8 blocks, so the layer computes whole on every model
+# rank; 3 heads split over the 3 ranks, the FFN's 128 columns do not,
+# and the local layers' ring of 48 slots splits over them for serving
+LRU_WHOLE = "recurrentgemma-2b:lru48"
+LRU_WHOLE_SHAPE = (1, 3)
+# a variant "<arch>:<tag>" is the reduced config with these fields
+VARIANTS = {LRU_WHOLE: {"lru_width": 48, "n_heads": 3, "local_window": 48}}
+
+
+def reduced(get_config, name: str):
+    """``name``'s reduced twin by either package's ``get_config``, with
+    its variant's fields (``VARIANTS``)."""
+    return get_config(name.split(":")[0]).reduced().replace(
+        **VARIANTS.get(name, {}))
+
+
 def lm_cfg(arch: str):
     """The reduced float32 twin of ``arch`` (the port's config)."""
     from repro_torch.configs import get_config
-    return get_config(arch).reduced().replace(param_dtype="float32",
-                                              compute_dtype="float32")
+    return reduced(get_config, arch).replace(param_dtype="float32",
+                                             compute_dtype="float32")
 
 
 def init_numpy(cfg, seed: int = SEED) -> dict:
@@ -225,6 +242,10 @@ def mesh_train_suite(rank: int, world: int):
                                                    meshes[shape])
     if pair is not None:
         out["seq_decode"] = seq_split_decode_case(pair)
+    trio = make_mesh_compat(LRU_WHOLE_SHAPE, ("data", "model"),
+                            device="cpu", ranks=range(3))
+    if trio is not None:
+        out["lru_whole"] = lru_whole_case(trio)
     out["launcher"] = _launcher_rank(rank, world)
     return out if rank == 0 else None
 
@@ -727,6 +748,21 @@ def seq_split_decode_case(mesh) -> dict:
             .any(axis=1).tolist(),
             "cache": all(torch.equal(new_block[k], attention._seq_block(
                 new_whole[k], i, n)) for k in whole)}
+
+
+def lru_whole_case(mesh) -> dict:
+    """(l) ``LRU_WHOLE`` on ``mesh``, ``layout="tp"``: one train step
+    (:func:`_mesh_step`, the bytes it handed to each collective) and the
+    serve steps and engine (:func:`serve_case` at one pattern unit)."""
+    from repro_torch.models import rglru
+    from repro_torch.parallel.sharding import ParallelConfig
+    log = {}
+    step = _mesh_step(lm_cfg(LRU_WHOLE), mesh, lm_batch(lm_cfg(LRU_WHOLE)),
+                      log, layout="tp")
+    cfg = serve_cfg(LRU_WHOLE)
+    return {"step": step, "wire": log["wire"],
+            "split": rglru.lru_split(cfg, ParallelConfig(mesh=mesh)),
+            "serve": serve_case(cfg, mesh)}
 
 
 def _launcher_rank(rank: int, world: int) -> dict:
