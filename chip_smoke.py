@@ -170,9 +170,9 @@ and passed over.
 10. **Serving ``xlstm-1.3b``** (arXiv:2405.04517, xLSTM[7:1]: 48 layers,
    ``d_model`` 2048, 4 heads, the pattern ``m`` x 7, ``s``; vocab 50,304;
    1,499,863,376 parameters at 48 layers) from ``--seed`` at full width and
-   its first 16 layers (``XLSTM_SERVE_LAYERS``: two pattern units; its
-   sLSTM runs token by token, and the whole stack's 155-165 s left the
-   run no room in its 1,200 s) through
+   its first 8 layers (``XLSTM_SERVE_LAYERS``: one pattern unit; its
+   sLSTM runs token by token, and the whole stack's 155-165 s, or two
+   units' 51-72 s, left the run no room in its 1,200 s) through
    phase 7's harness, on a card freed of the earlier phases: (a) every
    request ends with 32 in-vocabulary tokens, every slot is recycled,
    and neither LM kernel launches (the path has none); (b) the first
@@ -264,9 +264,9 @@ and passed over.
    gradient norm within 1e-2 relative, each reduce-scattered gradient
    block within one bf16 rounding of the single device's token-weighted
    row sum, exactly one row's kernel launches (16, 36, 18 a step), the
-   loss falling, the bytes a step handed to the gathers and the
-   reduce-scatters equal to what the leaf shapes predict
-   (``wire_prediction``); prints each rank's step seconds by part (the
+   loss falling (the bytes a step handed to each collective are held to
+   the dry run's count in phase 26); prints each rank's step seconds by
+   part (the
    gathers and reduce-scatters inside the forward and backward apart),
    tokens/s, peak memory beside the whole-tree step's of PR 21 and the
    bytes a step by collective.  (14b) The 13-layer cut on the same mesh
@@ -345,8 +345,8 @@ and passed over.
    and recompute of 2 layers, 2 steps), the loss falling; prints the step
    seconds by part with the gathers, the reduce-scatters and the MoE's
    exchange inside the forward and backward, the bytes a step by
-   collective (``sharded.WIRE``; the gathers' and reduce-scatters' equal
-   to ``wire_prediction``'s) and the peak memory.  The ``kernels`` line's ``flash_attention`` row carries
+   collective (``sharded.WIRE``; held to the dry run's in phase 26) and
+   the peak memory.  The ``kernels`` line's ``flash_attention`` row carries
    the row's timing and ``mesh_moe_tp`` / ``mesh_moe_a2a`` launches.
 14c. **Tensor-parallel training,** after phases 14-15: the 13-layer cut
    of ``recurrentgemma-2b`` (``POD_LAYERS``) on ``(data, model) = (1,
@@ -360,11 +360,12 @@ and passed over.
    ``copy_to_model`` sums them).  Each rank: step 1's loss and gradient
    norm and each gradient block held to the emulation as in 14 (within
    one bf16 rounding; the plain step's distance printed), one row's
-   launches, the bytes a step equal to ``wire_prediction``'s (gathers,
-   reduce-scatters and the sums over ``model``), the step by part with the
-   sums over ``model`` apart.
+   launches, the step by part with the sums over ``model`` apart (the
+   bytes a step, gathers, reduce-scatters and the sums over ``model``,
+   held to the dry run's in phase 26).
 22. **Serving on the mesh,** after phase 21: ``recurrentgemma-2b`` and
-   ``qwen2.5-3b`` at full width served on two gloo ranks sharing the card
+   ``qwen2.5-3b`` at full width and half their depth (13 and 18 layers,
+   ``MESH_SERVE_LAYERS``) served on two gloo ranks sharing the card
    at ``(data, model) = (1, 2)``, ``layout="tp"`` (``ServeEngine`` on
    each rank's blocks: ``recurrentgemma-2b``'s ring caches split over the
    sequence, ``qwen2.5-3b``'s over its kv heads), 4 requests of
@@ -430,6 +431,26 @@ and passed over.
    falls, finite, no kernel launches.  Prints the steps' seconds,
    tokens/s and peak memory.
 
+26. **The dry run held to the card's steps** (``launch/dryrun.py``, which
+   counts one rank's step on meta tensors, a stand-in default group of
+   the mesh's size behind it; no card).  Its counts of the steps above
+   run on the host beside phases 2-25, started after the host-staged
+   mesh phases 14-22 (``start_dryrun``, a process of its own with the
+   card hidden from it): phase 8's step, phase 14's rank
+   on a ``(2, 1)`` stand-in mesh, (14b), (14c) and phase 21's two runs,
+   phases 23-24's steps and phase 17's warm ``qwen3-8b`` prefill of 3,072
+   tokens (cache of ``SERVE_LEN``), with the phases' knobs, rows and
+   tokens.  Each is held to the card's step (``MEASURED``): every
+   kernel's launches a step and the bytes of the arguments it held
+   exactly; each mesh rank's bytes a step by collective
+   (``sharded.WIRE``) exactly; the peak (``max_memory_allocated`` less
+   what the process held beside the arguments; a mesh step's without
+   step 1's gradient check, whose peak is printed) within 15%; the dry
+   run's FLOPs over the step's median seconds at 989 TFLOP/s printed
+   beside the card's name and power limit.  The dry run's command line on
+   ``recurrentgemma-2b train_4k 16x16`` and ``qwen3-8b decode_32k
+   2x16x16`` must write ``ok`` records.
+
 The line before the last is one JSON object describing every kernel; the
 last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -439,10 +460,12 @@ script, it exits non-zero and prints no result.
 from __future__ import annotations
 
 import argparse
+import atexit
 import contextlib
 import gc
 import json
 import math
+import os
 import shutil
 import statistics
 import subprocess
@@ -574,6 +597,50 @@ def row(name, worst, ms, plain, bound, by, library=None):
             "replaces": replaces, "launches": None, "max_abs_err": worst,
             "ms": ms, "plain_ms": plain, "bound_ms": bound, "bound_by": by,
             "library_ms": library}
+
+
+# phase 26: each reused step's launches a step, the bytes of the arguments
+# it held, its peak less what else the process held, its median seconds
+# (and a mesh rank's bytes a step by collective), by the dry run's key
+MEASURED = {}
+
+
+def tree_nbytes(tree) -> int:
+    """Bytes of a nested dict's tensors."""
+    if isinstance(tree, dict):
+        return sum(tree_nbytes(v) for v in tree.values())
+    return tree.nbytes
+
+
+def noting_batch(step):
+    """``step(params, opt, batch)`` that notes its batch's bytes in the
+    dict returned beside it."""
+    seen = {"batch": 0}
+
+    def noted(params, opt, batch):
+        seen["batch"] = tree_nbytes(batch)
+        return step(params, opt, batch)
+    return noted, seen
+
+
+def step_held(launches, steps: int, held: int, peak: int, secs,
+              wire=None) -> dict:
+    """What phase 26 holds a reused step's dry run to: ``launches`` (a
+    run's flash, scan and scan backward) a step, the arguments' bytes,
+    the step's peak (max_memory_allocated less what the process held
+    beside the arguments), the median step seconds after the first."""
+    secs = list(secs)
+    return {"launches": tuple(n // steps for n in launches),
+            "argument_bytes": int(held), "peak": int(peak),
+            "step_s": statistics.median(secs[1:] or secs), "wire": wire}
+
+
+def ranks_held(res, key: str) -> dict:
+    """Rank 0's :func:`step_held` of a mesh step ``key``, with every
+    rank's bytes a step by collective: the ranks are symmetric, so phase
+    26 holds each rank's to the dry run's count of rank 0."""
+    return {**res[0][key]["held"],
+            "wire": [out[key]["held"]["wire"] for out in res]}
 
 
 def spans_line(tracer) -> str:
@@ -1820,18 +1887,6 @@ def check_attention(torch, q, k, v, causal, window):
     return err, err_t, excess, excess_row
 
 
-def live_pairs(T: int, S: int, causal: bool, window: int) -> int:
-    """Query-key pairs an attention of T queries over S keys computes:
-    key s is live for query t when s <= t (causal) and t - s < window
-    (a window)."""
-    n = 0
-    for t in range(T):
-        hi = min(t + 1, S) if causal else S
-        lo = max(0, t - window + 1) if window else 0
-        n += max(0, hi - lo)
-    return n
-
-
 def attention_times(torch, q, k, v, causal, window):
     """(kernel ms, plain ms, SDPA ms, SDPA's max error against the
     plain version) of attention over (q, k, v), timed as in phase 2;
@@ -1862,6 +1917,8 @@ def flash_phase(torch, captured):
     """flash_attention against its plain version: a sweep of small cases,
     the captured local layer, random inputs at the local and the global
     shape; timings at both shapes."""
+    from repro_torch.kernels.flash_attention.cost import flash_cost, \
+        live_pairs
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(13)
     worst = worst_rounded = 0.0
@@ -1899,8 +1956,8 @@ def flash_phase(torch, captured):
     # the path's local layer: the captured activations
     ms, plain, lib, lib_err = attention_times(torch, q, k, v, causal, window)
     live = live_pairs(T, T, causal, window)
-    f_ops = 4 * D * H * live
-    f_bytes = 2 * q.nbytes + k.nbytes + v.nbytes
+    f_ops, f_bytes = flash_cost(q.shape, k.shape, q.element_size(), causal,
+                                window)
     f_bound, f_by = bound_ms(f_bytes, f_ops, PEAK_BF16_PER_S)
     fp32_floor = f_ops / PEAK_OPS_PER_S * 1e3
     print(f"kernel flash_attention local q {list(q.shape)} k/v "
@@ -1921,9 +1978,9 @@ def flash_phase(torch, captured):
     compare(gq, gk, gv, True, 0)
     g_ms, g_plain, g_lib, g_lib_err = attention_times(torch, gq, gk, gv,
                                                       True, 0)
-    g_ops = 4 * 128 * 16 * live_pairs(T, T, True, 0)
-    g_bound, _ = bound_ms(2 * gq.nbytes + gk.nbytes + gv.nbytes, g_ops,
-                          PEAK_BF16_PER_S)
+    g_ops, g_bytes = flash_cost(gq.shape, gk.shape, gq.element_size(), True,
+                                0)
+    g_bound, _ = bound_ms(g_bytes, g_ops, PEAK_BF16_PER_S)
     print(f"kernel flash_attention global q {list(gq.shape)} k/v "
           f"{list(gk.shape)} bf16 causal: kernel_ms={g_ms:.4f} "
           f"bound_ms={g_bound:.4f} ({g_ops} operations) "
@@ -1943,6 +2000,7 @@ def lru_phase(torch, captured):
     captured first R layer of the long prefill and a decode step;
     timings at the prefill and the decode shape."""
     from repro_torch.kernels.rg_lru_scan import kernel, ops, ref
+    from repro_torch.kernels.rg_lru_scan.cost import scan_cost
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(17)
     n_cases = 0
@@ -1978,8 +2036,8 @@ def lru_phase(torch, captured):
         ms = timed_ms(torch, lambda: kernel.lru_scan(*args))
         plain = timed_ms(torch, lambda: ref.lru_scan_ref(*args))
         x = args[0]
-        n_bytes = 3 * x.nbytes + 2 * args[2].nbytes
-        bnd, by = bound_ms(n_bytes, 2 * x.numel())
+        n_ops, n_bytes = scan_cost(x.shape)
+        bnd, by = bound_ms(n_bytes, n_ops)
         out[label] = (ms, plain, bnd, by)
         print(f"kernel rg_lru_scan {label} {list(x.shape)}: "
               f"kernel_ms={ms:.4f} bound_ms={bnd:.6f} ({n_bytes} bytes) "
@@ -2162,18 +2220,38 @@ def profile_decode(torch, eng, steady_s: float) -> None:
 
 
 def profile_prefill(torch, cfg, params, prompt, max_len=SERVE_LEN,
-                    extra=None) -> None:
+                    extra=None, key=None) -> None:
     """One more prefill of ``prompt`` (with the batch entries ``extra``,
     after a warm one) under ``torch.profiler``: the device's busy time
     against the host clock, and the device time of the largest kernels.
-    A measurement only: the checked run is over."""
+    A measurement only: the checked run is over.  With ``key``, the warm
+    prefill's launches, arguments, peak and seconds go to
+    ``MEASURED[key]`` for phase 26."""
     from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels.flash_attention import kernel as fkernel
+    from repro_torch.kernels.rg_lru_scan import kernel as lkernel
     from repro_torch.models import model
     dev = params["embed"]["w"].device
-    batch = {"inputs": torch.tensor([prompt], device=dev), **(extra or {})}
+    # int32 tokens, as the serving engine and models/inputs.py give them
+    batch = {"inputs": torch.tensor([prompt], dtype=torch.int32, device=dev),
+             **(extra or {})}
     with torch.inference_mode():
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base, held = torch.cuda.memory_allocated(), tree_nbytes(
+            {"p": params, "b": batch})
+        before = (fkernel.launches, lkernel.launches,
+                  lkernel.backward_launches)
+        t = time.perf_counter()
         model.prefill(params, batch, cfg=cfg, max_len=max_len)
         torch.cuda.synchronize()
+        if key:
+            launches = (fkernel.launches - before[0],
+                        lkernel.launches - before[1],
+                        lkernel.backward_launches - before[2])
+            MEASURED[key] = step_held(
+                launches, 1, held, torch.cuda.max_memory_allocated()
+                - (base - held), [time.perf_counter() - t])
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             t = time.perf_counter()
             model.prefill(params, batch, cfg=cfg, max_len=max_len)
@@ -2373,11 +2451,12 @@ def grad_check(torch, cfg, seed: int, batch, device="cuda",
 
 
 def train_path(torch, cfg, seed: int, tmp: Path, seq=TRAIN_SEQ,
-               device="cuda", steps=TRAIN_STEPS):
+               device="cuda", steps=TRAIN_STEPS, key=None):
     """The port's ``Trainer`` on one batch repeated (a one-batch corpus in
     Sector): ``steps`` AdamW steps at the JAX package's default
     learning rate and warm-up.  Returns (trainer, history, (flash, scan,
-    scan backward) launches, peak device memory)."""
+    scan backward) launches, peak device memory); with ``key``, notes in
+    ``MEASURED[key]`` what phase 26 holds the dry run to."""
     from repro_torch.kernels.flash_attention import kernel as fkernel
     from repro_torch.kernels.rg_lru_scan import kernel as lkernel
     from repro_torch.train import SectorCheckpointer, Trainer, TrainerConfig
@@ -2393,16 +2472,26 @@ def train_path(torch, cfg, seed: int, tmp: Path, seq=TRAIN_SEQ,
                       pipe, SectorCheckpointer(client, "train"),
                       device=device)
     on_card = device == "cuda"
+    base, state = 0, tree_nbytes(trainer._tree())
     if on_card:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
     print(f"train: Trainer built (parameters from --seed and the AdamW "
           f"state on {device}) in {time.perf_counter() - t:.2f}s")
+    step, seen = trainer._step, None
+    if key:
+        trainer._step, seen = noting_batch(step)
     fkernel.launches = lkernel.launches = lkernel.backward_launches = 0
     hist = trainer.run(steps)
+    trainer._step = step
     launches = (fkernel.launches, lkernel.launches,
                 lkernel.backward_launches)
     peak = torch.cuda.max_memory_allocated() if on_card else 0
+    if key:
+        MEASURED[key] = step_held(
+            launches, steps, state + seen["batch"], peak - (base - state),
+            np.diff([0.0] + [h["wall_s"] for h in hist]))
     return trainer, hist, launches, peak
 
 
@@ -2830,10 +2919,11 @@ XLSTM_ARCH, MOE_ARCH = "xlstm-1.3b", "qwen3-moe-30b-a3b"
 # 2 steps (its first step takes about 35 s, the next about 17 s), to stay
 # in the run's 1,200 s
 XLSTM_TRAIN_LAYERS, XLSTM_TRAIN_STEPS = 8, 2
-# (10): the layers of xlstm-1.3b served, at full width.  Serving all 48
-# took 155-165 s (the two long prefills alone 35-43 s), and with them the
-# whole run took 1,078 s on the card, too close to its 1,200 s limit
-XLSTM_SERVE_LAYERS = 16
+# (10): the layers of xlstm-1.3b served, at full width: one pattern unit.
+# Serving all 48 took 155-165 s (the two long prefills alone 35-43 s),
+# and 16 took 51-72 s of a whole run of 837-1,063 s on the card, too
+# close to its 1,200 s limit
+XLSTM_SERVE_LAYERS = 8
 MLSTM_TOL = 1e-3                # (10b): of the chunkwise output's |max|
 DECODE_TOLS = (0.02, 0.05)      # (10c): tests/test_models.py's bounds
 CONSISTENCY_LEN = 512           # (10c): the float32 prompt
@@ -3019,14 +3109,14 @@ def path_flash_times(torch, label, captured) -> dict:
     """(11d, 12b, 13c, 16-20): flash_attention at a serving path's shape
     (a captured launch's q / k / v): held to its plain version and the
     tile-rounded-p oracle, and timed beside SDPA and its bound."""
+    from repro_torch.kernels.flash_attention.cost import flash_cost
     (q, k, v), kw = captured
     causal, window = kw["causal"], kw["window"]
     err, err_r, excess, row = check_attention(torch, q, k, v, causal,
                                               window)
     ms, plain, lib, lib_err = attention_times(torch, q, k, v, causal, window)
-    B, T, H, D = q.shape
-    ops = 4 * D * H * B * live_pairs(T, k.shape[1], causal, window)
-    n_bytes = 2 * q.nbytes + k.nbytes + v.nbytes
+    ops, n_bytes = flash_cost(q.shape, k.shape, q.element_size(), causal,
+                              window)
     bnd, by = bound_ms(n_bytes, ops, PEAK_BF16_PER_S)
     print(f"kernel flash_attention {label} q {list(q.shape)} k/v "
           f"{list(k.shape)} {q.dtype} causal={causal}: kernel_ms={ms:.4f} "
@@ -3577,7 +3667,8 @@ def held_phase(torch, seed: int, arch: str):
                 served[len(prompt)])
             plain_ends(torch, cfg, params, prompt, served[len(prompt)])
     profile_decode(torch, eng, steady_s)
-    profile_prefill(torch, cfg, params, prompts[0])
+    profile_prefill(torch, cfg, params, prompts[0],
+                    key="prefill_" + arch if arch == PREFILL_ARCH else None)
     return launches, flash
 
 
@@ -3634,92 +3725,6 @@ MESH_INNER = {"gather": ("gather_leaf",),
               "reduce_scatter": ("reduce_scatter_leaf",),
               "moe_exchange": MOE_EXCHANGE,
               "tp_all_reduce": ("model_sum",)}
-
-
-def wire_prediction(cfg, pcfg, rows: int = 0, seq: int = 0) -> dict:
-    """The bytes a rank of ``pcfg``'s ``(data, model)`` mesh should hand
-    to the gathers, to the reduce-scatters (with the all-reduces that
-    stand for them) and to the tensor-parallel sums in a train step of
-    ``rows`` global rows of ``seq`` tokens, from the leaf shapes and
-    specs alone: each leaf split over more than one rank is gathered once
-    a microbatch outside the stack and, in the stack, once a unit and
-    again in its recompute under full remat; its gradient reduced once a
-    microbatch.  The experts under ``a2a``, and under ``tp`` the leaves a
-    layer computes on its ``model`` block (``step.tp_leaf``), are neither
-    gathered nor summed over ``model``.  Each layer computed on a
-    ``model`` block sums its output ``[rows, seq, d]`` over ``model``
-    (again in the recompute) and its input's gradient; the replicated
-    leaves inside it (qk-norm scales, ``wk`` / ``wv`` whose kv heads do
-    not split, the RG-LRU gates) their gradients.  The mesh may be a
-    stand-in (``mesh_shape_only``): only its axes' sizes are read."""
-    import re
-
-    from repro_torch.models import model, moe, rglru
-    from repro_torch.parallel.sharding import param_specs_for, tp_block
-    from repro_torch.train import step
-    from repro_torch.utils.pytree import tree_flatten_with_paths
-    sizes = dict(pcfg.mesh.shape)
-    accum = pcfg.accum_steps
-    kept = ("model",) if moe.a2a_route(cfg, pcfg) else ()
-    batch = [a for a in pcfg.data_axes if sizes.get(a, 1) > 1]
-    shapes = model.param_shapes(cfg)
-    specs = dict(tree_flatten_with_paths(param_specs_for(shapes, pcfg)))
-    out = {"gather": 0, "reduce_scatter": 0, "tp_all_reduce": 0}
-    heads = tp_block(pcfg, cfg.n_heads) is not None
-    lru = rglru.lru_split(cfg, pcfg) is not None
-    inside = re.compile(r"^blocks/.*/(attn/(q_norm|k_norm|wk|wv|bk|bv)"
-                        r"|rglru/gate_[ax]/w)$")
-    for path, leaf in tree_flatten_with_paths(shapes):
-        item = leaf.dtype.itemsize
-        keep = ("model",) if step.tp_leaf(path, cfg, pcfg) \
-            else kept if "/moe/w" in path else ()
-        split = [a for a in specs[path] if a is not None and sizes[a] > 1]
-        block = math.prod(leaf.shape) * item // math.prod(
-            sizes[a] for a in split)
-        summed = [a for a in batch if a not in keep]
-        split = [a for a in split if a not in keep]
-        if split:
-            passes = 2 if "blocks/" in path and pcfg.remat == "full" else 1
-            out["gather"] += block * passes * accum
-        scatter = [a for a in split if a in summed]
-        if scatter:
-            out["reduce_scatter"] += block * accum * math.prod(
-                sizes[a] for a in scatter)
-        if any(a not in split for a in summed):
-            out["reduce_scatter"] += block * accum
-        if keep != ("model",) and inside.search(path) and (
-                heads if "/attn/" in path else lru):
-            out["tp_all_reduce"] += math.prod(leaf.shape) * item * accum
-    # the layers' sums: forward (and recompute) and the input's gradient
-    n_batch = math.prod(sizes[a] for a in batch)
-    act = rows // n_batch // accum * seq * cfg.d_model * {
-        "bfloat16": 2, "float16": 2, "float32": 4}[cfg.compute_dtype]
-    blocks = 0
-    for sym in cfg.block_pattern:
-        if sym in "AL":
-            blocks += heads
-            blocks += cfg.family != "moe" \
-                and tp_block(pcfg, cfg.d_ff) is not None
-        elif sym == "R":
-            blocks += lru + (tp_block(pcfg, cfg.d_ff) is not None)
-    fwd = 2 if pcfg.remat == "full" else 1
-    # the recompute stops once it has remade every tensor the backward
-    # saved (torch.utils.checkpoint's early stop): a unit whose last
-    # layer ends in a split FFN skips that FFN's last product and sum
-    last = cfg.block_pattern[-1]
-    skip = pcfg.remat == "full" and last in "ALR" and cfg.family != "moe" \
-        and tp_block(pcfg, cfg.d_ff) is not None
-    out["tp_all_reduce"] += (blocks * (fwd + 1) - skip) * cfg.n_groups \
-        * act * accum
-    return out
-
-
-def mesh_shape_only(shape, axes=("data", "model")):
-    """A stand-in mesh of ``shape`` over ``axes`` (rank 0, no process
-    group behind it) for :func:`wire_prediction` off the card."""
-    from repro_torch.parallel.mesh_utils import Mesh
-    return Mesh(tuple(axes), dict(zip(axes, shape)), object(), 0,
-                math.prod(shape), "cpu", "gloo")
 
 
 def mesh_lm_pcfg(mesh, **kw):
@@ -3950,10 +3955,12 @@ def _rank_train(torch, rank: int, seed: int, tmp: Path, cfg, seq,
         device=mesh.device)
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t
-    worst, spans = {}, {}
+    worst, spans, peaks = {}, {}, {}
 
     def held(params, grads, state, *a, **kw):
         if not worst:                       # step 1's gradient blocks
+            # the check's float64 copies stay out of the step's peak
+            peaks["before_check"] = torch.cuda.max_memory_allocated()
             want = torch.load(tmp / ref, mmap=True)
             for (path, g), s in zip(tree_flatten_with_paths(grads),
                                     tree_leaves(kw["specs"])):
@@ -3963,9 +3970,13 @@ def _rank_train(torch, rank: int, seed: int, tmp: Path, cfg, seq,
                     worst[key] = max(worst.get(key, (0.0, "")), (
                         _rel(torch, g, want[ref_key][path][sl]), path))
             del want
+            peaks["check"] = torch.cuda.max_memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
         return update(params, grads, state, *a, **kw)
 
     torch.cuda.reset_peak_memory_stats()
+    base, state = torch.cuda.memory_allocated(), tree_nbytes(trainer._tree())
+    trainer._step, batch_bytes = noting_batch(trainer._step)
     for k in sharded.WIRE:
         sharded.WIRE[k] = 0
     fkernel.launches = lkernel.launches = lkernel.backward_launches = 0
@@ -3976,20 +3987,24 @@ def _rank_train(torch, rank: int, seed: int, tmp: Path, cfg, seq,
     launches = (fkernel.launches, lkernel.launches,
                 lkernel.backward_launches)
     wire = {k: v // steps for k, v in sharded.WIRE.items()}
-    peak = torch.cuda.max_memory_allocated()
-    trainer_pcfg = trainer.pcfg
+    peak = max(peaks["before_check"], torch.cuda.max_memory_allocated())
     del trainer
     gc.collect()
     torch.cuda.empty_cache()
     walls = [h["wall_s"] for h in hist]
+    secs = np.diff([0.0] + walls)
     return {"build_s": build_s, "launches": launches, "wire": wire,
-            "predicted": wire_prediction(cfg, trainer_pcfg, batch, seq),
+            "held": {**step_held(launches, steps,
+                                 state + batch_bytes["batch"],
+                                 peak - (base - state), secs, wire),
+                     "check_peak": peaks["check"] - (base - state)},
             "mesh": "(data, model) = "
             f"{tuple(shape)}" + "".join(f", {k}={v}" for k, v in
                                         pcfg_kw.items()),
-            "peak": peak, "worst": worst, "spans": spans,
+            "peak": peak, "check_peak": peaks["check"], "worst": worst,
+            "spans": spans,
             "steps": [(h["loss"], h["grad_norm"], s) for h, s in
-                      zip(hist, np.diff([0.0] + walls))]}
+                      zip(hist, secs)]}
 
 
 def _rank_ckpt(torch, rank: int, seed: int, tmp: Path, cfg) -> dict:
@@ -4181,9 +4196,6 @@ def check_mesh_train(cfg, res, ref, key="train", passes=1,
         check(all(math.isfinite(x) for x in losses)
               and (losses[-1] < losses[0] or not falls),
               f"rank {r}: the loss did not fall: {losses}")
-        check(all(tr["wire"][k] == v for k, v in tr["predicted"].items()),
-              f"rank {r}: bytes a step {tr['wire']}, the leaf shapes "
-              f"predict {tr['predicted']}")
 
 
 def report_mesh_train(label: str, cfg, tr, seq: int, rows: int,
@@ -4200,11 +4212,12 @@ def report_mesh_train(label: str, cfg, tr, seq: int, rows: int,
                       for l, n, s in tr["steps"])
           + f"; step_s ({which}) {steady:.4f}, "
           f"{tokens / steady:.1f} tokens/s a rank; max_memory_allocated="
-          f"{tr['peak']}{f' ({before})' if before else ''}; bytes a step: "
+          f"{tr['peak']}{f' ({before})' if before else ''} (step 1's "
+          f"gradient check, kept out of it: {tr['check_peak']}); bytes a "
+          f"step: "
           + " ".join(f"{k} {v}" for k, v in tr["wire"].items())
-          + " (predicted from the leaf shapes: " + " ".join(
-              f"{k} {v}" for k, v in tr["predicted"].items())
-          + f"); launches flash_attention={tr['launches'][0]} "
+          + f" (held to the dry run's in phase 26); launches "
+          f"flash_attention={tr['launches'][0]} "
           f"rg_lru_scan={tr['launches'][1]} rg_lru_scan backward="
           f"{tr['launches'][2]}; gradient blocks against the single "
           f"device's token-weighted sum of the rows' gradients: worst "
@@ -4355,6 +4368,8 @@ def mesh_lm_phase(torch, seed: int) -> tuple:
               f"{res[0]['ckpt_s']:.1f}s, pod {res[0]['pod_s']:.1f}s;"
               f" {spawn_s:.1f}s with the spawn; the pods hold equal "
               f"parameters after the podwise step")
+    MEASURED["train_mesh"] = ranks_held(res, "train")
+    MEASURED["train_mesh_accum"] = ranks_held(res, "accum")
     return ([out["train"]["launches"] for out in res],
             [out["accum"]["launches"] for out in res])
 
@@ -4596,11 +4611,15 @@ def moe_mesh_phase(torch, seed: int) -> tuple:
               f"{spawn[run]:.1f}s with the spawn")
         launches["mesh_moe_" + run] = sum(out["train"]["launches"][0]
                                           for out in res[run])
+        MEASURED["mesh_moe_" + run] = ranks_held(res[run], "train")
     return launches, flash
 
 
 # ------------------------------------------------------------ phase 22
-MESH_SERVE_ARCHS = (LM_ARCH, "qwen2.5-3b")
+# the configs served on the mesh, at full width and half their depth (the
+# full stacks took 56-80 s of a whole run of 837-1,063 s, too close to its
+# 1,200 s limit): recurrentgemma-2b's first pattern unit
+MESH_SERVE_LAYERS = {LM_ARCH: POD_LAYERS, "qwen2.5-3b": 18}
 MESH_SERVE_SHAPE = (1, 2)       # (data, model): two gloo ranks, layout tp
 # (22a): a layer's update on the mesh against the single device's from
 # the same bf16 input, of the single device's largest |update|.  Each of
@@ -4765,8 +4784,8 @@ def threaded_serve(torch, cfg, params, prompts, first_tokens) -> dict:
                                       device=dev)[:, None]
                 pos = torch.tensor([len(p) for p in prompts],
                                    dtype=torch.int32, device=dev)
-                dec, _ = step.make_decode_step(cfg, pcfg)(mine, pool, tok,
-                                                          pos)
+                dec, _ = step.make_decode_step(cfg, pcfg, SERVE_LEN)(
+                    mine, pool, tok, pos)
             outs[r] = (torch.stack(logits).numpy(), dec.float().cpu().numpy())
         except Exception as e:      # the others leave the barrier too
             errors.append(e)
@@ -4833,14 +4852,15 @@ def lru_times(torch, label, a, b, h0) -> dict:
     """rg_lru_scan on (a, b, h0): equal to its plain version, timed as in
     phase 2 beside its bound."""
     from repro_torch.kernels.rg_lru_scan import kernel, ref
+    from repro_torch.kernels.rg_lru_scan.cost import scan_cost
     got, want = kernel.lru_scan(a, b, h0), ref.lru_scan_ref(a, b, h0)
     check(all(torch.equal(g, w) for g, w in zip(got, want)),
           f"rg_lru_scan {label} {tuple(a.shape)} differs from its plain "
           f"version")
     ms = timed_ms(torch, lambda: kernel.lru_scan(a, b, h0))
     plain = timed_ms(torch, lambda: ref.lru_scan_ref(a, b, h0))
-    n_bytes = 3 * a.nbytes + 2 * h0.nbytes
-    bnd, by = bound_ms(n_bytes, 2 * a.numel())
+    n_ops, n_bytes = scan_cost(a.shape)
+    bnd, by = bound_ms(n_bytes, n_ops)
     print(f"kernel rg_lru_scan {label} {list(a.shape)}: kernel_ms={ms:.4f} "
           f"bound_ms={bnd:.6f} ({n_bytes} bytes; {ms / bnd:.2f}x the bound) "
           f"plain_ms={plain:.4f} max_abs_err=0")
@@ -4951,10 +4971,11 @@ def serve_mesh_rank(rank: int, world: int, seed: int, tmp: str, cfg,
 
 
 def serve_mesh_phase(torch, seed: int, cfgs=None, device="cuda") -> dict:
-    """Phase 22: each of ``MESH_SERVE_ARCHS`` at full width (or the
-    configs ``cfgs``) served on two gloo ranks sharing the card at
-    ``(data, model) = (1, 2)``, layout ``tp``, against the single-device
-    engine at one seed, run first in this process.  Returns {arch: (the
+    """Phase 22: each of ``MESH_SERVE_LAYERS`` at full width and its
+    layers there (or the configs ``cfgs``) served on two gloo ranks
+    sharing the card at ``(data, model) = (1, 2)``, layout ``tp``,
+    against the single-device engine at one seed, run first in this
+    process.  Returns {arch: (the
     ranks' flash_attention and rg_lru_scan launches, the kernels' timings
     at a rank's shapes)}.  A CPU rehearsal passes reduced ``cfgs`` and
     ``device="cpu"`` (with ``torch.cuda``'s synchronize and memory calls
@@ -4965,7 +4986,8 @@ def serve_mesh_phase(torch, seed: int, cfgs=None, device="cuda") -> dict:
     from repro_torch.parallel.sharding import NO_PARALLEL
     card = card_line()
     out = {}
-    for cfg in cfgs or [get_config(a) for a in MESH_SERVE_ARCHS]:
+    for cfg in cfgs or [get_config(a).replace(n_layers=n)
+                        for a, n in MESH_SERVE_LAYERS.items()]:
         arch = cfg.name
         t_arch = time.perf_counter()
         cfg, params = lm_model(torch, seed, cfg, device)
@@ -5271,6 +5293,7 @@ def tp_train_phase(torch, seed: int) -> list:
           f"{res[0]['tp']['steps'][0][1]:.4f} against "
           f"{ref['grad_norm']:.4f}; ranks {res[0]['run_s']:.1f}s, "
           f"{spawn_s:.1f}s with the spawn")
+    MEASURED["train_mesh_tp"] = ranks_held(res, "tp")
     return [out["tp"]["launches"] for out in res]
 
 
@@ -5353,13 +5376,14 @@ def family_depth(cfg, layers: int):
 
 
 def family_train_path(torch, cfg, params, batch, steps=TRAIN_STEPS,
-                      device="cuda"):
+                      device="cuda", key=None):
     """The JAX package's way to train a family whose inputs its data
     pipeline does not carry (frames, patches): ``step.make_train_step``
     on ``batch`` repeated, an AdamW state from ``optim.init_state``, at
     the ``Trainer``'s default learning rate and warm-up (phase 8's).
     Returns (the history as ``Trainer.run`` gives it, (flash, scan, scan
-    backward) launches, peak device memory)."""
+    backward) launches, peak device memory); with ``key``, notes in
+    ``MEASURED[key]`` what phase 26 holds the dry run to."""
     from repro_torch.kernels.flash_attention import kernel as fkernel
     from repro_torch.kernels.rg_lru_scan import kernel as lkernel
     from repro_torch.train import TrainerConfig, optim, step
@@ -5369,9 +5393,12 @@ def family_train_path(torch, cfg, params, batch, steps=TRAIN_STEPS,
         tcfg.lr, tcfg.warmup, steps))
     opt = optim.init_state(params, ocfg)
     on_card = device == "cuda"
+    base = 0
+    held = tree_nbytes({"p": params, "o": opt, "b": batch})
     if on_card:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
     fkernel.launches = lkernel.launches = lkernel.backward_launches = 0
     hist, t = [], time.perf_counter()
     for i in range(steps):
@@ -5380,8 +5407,12 @@ def family_train_path(torch, cfg, params, batch, steps=TRAIN_STEPS,
         hist.append({"step": i + 1, **rec, "wall_s": time.perf_counter() - t})
     launches = (fkernel.launches, lkernel.launches,
                 lkernel.backward_launches)
-    return hist, launches, torch.cuda.max_memory_allocated() if on_card \
-        else 0
+    peak = torch.cuda.max_memory_allocated() if on_card else 0
+    if key:
+        MEASURED[key] = step_held(
+            launches, steps, held, peak - (base - held),
+            np.diff([0.0] + [h["wall_s"] for h in hist]))
+    return hist, launches, peak
 
 
 def flash_backward_times(torch, label, captured, calls) -> float:
@@ -5469,7 +5500,8 @@ def train_family_phase(torch, seed: int, arch: str, device="cuda"):
     torch.cuda.empty_cache()
     hist, launches, peak = family_train_path(torch, cfg, params, batch,
                                              steps=FAMILY_STEPS,
-                                             device=device)
+                                             device=device,
+                                             key="train_" + arch)
     report_train(cfg, hist, launches, peak, seq=TRAIN_SEQ, label=label)
     check_train(cfg, hist, launches)
     if device == "cuda":
@@ -5592,6 +5624,181 @@ def xlstm_train_phase(torch, seed: int, device="cuda") -> None:
     check_train(cfg, hist, launches)
 
 
+# ------------------------------------------------------------ phase 26
+# the steps the card ran that the dry run counts, by their MEASURED key:
+# (arch, layers (0: all), kind, tokens a row, global rows, (data, model)
+# of a stand-in mesh or None, knobs beside phase 8's, cache capacity)
+PREFILL_ARCH = "qwen3-8b"       # phase 17's warm prefill
+DRYRUN_STEPS = {
+    "train": (LM_ARCH, 0, "train", TRAIN_SEQ, TRAIN_BATCH, None, {}, 0),
+    "train_mesh": (LM_ARCH, 0, "train", MESH_SEQ, TRAIN_BATCH,
+                   (MESH_LM_RANKS, 1), {}, 0),
+    "train_mesh_accum": (LM_ARCH, POD_LAYERS, "train", MESH_SEQ,
+                         ACCUM_BATCH, (MESH_LM_RANKS, 1),
+                         {"accum_steps": MESH_ACCUM}, 0),
+    "train_mesh_tp": (LM_ARCH, POD_LAYERS, "train", MESH_SEQ,
+                      TP_TRAIN_BATCH, TP_TRAIN_SHAPE, {"layout": "tp"}, 0),
+    **{"mesh_moe_" + run: (MOE_ARCH, MESH_MOE_LAYERS, "train", MESH_MOE_SEQ,
+                           TRAIN_BATCH, shape,
+                           {"layout": layout, "moe_dispatch": dispatch}, 0)
+       for run, (shape, layout, dispatch) in MESH_MOE_RUNS.items()},
+    "train_" + ENCDEC_ARCH: (ENCDEC_ARCH, 0, "train", TRAIN_SEQ, TRAIN_BATCH,
+                             None, {}, 0),
+    "train_" + VLM_ARCH: (VLM_ARCH, TRAIN_LAYERS[VLM_ARCH], "train",
+                          TRAIN_SEQ, TRAIN_BATCH, None, {}, 0),
+    "prefill_" + PREFILL_ARCH: (PREFILL_ARCH, 0, "prefill", LONG_PROMPTS[0],
+                                1, None, {}, SERVE_LEN),
+}
+# every step's peak is held within this; a miss is a finding in the count,
+# not a band to widen
+DRYRUN_PEAK_REL = 0.15
+# production cells the phase runs through the dry run's command line
+DRYRUN_CELLS = (("recurrentgemma-2b", "train_4k", False),
+                ("qwen3-8b", "decode_32k", True))
+DRYRUN_WAIT_S = 300             # the counts start after phase 22
+KERNEL_NAMES = ("flash_attention", "rg_lru_scan", "rg_lru_scan_backward")
+
+
+def dryrun_counts(out: str) -> None:
+    """Phase 26's counts, in a process of their own (:func:`start_dryrun`,
+    beside the card's phases; the dry run needs no card): the dry run of
+    each of ``DRYRUN_STEPS`` on one device or a stand-in mesh of its
+    shape (``launch/dryrun.py``'s ``count_step``), then the dry run's
+    command line on each of ``DRYRUN_CELLS``; all written to ``out``."""
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_mesh_compat
+    steps = {}
+    for key, (arch, layers, kind, seq, rows, shape, knobs, cap) in \
+            DRYRUN_STEPS.items():
+        cfg = get_config(arch)
+        if layers:
+            cfg = cfg.replace(n_layers=layers)
+        t = time.perf_counter()
+        with dryrun.standin_group(math.prod(shape) if shape else 1):
+            mesh = make_mesh_compat(shape, ("data", "model"),
+                                    device="meta") if shape else None
+            rec = dryrun.count_step(cfg, ShapeConfig(key, seq, rows, kind),
+                                    mesh_lm_pcfg(mesh, **knobs), max_len=cap)
+        rec["wall_s"] = time.perf_counter() - t
+        steps[key] = rec
+    cli = {}
+    for arch, shape, multi_pod in DRYRUN_CELLS:
+        t = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+             arch, "--shape", shape] + (["--multi-pod"] if multi_pod else []),
+            cwd=ROOT, env={**os.environ, "PYTHONPATH": str(ROOT / "src")},
+            capture_output=True, text=True, timeout=600)
+        cli[f"{arch}__{shape}__{'2x16x16' if multi_pod else '16x16'}"] = {
+            "rc": proc.returncode, "s": time.perf_counter() - t,
+            "out": proc.stdout[-2000:] + proc.stderr[-2000:]}
+    Path(out).write_text(json.dumps({"steps": steps, "cli": cli,
+                                     "ended": time.time()}))
+
+
+def start_dryrun(tmp: Path):
+    """Start :func:`dryrun_counts` in a process of its own, the card
+    hidden from it; it is killed if this script ends first.  Returns
+    (the process, its result's path, its log's path, its start time)."""
+    out, log = tmp / "dryrun.json", tmp / "dryrun.log"
+    env = {**os.environ, "CUDA_VISIBLE_DEVICES": "",
+           "PYTHONPATH": str(ROOT / "src")}
+    with open(log, "w") as f:
+        proc = subprocess.Popen(
+            [sys.executable, "-c", f"import sys; sys.path.insert(0, "
+             f"{str(ROOT)!r}); import chip_smoke; "
+             f"chip_smoke.dryrun_counts({str(out)!r})"],
+            cwd=ROOT, env=env, stdout=f, stderr=subprocess.STDOUT)
+    atexit.register(lambda: proc.poll() is None and proc.kill())
+    return proc, out, log, time.time()
+
+
+def dryrun_phase(torch, worker, wall0: float) -> None:
+    """Phase 26: each reused step's dry run (``MEASURED``) held to the
+    card's: every kernel's launches a step and the arguments' bytes
+    exactly, each mesh rank's bytes a step by collective
+    (``sharded.WIRE``) exactly, the peak within ``DRYRUN_PEAK_REL``
+    (a mesh step's without step 1's gradient check, whose peak is
+    printed); the dry run's FLOPs over the step's median seconds
+    at 989 TFLOP/s printed; the production cells' records ``ok``.
+    ``wall0`` is the run's start (``time.time()``)."""
+    proc, out, log, started = worker
+    t = time.perf_counter()
+    try:
+        proc.wait(timeout=DRYRUN_WAIT_S)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+    waited = time.perf_counter() - t
+    check(proc.returncode == 0 and out.exists(),
+          f"the dry run's process exited with {proc.returncode}: "
+          f"{log.read_text()[-3000:]}")
+    got = json.loads(out.read_text())
+    card = card_line()
+    print(f"dryrun: counts ready {waited:.1f}s into phase 26, made from "
+          f"{started - wall0:.1f}s to {got['ended'] - wall0:.1f}s of the "
+          f"run; each step's dry run took (host seconds) " + ", ".join(
+              f"{k} {r['wall_s']:.1f}" for k, r in got["steps"].items()))
+    for key, rec in got["steps"].items():
+        meas = MEASURED.get(key)
+        check(meas is not None, f"phase 26: no step {key} was measured")
+        launches = tuple(rec["kernels"].get(n, {}).get("launches", 0)
+                         for n in KERNEL_NAMES)
+        check(launches == tuple(meas["launches"]),
+              f"dryrun {key}: launches {launches} (flash, scan, scan "
+              f"backward), the card's a step {meas['launches']}")
+        mem = rec["memory"]
+        check(mem["argument_bytes"] == meas["argument_bytes"],
+              f"dryrun {key}: argument_bytes {mem['argument_bytes']}, the "
+              f"card's step held {meas['argument_bytes']}")
+        rel = mem["peak_bytes"] / meas["peak"] - 1
+        check(abs(rel) <= DRYRUN_PEAK_REL,
+              f"dryrun {key}: peak_bytes {mem['peak_bytes']}, the card's "
+              f"step {meas['peak']} ({rel:+.4f})")
+        wire = rec["collectives"]["wire"]
+        for r, rank_wire in enumerate(meas["wire"] or ()):
+            check(all(wire[k] == v for k, v in rank_wire.items()),
+                  f"dryrun {key}: bytes a step {wire}, the card's rank {r} "
+                  f"{rank_wire}")
+        share = rec["cost"]["flops"] / (meas["step_s"] * PEAK_BF16_PER_S)
+        print(f"dryrun {key} ({card}): launches a step {launches} equal; "
+              f"argument_bytes {mem['argument_bytes']} equal; peak_bytes "
+              f"{mem['peak_bytes']} against max_memory_allocated "
+              f"{meas['peak']} less what else the process held ({rel:+.4f}"
+              f", held within {DRYRUN_PEAK_REL}"
+              + ("" if meas.get("check_peak") is None else
+                 f"; step 1's gradient check, kept out of the step's peak, "
+                 f"reached {meas['check_peak']} "
+                 f"({mem['peak_bytes'] / meas['check_peak'] - 1:+.4f})")
+              + f"); flops {rec['cost']['flops']:.4e} over the median step "
+              f"{meas['step_s']:.4f}s at 989 TFLOP/s bf16: {share:.4f} of "
+              f"the peak; hbm bytes {rec['cost']['bytes accessed']:.4e}"
+              + ("" if meas["wire"] is None else
+                 f"; bytes a step by collective equal to each of the "
+                 f"{len(meas['wire'])} ranks': "
+                 + " ".join(f"{k} {v}" for k, v in meas["wire"][0].items())))
+    for cell, run in got["cli"].items():
+        path = ROOT / "experiments" / "dryrun_torch" / f"{cell}.json"
+        check(run["rc"] == 0 and path.exists(),
+              f"dryrun {cell}: the command exited with {run['rc']}: "
+              f"{run['out']}")
+        rec = json.loads(path.read_text())
+        check(rec["ok"], f"dryrun {cell}: not ok: {rec.get('error')}")
+        m, c = rec["memory"], rec["collectives"]
+        print(f"dryrun {cell}: ok in {run['s']:.1f}s of host time; a "
+              f"rank: flops {rec['cost']['flops']:.4e}, hbm bytes "
+              f"{rec['cost']['bytes accessed']:.4e}, argument_bytes "
+              f"{m['argument_bytes']}, peak_bytes {m['peak_bytes']}, "
+              f"collective bytes {c['total']} (inside a node "
+              f"{c['intra_node']}, across nodes {c['inter_node']}, across "
+              f"pods {c['cross_pod']}), roofline "
+              f"{rec['roofline']['bound_s']:.4e}s "
+              f"({rec['roofline']['bound_by']}; H100 SXM data sheet)")
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--records", type=int, default=10_000_000)
@@ -5610,7 +5817,7 @@ def main() -> None:
     torch.set_float32_matmul_precision("highest")
 
     # phase 1: set-up
-    t0 = time.perf_counter()
+    t0, wall0 = time.perf_counter(), time.time()
     print(card_line())
     print(f"python {sys.version.split()[0]} torch {torch.__version__} "
           f"cuda {torch.version.cuda}")
@@ -5643,6 +5850,12 @@ def main() -> None:
     serve_mesh = serve_mesh_phase(torch, args.seed)
     print(f"phase 22 done in {time.perf_counter() - t:.1f}s (at "
           f"{time.perf_counter() - t0:.1f}s)")
+
+    # phase 26's counts run on the host beside phases 2-25, after the
+    # host-staged mesh phases 14-22, whose step seconds they would slow
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_dryrun_"))
+    atexit.register(shutil.rmtree, work, True)
+    worker = start_dryrun(work)
 
     # phase 2: every kernel against its plain version on the card
     rows = {r["name"]: r for r in (dest_phase(torch), *partition_phase(torch),
@@ -5713,7 +5926,8 @@ def main() -> None:
         torch.cuda.empty_cache()
         time_flash_backward(torch, cfg)
         trainer, hist, t_launches, t_peak = train_path(torch, cfg, args.seed,
-                                                       tmp / "train")
+                                                       tmp / "train",
+                                                       key="train")
         check_train(cfg, hist, t_launches)
         step_s = report_train(cfg, hist, t_launches, t_peak)
         profile_train_step(torch, trainer, step_s)
@@ -5785,6 +5999,12 @@ def main() -> None:
     t = fresh_card(torch, 25)
     xlstm_train_phase(torch, args.seed)
     print(f"phase 25 done in {time.perf_counter() - t:.1f}s (at "
+          f"{time.perf_counter() - t0:.1f}s)")
+
+    # phase 26: the dry run of the steps above held to the card's
+    t = time.perf_counter()
+    dryrun_phase(torch, worker, wall0)
+    print(f"phase 26 done in {time.perf_counter() - t:.1f}s (at "
           f"{time.perf_counter() - t0:.1f}s)")
 
     for name, by_path in (

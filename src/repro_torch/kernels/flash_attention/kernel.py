@@ -12,7 +12,8 @@ come by TMA or by ``cp.async``); float32 tensors take the SIMT kernel.
 
 ``launches`` counts the launches made by :func:`flash_attention_fwd`, and
 nothing else adds to it, so a run can show that its attention went
-through the kernel.
+through the kernel.  On ``meta`` tensors it counts where the card would
+launch, and launches nothing (the dry run).
 """
 from __future__ import annotations
 
@@ -23,7 +24,8 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, _meta
+from repro_torch.kernels.flash_attention.cost import flash_cost
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
 MAX_HEAD_DIM = 256
@@ -56,9 +58,12 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Launch the kernel: ``o [B, T, H, D]`` for contiguous ``q [B, T, H,
     D]`` and ``k, v [B, S, K, D]`` of one type (float32 or bfloat16) on
     one CUDA device, with ``H`` a multiple of ``K`` and ``D`` a multiple
-    of 4 up to 256."""
+    of 4 up to 256.  On ``meta`` tensors (the dry run) nothing is
+    launched: ``o`` of the kernel's shape, and the launch's operations
+    and bytes (``cost.flash_cost``) recorded in ``kernels._meta``."""
     global launches
-    if q.device.type != "cuda":
+    meta = q.device.type == "meta"
+    if q.device.type != "cuda" and not meta:
         raise ValueError(f"the CUDA kernel needs CUDA tensors, got "
                          f"{q.device}")
     if q.dtype not in (torch.float32, torch.bfloat16):
@@ -88,6 +93,11 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return o
     if S == 0:
         return o.zero_()
+    if meta:
+        launches += 1
+        _meta.record("flash_attention", *flash_cost(
+            q.shape, k.shape, q.element_size(), causal, window))
+        return o
     lib = load_library()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream

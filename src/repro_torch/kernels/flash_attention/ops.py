@@ -5,7 +5,10 @@ The port of ``repro.kernels.flash_attention.ops``, in the same
 ``[B, T, H, D]`` / ``[B, S, K, D]`` layout.  The route follows the
 tensors' device: CUDA tensors go through the hand-written kernel
 (:func:`.kernel.flash_attention_fwd`) or raise; CPU tensors take the
-plain version (:mod:`.ref`); any other device raises.  The TPU wrapper's
+plain version (:mod:`.ref`); ``meta`` tensors (the dry run,
+``launch/dryrun.py``) take the kernel's meta route
+(:func:`.kernel.flash_attention_fwd`: the card's launch counted, no
+work done); any other device raises.  The TPU wrapper's
 ``block_q`` / ``block_k`` tiling and its padding to tile multiples have
 no counterpart: the CUDA kernel's tiles are fixed and it masks the
 ragged tail itself.
@@ -30,12 +33,13 @@ from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 
 def _forward(q, k, v, causal, window):
     dev = q.device.type
-    if dev == "cuda":
+    if dev in ("cuda", "meta"):
         return _kernel.flash_attention_fwd(
             q.contiguous(), k.contiguous(), v.contiguous(), causal=causal,
             window=window)
     if dev != "cpu":
-        raise ValueError(f"flash_attention runs on cuda or cpu, not {dev}")
+        raise ValueError(f"flash_attention runs on cuda, cpu or meta, not "
+                         f"{dev}")
     return flash_attention_ref(q, k, v, causal=causal, window=window)
 
 

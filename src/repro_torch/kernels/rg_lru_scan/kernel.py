@@ -13,7 +13,8 @@ the launcher chooses.
 forward), ``backward_launches`` those made by :func:`lru_scan_backward`
 (the same kernel on the time-reversed recurrence of the gradient), and
 nothing else adds to either, so a run can show that its recurrence and
-its gradient went through the kernel.
+its gradient went through the kernel.  On ``meta`` tensors both count
+where the card would launch, and launch nothing (the dry run).
 """
 from __future__ import annotations
 
@@ -23,7 +24,8 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, _meta
+from repro_torch.kernels.rg_lru_scan.cost import scan_cost
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "rg_lru_scan.cu"
 
@@ -44,10 +46,14 @@ def load_library(build_dir: Optional[Path] = None) -> ctypes.CDLL:
                        + [ctypes.c_void_p], build_dir)
 
 
-def _run(a: torch.Tensor, b: torch.Tensor, h0: torch.Tensor):
+def _run(a: torch.Tensor, b: torch.Tensor, h0: torch.Tensor,
+         kind: str = "rg_lru_scan"):
     """Check the inputs and launch the kernel; returns ``(h, h_last,
-    launched)``."""
-    if a.device.type != "cuda":
+    launched)``.  On ``meta`` tensors (the dry run) nothing is launched:
+    outputs of the kernel's shapes, and the launch's operations and bytes
+    (``cost.scan_cost``) recorded in ``kernels._meta`` under ``kind``."""
+    meta = a.device.type == "meta"
+    if a.device.type != "cuda" and not meta:
         raise ValueError(f"the CUDA kernel needs CUDA tensors, got "
                          f"{a.device}")
     for name, t in (("a", a), ("b", b), ("h0", h0)):
@@ -67,6 +73,9 @@ def _run(a: torch.Tensor, b: torch.Tensor, h0: torch.Tensor):
     h_last = torch.empty_like(h0)
     if a.numel() == 0:
         return h, h_last.copy_(h0), False
+    if meta:
+        _meta.record(kind, *scan_cost(tuple(a.shape)))
+        return h, h_last, True
     lib = load_library()
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream(a.device).cuda_stream
@@ -94,6 +103,6 @@ def lru_scan_backward(a: torch.Tensor, b: torch.Tensor, h0: torch.Tensor):
     the time-reversed coefficients and upstream gradients
     (:func:`.ops.rg_lru_scan_backward`); counted in ``backward_launches``."""
     global backward_launches
-    h, h_last, launched = _run(a, b, h0)
+    h, h_last, launched = _run(a, b, h0, "rg_lru_scan_backward")
     backward_launches += launched
     return h, h_last

@@ -3,7 +3,9 @@
 The port of ``repro.kernels.rg_lru_scan.ops``.  The route follows the
 tensors' device: CUDA tensors go through the hand-written kernel
 (:func:`.kernel.lru_scan`) or raise; CPU tensors take the plain version
-(:mod:`.ref`); any other device raises.
+(:mod:`.ref`); ``meta`` tensors (the dry run) take the kernel wrapper's
+meta route, which counts the card's launch and does no work; any other
+device raises.
 
 ``rg_lru_scan`` is differentiable (a ``torch.autograd.Function``).  With
 ``g`` the gradient of ``h`` and ``g_last`` that of ``h_last``, the
@@ -37,11 +39,12 @@ def _check(a, b, h0) -> None:
 
 def _scan(a, b, h0, *, backward: bool):
     dev = a.device.type
-    if dev == "cuda":
+    if dev in ("cuda", "meta"):
         launch = _kernel.lru_scan_backward if backward else _kernel.lru_scan
         return launch(a.contiguous(), b.contiguous(), h0.contiguous())
     if dev != "cpu":
-        raise ValueError(f"rg_lru_scan runs on cuda or cpu, not {dev}")
+        raise ValueError(f"rg_lru_scan runs on cuda, cpu or meta, not "
+                         f"{dev}")
     return lru_scan_ref(a, b, h0)
 
 

@@ -33,6 +33,10 @@ from repro_torch.parallel.mesh_utils import Mesh
 
 # how long a host exchange waits for the other ranks before it raises
 HOST_TIMEOUT = datetime.timedelta(minutes=5)
+# the dry run's stand-in default group (``launch/dryrun.py``): a backend
+# whose collectives do nothing, over which a mesh's groups are built but
+# no host group beside them
+STANDIN_BACKEND = "fake"
 
 
 def _rank_device(rank: int, device) -> torch.device:
@@ -88,7 +92,8 @@ def make_mesh_compat(shape, axes, *, device=None, ranks=None
     ``make_mesh_compat``) on the ranks ``ranks`` of the default group
     (default: every rank, in order), with a process group for every
     combination of axes (``Mesh.group_for``); over NCCL every rank also
-    joins a gloo group for host exchanges.
+    joins a gloo group for host exchanges (the dry run's stand-in group
+    serves as its own).
 
     Every rank of the default group calls it with the same arguments,
     member or not, in the same order as its other meshes: creating a
@@ -106,8 +111,9 @@ def make_mesh_compat(shape, axes, *, device=None, ranks=None
     me, backend = dist.get_rank(), dist.get_backend()
     group = dist.group.WORLD if len(members) == world \
         else dist.new_group(members)
-    host = None if backend == "gloo" else dist.new_group(
-        members, backend="gloo", timeout=HOST_TIMEOUT)
+    host = None if backend == "gloo" else group \
+        if backend == STANDIN_BACKEND else dist.new_group(
+            members, backend="gloo", timeout=HOST_TIMEOUT)
     groups = {tuple(axes[i] for i in combo): g for combo, g in
               _sub_groups(shape, members, me).items()}
     if me not in members:

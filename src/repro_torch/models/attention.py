@@ -38,9 +38,13 @@ K and V whole; the replicated leaves inside the layer (those and the
 qk-norm scales) enter through ``copy_to_model``, so their gradient is
 the sum over the ranks.  The decode cache is the rank's block of
 ``train/step.py``'s ``cache_specs_for``: its kv heads where they split,
-else a block of the sequence (the serving mesh requires the sequence to
-split then).  Over a sequence-split cache, decode computes what XLA's
-partitioner makes of ``decode_attention``: every rank's q heads
+else a block of the sequence, else (slots that do not split) whole, as
+the JAX package's ``kv_cache_spec`` keeps it; decode over a whole cache
+runs the rank's q heads over it with nothing summed.  Where ``model``
+does not divide ``n_heads`` the layer computes whole on every rank, its
+cache whole too, in training, prefill and decode alike.  Over a
+sequence-split cache, decode computes what XLA's partitioner makes of
+``decode_attention``: every rank's q heads
 gathered, the row maximum reduced over ``model``, the exponentials of
 the rank's block, their sum reduced, p normalised and rounded to V's
 type, the rank's ``p V`` summed over ``model``; a block without a valid
@@ -416,7 +420,7 @@ def _apply_tp(params, x, heads, *, cfg: ModelConfig, pcfg: ParallelConfig,
         out, new_cache = _decode_tp(q, k_new, v_new, cache, positions[:, 0],
                                     cfg=cfg, pcfg=pcfg, window=window,
                                     kv_split=kv_split, index=index,
-                                    size=size)
+                                    size=size, max_len=max_len)
     else:
         k, v = (k_new, v_new) if kv_split else \
             _tp_kv_heads(k_new, v_new, cfg, index, size)
@@ -439,10 +443,29 @@ def _apply_tp(params, x, heads, *, cfg: ModelConfig, pcfg: ParallelConfig,
     return sharded.reduce_from_model(out, mesh), new_cache
 
 
+def _whole_cache(cache, *, window, max_len, size) -> bool:
+    """Whether a cache of whole kv heads is whole over ``model`` rather
+    than this rank's block of the sequence: its slots (a ring's window,
+    else ``max_len``, the cache's capacity) do not split over the
+    ``size`` ranks, as :func:`_apply_tp`'s prefill built it."""
+    slots = window if "kpos" in cache else max_len
+    return slots % size != 0
+
+
 def _decode_tp(q, k_new, v_new, cache, pos, *, cfg, pcfg, window, kv_split,
-               index, size):
+               index, size, max_len):
     """One decode step of this rank's q heads over its cache block."""
     mesh = pcfg.mesh
+    if not kv_split and _whole_cache(cache, window=window, max_len=max_len,
+                                     size=size):
+        # whole K / V on every rank: this rank's q heads over their kv
+        # heads, nothing summed over model
+        new_cache = update_cache(cache, k_new, v_new, pos,
+                                 mode=pcfg.cache_write)
+        k, v = _tp_kv_heads(new_cache["k"], new_cache["v"], cfg, index, size)
+        out = decode_attention(q, {**new_cache, "k": k, "v": v}, pos,
+                               window=window, softcap=cfg.attn_softcap)
+        return out, new_cache
     if kv_split:
         # the rank's kv heads, every slot; kpos (a ring's) perhaps a block
         # of the slots: whole for the step, the block kept

@@ -194,14 +194,18 @@ def prefill(params, batch: dict, *, cfg: ModelConfig,
 
 
 def decode_step(params, cache, token, pos, *, cfg: ModelConfig,
-                pcfg: ParallelConfig = NO_PARALLEL):
-    """One decode step. token: [B,1] int32; pos: [B] int32.
+                pcfg: ParallelConfig = NO_PARALLEL, max_len: int = 0):
+    """One decode step. token: [B,1] int32; pos: [B] int32.  ``max_len``
+    (the cache's capacity, port-only; required on a serving mesh, where
+    ``train/step.py`` ``make_decode_step`` passes it) tells the mesh's
+    attention whether a cache of whole kv heads is whole or a block of
+    the sequence (``attention._whole_cache``).
 
     Returns (logits [B, Vp], new_cache).
     """
     x = transformer.embed(params, token, cfg=cfg, pcfg=pcfg)
     x, new_caches, _ = transformer.stack_apply(
         params["blocks"], x, cfg=cfg, pcfg=pcfg, positions=pos[:, None],
-        mode="decode", caches=cache)
+        mode="decode", caches=cache, max_len=max_len)
     logits = transformer.lm_logits(params, x, cfg=cfg, pcfg=pcfg)
     return logits[:, 0], new_caches

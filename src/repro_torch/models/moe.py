@@ -228,7 +228,11 @@ def _aux_totals(probs, eids, ranks) -> torch.Tensor:
     order (the same on every rank); the gradient reaches each rank's
     own probabilities."""
     E = probs.shape[-1]
-    top1 = torch.bincount(eids[..., 0].reshape(-1), minlength=E).float()
+    # a count of E bins (bincount's length follows the data, which a
+    # dry run's meta tensors cannot give)
+    ids = eids[..., 0].reshape(-1).long()
+    top1 = torch.zeros(E, dtype=torch.int64, device=ids.device).scatter_add_(
+        0, ids, torch.ones_like(ids)).float()
     part = torch.stack([top1, probs.reshape(-1, E).sum(0)])
     return ranks.gather(part[None]).sum(0)
 
@@ -245,7 +249,9 @@ def _apply_grouped(params, x, *, cfg: ModelConfig, mode: str, ranks):
     its own ``[E, C_l]`` buffer in the same first-come order: a slot's
     output depends only on its token, so the values are the global
     group's, and ``C_l`` (the segment's largest kept count an expert,
-    rounded up to 8) is ``C`` where a segment is a whole group."""
+    rounded up to 8) is ``C`` where a segment is a whole group.  On
+    ``meta`` tensors (the dry run), which hold no ids, ``C_l`` is its
+    upper bound, ``C`` or the segment's tokens rounded up to 8."""
     B, T, d = x.shape
     E, k = cfg.n_experts, cfg.top_k
     n = B * T
@@ -277,8 +283,12 @@ def _apply_grouped(params, x, *, cfg: ModelConfig, mode: str, ranks):
         Gl = n // seg
         slot = _positions_by_sort(eids.transpose(1, 2).reshape(Gl, k * seg))
         slot = slot.view(Gl, k, seg).transpose(1, 2)
-        used = int(torch.where(keep, slot + 1, 0).max())
-        C_l = max(8, -(-used // 8) * 8)
+        if x.device.type == "meta":
+            # a dry run has no ids to read: the most a segment can keep
+            C_l = min(C, max(8, -(-seg // 8) * 8))
+        else:
+            used = int(torch.where(keep, slot + 1, 0).max())
+            C_l = max(8, -(-used // 8) * 8)
     else:
         slot, C_l = pos, C
     if mode == "einsum":

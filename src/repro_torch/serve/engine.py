@@ -83,7 +83,7 @@ class ServeEngine:
         if leaf.device.type != self.device.type:
             raise ValueError(f"params are on {leaf.device}, the engine on "
                              f"{self.device}")
-        steps.check_serving_mesh(cfg, pcfg, max_len)
+        steps.check_serving_mesh(cfg, pcfg)
         self.cfg = cfg
         self.params = steps.serve_params(cfg, pcfg, params)
         self.pcfg = pcfg
@@ -102,7 +102,7 @@ class ServeEngine:
         self._held = steps.serve_rows(torch.arange(max_batch),
                                       pcfg)[0].tolist()
         self._prefill = steps.make_prefill_step(cfg, pcfg, max_len)
-        self._decode = steps.make_decode_step(cfg, pcfg)
+        self._decode = steps.make_decode_step(cfg, pcfg, max_len)
         self.pos = np.zeros(max_batch, np.int32)
         self.tok = np.zeros(max_batch, np.int32)
         self.slot_req: List[Optional[Request]] = [None] * max_batch

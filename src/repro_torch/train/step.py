@@ -136,24 +136,32 @@ def cache_specs_for(cache_tree, pcfg: ParallelConfig, cfg: ModelConfig):
 
     Leaves are [G, B, ...]: group dim replicated, batch over (pod, data),
     then for KV caches heads over ``model`` when divisible else the sequence
-    dim (flash-decoding); recurrent states shard their first model-divisible
-    feature dim, except that under ``layout="tp"`` an RG-LRU state stays
-    whole over ``model`` where the layer computes whole
-    (``rglru.lru_split``): the blocks the port's layers hold.
+    dim (flash-decoding), else whole; recurrent states shard their first
+    model-divisible feature dim.  Under ``layout="tp"`` the blocks follow
+    the port's layers where those compute whole or on another dim: an
+    attention layer whose heads do not split (``sharding.tp_block``)
+    computes whole, so its K / V (and a ring's ``kpos``) stay whole over
+    ``model``; an RG-LRU state stays whole where the layer computes whole
+    (``rglru.lru_split``) and is split along the LRU width, its last dim,
+    where the layer computes on its slice.
     """
     if pcfg.mesh is None:
         return tree_map(lambda s: P(), cache_tree)
     b = pcfg.data_axes if len(pcfg.data_axes) > 1 else pcfg.data_axes[0]
     msz = pcfg.model_size
-    whole_state = pcfg.layout == "tp" and "R" in cfg.block_pattern \
-        and rglru.lru_split(cfg, pcfg) is None
+    tp = pcfg.layout == "tp"
+    whole_attn = tp and tp_block(pcfg, cfg.n_heads) is None
+    lru = tp and "R" in cfg.block_pattern
+    lru_whole = lru and rglru.lru_split(cfg, pcfg) is None
 
     def leaf(path: str, s):
         name = path.split("/")[-1]
         shape = s.shape
         if name in ("k", "v", "xk", "xv"):
             g, bb, S, K, D = shape
-            if K % msz == 0:
+            if whole_attn and name in ("k", "v"):
+                spec = P(None, b, None, None, None)
+            elif K % msz == 0:
                 spec = P(None, b, None, "model", None)
             elif S % msz == 0:
                 spec = P(None, b, "model", None, None)
@@ -161,11 +169,19 @@ def cache_specs_for(cache_tree, pcfg: ParallelConfig, cfg: ModelConfig):
                 spec = P(None, b, None, None, None)
         elif name == "kpos":
             S = shape[2]
-            spec = P(None, b, "model") if S % msz == 0 else P(None, b, None)
+            spec = P(None, b, "model") if S % msz == 0 and not whole_attn \
+                else P(None, b, None)
+        elif lru and _layer_sym(path, cfg) == "R":
+            # the RG-LRU state: whole, or the rank's slice of the width
+            dims = [None] * len(shape)
+            dims[1] = b
+            if not lru_whole:
+                dims[-1] = "model"
+            spec = P(*dims)
         else:
             # recurrent state: [G, B, ...feature dims]
             dims = [None, b]
-            placed = whole_state
+            placed = False
             for d in shape[2:]:
                 if not placed and d % msz == 0 and d >= msz:
                     dims.append("model")
@@ -176,6 +192,12 @@ def cache_specs_for(cache_tree, pcfg: ParallelConfig, cfg: ModelConfig):
         return validate_spec(spec, shape, pcfg.axis_sizes)
 
     return tree_map_with_path(leaf, cache_tree)
+
+
+def _layer_sym(path: str, cfg: ModelConfig) -> str:
+    """The block-pattern symbol of the layer a cache path lies in."""
+    m = re.search(r"layer(\d+)/", path)
+    return cfg.block_pattern[int(m.group(1))] if m else ""
 
 
 def to_shardings(spec_tree, mesh):
@@ -391,15 +413,16 @@ def make_train_step(cfg: ModelConfig, pcfg: ParallelConfig,
 # Serve steps
 # ---------------------------------------------------------------------------
 
-def check_serving_mesh(cfg: ModelConfig, pcfg: ParallelConfig,
-                       max_len: int) -> None:
+def check_serving_mesh(cfg: ModelConfig, pcfg: ParallelConfig) -> None:
     """Raise unless ``cfg`` serves on ``pcfg``'s mesh: a stack of ``A``,
     ``L`` and ``R`` layers with dense FFNs and no encoder, under
-    ``layout="tp"``; with several ``model`` ranks, heads that split over
-    them, and a cache whose kv heads split or else whose sequence does
-    (a cache that neither splits would stay whole, ``cache_specs_for``),
-    and an RG-LRU conv state that splits by width where the layer splits
-    (``rglru.lru_split``; else the layer and its state are whole)."""
+    ``layout="tp"`` (ROADMAP item 1.3f part 2 for the others).  Every
+    such mesh serves, as the JAX package's serve steps lower on it:
+    heads that do not split over ``model`` compute whole on every
+    ``model`` rank with a whole cache; a cache whose kv heads and
+    sequence both fail to split stays whole (``cache_specs_for``); an
+    RG-LRU layer computes on its slice of the width, its state too, or
+    whole (``rglru.lru_split``)."""
     if pcfg.mesh is None:
         return
     if cfg.family == "moe" or cfg.is_encoder_decoder \
@@ -412,26 +435,6 @@ def check_serving_mesh(cfg: ModelConfig, pcfg: ParallelConfig,
         raise NotImplementedError(
             f"the serving mesh runs layout='tp', not {pcfg.layout!r}: ROADMAP "
             f"item 1.3f part 2")
-    m = pcfg.model_size
-    if m == 1:
-        return
-    attn = [s for s in cfg.block_pattern if s in "AL"]
-    if attn and cfg.n_heads % m:
-        raise ValueError(f"{cfg.n_heads} heads do not split over {m} model "
-                         f"ranks")
-    for sym in set(attn) if max_len else ():
-        ring = sym == "L" and cfg.local_window and cfg.local_window < max_len
-        slots = cfg.local_window if ring else max_len
-        if cfg.n_kv_heads % m and slots % m:
-            raise ValueError(
-                f"the {sym} layers' cache of {slots} slots splits neither its "
-                f"{cfg.n_kv_heads} kv heads nor its sequence over {m} model "
-                f"ranks")
-    taps = cfg.conv1d_width - 1
-    if "R" in cfg.block_pattern and rglru.lru_split(cfg, pcfg) is not None \
-            and taps >= m and taps % m == 0:
-        raise ValueError(f"the RG-LRU conv state's {taps} taps, not its "
-                         f"width, would split over {m} model ranks")
 
 
 def _batch_axes(pcfg: ParallelConfig) -> tuple:
@@ -505,27 +508,35 @@ def _global_logits(logits, pcfg: ParallelConfig, split: bool):
     return logits
 
 
-def make_decode_step(cfg: ModelConfig, pcfg: ParallelConfig):
+def make_decode_step(cfg: ModelConfig, pcfg: ParallelConfig,
+                     max_len: int = 0):
     """Port-only: ``decode(params, cache, token [B, 1], pos [B]) ->
     (logits [B, Vp] float32, new_cache)``.  On a mesh ``token`` and
     ``pos`` are the global batch's (every rank holds them), ``params``
-    are :func:`serve_params`, ``cache`` this rank's block; the rank
-    decodes its rows, and the logits are gathered over the batch axes,
-    so every rank returns the global batch's."""
+    are :func:`serve_params`, ``cache`` this rank's block of a cache of
+    capacity ``max_len`` (:func:`cache_specs_for`); the rank decodes its
+    rows, and the logits are gathered over the batch axes, so every rank
+    returns the global batch's.  ``max_len`` is required on a mesh."""
+    check_serving_mesh(cfg, pcfg)
+    if pcfg.mesh is not None and not max_len:
+        raise ValueError("make_decode_step on a mesh needs max_len, the "
+                         "capacity its cache blocks were made with")
+
     def decode(params, cache, token, pos):
         rows, split = serve_rows(token, pcfg)
         logits, new_cache = model.decode_step(
             params, cache, rows, serve_rows(pos, pcfg)[0], cfg=cfg,
-            pcfg=pcfg)
+            pcfg=pcfg, max_len=max_len)
         return _global_logits(logits, pcfg, split), new_cache
     return decode
 
 
-def make_serve_step(cfg: ModelConfig, pcfg: ParallelConfig):
+def make_serve_step(cfg: ModelConfig, pcfg: ParallelConfig,
+                    max_len: int = 0):
     """Greedy decode step: (params, cache, token [B,1], pos [B]) ->
     (next_token [B,1], new_cache); on a mesh as :func:`make_decode_step`
     takes its arguments."""
-    decode = make_decode_step(cfg, pcfg)
+    decode = make_decode_step(cfg, pcfg, max_len)
 
     def serve_step(params, cache, token, pos):
         logits, new_cache = decode(params, cache, token, pos)
@@ -543,7 +554,7 @@ def make_prefill_step(cfg: ModelConfig, pcfg: ParallelConfig,
     the batch axes; a batch that does not split, as one prompt, runs
     whole on every rank) and the last logits the global batch's,
     gathered over the batch axes."""
-    check_serving_mesh(cfg, pcfg, max_len)
+    check_serving_mesh(cfg, pcfg)
 
     def prefill_step(params, batch):
         rows, split = {}, False

@@ -299,6 +299,7 @@ def test_port_imports_no_jax_and_no_reference():
             "import repro_torch.parallel.sharded\n"
             "import repro_torch.parallel.collectives\n"
             "import repro_torch.train.elastic, repro_torch.train.step\n"
+            "import repro_torch.launch.dryrun, repro_torch.kernels._meta\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'repro' or m.startswith('repro.'))\n"
             "print(bad)\n"
@@ -317,7 +318,9 @@ def test_no_jax_or_reference_import_in_port_sources():
     files.append(ROOT / "chip_smoke.py")
     assert len(files) > 20
     for rel in ("parallel/collectives.py", "parallel/sharded.py",
-                "train/elastic.py"):
+                "train/elastic.py", "launch/dryrun.py",
+                "kernels/flash_attention/cost.py",
+                "kernels/rg_lru_scan/cost.py"):
         assert ROOT / "src/repro_torch" / rel in files
     hits = [f"{f}: {m.group(0)}" for f in files
             for m in bad.finditer(f.read_text())]

@@ -199,10 +199,15 @@ def serve(arch, mesh):
 
 cases, dest = eval(sys.argv[1]), sys.argv[2]
 mesh = make_mesh_compat((2, 2), ("data", "model"))
+# three of the four host devices, (data, model) = (1, 3)
+trio = jax.sharding.Mesh(np.array(jax.devices()[:3]).reshape(1, 3),
+                         ("data", "model"))
 res = {}
 for arch, layout in cases:
     if layout == "serve":
         got = serve(arch, mesh)
+    elif layout == "serve13":
+        got = serve(arch, trio)
     elif layout.partition("@")[0] in ("single", "pods"):
         got = run(arch, "tp" if layout == "single" else layout, None,
                   R.POD_MASKED)
@@ -223,7 +228,8 @@ _JAX_SPLIT = (
     + [(ranks.PODWISE_ARCH, _POD_ACCUM), ("qwen2.5-3b", "serve")],
     [("xlstm-1.3b", "tp"), ("qwen2.5-3b", "tp"), ("qwen2.5-3b", "fsdp"),
      ("recurrentgemma-2b", "serve"), (ranks.LRU_WHOLE, "tp"),
-     (ranks.LRU_WHOLE, "serve")],
+     (ranks.LRU_WHOLE, "serve"), (ranks.HEADS_WHOLE, "serve13"),
+     (ranks.RING_WHOLE, "serve13")],
     [(a, "tp") for a in ("gemma3-12b", "qwen3-8b", "deepseek-7b",
                          "llava-next-mistral-7b", "seamless-m4t-large-v2")]
     + [(ranks.PODWISE_ARCH, "single"), ("gemma3-12b", "serve")],
@@ -651,8 +657,8 @@ def test_pipeline_rows_follow_the_microbatches(mode, tmp_path):
 SERVE_TOL = 1e-4        # the logits, of the JAX package's largest |logit|
 
 
-def _serve_ref(ref, arch):
-    pre = f"{arch}|serve|"
+def _serve_ref(ref, arch, layout="serve"):
+    pre = f"{arch}|{layout}|"
     return {k[len(pre):]: v for k, v in ref.items() if k.startswith(pre)}
 
 
@@ -784,7 +790,7 @@ def test_serving_mesh_refuses_other_configs(arch):
         ServeEngine(cfg, params, TPC(mesh=mesh), max_len=96)
     with pytest.raises(NotImplementedError, match="1.3f part 2"):
         tstep.check_serving_mesh(get_config("qwen2.5-3b").reduced(),
-                                 TPC(mesh=mesh, layout="fsdp"), 96)
+                                 TPC(mesh=mesh, layout="fsdp"))
 
 
 def test_tp_step_computes_an_lru_whole_where_its_gate_blocks_do_not_split(
@@ -994,3 +1000,47 @@ def test_spec_trees_match_jax(arch):
         same(jstep.cache_specs_for(jmodel.cache_shapes(jcfg, 8, 64), jp),
              tstep.cache_specs_for(tmodel.cache_shapes(tcfg, 8, 64), tp,
                                    tcfg))
+
+
+@pytest.mark.parametrize("variant", [ranks.HEADS_WHOLE, ranks.RING_WHOLE])
+def test_serving_mesh_serves_heads_and_caches_that_do_not_split(runs,
+                                                               variant):
+    """(m) The serving mesh takes every A / L / R mesh the JAX serve steps
+    lower on (once refused with a ``ValueError``): one R, L and A layer
+    on ``(data, model) = (1, 3)``, rank 0, against the JAX package's
+    serve steps on three host devices at ``(1, 3)``, by
+    ``test_serving_mesh_matches_jax_host_mesh``'s bars.  ``HEADS_WHOLE``:
+    4 heads over 2 kv heads do not split over 3, so the attention serves
+    whole on every ``model`` rank with whole caches (the ring of 40 slots
+    and the full cache of 96) and nothing summed over ``model``;
+    ``RING_WHOLE``: 3 heads over 1 kv head split, the ring of 40 slots
+    does not and stays whole beside them (``attention._whole_cache``),
+    the full cache of 96 splits over the sequence."""
+    from repro_torch.models import model as tmodel
+    from repro_torch.utils.pytree import tree_flatten_with_paths as flat
+    port, ref = runs
+    got = port["serve_whole"][variant]
+    want = _serve_ref(ref, variant, "serve13")
+    for key in ("prefill", "decode"):
+        scale = np.abs(want[key]).max()
+        assert got[key].shape == want[key].shape, key
+        assert np.abs(got[key] - want[key]).max() <= SERVE_TOL * scale, key
+    np.testing.assert_array_equal(got["next"], want["next"])
+    assert got["tokens"] == want["tokens"].tolist()
+    # the pool's K / V / kpos: whole over model, but RING_WHOLE's full
+    # cache (layer 2, the A layer) split over the sequence
+    cfg = ranks.serve_cfg(variant)
+    pool = {p: tuple(s.shape) for p, s in flat(tmodel.cache_shapes(
+        cfg, ranks.SERVE_SLOTS, ranks.SERVE_LEN))}
+    attn = [p for p in got["pool"] if p.endswith(("/k", "/v", "/kpos"))]
+    assert len(attn) == 5
+    for path in attn:
+        shape = pool[path]
+        if variant == ranks.RING_WHOLE and path.startswith("layer2/"):
+            shape = shape[:2] + (shape[2] // 3,) + shape[3:]
+        assert got["pool"][path] == shape, path
+    if variant == ranks.HEADS_WHOLE:     # every layer whole: no sum
+        assert got["wire"]["tp_all_reduce"] == 0
+    else:
+        assert got["wire"]["tp_all_reduce"] > 0
+    assert got["wire"]["gather"] == 0

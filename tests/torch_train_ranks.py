@@ -46,8 +46,19 @@ POD_SHAPE = (4, 256)
 # and the local layers' ring of 48 slots splits over them for serving
 LRU_WHOLE = "recurrentgemma-2b:lru48"
 LRU_WHOLE_SHAPE = (1, 3)
+# serving on the same (1, 3) mesh, one R, L and A layer each: 4 heads over
+# 2 kv heads do not split over 3 ranks, so the attention computes whole
+# with a whole cache; 3 heads over 1 kv head split, and the ring of 40
+# slots does not, so it stays whole beside the heads' blocks (the full
+# cache of 96 slots splits over the sequence)
+HEADS_WHOLE = "recurrentgemma-2b:heads4"
+RING_WHOLE = "recurrentgemma-2b:ring40"
+_RLA = {"lru_width": 48, "local_window": 40, "block_pattern": ("R", "L", "A"),
+        "n_layers": 3}
 # a variant "<arch>:<tag>" is the reduced config with these fields
-VARIANTS = {LRU_WHOLE: {"lru_width": 48, "n_heads": 3, "local_window": 48}}
+VARIANTS = {LRU_WHOLE: {"lru_width": 48, "n_heads": 3, "local_window": 48},
+            HEADS_WHOLE: {**_RLA, "n_heads": 4, "n_kv_heads": 2},
+            RING_WHOLE: {**_RLA, "n_heads": 3, "n_kv_heads": 1}}
 
 
 def reduced(get_config, name: str):
@@ -246,6 +257,8 @@ def mesh_train_suite(rank: int, world: int):
                             device="cpu", ranks=range(3))
     if trio is not None:
         out["lru_whole"] = lru_whole_case(trio)
+        out["serve_whole"] = {v: serve_case(serve_cfg(v), trio)
+                              for v in (HEADS_WHOLE, RING_WHOLE)}
     out["launcher"] = _launcher_rank(rank, world)
     return out if rank == 0 else None
 
@@ -659,10 +672,10 @@ def serve_case(cfg, mesh) -> dict:
     with torch.inference_mode():
         logits, cache = tstep.make_prefill_step(cfg, pcfg, SERVE_LEN)(
             params, {"inputs": toks})
-        dec, _ = tstep.make_decode_step(cfg, pcfg)(params, cache,
-                                                   toks[:, -1:], pos)
-        nxt, _ = tstep.make_serve_step(cfg, pcfg)(params, cache,
-                                                  toks[:, -1:], pos)
+        dec, _ = tstep.make_decode_step(cfg, pcfg, SERVE_LEN)(
+            params, cache, toks[:, -1:], pos)
+        nxt, _ = tstep.make_serve_step(cfg, pcfg, SERVE_LEN)(
+            params, cache, toks[:, -1:], pos)
     wire = {k: v - before[k] for k, v in sharded.WIRE.items()}
     eng = ServeEngine(cfg, blocks, pcfg, max_batch=SERVE_SLOTS,
                       max_len=SERVE_LEN, scfg=SamplerConfig())
@@ -772,3 +785,29 @@ def _launcher_rank(rank: int, world: int) -> dict:
     return slaunch._serve_rank(rank, world, [
         "--arch", "qwen2.5-3b", "--smoke", "--device", "cpu", "--ranks",
         str(world), "--requests", "4", "--max-new", "4"])
+
+
+# ------------------------------------------------------------ the dry run
+# train steps whose bytes a step by collective the dry run must count
+# exactly: (arch, (data, model), layout, MoE dispatch)
+DRYRUN_WIRE_CASES = (("qwen2.5-3b", (2, 1), "tp", "einsum"),
+                     ("qwen2.5-3b", (1, 2), "tp", "einsum"),
+                     ("qwen2.5-3b", (1, 2), "fsdp", "einsum"),
+                     ("recurrentgemma-2b", (1, 2), "tp", "einsum"),
+                     ("qwen3-moe-30b-a3b", (1, 2), "fsdp", "a2a"))
+
+
+def dryrun_wire_suite(rank: int, world: int):
+    """One train step of each of ``DRYRUN_WIRE_CASES`` on 2 gloo ranks
+    (:func:`_mesh_step`, no remat): the bytes the rank handed to each
+    collective, by ``sharded.WIRE`` key."""
+    from repro_torch.launch.mesh import make_mesh_compat
+    meshes = {shape: make_mesh_compat(shape, ("data", "model"), device="cpu")
+              for shape in sorted({c[1] for c in DRYRUN_WIRE_CASES})}
+    out = {}
+    for arch, shape, layout, dispatch in DRYRUN_WIRE_CASES:
+        cfg, log = lm_cfg(arch), {}
+        _mesh_step(cfg, meshes[shape], lm_batch(cfg), log, layout=layout,
+                   moe_dispatch=dispatch)
+        out[arch, shape, layout] = log["wire"]
+    return out
