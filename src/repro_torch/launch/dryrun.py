@@ -24,7 +24,9 @@ For each cell the dry run:
   3. counts, for rank 0:
      - ``memory``: ``argument_bytes`` (rank 0's blocks of the step's
        arguments, as XLA's ``memory_analysis`` counts a device's
-       arguments), ``output_bytes`` (what the step returns that it made),
+       arguments), for a serve step ``serving_bytes`` (the same with the
+       weights the rank serves with, ``serve_params``, in place of its
+       blocks), ``output_bytes`` (what the step returns that it made),
        ``peak_bytes`` (the most bytes live at once: every stand-in and
        every storage an op made, tracked to its release, each rounded up
        as the CUDA caching allocator rounds a block) and ``temp_bytes``
@@ -308,8 +310,9 @@ def build_cell(cfg: ModelConfig, shape: ShapeConfig, pcfg: ParallelConfig,
     """The cell's step and its stand-ins: ``{"setup": fn () -> the
     weights a serving rank computes with, or None, "step": fn (*args),
     "args": the stand-ins handed to the step, "argument_bytes": rank 0's
-    blocks of the arguments by their specs}``.  A serve step's cache holds
-    ``max_len`` positions (default the shape's sequence)."""
+    blocks of the arguments by their specs}``, and a serve step's
+    ``"param_bytes"``, its parameters' share of those.  A serve step's
+    cache holds ``max_len`` positions (default the shape's sequence)."""
     max_len = max_len or shape.seq_len
     mesh = pcfg.mesh
     pshapes = model.param_shapes(cfg)
@@ -339,7 +342,7 @@ def build_cell(cfg: ModelConfig, shape: ShapeConfig, pcfg: ParallelConfig,
         # and weights gathered once, when serving starts (serve_params)
         args = (params, standins(btree, bspecs, mesh, whole=True))
         return {"setup": lambda: steps.serve_params(cfg, pcfg, params),
-                "step": fn, "args": args,
+                "step": fn, "args": args, "param_bytes": arg_bytes,
                 "argument_bytes": arg_bytes
                 + block_bytes(btree, bspecs, mesh)}
     cross_len = max_len if cfg.is_encoder_decoder else 0
@@ -353,7 +356,7 @@ def build_cell(cfg: ModelConfig, shape: ShapeConfig, pcfg: ParallelConfig,
     args = (params, standins(ctree, cspecs, mesh), batch["token"],
             batch["pos"])
     return {"setup": lambda: steps.serve_params(cfg, pcfg, params),
-            "step": fn, "args": args,
+            "step": fn, "args": args, "param_bytes": arg_bytes,
             "argument_bytes": arg_bytes + block_bytes(ctree, cspecs, mesh)
             + block_bytes(btree, bspecs, mesh)}
 
@@ -401,6 +404,9 @@ def measure(cell: dict, mesh) -> dict:
     made = {id(s): s for s in _storages(out)
             if id(s) not in counter.known}
     argument = cell["argument_bytes"]
+    serving = {} if cell["setup"] is None else {"serving_bytes": (
+        argument - cell["param_bytes"]
+        + sum(t.nbytes for t in tree_leaves(args[0])))}
     peak = counter.peak
     colls = _wire_totals(log, world, npods)
     colls["wire"] = wire
@@ -409,7 +415,8 @@ def measure(cell: dict, mesh) -> dict:
         "memory": {"argument_bytes": argument,
                    "output_bytes": sum(_grain(s.nbytes())
                                        for s in made.values()),
-                   "temp_bytes": peak - argument, "peak_bytes": peak},
+                   "temp_bytes": peak - argument, "peak_bytes": peak,
+                   **serving},
         "cost": {"flops": float(flops), "bytes accessed": float(moved)},
         "collectives": colls,
         "kernels": kernels,
@@ -526,7 +533,9 @@ def main(argv=None):
                   f"{c['intra_node']:.3e} inter_node {c['inter_node']:.3e} "
                   f"cross_pod {c['cross_pod']:.3e}) "
                   f"argument_bytes={m['argument_bytes']} "
-                  f"peak_bytes={m['peak_bytes']} "
+                  + (f"serving_bytes={m['serving_bytes']} "
+                     if "serving_bytes" in m else "")
+                  + f"peak_bytes={m['peak_bytes']} "
                   f"({m['peak_bytes'] / HBM_BYTES:.3f} of 80 GB) "
                   f"roofline={rec['roofline']['bound_s']:.4e}s "
                   f"({rec['roofline']['bound_by']}; H100 SXM data sheet)")

@@ -23,9 +23,8 @@ JAX launcher serves a full config on its production mesh; here
 their collectives through the host) at ``(data, model) = (N / 2, 2)``,
 ``layout="tp"``: ``--ranks 2`` is ``(1, 2)``, ``--ranks 4`` is ``(2,
 2)``.  Each rank makes only its blocks of the parameters, and the
-engine serves on them (``serve/engine.py``); the configs whose stack
-holds only ``A``, ``L`` and ``R`` layers with dense FFNs and no encoder
-serve there, the others raise.  Rank 0 prints.
+engine serves on them (``serve/engine.py``); every config serves there
+(``train/step.py`` ``check_serving_mesh``).  Rank 0 prints.
 """
 from __future__ import annotations
 

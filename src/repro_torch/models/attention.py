@@ -25,14 +25,16 @@ the JAX package computes it outside any kernel.
 **Tensor parallelism.**  Under ``layout="tp"`` on a mesh whose ``model``
 size divides ``n_heads`` (``sharding.tp_block``: the test of the JAX
 package's ``heads_spec``), the causal self-attention (train, prefill and
-decode; not the encoder's nor the cross-attention, which stay whole)
-runs on this rank's block of the q heads: ``params`` hold the column
+decode), the encoder's non-causal one and the decoder's cross-attention
+run on this rank's block of the q heads: ``params`` hold the column
 blocks of ``wq`` (``bq``) and the row block of ``wo``, the input enters
 through ``sharded.copy_to_model`` and the partial products through the
 rank's rows of ``wo`` are summed over ``model``
 (``sharded.reduce_from_model``).  K and V: where ``model`` divides
 ``n_kv_heads`` the rank projects its own kv heads (the blocks of ``wk``
-/ ``wv``); otherwise (``recurrentgemma-2b``: one kv head) the leaves
+/ ``wv``; a cross block's from the memory, :func:`project_memory`, and
+its decode reads the rank's ``xk`` / ``xv``); otherwise
+(``recurrentgemma-2b``: one kv head) the leaves
 come whole, gathered over ``model`` as XLA must, and every rank projects
 K and V whole; the replicated leaves inside the layer (those and the
 qk-norm scales) enter through ``copy_to_model``, so their gradient is
@@ -284,12 +286,11 @@ def apply(
     if is_local and getattr(cfg, "rope_theta_local", 0):
         theta = cfg.rope_theta_local
     cross = memory_kv is not None
-    heads = None if cross or mode == "encode" \
-        else tp_block(pcfg, cfg.n_heads)
+    heads = tp_block(pcfg, cfg.n_heads)
     if heads is not None:
         return _apply_tp(params, x, heads, cfg=cfg, pcfg=pcfg, window=window,
                          theta=theta, positions=positions, mode=mode,
-                         cache=cache, max_len=max_len)
+                         cache=cache, max_len=max_len, memory_kv=memory_kv)
 
     q = _project_q(params, x, cfg)
     if not cross:
@@ -399,20 +400,62 @@ def _tp_kv_heads(k, v, cfg: ModelConfig, index: int, size: int):
     return k[:, :, idx], v[:, :, idx]
 
 
+def _rank_kv_params(params, cfg: ModelConfig, pcfg: ParallelConfig,
+                    names=("wk", "wv", "bk", "bv", "k_norm")):
+    """(``params`` with the replicated leaves among ``names`` through
+    ``copy_to_model``, this rank's kv head count): ``wk`` / ``wv`` (and
+    their biases) are replicated where ``model`` does not divide the kv
+    heads, the qk-norm scales always."""
+    kv_split = tp_block(pcfg, cfg.n_kv_heads) is not None
+    p = dict(params)
+    for name in names:
+        whole = name in ("q_norm", "k_norm") or not kv_split
+        if name in params and whole:
+            p[name] = sharded.copy_to_model(params[name], pcfg.mesh)
+    return p, cfg.n_kv_heads // (pcfg.model_size if kv_split else 1)
+
+
+def project_memory(params, memory, *, cfg: ModelConfig,
+                   pcfg: ParallelConfig):
+    """A cross block's K / V ``[B, F, K, D]`` of the encoder ``memory``:
+    under ``layout="tp"`` where the q heads split over ``model``, the
+    rank's kv heads (whole where they do not split), ``memory`` and the
+    replicated leaves through ``copy_to_model``; else every kv head."""
+    if tp_block(pcfg, cfg.n_heads) is None:
+        return _project_kv(params, memory, cfg)
+    p, km = _rank_kv_params(params, cfg, pcfg)
+    return _project_kv(p, sharded.copy_to_model(memory, pcfg.mesh), cfg, km)
+
+
 def _apply_tp(params, x, heads, *, cfg: ModelConfig, pcfg: ParallelConfig,
-              window, theta, positions, mode, cache, max_len):
+              window, theta, positions, mode, cache, max_len, memory_kv=None):
     mesh = pcfg.mesh
     index, size = heads
     hm = cfg.n_heads // size
     kv_split = tp_block(pcfg, cfg.n_kv_heads) is not None
-    km = cfg.n_kv_heads // size if kv_split else cfg.n_kv_heads
     x = sharded.copy_to_model(x, mesh)
-    p = dict(params)
-    whole = ["q_norm", "k_norm"] if cfg.qk_norm else []
-    if not kv_split:
-        whole += ["wk", "wv"] + (["bk", "bv"] if cfg.qkv_bias else [])
-    for name in whole:
-        p[name] = sharded.copy_to_model(params[name], mesh)
+    B, T = x.shape[0], x.shape[1]
+    if memory_kv is not None:
+        # a cross block: K / V the memory's (project_memory), no RoPE
+        p, _ = _rank_kv_params(params, cfg, pcfg, ("q_norm",))
+        q = _project_q(p, x, cfg, hm)
+        k, v = memory_kv if kv_split else \
+            _tp_kv_heads(*memory_kv, cfg, index, size)
+        if mode == "decode":
+            last = torch.full((B,), k.shape[1] - 1, dtype=torch.int32,
+                              device=x.device)
+            out = decode_attention(q, {"k": k, "v": v}, last,
+                                   softcap=cfg.attn_softcap)
+        else:
+            out = chunked_attention(q, k, v, causal=False,
+                                    q_chunk=pcfg.q_chunk,
+                                    kv_chunk=pcfg.kv_chunk, impl="scan",
+                                    softcap=cfg.attn_softcap)
+        out = out.reshape(B, T, hm * cfg.d_head) @ params["wo"]
+        return sharded.reduce_from_model(out, mesh), \
+            cache if mode == "decode" else None
+    p, km = _rank_kv_params(params, cfg, pcfg, ("wk", "wv", "bk", "bv",
+                                                 "q_norm", "k_norm"))
     q = common.apply_rope(_project_q(p, x, cfg, hm), positions, theta)
     k_new, v_new = _project_kv(p, x, cfg, km)
     k_new = common.apply_rope(k_new, positions, theta)
@@ -424,9 +467,13 @@ def _apply_tp(params, x, heads, *, cfg: ModelConfig, pcfg: ParallelConfig,
     else:
         k, v = (k_new, v_new) if kv_split else \
             _tp_kv_heads(k_new, v_new, cfg, index, size)
-        out = chunked_attention(q, k, v, causal=True, window=window,
+        # the encoder's self-attention is non-causal, as in ``apply``
+        causal = not (cfg.is_encoder_decoder and mode == "encode")
+        out = chunked_attention(q, k, v, causal=causal,
+                                window=window if causal else 0,
                                 q_chunk=pcfg.q_chunk, kv_chunk=pcfg.kv_chunk,
-                                impl=pcfg.attn_impl, softcap=cfg.attn_softcap)
+                                impl=pcfg.attn_impl if causal else "scan",
+                                softcap=cfg.attn_softcap)
         new_cache = None
         if mode == "prefill":
             new_cache = _prefill_cache(k_new, v_new, positions, window=window,
@@ -438,7 +485,6 @@ def _apply_tp(params, x, heads, *, cfg: ModelConfig, pcfg: ParallelConfig,
             if "kpos" in new_cache and slots % size == 0:
                 new_cache["kpos"] = _seq_block(new_cache["kpos"], index, size)
             new_cache = {n: c.contiguous() for n, c in new_cache.items()}
-    B, T = x.shape[0], x.shape[1]
     out = out.reshape(B, T, hm * cfg.d_head) @ params["wo"]
     return sharded.reduce_from_model(out, mesh), new_cache
 

@@ -31,9 +31,8 @@ def shapes(cfg: ModelConfig, width: int | None = None) -> dict:
 
 
 def apply(params: dict, x: torch.Tensor, *, cfg: ModelConfig,
-          pcfg: ParallelConfig, tp: bool = True) -> torch.Tensor:
-    """``tp=False`` (an encoder's FFN) computes whole on every rank."""
-    split = tp_block(pcfg, cfg.d_ff) if tp else None
+          pcfg: ParallelConfig) -> torch.Tensor:
+    split = tp_block(pcfg, cfg.d_ff)
     if split is not None:
         x = sharded.copy_to_model(x, pcfg.mesh)
     act = activation(cfg.act)

@@ -18,7 +18,8 @@ Dispatch modes (``ParallelConfig.moe_dispatch``):
   * ``a2a`` — the explicit expert all-to-all of a mesh under
     ``layout="fsdp"`` over several ``model`` ranks (:func:`_apply_a2a`);
     elsewhere (no mesh, ``layout="tp"``, one ``model`` rank) it runs
-    ``gather``, as the JAX package falls back.
+    ``gather``, as the JAX package falls back (under ``tp`` split over
+    ``model`` as below).
 
 All share routing: top-k softmax gates (float32 router), position in
 expert by a stable sort in first-come order over the ``k``-major
@@ -39,6 +40,22 @@ of the global aux gradient reaches its own router probabilities.  The
 train step weights each rank's loss by its token share before the
 backward; the shares sum to 1 and the gather's backward sums over the
 ranks, so the aux term is counted once.
+
+**Under ``layout="tp"``** on a mesh whose ``model`` size ``M`` divides
+``n_experts`` (:func:`ep_split`; the JAX package's rule ``moe/w(i|g)`` ->
+``P("model", "data", None)``) each ``model`` rank keeps experts ``[i E /
+M, (i + 1) E / M)`` of ``wi`` / ``wg`` / ``wo``.  Every ``model`` rank
+routes its rows whole, exactly as above (the router, ids, positions,
+capacity, dropped slots and renormalised gates, ``C_l`` too), then
+dispatches only its own experts' slots into ``[G, E / M, C, d]`` buffers
+(``einsum`` and ``gather`` alike), runs its experts and combines their
+weighted outputs; the input and the router enter through
+``sharded.copy_to_model`` and the partial outputs are summed by
+``sharded.reduce_from_model``, as the dense FFN's.  The aux loss is the
+same on every ``model`` rank; only rank 0's carries a gradient, so that
+the sum over ``model`` of the router's and the input's gradients counts
+it once.  Where ``ep_split`` is None the layer computes whole on every
+``model`` rank.
 """
 from __future__ import annotations
 
@@ -50,7 +67,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.common import activation, sds
 from repro_torch.parallel import sharded
-from repro_torch.parallel.sharding import ParallelConfig
+from repro_torch.parallel.sharding import ParallelConfig, tp_block
 
 CAPACITY_FACTOR = 1.25
 GROUP_SIZE = 4096  # tokens per dispatch group (GShard-style)
@@ -159,10 +176,12 @@ class MeshRanks:
 def _batch_ranks(pcfg: ParallelConfig):
     """:class:`MeshRanks` of ``pcfg``'s mesh over the axes that split the
     batch (``data_axes``; ``pod`` only where the step is not podwise, whose
-    inner config leaves it out), or None without a mesh or where they are
-    one rank."""
+    inner config leaves it out), or None without a mesh, where they are
+    one rank, or where every rank holds the whole batch
+    (``pcfg.whole_batch``: a serving mesh's batch-1 prefill groups its
+    one row, as the JAX package's global batch)."""
     mesh = pcfg.mesh
-    if mesh is None:
+    if mesh is None or pcfg.whole_batch:
         return None
     named = tuple(a for a in pcfg.data_axes if mesh.shape.get(a, 1) > 1)
     axes = mesh.mesh_axes(named)
@@ -186,6 +205,25 @@ def a2a_route(cfg: ModelConfig, pcfg: ParallelConfig) -> bool:
             and cfg.n_experts % ranks.model_size == 0)
 
 
+def ep_split(cfg: ModelConfig, pcfg: ParallelConfig):
+    """(this rank's coordinate along ``model``, the ``model`` size ``M``)
+    where the layer computes on the rank's ``E / M`` experts: ``layout=
+    "tp"`` on a mesh of several ``model`` ranks whose size divides
+    ``n_experts`` (``sharding.tp_block``), else None (whole)."""
+    return tp_block(pcfg, cfg.n_experts) if cfg.n_experts else None
+
+
+def _tp_out(out, aux, x, pcfg: ParallelConfig, block):
+    """The layer's ``(out, aux)`` in ``x``'s type; under ``block`` the
+    partial outputs summed over ``model`` and the aux loss's gradient
+    kept on ``model`` rank 0 alone."""
+    out = out.to(x.dtype)
+    if block is None:
+        return out, aux
+    return (sharded.reduce_from_model(out, pcfg.mesh),
+            aux if block[0] == 0 else aux.detach())
+
+
 def apply(params: dict, x: torch.Tensor, *, cfg: ModelConfig,
           pcfg: ParallelConfig):
     """x: [B, T, d] -> (out [B, T, d], aux_loss scalar).  On a mesh that
@@ -199,8 +237,15 @@ def apply(params: dict, x: torch.Tensor, *, cfg: ModelConfig,
         if a2a_route(cfg, pcfg):
             return _apply_a2a(params, x, cfg=cfg, ranks=ranks)
         mode = "gather"  # the JAX package's meshless / TP fallback
+    block = ep_split(cfg, pcfg)
+    if block is not None:   # wi / wg / wo hold the rank's E / M experts
+        params = {**params, "router": sharded.copy_to_model(
+            params["router"], pcfg.mesh)}
+        x = sharded.copy_to_model(x, pcfg.mesh)
     if ranks is not None:
-        return _apply_grouped(params, x, cfg=cfg, mode=mode, ranks=ranks)
+        out, aux = _apply_grouped(params, x, cfg=cfg, mode=mode, ranks=ranks,
+                                  block=block)
+        return _tp_out(out, aux, x, pcfg, block)
     B, T, d = x.shape
     total = B * T
     group = min(GROUP_SIZE, total)
@@ -215,11 +260,9 @@ def apply(params: dict, x: torch.Tensor, *, cfg: ModelConfig,
     # renormalise over surviving slots
     gates = gates / torch.clamp(gates.sum(-1, keepdim=True), min=1e-9)
 
-    if mode == "einsum":
-        out = _apply_einsum(params, xg, gates, eids, pos, keep, C, cfg)
-    else:
-        out = _apply_gather(params, xg, gates, eids, pos, keep, C, cfg)
-    return out.reshape(B, T, d).to(x.dtype), aux
+    dispatch = _apply_einsum if mode == "einsum" else _apply_gather
+    out = dispatch(params, xg, gates, eids, pos, keep, C, cfg, block)
+    return _tp_out(out.reshape(B, T, d), aux, x, pcfg, block)
 
 
 def _aux_totals(probs, eids, ranks) -> torch.Tensor:
@@ -237,7 +280,8 @@ def _aux_totals(probs, eids, ranks) -> torch.Tensor:
     return ranks.gather(part[None]).sum(0)
 
 
-def _apply_grouped(params, x, *, cfg: ModelConfig, mode: str, ranks):
+def _apply_grouped(params, x, *, cfg: ModelConfig, mode: str, ranks,
+                   block=None):
     """``apply`` of the global batch, on this rank's rows ``x`` [b, T, d].
 
     The global ``n * size`` tokens (rank ``i``'s the ``i``-th block) form
@@ -251,7 +295,9 @@ def _apply_grouped(params, x, *, cfg: ModelConfig, mode: str, ranks):
     group's, and ``C_l`` (the segment's largest kept count an expert,
     rounded up to 8) is ``C`` where a segment is a whole group.  On
     ``meta`` tensors (the dry run), which hold no ids, ``C_l`` is its
-    upper bound, ``C`` or the segment's tokens rounded up to 8."""
+    upper bound, ``C`` or the segment's tokens rounded up to 8.  Under
+    ``block`` (:func:`ep_split`) the rank dispatches its experts' slots
+    alone; returns the partial output (before the sum over ``model``)."""
     B, T, d = x.shape
     E, k = cfg.n_experts, cfg.top_k
     n = B * T
@@ -291,11 +337,9 @@ def _apply_grouped(params, x, *, cfg: ModelConfig, mode: str, ranks):
             C_l = max(8, -(-used // 8) * 8)
     else:
         slot, C_l = pos, C
-    if mode == "einsum":
-        out = _apply_einsum(params, xg, gates, eids, slot, keep, C_l, cfg)
-    else:
-        out = _apply_gather(params, xg, gates, eids, slot, keep, C_l, cfg)
-    return out.reshape(B, T, d).to(x.dtype), aux
+    dispatch = _apply_einsum if mode == "einsum" else _apply_gather
+    out = dispatch(params, xg, gates, eids, slot, keep, C_l, cfg, block)
+    return out.reshape(B, T, d), aux
 
 
 def _apply_a2a(params, x, *, cfg: ModelConfig, ranks):
@@ -364,9 +408,24 @@ def _apply_a2a(params, x, *, cfg: ModelConfig, ranks):
     return out.reshape(B, T, d).to(x.dtype), aux
 
 
-def _apply_einsum(params, xg, gates, eids, pos, keep, C, cfg):
-    """GShard dense one-hot dispatch / combine (the faithful baseline)."""
-    E = cfg.n_experts
+def _local_slots(eids, keep, cfg: ModelConfig, block):
+    """(expert ids within the rank's block, the kept slots that go to
+    it, the block's expert count): ``eids`` and ``keep`` as they are
+    without a ``block``.  A slot of another rank's expert keeps id 0 and
+    is not kept here."""
+    if block is None:
+        return eids, keep, cfg.n_experts
+    index, size = block
+    el = cfg.n_experts // size
+    local = eids - index * el
+    mine = (local >= 0) & (local < el)
+    return torch.where(mine, local, 0), keep & mine, el
+
+
+def _apply_einsum(params, xg, gates, eids, pos, keep, C, cfg, block=None):
+    """GShard dense one-hot dispatch / combine (the faithful baseline),
+    over the experts of ``block`` (:func:`_local_slots`)."""
+    eids, keep, E = _local_slots(eids, keep, cfg, block)
     dt = xg.dtype
     # combine tensor [G,S,E,C] = gate on (expert, slot) pairs, in xg's
     # dtype as in the JAX package: a gate that rounds to 0 there drops
@@ -384,16 +443,18 @@ def _apply_einsum(params, xg, gates, eids, pos, keep, C, cfg):
     return torch.einsum("gecd,gsec->gsd", ye, combine)    # the shuffle back
 
 
-def _apply_gather(params, xg, gates, eids, pos, keep, C, cfg):
+def _apply_gather(params, xg, gates, eids, pos, keep, C, cfg, block=None):
     """Index-based dispatch: gather tokens into [G,E,C,d], and each token
-    gathers its k slots back.
+    gathers its k slots back (the experts of ``block``,
+    :func:`_local_slots`).
 
     The dispatch table has one extra slot per expert, ``C``, where every
     dropped slot lands (the JAX package's out-of-range writes, which
     ``mode="drop"`` discards); it is sliced off, so nothing is written
     out of range."""
     G, S, d = xg.shape
-    E, k = cfg.n_experts, cfg.top_k
+    eids, keep, E = _local_slots(eids, keep, cfg, block)
+    k = cfg.top_k
     dev = xg.device
     tok = torch.arange(S, device=dev)[None, :, None].expand(G, S, k)
     slot = eids * (C + 1) + torch.where(keep, pos, C)      # [G,S,k]

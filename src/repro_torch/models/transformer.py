@@ -13,10 +13,14 @@ the encoder memory, whose projected K / V the decode cache keeps
 ``project_frames`` (one linear map of precomputed audio frames) and
 ``splice_patches`` (a two-layer projector of precomputed vision patches,
 spliced into the token stream).  Under ``layout="tp"`` on a mesh the
-attention, dense-FFN and RG-LRU layers of the decoder stack compute on
-this rank's block of their width (their modules say how); the encoder
-stack (``mode="encode"``), the cross blocks, the MoE FFNs and the xLSTM
-blocks compute whole.
+attention (the encoder's and the cross blocks' too), dense-FFN, RG-LRU
+and MoE layers of both stacks compute on this rank's block of their
+heads, columns, LRU width or experts where ``model`` divides them (their
+modules say how), else whole; a cross block's K / V are projected on
+the rank's kv heads (``attention.project_memory``).  The xLSTM blocks,
+the embedding, the head and the frontends compute whole;
+``embed_mode="vocab_parallel"`` on a mesh raises (ROADMAP item 1.3f
+part 2).
 
 Parameters (and decode caches / recurrent states) for the unit are
 stacked with a leading group dim, as in the JAX package, so the two
@@ -220,7 +224,8 @@ def _unit_apply(unit_params, x, *, cfg: ModelConfig, pcfg: ParallelConfig,
             if cross:
                 hx = rms_norm(x, lp["norm_x"]["scale"], eps)
                 if memory is not None:  # train / prefill: project fresh
-                    mem_kv = attention._project_kv(lp["xattn"], memory, cfg)
+                    mem_kv = attention.project_memory(lp["xattn"], memory,
+                                                      cfg=cfg, pcfg=pcfg)
                 else:                   # decode: cached cross K/V
                     mem_kv = (lc["xk"], lc["xv"])
                 xout, _ = attention.apply(
@@ -232,8 +237,7 @@ def _unit_apply(unit_params, x, *, cfg: ModelConfig, pcfg: ParallelConfig,
                 ffn, aux_i = moe.apply(lp["moe"], h, cfg=cfg, pcfg=pcfg)
                 aux = aux + aux_i
             else:
-                ffn = mlp.apply(lp["mlp"], h, cfg=cfg, pcfg=pcfg,
-                                tp=mode != "encode")
+                ffn = mlp.apply(lp["mlp"], h, cfg=cfg, pcfg=pcfg)
             x = x + ffn
             if new_cache is not None:
                 layer_new = {"attn": attn_cache if attn_cache is not None
@@ -362,6 +366,15 @@ def stack_apply(blocks_params, x, *, cfg: ModelConfig, pcfg: ParallelConfig,
 # ---------------------------------------------------------------------------
 
 def embed(params, tokens, *, cfg: ModelConfig, pcfg: ParallelConfig):
+    """The token embeddings, gathered from the whole table.  The JAX
+    package's ``embed_mode="vocab_parallel"`` (a masked take of each
+    ``model`` rank's vocab block, summed over ``model``) is not ported:
+    it raises on a mesh of several ``model`` ranks, where it acts."""
+    if pcfg.embed_mode == "vocab_parallel" and pcfg.mesh is not None \
+            and pcfg.model_size > 1:
+        raise NotImplementedError(
+            "embed_mode='vocab_parallel' (the vocab split of the embedding "
+            "over model): ROADMAP item 1.3f part 2")
     ct = getattr(torch, cfg.compute_dtype)
     w = params["embed"]["w"]
     x = w[tokens.long()].to(ct)

@@ -85,6 +85,9 @@ class ParallelConfig:
     accum_steps: int = 1               # gradient-accumulation microbatches
     lru_chunk: int = 0                 # RG-LRU: chunk the associative scan
     cache_write: str = "masked"        # "masked" | "scatter"
+    whole_batch: bool = False          # port-only: every rank holds the
+                                       # whole batch (a serving mesh's
+                                       # batch that does not split)
     # --- measurement (roofline) mode ----------------------------------------
     unroll_scans: bool = False         # python-loop the inner scans
 

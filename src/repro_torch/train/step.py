@@ -21,18 +21,19 @@ modes:
     metrics are the global token-weighted means, as over the global
     batch: each rank's loss is weighted by its share of the valid tokens
     before the backward.  Under ``layout="tp"`` the ranks of one
-    ``model`` group compute the same rows, the attention, dense-FFN and
-    RG-LRU layers each on the rank's block of their width, where the
-    JAX package's activation specs split heads and FFN columns over
-    ``model`` (:func:`tp_leaf`): those leaves are gathered over the
-    batch axes alone, each ``model`` rank keeping its block, whose
-    gradient is its own.  An MoE layer groups tokens, drops slots and takes its aux loss over
-    the global batch, exchanging ids and statistics with the other batch
-    ranks, and under ``layout="fsdp"`` with ``moe_dispatch="a2a"``
-    exchanges its slots with the other ``model`` ranks
-    (:mod:`repro_torch.models.moe`), whose experts it then gathers over
-    their other axes only.  With ``accum_steps = n`` a rank's rows are
-    its rows of each global microbatch in turn (:func:`local_batch`), and
+    ``model`` group compute the same rows, the attention (the encoder's
+    and the cross blocks' too), dense-FFN, RG-LRU and MoE layers each on
+    the rank's block of their heads, columns, width or experts, where the
+    JAX package's specs split them over ``model`` (:func:`tp_leaf`):
+    those leaves are gathered over the batch axes alone, each ``model``
+    rank keeping its block, whose gradient is its own.  An MoE layer
+    groups tokens, drops slots and takes its aux loss over the global
+    batch, exchanging ids and statistics with the other batch ranks, and
+    under ``layout="fsdp"`` with ``moe_dispatch="a2a"`` exchanges its
+    slots with the other ``model`` ranks (:mod:`repro_torch.models.moe`),
+    whose experts it then gathers over their other axes only.  With
+    ``accum_steps = n`` a rank's rows are its rows of each global
+    microbatch in turn (:func:`local_batch`), and
     each microbatch is weighted, reduced and averaged as the JAX
     package's scan over the global microbatches does.
   * ``podwise`` (with ``multi_pod``) — each pod runs the ``pjit`` step
@@ -47,13 +48,14 @@ modes:
 The serve steps (:func:`make_prefill_step`, :func:`make_serve_step`, and
 the port's :func:`make_decode_step`, which returns the logits for
 sampling) run on one device or on a serving mesh of ``torch.distributed``
-ranks under ``layout="tp"`` (:func:`check_serving_mesh`).  There a
-rank's parameters are :func:`serve_params` (every leaf whole but the
-blocks the layers compute on, each whole over the batch axes), its
-cache the block :func:`cache_specs_for` gives it
-(:func:`init_cache_blocks`), its rows of the batch those the batch
-axes give it, and the logits come back whole, gathered over the batch
-axes.
+ranks under ``layout="tp"``, every shipped config
+(:func:`check_serving_mesh`).  There a rank's parameters are
+:func:`serve_params` (every leaf whole but the blocks the layers compute
+on, each whole over the batch axes), its cache the block
+:func:`cache_specs_for` gives it (:func:`init_cache_blocks`), its rows
+of the batch those the batch axes give it (all of a batch that does not
+split, ``ParallelConfig.whole_batch``), and the logits come back whole,
+gathered over the batch axes.
 
 A training step is literally a two-stage Sphere job: stage 1 = local
 fwd/bwd UDF over the pod's chunk of the batch, shuffle = the cross-pod
@@ -78,26 +80,31 @@ from repro_torch.utils.pytree import (tree_flatten_with_paths, tree_map,
 
 METRIC_KEYS = ("nll", "z_loss", "accuracy", "tokens", "aux_loss")
 _EXPERTS = re.compile(r"moe/w[igo]$")
-# the decoder stack's leaves a layer computes on its model block, by the
-# widths that must split (the encoder's and the cross blocks' stay whole)
-_TP_LEAVES = ((re.compile(r"^blocks/.*/attn/(wq|bq|wo)$"), ("heads",)),
-              (re.compile(r"^blocks/.*/attn/(wk|wv|bk|bv)$"),
+# the leaves of the decoder's and the encoder's stacks a layer computes on
+# its model block (the self- and cross-attention, the dense FFN, the
+# RG-LRU block, the MoE's experts), by the widths that must split
+_STACK = r"^(encoder/)?blocks/.*/"
+_TP_LEAVES = ((re.compile(_STACK + r"x?attn/(wq|bq|wo)$"), ("heads",)),
+              (re.compile(_STACK + r"x?attn/(wk|wv|bk|bv)$"),
                ("heads", "kv_heads")),
-              (re.compile(r"^blocks/.*/mlp/w[igo]$"), ("ffn",)),
-              (re.compile(r"^blocks/.*/rglru/(in_x|in_g|conv_w|a_param|out)$"),
-               ("lru",)))
+              (re.compile(_STACK + r"mlp/w[igo]$"), ("ffn",)),
+              (re.compile(_STACK + r"rglru/(in_x|in_g|conv_w|a_param|out)$"),
+               ("lru",)),
+              (re.compile(_STACK + r"moe/w[igo]$"), ("experts",)))
 
 
 def tp_leaf(path: str, cfg: ModelConfig, pcfg: ParallelConfig) -> bool:
     """Whether the leaf at ``path`` is one whose ``model`` block a layer
-    computes on (``sharding.tp_block`` of its widths: the attention's
-    heads, and its kv heads for ``wk`` / ``wv``; the FFN's; the LRU
-    width where ``rglru.lru_split`` splits it), so that a rank keeps
-    only that block along ``model``."""
+    computes on (``sharding.tp_block`` of its widths: the self- and
+    cross-attention's heads, and their kv heads for ``wk`` / ``wv``; the
+    FFN's; the LRU width where ``rglru.lru_split`` splits it; the experts
+    where ``moe.ep_split`` splits them), so that a rank keeps only that
+    block along ``model``."""
     splits = {"heads": tp_block(pcfg, cfg.n_heads),
               "kv_heads": tp_block(pcfg, cfg.n_kv_heads),
               "ffn": tp_block(pcfg, cfg.d_ff),
-              "lru": rglru.lru_split(cfg, pcfg)}
+              "lru": rglru.lru_split(cfg, pcfg),
+              "experts": moe.ep_split(cfg, pcfg)}
     for pat, need in _TP_LEAVES:
         if pat.search(path):
             return all(splits[w] is not None for w in need)
@@ -141,9 +148,12 @@ def cache_specs_for(cache_tree, pcfg: ParallelConfig, cfg: ModelConfig):
     the port's layers where those compute whole or on another dim: an
     attention layer whose heads do not split (``sharding.tp_block``)
     computes whole, so its K / V (and a ring's ``kpos``) stay whole over
-    ``model``; an RG-LRU state stays whole where the layer computes whole
-    (``rglru.lru_split``) and is split along the LRU width, its last dim,
-    where the layer computes on its slice.
+    ``model``; a cross block's ``xk`` / ``xv`` are the rank's kv heads
+    where its heads and kv heads both split, else whole (it then reads
+    its q heads' kv heads from them); an RG-LRU state stays whole where
+    the layer computes whole (``rglru.lru_split``) and is split along the
+    LRU width, its last dim, where the layer computes on its slice; the
+    mLSTM's and sLSTM's states stay whole, as their layers compute whole.
     """
     if pcfg.mesh is None:
         return tree_map(lambda s: P(), cache_tree)
@@ -151,15 +161,15 @@ def cache_specs_for(cache_tree, pcfg: ParallelConfig, cfg: ModelConfig):
     msz = pcfg.model_size
     tp = pcfg.layout == "tp"
     whole_attn = tp and tp_block(pcfg, cfg.n_heads) is None
-    lru = tp and "R" in cfg.block_pattern
-    lru_whole = lru and rglru.lru_split(cfg, pcfg) is None
+    whole_cross = whole_attn or tp and tp_block(pcfg, cfg.n_kv_heads) is None
+    lru_whole = rglru.lru_split(cfg, pcfg) is None
 
     def leaf(path: str, s):
         name = path.split("/")[-1]
         shape = s.shape
         if name in ("k", "v", "xk", "xv"):
             g, bb, S, K, D = shape
-            if whole_attn and name in ("k", "v"):
+            if whole_cross if name in ("xk", "xv") else whole_attn:
                 spec = P(None, b, None, None, None)
             elif K % msz == 0:
                 spec = P(None, b, None, "model", None)
@@ -171,11 +181,12 @@ def cache_specs_for(cache_tree, pcfg: ParallelConfig, cfg: ModelConfig):
             S = shape[2]
             spec = P(None, b, "model") if S % msz == 0 and not whole_attn \
                 else P(None, b, None)
-        elif lru and _layer_sym(path, cfg) == "R":
-            # the RG-LRU state: whole, or the rank's slice of the width
+        elif tp and _layer_sym(path, cfg) in ("R", "m", "s"):
+            # a recurrent state: whole, or the rank's slice of the RG-LRU
+            # width
             dims = [None] * len(shape)
             dims[1] = b
-            if not lru_whole:
+            if _layer_sym(path, cfg) == "R" and not lru_whole:
                 dims[-1] = "model"
             spec = P(*dims)
         else:
@@ -414,24 +425,17 @@ def make_train_step(cfg: ModelConfig, pcfg: ParallelConfig,
 # ---------------------------------------------------------------------------
 
 def check_serving_mesh(cfg: ModelConfig, pcfg: ParallelConfig) -> None:
-    """Raise unless ``cfg`` serves on ``pcfg``'s mesh: a stack of ``A``,
-    ``L`` and ``R`` layers with dense FFNs and no encoder, under
-    ``layout="tp"`` (ROADMAP item 1.3f part 2 for the others).  Every
-    such mesh serves, as the JAX package's serve steps lower on it:
-    heads that do not split over ``model`` compute whole on every
-    ``model`` rank with a whole cache; a cache whose kv heads and
-    sequence both fail to split stays whole (``cache_specs_for``); an
+    """Raise unless ``pcfg``'s mesh serves: ``layout="tp"`` (``fsdp`` is
+    ROADMAP item 1.3f part 2).  Every shipped config serves there, as
+    the JAX package's serve steps lower on any mesh: the self- and
+    cross-attention (the encoder's too), the dense FFN and the MoE's
+    experts compute on the rank's block of their heads, columns or
+    experts where the ``model`` size divides them, else whole on every
+    ``model`` rank, their caches with them (``cache_specs_for``); an
     RG-LRU layer computes on its slice of the width, its state too, or
-    whole (``rglru.lru_split``)."""
-    if pcfg.mesh is None:
-        return
-    if cfg.family == "moe" or cfg.is_encoder_decoder \
-            or not set(cfg.block_pattern) <= {"A", "L", "R"}:
-        raise NotImplementedError(
-            f"{cfg.name} does not serve on a mesh yet (only stacks of A, L "
-            f"and R layers with dense FFNs and no encoder): ROADMAP item "
-            f"1.3f part 2")
-    if pcfg.layout != "tp":
+    whole (``rglru.lru_split``); the mLSTM and sLSTM compute whole, on
+    whole states."""
+    if pcfg.mesh is not None and pcfg.layout != "tp":
         raise NotImplementedError(
             f"the serving mesh runs layout='tp', not {pcfg.layout!r}: ROADMAP "
             f"item 1.3f part 2")
@@ -499,6 +503,14 @@ def init_cache_blocks(cfg: ModelConfig, pcfg: ParallelConfig, batch: int,
                                    mesh.device)
 
 
+def _rows_pcfg(pcfg: ParallelConfig, split: bool) -> ParallelConfig:
+    """``pcfg`` for a serve step's rows: ``whole_batch`` where the batch
+    did not split over the batch axes (every rank holds it whole)."""
+    if pcfg.mesh is None or split:
+        return pcfg
+    return pcfg.with_(whole_batch=True)
+
+
 def _global_logits(logits, pcfg: ParallelConfig, split: bool):
     """A step's logits in float32, gathered over the batch axes where the
     batch was split over them."""
@@ -526,7 +538,7 @@ def make_decode_step(cfg: ModelConfig, pcfg: ParallelConfig,
         rows, split = serve_rows(token, pcfg)
         logits, new_cache = model.decode_step(
             params, cache, rows, serve_rows(pos, pcfg)[0], cfg=cfg,
-            pcfg=pcfg, max_len=max_len)
+            pcfg=_rows_pcfg(pcfg, split), max_len=max_len)
         return _global_logits(logits, pcfg, split), new_cache
     return decode
 
@@ -560,7 +572,8 @@ def make_prefill_step(cfg: ModelConfig, pcfg: ParallelConfig,
         rows, split = {}, False
         for k, v in batch.items():
             rows[k], split = serve_rows(v, pcfg)
-        logits, cache = model.prefill(params, rows, cfg=cfg, pcfg=pcfg,
+        logits, cache = model.prefill(params, rows, cfg=cfg,
+                                      pcfg=_rows_pcfg(pcfg, split),
                                       max_len=max_len)
         return _global_logits(logits, pcfg, split), cache
     return prefill_step

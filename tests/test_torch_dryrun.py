@@ -26,8 +26,12 @@ tensors over stand-in meshes.
   exactly a count from the leaf shapes and specs alone.
 * The kernels' closed-form costs against loops over their work; the
   meta routes' launches against the CPU route's calls in one step.
-* The command line: an ``ok`` record, a refused one naming its item, no
-  default group left behind.
+* The command line: ``ok`` records (``xlstm-1.3b``'s serving cell among
+  them, once refused), a refused one naming its item (the serving mesh
+  under ``layout="fsdp"``), no default group left behind.
+* ``dbrx-132b``'s ``decode_32k`` rank on 16x16: the argument bytes are
+  rank 0's blocks by the spec trees, and the weights it serves with hold
+  one sixteenth of the experts, all of it under the card's 80 GB.
 """
 import json
 import math
@@ -294,18 +298,26 @@ def test_argument_bytes_equal_the_jax_memory_analysis(jax_arguments, key):
 
 # ------------------------------------------------------------ the CLI
 def test_command_line_records_ok_and_refused_cells(tmp_path):
-    """In a subprocess: a cell the port runs writes ``ok: true``; an
-    ``xlstm-1.3b`` serving cell writes ``ok: false`` naming ROADMAP item
-    1.3f part 2 (the summary counts it refused, not failed); no default
-    group is left behind."""
+    """In a subprocess: cells the port runs write ``ok: true`` (the
+    ``xlstm-1.3b`` serving cell, one decode step over whole states, once
+    refused); a serving cell under ``--knob layout=fsdp``, and one under
+    ``--knob embed_mode=vocab_parallel`` (not ported), write ``ok:
+    false`` naming ROADMAP item 1.3f part 2 (the summary counts them
+    refused, not failed); no default group is left behind."""
     code = textwrap.dedent(f"""
         import torch.distributed as dist
         from repro_torch.launch import dryrun
         out = {str(tmp_path)!r}
         rcs = [dryrun.main(["--arch", "qwen2.5-3b", "--shape", "decode_32k",
                             "--out-dir", out]),
-               dryrun.main(["--arch", "xlstm-1.3b", "--shape", "prefill_32k",
-                            "--multi-pod", "--out-dir", out])]
+               dryrun.main(["--arch", "xlstm-1.3b", "--shape", "decode_32k",
+                            "--out-dir", out]),
+               dryrun.main(["--arch", "qwen2.5-3b", "--shape", "decode_32k",
+                            "--knob", "layout=fsdp", "--tag", "fsdp",
+                            "--out-dir", out]),
+               dryrun.main(["--arch", "qwen2.5-3b", "--shape", "decode_32k",
+                            "--knob", "embed_mode=vocab_parallel",
+                            "--tag", "vp", "--out-dir", out])]
         assert not dist.is_initialized()
         print("RCS", rcs)
     """)
@@ -314,9 +326,10 @@ def test_command_line_records_ok_and_refused_cells(tmp_path):
                                "PYTHONPATH": os.path.join(ROOT, "src")},
                           capture_output=True, text=True, timeout=600)
     assert proc.returncode == 0, proc.stdout[-2000:] + proc.stderr[-3000:]
-    assert "RCS [0, 0]" in proc.stdout
-    assert "0 refused, 0 failed" in proc.stdout
-    assert "1 refused (1 item 1.3f part 2), 0 failed" in proc.stdout
+    assert "RCS [0, 0, 0, 0]" in proc.stdout
+    assert proc.stdout.count("1/1 cells OK, 0 refused, 0 failed") == 2
+    assert proc.stdout.count("1 refused (1 item 1.3f part 2), 0 failed") \
+        == 2
     ok = json.loads((tmp_path / "qwen2.5-3b__decode_32k__16x16.json")
                     .read_text())
     assert ok["ok"] and ok["error"] is None
@@ -324,10 +337,73 @@ def test_command_line_records_ok_and_refused_cells(tmp_path):
     assert set(ok["collectives"]) >= {"all-gather", "all-reduce", "total",
                                       "cross_pod", "intra_pod",
                                       "intra_node", "inter_node"}
+    xl = json.loads((tmp_path / "xlstm-1.3b__decode_32k__16x16.json")
+                    .read_text())
+    assert xl["ok"] and xl["error"] is None and xl["refused"] is None
+    assert xl["memory"]["serving_bytes"] >= xl["memory"]["argument_bytes"]
     refused = json.loads(
-        (tmp_path / "xlstm-1.3b__prefill_32k__2x16x16.json").read_text())
+        (tmp_path / "qwen2.5-3b__decode_32k__16x16__fsdp.json").read_text())
     assert not refused["ok"] and refused["refused"] == "1.3f part 2"
     assert "ROADMAP item 1.3f part 2" in refused["error"]
+    assert refused["knobs"] == {"layout": "fsdp"}
+    vp = json.loads(
+        (tmp_path / "qwen2.5-3b__decode_32k__16x16__vp.json").read_text())
+    assert not vp["ok"] and vp["refused"] == "1.3f part 2"
+    assert "vocab_parallel" in vp["error"]
+
+
+def test_dbrx_serving_rank_holds_its_experts_block():
+    """``dbrx-132b``'s ``decode_32k`` cell on the 16 x 16 stand-in mesh,
+    its step not run: ``argument_bytes`` equals rank 0's blocks of the
+    parameters, the cache and the batch counted here leaf by leaf from
+    the spec trees (each dim over the product of its axes); the weights
+    the rank serves with (``serve_params``) keep one sixteenth of each
+    expert leaf (its ``model`` block, whole over ``data``: 1 of 16
+    experts), and those with the cache's block stay under 80 GB."""
+    from repro_torch.models import model as tmodel
+    from repro_torch.models.inputs import input_specs
+    from repro_torch.parallel.sharding import param_specs_for
+    from repro_torch.train import optim
+    from repro_torch.train import step as tstep
+    from repro_torch.utils.pytree import tree_flatten_with_paths as flat
+    from repro_torch.utils.pytree import tree_leaves
+    cfg, shape = get_config("dbrx-132b"), SHAPES["decode_32k"]
+
+    def rank0(shapes, specs, sizes):
+        total = 0
+        for s, spec in zip(tree_leaves(shapes), tree_leaves(specs)):
+            n = s.dtype.itemsize
+            for d, dim in enumerate(s.shape):
+                axes = spec[d] if d < len(spec) else None
+                axes = () if axes is None else \
+                    (axes if isinstance(axes, tuple) else (axes,))
+                n *= dim // math.prod(sizes[a] for a in axes)
+            total += n
+        return total
+
+    with dryrun.standin_group(256):
+        mesh = make_production_mesh(multi_pod=False, device="meta")
+        pcfg = ParallelConfig(mesh=mesh)
+        sizes = dict(mesh.shape)
+        cell = dryrun.build_cell(cfg, shape, pcfg, optim.AdamWConfig())
+        with torch.inference_mode():
+            served = dict(flat(cell["setup"]()))
+    pshapes = tmodel.param_shapes(cfg)
+    ctree = tmodel.cache_shapes(cfg, shape.global_batch, shape.seq_len)
+    btree = input_specs(cfg, shape)
+    want = rank0(pshapes, param_specs_for(pshapes, pcfg), sizes) \
+        + rank0(ctree, tstep.cache_specs_for(ctree, pcfg, cfg), sizes) \
+        + rank0(btree, tstep.batch_specs_for(btree, pcfg), sizes)
+    assert cell["argument_bytes"] == want
+    whole = dict(flat(pshapes))
+    experts = [p for p in whole if "/moe/w" in p]
+    assert len(experts) == 3
+    for path in experts:
+        assert served[path].numel() * 16 == math.prod(whole[path].shape)
+        assert served[path].shape[1] == cfg.n_experts // 16
+    cache = rank0(ctree, tstep.cache_specs_for(ctree, pcfg, cfg), sizes)
+    serving = sum(x.nbytes for x in served.values()) + cache
+    assert serving < 80e9, serving
 
 
 def test_standin_group_refuses_a_default_group_and_leaves_none(tmp_path):

@@ -174,11 +174,12 @@ def serve(arch, mesh):
         n_layers=tcfg.n_layers)
     params = jax.tree.map(jnp.asarray, R.nest(R.init_numpy(tcfg)))
     pcfg = ParallelConfig(mesh=mesh)
-    toks = jnp.asarray(R.serve_batch(tcfg))
+    batch = {k: jnp.asarray(v) for k, v in R.serve_inputs(tcfg).items()}
+    toks = batch["inputs"]
     pos = jnp.full((R.SERVE_B,), R.SERVE_T, jnp.int32)
     with use_mesh(mesh):
         logits, cache = jax.jit(make_prefill_step(cfg, pcfg, R.SERVE_LEN))(
-            params, {"inputs": toks})
+            params, batch)
         nxt, _ = jax.jit(make_serve_step(cfg, pcfg))(params, cache,
                                                      toks[:, -1:], pos)
     cache = jax.tree.map(np.asarray, cache)
@@ -188,7 +189,8 @@ def serve(arch, mesh):
     eng = ServeEngine(cfg, params, max_batch=R.SERVE_SLOTS,
                       max_len=R.SERVE_LEN, scfg=SamplerConfig())
     dec, _ = eng._decode(params, cache, toks[:, -1:], pos)
-    reqs = [eng.submit(p, max_new=R.SERVE_NEW) for p in R.serve_prompts(tcfg)]
+    reqs = [eng.submit(p, max_new=R.SERVE_NEW, enc_frames=f) for p, f in
+            zip(R.serve_prompts(tcfg), R.serve_request_frames(tcfg))]
     eng.run()
     out = {"prefill": np.asarray(logits), "decode": np.asarray(dec),
            "next": np.asarray(nxt), "tokens": np.asarray([r.out
@@ -225,17 +227,20 @@ _POD_ACCUM = f"pods@{ranks.ACCUM}"
 _JAX_SPLIT = (
     [("recurrentgemma-2b", "tp")]
     + [k[:1] + (v,) for k, v in _ACCUM.items() if k[0] == "qwen2.5-3b"]
-    + [(ranks.PODWISE_ARCH, _POD_ACCUM), ("qwen2.5-3b", "serve")],
+    + [(ranks.PODWISE_ARCH, _POD_ACCUM), ("qwen2.5-3b", "serve"),
+       ("xlstm-1.3b", "serve")],
     [("xlstm-1.3b", "tp"), ("qwen2.5-3b", "tp"), ("qwen2.5-3b", "fsdp"),
      ("recurrentgemma-2b", "serve"), (ranks.LRU_WHOLE, "tp"),
      (ranks.LRU_WHOLE, "serve"), (ranks.HEADS_WHOLE, "serve13"),
      (ranks.RING_WHOLE, "serve13")],
     [(a, "tp") for a in ("gemma3-12b", "qwen3-8b", "deepseek-7b",
                          "llava-next-mistral-7b", "seamless-m4t-large-v2")]
-    + [(ranks.PODWISE_ARCH, "single"), ("gemma3-12b", "serve")],
+    + [(ranks.PODWISE_ARCH, "single"), ("gemma3-12b", "serve"),
+       ("seamless-m4t-large-v2", "serve")],
     [(a, lay) for a in ranks.MOE_ARCHS
      for lay in ("tp/einsum", "fsdp/a2a", "pods")]
-    + [k[:1] + (v,) for k, v in _ACCUM.items() if k[0] in ranks.MOE_ARCHS],
+    + [k[:1] + (v,) for k, v in _ACCUM.items() if k[0] in ranks.MOE_ARCHS]
+    + [("qwen3-moe-30b-a3b", "serve")],
 )
 
 
@@ -450,12 +455,13 @@ def test_podwise_none_accumulates_as_pod_body(runs):
 
 def _tp_split(path: str, cfg, kw: dict, m: int = 2) -> bool:
     """Whether a ``tp`` step's layer computes on its ``model`` block of
-    the leaf at ``path``: the decoder stack's attention where the JAX
-    package's ``heads_spec`` splits the heads (``wk`` / ``wv`` where the
-    kv heads split too), its dense FFN where ``model`` divides ``d_ff``,
-    its RG-LRU block where it divides the LRU width (``gate_a`` /
-    ``gate_x`` excepted: their spec splits every block's columns)."""
-    if kw.get("layout", "tp") != "tp" or not path.startswith("blocks/"):
+    the leaf at ``path``: a stack's attention where the JAX package's
+    ``heads_spec`` splits the heads (``wk`` / ``wv`` where the kv heads
+    split too), its dense FFN where ``model`` divides ``d_ff``, its RG-LRU
+    block where it divides the LRU width (``gate_a`` / ``gate_x``
+    excepted: their spec splits every block's columns), its MoE's experts
+    where it divides their count."""
+    if kw.get("layout", "tp") != "tp" or "blocks/" not in path:
         return False
     layer, leaf = path.split("/")[-2:]
     heads = cfg.n_heads % m == 0
@@ -467,6 +473,8 @@ def _tp_split(path: str, cfg, kw: dict, m: int = 2) -> bool:
     if layer == "rglru":
         return leaf in ("in_x", "in_g", "conv_w", "a_param", "out") \
             and cfg.lru_width % m == 0
+    if layer == "moe":
+        return leaf != "router" and cfg.n_experts % m == 0
     return False
 
 
@@ -477,7 +485,8 @@ def _expected_tp_bytes(arch: str, kw: dict) -> int:
     forward (again in the recompute under full remat) and its input's
     gradient in the backward; the replicated leaves inside such a layer
     (the qk-norm scales, ``wk`` / ``wv`` where the kv heads do not
-    split, the RG-LRU gates) sum their gradients."""
+    split, the RG-LRU gates, the MoE's float32 router) sum their
+    gradients."""
     cfg = ranks.lm_cfg(arch)
     if kw.get("layout", "tp") != "tp":
         return 0
@@ -494,10 +503,13 @@ def _expected_tp_bytes(arch: str, kw: dict) -> int:
             n += act * passes + 2 * cfg.lru_width ** 2 // 8
         if sym in "ALR" and cfg.family != "moe" and cfg.d_ff % m == 0:
             n += act * passes
+        if sym in "AL" and cfg.family == "moe" and cfg.n_experts % m == 0:
+            n += act * passes + cfg.d_model * cfg.n_experts
     # under full remat the recompute stops once the backward's saved
     # tensors are remade: a unit ending in a split FFN skips its last sum
-    if kw.get("remat") == "full" and cfg.family != "moe" \
-            and cfg.d_ff % m == 0:
+    split_ffn = cfg.n_experts % m == 0 if cfg.family == "moe" \
+        else cfg.d_ff % m == 0
+    if kw.get("remat") == "full" and split_ffn:
         n -= act
     return 4 * n * cfg.n_groups * accum
 
@@ -568,8 +580,10 @@ def test_step_gathers_each_unit_not_the_stack(runs, key):
     never a whole ``[n_groups, ...]`` stacked leaf, under ``fsdp`` /
     ``a2a`` the experts only over ``data``, and under ``tp`` no leaf of an
     attention, dense-FFN or RG-LRU layer over ``model`` where the JAX
-    activation specs split its width (its ``model`` block is gathered
-    over ``data`` alone); ``WIRE["gather"]`` is the bytes of those
+    activation specs split its width, nor an MoE's experts where
+    ``model`` divides them (each ``model`` block, E / 2 experts of the
+    MoE's, is gathered over ``data`` alone); ``WIRE["gather"]`` is the
+    bytes of those
     blocks, ``WIRE["tp_all_reduce"]`` those of the layers' sums over
     ``model`` (:func:`_expected_tp_bytes`)."""
     port, _ = runs
@@ -675,7 +689,13 @@ def test_serving_mesh_matches_jax_host_mesh(runs, arch, shape):
     equal to the JAX ``ServeEngine``'s (off its mesh: the same values).
     The serve steps gather no weight (``serve_params`` gathered them
     once).  The configs are cut to one pattern unit
-    (``torch_train_ranks.serve_cfg``)."""
+    (``torch_train_ranks.serve_cfg``).  ``qwen3-moe-30b-a3b`` serves its 8
+    experts 4 a ``model`` rank, ``seamless-m4t-large-v2`` its encoder,
+    decoder and cross blocks on 2 of 4 heads a rank from the frames of
+    ``serve_inputs`` / ``serve_request_frames`` (requests of 40 frames
+    write only their prefix of a recycled slot's 96 cross rows, in both
+    engines), ``xlstm-1.3b`` computes whole on every rank, summing
+    nothing over ``model``."""
     port, ref = runs
     got, want = port["serve"][arch, shape], _serve_ref(ref, arch)
     for key in ("prefill", "decode"):
@@ -684,8 +704,10 @@ def test_serving_mesh_matches_jax_host_mesh(runs, arch, shape):
         assert np.abs(got[key] - want[key]).max() <= SERVE_TOL * scale, key
     np.testing.assert_array_equal(got["next"], want["next"])
     assert got["tokens"] == want["tokens"].tolist()
-    # the serve steps gather no weight; the layers sum over model
-    assert got["wire"]["gather"] == 0 and got["wire"]["tp_all_reduce"] > 0
+    # the serve steps gather no weight; the layers on a model block sum
+    # over model
+    assert got["wire"]["gather"] == 0
+    assert (got["wire"]["tp_all_reduce"] > 0) == (arch != "xlstm-1.3b")
 
 
 @pytest.mark.parametrize("arch,shape", ranks.SERVE_CASES, ids=str)
@@ -696,8 +718,9 @@ def test_serving_cache_blocks_follow_cache_specs(runs, arch, shape):
     ``gemma3-12b``, whose ring ``kpos`` splits over the sequence), or its
     block of the sequence (``recurrentgemma-2b``'s one kv head,
     ``qwen2.5-3b``'s two on ``(1, 4)``), the
-    RG-LRU state by width; and the engine's pool holds its blocks of a
-    4-slot cache."""
+    RG-LRU state by width, the cross caches ``xk`` / ``xv`` by kv heads,
+    the xLSTM states whole; and the engine's pool holds its blocks of a
+    4-slot cache (an encoder-decoder's cross rows ``SERVE_LEN``)."""
     from repro_torch.convert import cache_from_jax
     from repro_torch.models import model as tmodel
     from repro_torch.parallel import sharded
@@ -710,8 +733,11 @@ def test_serving_cache_blocks_follow_cache_specs(runs, arch, shape):
                 object(), 0, shape[0] * shape[1], "cpu", "gloo")
     pcfg = TPC(mesh=mesh)
     cfg = ranks.serve_cfg(arch)
+    enc = cfg.is_encoder_decoder
     specs = tstep.cache_specs_for(
-        tmodel.cache_shapes(cfg, ranks.SERVE_B, ranks.SERVE_LEN), pcfg, cfg)
+        tmodel.cache_shapes(cfg, ranks.SERVE_B, ranks.SERVE_LEN,
+                            cross_len=ranks.SERVE_FRAMES if enc else 0),
+        pcfg, cfg)
     jax_cache = ranks.nest({k[len("cache/"):]: v for k, v in
                             _serve_ref(runs[1], arch).items()
                             if k.startswith("cache/")})
@@ -722,14 +748,23 @@ def test_serving_cache_blocks_follow_cache_specs(runs, arch, shape):
         assert got["cache"][path].shape == w.shape, path
         tol = SERVE_TOL * max(np.abs(w).max(), 1)
         assert np.abs(got["cache"][path] - w).max() <= tol, path
-    pool = tmodel.cache_shapes(cfg, ranks.SERVE_SLOTS, ranks.SERVE_LEN)
+    pool = tmodel.cache_shapes(cfg, ranks.SERVE_SLOTS, ranks.SERVE_LEN,
+                               cross_len=ranks.SERVE_LEN if enc else 0)
     for path, s in flat(tstep.cache_specs_for(pool, pcfg, cfg)):
         whole = dict(flat(pool))[path].shape
         block = tuple(len(range(*c.indices(n))) for c, n in zip(
             sharded.block_slices(s, whole, mesh), whole))
         assert got["pool"][path] == block, path
-    k = [v for p, v in got["cache"].items() if p.endswith("/k")][0]
-    assert k.shape[1] == ranks.SERVE_B // shape[0]
+    whole_cache = dict(flat(tmodel.cache_shapes(cfg, ranks.SERVE_B,
+                                                ranks.SERVE_LEN)))
+    # every leaf is [G, B, ...]: the rank's rows; along model the cross
+    # caches' kv heads split, the xLSTM states do not
+    for path, x in got["cache"].items():
+        assert x.shape[1] == ranks.SERVE_B // shape[0], path
+        if path.endswith(("/xk", "/xv")):
+            assert x.shape[3] == cfg.n_kv_heads // shape[1], path
+        if "/rec/" in path and cfg.family == "xlstm":
+            assert x.shape[2:] == whole_cache[path].shape[2:], path
 
 
 def test_sequence_split_decode_adds_nothing_for_an_empty_block(runs):
@@ -767,30 +802,89 @@ def test_copy_to_model_and_reduce_from_model(runs):
 
 @pytest.mark.parametrize("arch", ["xlstm-1.3b", "qwen3-moe-30b-a3b",
                                   "seamless-m4t-large-v2", "dbrx-132b"])
-def test_serving_mesh_refuses_other_configs(arch):
-    """(k) A config outside the serving mesh's list (a stack with other
-    than ``A`` / ``L`` / ``R`` layers, MoE FFNs or an encoder) raises
-    ``NotImplementedError`` naming ROADMAP item 1.3f part 2, from the
-    serve steps and the engine; so does ``layout="fsdp"``."""
+def test_serving_mesh_takes_every_config_and_refuses_fsdp(arch):
+    """(k) The configs the serving mesh once refused (a stack with other
+    than ``A`` / ``L`` / ``R`` layers, MoE FFNs or an encoder) build their
+    serve steps and ``ServeEngine`` on a ``(2, 2)`` mesh of CPU tensors
+    over the dry run's stand-in group (whose collectives move nothing):
+    the engine's serving parameters keep the rank's ``model`` block of
+    the experts (4 of 8) and of every attention's heads, the encoder's
+    and the cross blocks' too; ``layout="fsdp"`` still raises
+    ``NotImplementedError`` naming ROADMAP item 1.3f part 2."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_mesh_compat
+    from repro_torch.models import model as tmodel
+    from repro_torch.parallel import sharded
+    from repro_torch.parallel.sharding import ParallelConfig as TPC
+    from repro_torch.parallel.sharding import param_specs_for
+    from repro_torch.serve import ServeEngine
+    from repro_torch.train import step as tstep
+    from repro_torch.utils.pytree import tree_flatten_with_paths as flat
+    cfg = get_config(arch).reduced()
+    params = tmodel.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    shapes = dict(flat(tmodel.param_shapes(cfg)))
+    with dryrun.standin_group(4):
+        mesh = make_mesh_compat((2, 2), ("data", "model"), device="cpu")
+        pcfg = TPC(mesh=mesh)
+        tstep.make_prefill_step(cfg, pcfg, 96)
+        tstep.make_serve_step(cfg, pcfg, 96)
+        blocks = sharded.shard_tree(params, param_specs_for(
+            tmodel.param_shapes(cfg), pcfg), mesh)
+        eng = ServeEngine(cfg, blocks, pcfg, max_len=96)
+        served = dict(flat(eng.params))
+        cut = {p for p in served if tstep.tp_leaf(p, cfg, pcfg)}
+        for path, x in served.items():
+            want = list(shapes[path].shape)
+            if path in cut:     # the model block: experts, or columns
+                dim = 1 if path.endswith(("/wo", "/bq", "/bk", "/bv")) \
+                    or "/moe/" in path else 2
+                want[dim] //= 2
+            assert tuple(x.shape) == tuple(want), path
+        kinds = {p.split("/")[-2] for p in cut}
+        assert kinds == {"xlstm-1.3b": set(),
+                         "seamless-m4t-large-v2": {"attn", "xattn", "mlp"}
+                         }.get(arch, {"attn", "moe"}), kinds
+        if cfg.is_encoder_decoder:
+            assert any(p.startswith("encoder/") for p in cut)
+        with pytest.raises(NotImplementedError, match="1.3f part 2"):
+            tstep.make_prefill_step(cfg, TPC(mesh=mesh, layout="fsdp"), 96)
+        with pytest.raises(NotImplementedError, match="1.3f part 2"):
+            ServeEngine(cfg, blocks, TPC(mesh=mesh, layout="fsdp"),
+                        max_len=96)
+
+
+def test_vocab_parallel_embedding_raises_on_a_mesh():
+    """``embed_mode="vocab_parallel"`` (the JAX package's masked take of
+    each ``model`` rank's vocab block) is not ported: on a mesh of
+    several ``model`` ranks ``transformer.embed`` raises naming ROADMAP
+    item 1.3f part 2, where the JAX package would take that route;
+    without a mesh, or with one ``model`` rank, the knob does not act
+    (in either package) and the lookup is the table's rows."""
     import torch
 
     from repro_torch.configs import get_config
     from repro_torch.models import model as tmodel
+    from repro_torch.models import transformer
     from repro_torch.parallel.mesh_utils import Mesh
     from repro_torch.parallel.sharding import ParallelConfig as TPC
-    from repro_torch.serve import ServeEngine
-    from repro_torch.train import step as tstep
-    mesh = Mesh(("data", "model"), {"data": 2, "model": 2}, object(), 0, 4,
-                "cpu", "gloo")
-    cfg = get_config(arch).reduced()
-    with pytest.raises(NotImplementedError, match="1.3f part 2"):
-        tstep.make_prefill_step(cfg, TPC(mesh=mesh), 96)
+    cfg = get_config("qwen2.5-3b").reduced().replace(
+        param_dtype="float32", compute_dtype="float32")
     params = tmodel.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    toks = torch.tensor([[1, 5, 7]], dtype=torch.int32)
+    grid = Mesh(("data", "model"), {"data": 2, "model": 2}, object(), 0, 4,
+                "cpu", "gloo")
     with pytest.raises(NotImplementedError, match="1.3f part 2"):
-        ServeEngine(cfg, params, TPC(mesh=mesh), max_len=96)
-    with pytest.raises(NotImplementedError, match="1.3f part 2"):
-        tstep.check_serving_mesh(get_config("qwen2.5-3b").reduced(),
-                                 TPC(mesh=mesh, layout="fsdp"))
+        transformer.embed(params, toks, cfg=cfg,
+                          pcfg=TPC(mesh=grid, embed_mode="vocab_parallel"))
+    rows = Mesh(("data", "model"), {"data": 4, "model": 1}, object(), 0, 4,
+                "cpu", "gloo")
+    for pcfg in (TPC(embed_mode="vocab_parallel"),
+                 TPC(mesh=rows, embed_mode="vocab_parallel")):
+        x = transformer.embed(params, toks, cfg=cfg, pcfg=pcfg)
+        assert torch.equal(x, params["embed"]["w"][toks.long()])
 
 
 def test_tp_step_computes_an_lru_whole_where_its_gate_blocks_do_not_split(
@@ -959,7 +1053,11 @@ def test_spec_trees_match_jax(arch):
     ``_RULES``, the state's with ``ef`` under ``multi_pod``, the batch's,
     a decode cache's) equal the JAX package's for every shipped config,
     on a ``(pod, data, model) = (2, 2, 2)`` grid (JAX reads only its axis
-    names and sizes here)."""
+    names and sizes here).  One departure, by design: under ``tp`` the
+    mLSTM's and sLSTM's states are whole over ``model`` (the port's
+    layers compute whole on every ``model`` rank; the JAX spec splits
+    their first feature dim that ``model`` divides), their batch dim
+    split as the JAX spec splits it."""
     from types import SimpleNamespace
 
     from repro.configs import ARCHS
@@ -997,9 +1095,16 @@ def test_spec_trees_match_jax(arch):
         batch = {"inputs": np.zeros((8, 16)), "labels": np.zeros((8, 16))}
         same(jstep.batch_specs_for(batch, jp),
              tstep.batch_specs_for(batch, tp))
-        same(jstep.cache_specs_for(jmodel.cache_shapes(jcfg, 8, 64), jp),
-             tstep.cache_specs_for(tmodel.cache_shapes(tcfg, 8, 64), tp,
-                                   tcfg))
+        jl = jflat(jstep.cache_specs_for(jmodel.cache_shapes(jcfg, 8, 64),
+                                         jp))
+        tl = tflat(tstep.cache_specs_for(tmodel.cache_shapes(tcfg, 8, 64),
+                                         tp, tcfg))
+        assert [p for p, _ in jl] == [p for p, _ in tl]
+        for (p, a), (_, b) in zip(jl, tl):
+            a = tuple(a)
+            if layout == "tp" and tcfg.family == "xlstm":
+                a = (None, a[1]) + (None,) * (len(a) - 2)
+            assert a == tuple(b), (p, a, b)
 
 
 @pytest.mark.parametrize("variant", [ranks.HEADS_WHOLE, ranks.RING_WHOLE])

@@ -160,7 +160,10 @@ def test_dispatch_modes_and_the_mesh():
     batch ranks are ``model``'s two under fsdp (where ``a2a`` runs the
     expert all-to-all, held to the JAX package by
     ``test_mesh_apply_matches_jax``) and none under tp, where ``a2a``
-    falls back to the meshless ``gather`` as in the JAX package."""
+    falls back to ``gather`` as in the JAX package: split over the two
+    ``model`` ranks there (``ep_split``, held to the JAX package by the
+    same test), and on ``(1, 3)``, whose 3 ranks do not divide the 8
+    experts, the meshless ``gather`` whole."""
     _, tcfg = _cfgs()
     _, tp, _, tx = _setup()
     with pytest.raises(ValueError):
@@ -173,8 +176,13 @@ def test_dispatch_modes_and_the_mesh():
     assert (ranks.axes, ranks.size, ranks.index) == (("model",), 2, 1)
     assert (ranks.model_size, ranks.model_index) == (2, 1)
     assert tmoe._batch_ranks(TPC(mesh=grid)) is None
+    assert tmoe.ep_split(tcfg, TPC(mesh=grid)) == (1, 2)
+    assert tmoe.ep_split(tcfg, TPC(mesh=grid, layout="fsdp")) is None
     # under tp the JAX package falls back to gather, and so does the port
-    oa, _ = tmoe.apply(tp, tx, cfg=tcfg, pcfg=TPC(mesh=grid,
+    trio = Mesh(("data", "model"), {"data": 1, "model": 3}, object(), 1, 3,
+                "cpu", "gloo")
+    assert tmoe.ep_split(tcfg, TPC(mesh=trio)) is None
+    oa, _ = tmoe.apply(tp, tx, cfg=tcfg, pcfg=TPC(mesh=trio,
                                                   moe_dispatch="a2a"))
     og, _ = tmoe.apply(tp, tx, cfg=tcfg, pcfg=TPC(moe_dispatch="gather"))
     assert torch.equal(oa, og)
@@ -269,7 +277,13 @@ def test_mesh_apply_matches_jax(mesh_runs, case):
     every rank) within 1e-6, and each parameter's gradient summed over
     the batch ranks within 1e-5 of its largest magnitude.  At a factor
     of 0.5 slots are dropped (the rows whose every slot is dropped come
-    out zero); in the straddle case a rank's tokens lie in two groups."""
+    out zero); in the straddle case a rank's tokens lie in two groups.
+    Under ``tp`` where ``model`` divides the 8 experts (``moe.ep_split``:
+    ``(2, 2)`` and ``(1, 2)``) each rank holds its 4 experts alone (their
+    gradients gathered over ``model`` here), the router's gradient, whose
+    aux term only ``model`` rank 0 carries, counts the aux once, and every
+    ``model`` rank of one batch rank dispatches with the same ``C_l``; on
+    ``(1, 3)`` the layer computes whole on every rank."""
     import torch_train_ranks as ranks
     port, ref = mesh_runs
     got = [r[case] for r in port if case in r]
@@ -290,6 +304,16 @@ def test_mesh_apply_matches_jax(mesh_runs, case):
             assert np.abs(v - want).max() <= 1e-5 * np.abs(want).max(), name
     if case.endswith("drops"):
         assert (np.abs(out).max(-1) == 0).any()
+    layout = ranks.MOE_MESH_CASES[case][1]
+    split = layout == "tp" and 8 % shape[1] == 0
+    for g in got:
+        assert (g["block"] is not None) == split
+        assert g["experts"][0] == (8 // shape[1] if split else 8)
+        if split:
+            assert tuple(g["block"]) == (g["model_index"], shape[1])
+        if layout == "tp":
+            peers = [h["caps"] for h in got if h["index"] == g["index"]]
+            assert g["caps"] and all(c == g["caps"] for c in peers)
 
 
 def test_aux_loss_uniform_router():

@@ -327,8 +327,10 @@ MOE_ARCH = "qwen3-moe-30b-a3b"
 # name: (mesh shape over (data, model), layout, moe_dispatch, capacity
 # factor, (B, T), GROUP_SIZE): the expert all-to-all on (1, 2) and (2, 2)
 # under fsdp, the global grouping of einsum and gather under tp, each
-# also at a factor of 0.5 that drops slots; and gather under fsdp over
-# 4 batch ranks whose 24 tokens straddle groups of 32
+# also at a factor of 0.5 that drops slots, the 8 experts split 4 a model
+# rank (also on (1, 2), one batch rank); under tp on (1, 3), whose 3 ranks
+# do not divide the 8 experts, the layer whole on every rank; and gather
+# under fsdp over 4 batch ranks whose 24 tokens straddle groups of 32
 MOE_MESH_CASES = {
     "a2a-1x2": ((1, 2), "fsdp", "a2a", 1.25, (B, T), 4096),
     "a2a-1x2-drops": ((1, 2), "fsdp", "a2a", 0.5, (B, T), 4096),
@@ -338,6 +340,8 @@ MOE_MESH_CASES = {
     "einsum-tp-drops": ((2, 2), "tp", "einsum", 0.5, (B, T), 4096),
     "gather-tp": ((2, 2), "tp", "gather", 1.25, (B, T), 4096),
     "gather-tp-drops": ((2, 2), "tp", "gather", 0.5, (B, T), 4096),
+    "einsum-tp-1x2": ((1, 2), "tp", "einsum", 1.25, (B, T), 4096),
+    "gather-tp-1x3-whole": ((1, 3), "tp", "gather", 1.25, (B, T), 4096),
     "gather-fsdp-straddle": ((2, 2), "fsdp", "gather", 1.25, (B, 12), 64),
 }
 
@@ -362,7 +366,10 @@ def moe_mesh_suite(rank: int, world: int):
     output and aux, and the gradients of ``sum(out * ct) + aux`` (the aux
     term weighted by 1 / the batch ranks, the token shares of equal
     rows) by ``x`` (its rows) and by each parameter (summed over the
-    batch ranks)."""
+    batch ranks).  Where ``moe.ep_split`` splits the experts the rank
+    holds its block of ``wi`` / ``wg`` / ``wo`` alone, and their
+    gradients are gathered over ``model``; the capacity each dispatch
+    call was given (``C_l``) is recorded with the rank's model index."""
     from repro_torch.launch.mesh import make_mesh_compat
     from repro_torch.models import moe
     from repro_torch.parallel import sharded
@@ -371,16 +378,31 @@ def moe_mesh_suite(rank: int, world: int):
     axes = ("data", "model")
     meshes = {(2, 2): make_mesh_compat((2, 2), axes, device="cpu"),
               (1, 2): make_mesh_compat((1, 2), axes, device="cpu",
-                                       ranks=range(2))}
+                                       ranks=range(2)),
+              (1, 3): make_mesh_compat((1, 3), axes, device="cpu",
+                                       ranks=range(3))}
     out = {}
-    saved = moe.CAPACITY_FACTOR, moe.GROUP_SIZE
+    saved = moe.CAPACITY_FACTOR, moe.GROUP_SIZE, moe._apply_einsum, \
+        moe._apply_gather
+    caps = []
+
+    def recording(fn):
+        def call(*args):
+            caps.append(args[6])
+            return fn(*args)
+        return call
     for name, (shape, layout, dispatch, factor, bt, group) in \
             MOE_MESH_CASES.items():
         mesh = meshes[shape]
         if mesh is None:
             continue
         pcfg = ParallelConfig(mesh=mesh, layout=layout, moe_dispatch=dispatch)
+        block = moe.ep_split(cfg, pcfg)
         p_np, x_np, ct_np = moe_inputs(cfg, bt)
+        if block is not None:
+            el = cfg.n_experts // block[1]
+            p_np = {k: v[block[0] * el:(block[0] + 1) * el]
+                    if k != "router" else v for k, v in p_np.items()}
         params = {k: torch.from_numpy(v).requires_grad_()
                   for k, v in p_np.items()}
         x = sharded.batch_rows(torch.from_numpy(x_np), mesh,
@@ -388,17 +410,28 @@ def moe_mesh_suite(rank: int, world: int):
         ct = sharded.batch_rows(torch.from_numpy(ct_np), mesh,
                                 pcfg.data_axes)
         ranks = moe._batch_ranks(pcfg)
+        batch_axes, size = (ranks.axes, ranks.size) if ranks else ((), 1)
+        caps.clear()
         moe.CAPACITY_FACTOR, moe.GROUP_SIZE = factor, group
+        moe._apply_einsum = recording(saved[2])
+        moe._apply_gather = recording(saved[3])
         try:
             o, aux = moe.apply(params, x, cfg=cfg, pcfg=pcfg)
-            ((o * ct).sum() + aux / ranks.size).backward()
+            ((o * ct).sum() + aux / size).backward()
         finally:
-            moe.CAPACITY_FACTOR, moe.GROUP_SIZE = saved
+            (moe.CAPACITY_FACTOR, moe.GROUP_SIZE, moe._apply_einsum,
+             moe._apply_gather) = saved
+        grads = {}
+        for k, p in params.items():
+            g = sharded.all_reduce(p.grad, mesh, batch_axes)
+            if block is not None and k != "router":
+                g = sharded.gather_wire(g.contiguous(), mesh, ("model",))
+            grads[k] = g.numpy()
         out[name] = {
-            "index": ranks.index, "out": o.detach().numpy(),
-            "aux": float(aux), "gx": x.grad.numpy(),
-            "grads": {k: sharded.all_reduce(p.grad, mesh, ranks.axes)
-                      .numpy() for k, p in params.items()}}
+            "index": ranks.index if ranks else 0, "out": o.detach().numpy(),
+            "aux": float(aux), "gx": x.grad.numpy(), "grads": grads,
+            "model_index": mesh.axis_index("model"), "block": block,
+            "experts": tuple(p_np["wi"].shape), "caps": list(caps)}
     return out
 
 
@@ -619,13 +652,23 @@ def cuda_mesh_suite(rank: int, world: int):
 SERVE_ARCHS = ("recurrentgemma-2b", "qwen2.5-3b", "gemma3-12b")
 # (arch, (data, model)): each on (2, 2) and (1, 2); qwen2.5-3b also on
 # (1, 4), where its 2 kv heads do not split: whole K / V, a cache split
-# over the sequence, 2 q heads a rank over one kv head
+# over the sequence, 2 q heads a rank over one kv head.  The other
+# families: the MoE's 8 experts 4 a model rank on (2, 2) and (1, 2); the
+# encoder-decoder's encoder, decoder and cross blocks on 2 of 4 heads a
+# rank (its 2 kv heads split, so do the cross caches); the xLSTM whole on
+# every model rank, its states whole
 SERVE_CASES = [(a, s) for a in SERVE_ARCHS for s in ((2, 2), (1, 2))] \
-    + [("qwen2.5-3b", (1, 4))]
+    + [("qwen2.5-3b", (1, 4)), ("qwen3-moe-30b-a3b", (2, 2)),
+       ("qwen3-moe-30b-a3b", (1, 2)), ("seamless-m4t-large-v2", (1, 2)),
+       ("xlstm-1.3b", (1, 2))]
 SERVE_B, SERVE_T = 4, 80        # the prefill batch, past the window of 64
 SERVE_LEN = 96                  # the cache's capacity
 SERVE_SLOTS, SERVE_NEW = 4, 6
 SERVE_LENGTHS = (20, 70) * 3    # 6 requests over 4 slots
+SERVE_FRAMES = 48               # an encoder-decoder's prefill batch frames
+# its requests' frames: the pool's 96 rows, or 40, which write only their
+# prefix of a recycled slot's rows (the fault both engines share)
+SERVE_FRAME_LENGTHS = (SERVE_LEN, 40) * 3
 
 
 def serve_cfg(arch: str):
@@ -648,12 +691,33 @@ def serve_prompts(cfg) -> list:
             for n in SERVE_LENGTHS]
 
 
+def serve_inputs(cfg) -> dict:
+    """The prefill batch: :func:`serve_batch`'s tokens and an
+    encoder-decoder's ``enc_frames`` ``[SERVE_B, SERVE_FRAMES, d]``."""
+    out = {"inputs": serve_batch(cfg)}
+    if cfg.is_encoder_decoder:
+        out["enc_frames"] = np.random.default_rng(4).normal(
+            size=(SERVE_B, SERVE_FRAMES, cfg.d_model)).astype(np.float32)
+    return out
+
+
+def serve_request_frames(cfg) -> list:
+    """Each of :func:`serve_prompts`' requests' ``enc_frames`` ``[1, F,
+    d]`` (``SERVE_FRAME_LENGTHS``), None without an encoder."""
+    if not cfg.is_encoder_decoder:
+        return [None] * len(SERVE_LENGTHS)
+    rng = np.random.default_rng(5)
+    return [rng.normal(size=(1, n, cfg.d_model)).astype(np.float32)
+            for n in SERVE_FRAME_LENGTHS]
+
+
 def serve_case(cfg, mesh) -> dict:
     """The serve steps and the engine on ``mesh`` (``layout="tp"``) from
     :func:`init_numpy`'s blocks: the prefill's last logits of
-    :func:`serve_batch` (capacity ``SERVE_LEN``), one decode step's logits
-    and greedy tokens from its cache, the greedy token streams of
-    :func:`serve_prompts`, the prefill's cache blocks and the shapes of
+    :func:`serve_inputs` (capacity ``SERVE_LEN``), one decode step's
+    logits and greedy tokens from its cache, the greedy token streams of
+    :func:`serve_prompts` (with :func:`serve_request_frames`), the
+    prefill's cache blocks and the shapes of
     the pool's; the bytes the serve steps handed to each collective."""
     from repro_torch.convert import params_from_jax
     from repro_torch.models import model
@@ -666,12 +730,13 @@ def serve_case(cfg, mesh) -> dict:
     blocks = params_from_jax(nest(init_numpy(cfg)), specs=param_specs_for(
         model.param_shapes(cfg), pcfg), mesh=mesh)
     params = tstep.serve_params(cfg, pcfg, blocks)
-    toks = torch.from_numpy(serve_batch(cfg))
+    batch = {k: torch.from_numpy(v) for k, v in serve_inputs(cfg).items()}
+    toks = batch["inputs"]
     pos = torch.full((SERVE_B,), SERVE_T, dtype=torch.int32)
     before = dict(sharded.WIRE)
     with torch.inference_mode():
         logits, cache = tstep.make_prefill_step(cfg, pcfg, SERVE_LEN)(
-            params, {"inputs": toks})
+            params, batch)
         dec, _ = tstep.make_decode_step(cfg, pcfg, SERVE_LEN)(
             params, cache, toks[:, -1:], pos)
         nxt, _ = tstep.make_serve_step(cfg, pcfg, SERVE_LEN)(
@@ -679,7 +744,8 @@ def serve_case(cfg, mesh) -> dict:
     wire = {k: v - before[k] for k, v in sharded.WIRE.items()}
     eng = ServeEngine(cfg, blocks, pcfg, max_batch=SERVE_SLOTS,
                       max_len=SERVE_LEN, scfg=SamplerConfig())
-    reqs = [eng.submit(p, max_new=SERVE_NEW) for p in serve_prompts(cfg)]
+    reqs = [eng.submit(p, max_new=SERVE_NEW, enc_frames=f) for p, f in
+            zip(serve_prompts(cfg), serve_request_frames(cfg))]
     eng.run()
     return {"prefill": logits.numpy(), "decode": dec.numpy(),
             "next": nxt.numpy(), "tokens": [r.out for r in reqs],
