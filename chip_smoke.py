@@ -3735,15 +3735,17 @@ MESH_SPANS = (("fwd_bwd", "step", "_value_and_grad_accum"),
               ("update", "optim", "apply_updates"))
 # inside fwd_bwd, each summed over a step: the per-unit gathers' and
 # their backward reduce-scatters' wire calls (``sharded.gather_block``'s
-# forward, recompute and backward), the MoE's exchanges (``sharded``'s
-# autograd collectives: the ids' and aux statistics' all-gather, its
-# backward's reduce-scatter, the expert all-to-all), and the tensor-
+# forward, recompute and backward), the exchanges (``sharded``'s autograd
+# collectives: the MoE's ids' and aux statistics' all-gather, its
+# backward's reduce-scatter, the expert all-to-all; and the vocab-split
+# cross-entropy's all-gather of each row's maximum), and the tensor-
 # parallel layers' sums over ``model`` (``sharded.model_sum``: their
-# outputs forward and in the recompute, their inputs' gradients)
-MOE_EXCHANGE = ("gather_wire", "scatter_wire", "exchange_wire")
+# outputs forward and in the recompute, their inputs' gradients, the
+# head's too, and the cross-entropy's sums)
+EXCHANGE = ("gather_wire", "scatter_wire", "exchange_wire")
 MESH_INNER = {"gather": ("gather_leaf",),
               "reduce_scatter": ("reduce_scatter_leaf",),
-              "moe_exchange": MOE_EXCHANGE,
+              "exchange": EXCHANGE,
               "tp_all_reduce": ("model_sum",)}
 
 
@@ -4644,6 +4646,11 @@ def moe_mesh_phase(torch, seed: int) -> tuple:
 # first 9 of 36 layers (18 took 54.3 s with phase 27 beside it)
 MESH_SERVE_LAYERS = {LM_ARCH: POD_LAYERS, "qwen2.5-3b": 9}
 MESH_SERVE_SHAPE = (1, 2)       # (data, model): two gloo ranks, layout tp
+# (22c): served a second time by the same ranks under
+# embed_mode="vocab_parallel" (the masked take of a rank's rows of the
+# table, summed over model), its logits held bit for bit to the gather
+# run's
+MESH_VP_ARCH = "qwen2.5-3b"
 # (22a): a layer's update on the mesh against the single device's from
 # the same bf16 input, of the single device's largest |update|.  Each of
 # the layer's two blocks (attention or RG-LRU, then the FFN) ends in a
@@ -4998,7 +5005,48 @@ def serve_mesh_rank(rank: int, world: int, seed: int, tmp: str, cfgs,
                                          cfg)
         gc.collect()
         torch.cuda.empty_cache()
+        if cfg.name == MESH_VP_ARCH:
+            out[cfg.name]["vocab_parallel"] = _serve_mesh_vp(
+                torch, mesh, seed, Path(tmp), cfg, out[cfg.name])
+            gc.collect()
+            torch.cuda.empty_cache()
     return out
+
+
+def _serve_mesh_vp(torch, mesh, seed: int, tmp: Path, cfg, gathered) -> dict:
+    """(22c): ``cfg`` served again by this rank under
+    ``embed_mode="vocab_parallel"``, the table's rows its own block (the
+    masked take summed over ``model``): the prefill and first decode
+    logits and the greedy streams against the ``embed_mode="gather"``
+    run's (``gathered``) on the same ranks, bit for bit."""
+    from repro_torch.models import model
+    from repro_torch.parallel import sharded
+    from repro_torch.parallel.sharding import ParallelConfig, param_specs_for
+    from repro_torch.utils.pytree import tree_flatten_with_paths
+    pcfg = ParallelConfig(mesh=mesh, embed_mode="vocab_parallel")
+    specs = dict(tree_flatten_with_paths(
+        param_specs_for(model.param_shapes(cfg), pcfg)))
+    params = model.init_params(
+        cfg, torch.Generator().manual_seed(seed), mesh.device,
+        keep=lambda path, x: sharded.local_block(x, specs[path], mesh))
+    ref = torch.load(tmp / f"serve_{cfg.name}.pt")
+    prompts = serve_mesh_prompts(cfg, seed)
+    for k in sharded.WIRE:
+        sharded.WIRE[k] = 0
+    t = time.perf_counter()
+    reqs, _, rec, peak, sp = mesh_serve_run(
+        torch, cfg, params, prompts, pcfg, ref["tokens"], mesh.device,
+        serve_mesh_frames(cfg, seed, len(prompts)))
+    check(sp["embed"]["w"].shape[0] * mesh.shape["model"] == cfg.padded_vocab,
+          f"{cfg.name}: the vocab_parallel rank serves with a table of "
+          f"{tuple(sp['embed']['w'].shape)}, not its block of the rows")
+    return {"prefill": bool(np.array_equal(
+                torch.stack(rec["prefill"]).numpy(), gathered["prefill"])),
+            "decode": bool(np.array_equal(rec["decode"].numpy(),
+                                          gathered["decode"])),
+            "tokens": [r.out for r in reqs] == gathered["tokens"],
+            "table": tuple(sp["embed"]["w"].shape), "peak": peak,
+            "serve_s": time.perf_counter() - t, "wire": dict(sharded.WIRE)}
 
 
 def _serve_mesh_arch(torch, rank, mesh, seed: int, tmp: Path, cfg) -> dict:
@@ -5034,8 +5082,8 @@ def _serve_mesh_arch(torch, rank, mesh, seed: int, tmp: Path, cfg) -> dict:
         captured.setdefault(key, (a.clone(), b.clone(), h0.clone()))
         return real_scan(a, b, h0)
 
-    tp = {"calls": 0, "s": 0.0}
-    real_sum = sharded.model_sum
+    tp = {"calls": 0, "s": 0.0, "gathers": 0, "gather_s": 0.0}
+    real_sum, real_gather = sharded.model_sum, sharded.gather_wire
 
     def model_sum(x, *a, **kw):
         torch.cuda.synchronize()
@@ -5046,13 +5094,26 @@ def _serve_mesh_arch(torch, rank, mesh, seed: int, tmp: Path, cfg) -> dict:
         tp["s"] += time.perf_counter() - t0
         return out
 
+    def gather_wire(x, mesh_, axes):
+        # the logits' gather over model (a rank's block of the vocabulary)
+        if mesh_.mesh_axes(axes) != ("model",):
+            return real_gather(x, mesh_, axes)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = real_gather(x, mesh_, axes)
+        torch.cuda.synchronize()
+        tp["gathers"] += 1
+        tp["gather_s"] += time.perf_counter() - t0
+        return out
+
     for k in sharded.WIRE:
         sharded.WIRE[k] = 0
     fkernel.launches = lkernel.launches = 0
     t = time.perf_counter()
     with patched(fkernel, "flash_attention_fwd", flash), \
             patched(lkernel, "lru_scan", scan), \
-            patched(sharded, "model_sum", model_sum):
+            patched(sharded, "model_sum", model_sum), \
+            patched(sharded, "gather_wire", gather_wire):
         reqs, steps, rec, peak, sp = mesh_serve_run(
             torch, cfg, params, prompts, pcfg, ref["tokens"], mesh.device,
             frames)
@@ -5214,9 +5275,10 @@ def check_serve_mesh_rank(arch, r, got, want, single, card) -> None:
           f"max_memory_allocated={got['peak']} (the rank's blocks "
           f"{got['blocks']} bytes, its serving parameters "
           f"{got['serving_bytes']}); tp_all_reduce {tp['calls']} calls "
-          f"{got['wire']['tp_all_reduce']} bytes {tp['s']:.3f}s of the "
-          f"serve's {got['serve_s']:.3f}s (the rest: compute, the "
-          f"engine and the other collectives: "
+          f"{got['wire']['tp_all_reduce']} bytes {tp['s']:.3f}s, the "
+          f"logits' all_gather over model {tp['gathers']} calls "
+          f"{tp['gather_s']:.3f}s, of the serve's {got['serve_s']:.3f}s "
+          f"(the rest: compute, the engine and the other collectives: "
           + " ".join(f"{k} {v}" for k, v in got["wire"].items()
                      if v and k != "tp_all_reduce")
           + f" bytes); launches flash_attention={got['launches'][0]} "
@@ -5247,6 +5309,19 @@ def check_serve_mesh_rank(arch, r, got, want, single, card) -> None:
           f"{got['launches']}, the path's are {got['want_launches']}")
     check(all(len(t) == MAX_NEW for t in got["tokens"]),
           f"{arch} rank {r}: a request ended short")
+    vp = got.get("vocab_parallel")
+    if vp is not None:
+        print(f"serve mesh: {arch} rank {r} (22c) served again under "
+              f"embed_mode=vocab_parallel (the rank's table rows "
+              f"{list(vp['table'])}; {card}) in {vp['serve_s']:.3f}s, "
+              f"max_memory_allocated={vp['peak']}, bytes "
+              + " ".join(f"{k} {v}" for k, v in vp["wire"].items() if v)
+              + f": prefill logits equal to the gather run's: "
+              f"{vp['prefill']}, first decode step's: {vp['decode']}, greedy "
+              f"streams: {vp['tokens']}")
+        check(vp["prefill"] and vp["decode"] and vp["tokens"],
+              f"{arch} rank {r}: the vocab_parallel embedding's serve "
+              f"differs from the gather run's")
 
 
 # the leaves a tensor-parallel layer computes on its model block, and the
@@ -5273,9 +5348,13 @@ def emulated_model_ranks(torch, size: int, device):
     rank's ``copy_to_model`` output sums them; the input's gradient is
     then the ranks' two added in their type, as ``copy_to_model``'s
     all-reduce adds them, and a replicated leaf used by every rank gets
-    the same sum.  The caches a prefill emits are rank
-    0's blocks (for the logits alone)."""
-    from repro_torch.models import attention, mlp, rglru
+    the same sum.  The fused head's chunks (``losses._chunk_stats``)
+    compute each rank's block of the vocabulary's logits from its own
+    view of the input and its float32 sums over the block at the rows'
+    maxima (``losses._block_stats``), added in rank order as the
+    all-reduce of two ranks adds them.  The caches a prefill emits are
+    rank 0's blocks (for the logits alone)."""
+    from repro_torch.models import attention, losses, mlp, rglru
     from repro_torch.parallel import sharded
     from repro_torch.parallel.mesh_utils import Mesh
     from repro_torch.parallel.sharding import tp_block
@@ -5332,8 +5411,36 @@ def emulated_model_ranks(torch, size: int, device):
         ok = rglru.lru_split(cfg, pc)
         return [TP_CUTS["rglru"]] if ok else None
 
+    real_stats = losses._chunk_stats
+
+    def chunk_stats(x_c, labels_c, w, *, real_vocab, transpose_w,
+                    mesh=None):
+        dim = 0 if transpose_w else 1
+        n = w.shape[dim] // size
+        if mesh is not None or w.shape[dim] % size:
+            return real_stats(x_c, labels_c, w, real_vocab=real_vocab,
+                              transpose_w=transpose_w, mesh=mesh)
+        blocks = [losses._masked_f32(losses.head_product(
+            x_c.view_as(x_c), w.narrow(dim, r * n, n), transpose_w),
+            real_vocab, r * n) for r in range(size)]
+        with torch.no_grad():       # sharded.model_argmax's pairs
+            idx = [b.argmax(-1, keepdim=True) for b in blocks]
+            top = torch.stack([torch.gather(b, -1, i)[..., 0] for b, i in
+                               zip(blocks, idx)])
+            first = top.argmax(0, keepdim=True)
+            m = torch.take_along_dim(top, first, dim=0)[0]
+            top = torch.take_along_dim(torch.stack([
+                i[..., 0] + r * n for r, i in enumerate(idx)]), first,
+                dim=0)[0]
+        parts = [losses._block_stats(b, labels_c, real_vocab, r * n, m)
+                 for r, b in enumerate(blocks)]
+        total = sum((p[0] for p in parts[1:]), parts[0][0])
+        gold = sum((p[1] for p in parts[1:]), parts[0][1])
+        return losses._sums(m + torch.log(total), gold, top, labels_c)
+
     with wrap(attention, attn_tables, True), wrap(mlp, mlp_tables, False), \
             wrap(rglru, lru_tables, True), \
+            patched(losses, "_chunk_stats", chunk_stats), \
             patched(sharded, "copy_to_model", lambda x, mesh: x), \
             patched(sharded, "reduce_from_model", lambda x, mesh: x):
         yield

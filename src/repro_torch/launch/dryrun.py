@@ -47,9 +47,11 @@ For each cell the dry run:
        sheet's rates below;
   4. writes ``experiments/dryrun_torch/<arch>__<shape>__<mesh>[__tag].json``.
 
-A cell the port refuses by name (a ``NotImplementedError`` naming its
-ROADMAP item) is written ``ok: false`` with that error and its item
-under ``refused``, as the JAX run records a failed lowering.
+A cell the port refuses (a ``NotImplementedError``) is written ``ok:
+false`` with that error and, under ``refused``, the ROADMAP item it
+names, or ``"reference"`` where it names none (the serving mesh under
+``layout="fsdp"``, where the JAX package's own serve steps raise), as
+the JAX run records a failed lowering.
 
 Usage (no card needed; it models the card's route):
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch qwen3-8b --shape train_4k --multi-pod
@@ -450,8 +452,8 @@ def run_cell(arch: str, shape_name: str, *, multi_pod: bool,
     except Exception as e:  # noqa: BLE001 — recorded, as a failed lowering
         rec["error"] = f"{type(e).__name__}: {e}"
         item = _ITEM.search(str(e))
-        if isinstance(e, NotImplementedError) and item:
-            rec["refused"] = item.group(1)
+        if isinstance(e, NotImplementedError):
+            rec["refused"] = item.group(1) if item else "reference"
         else:
             rec["traceback"] = traceback.format_exc()[-4000:]
     rec["wall_s"] = time.time() - t0
@@ -550,7 +552,9 @@ def main(argv=None):
             print(f"[{status}] {cell_id} wall={rec['wall_s']:.1f}s "
                   f"err={rec['error']}")
     print(f"{counts['ok']}/{len(todo)} cells OK, {counts['refused']} refused"
-          + "".join(f" ({n} item {i})" for i, n in sorted(refused_by.items()))
+          + "".join(f" ({n} as the reference)" if i == "reference"
+                    else f" ({n} item {i})"
+                    for i, n in sorted(refused_by.items()))
           + f", {counts['failed']} failed")
     return 0 if counts["failed"] == 0 else 1
 

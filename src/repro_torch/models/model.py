@@ -127,7 +127,10 @@ def _backbone(params, batch: dict, *, cfg: ModelConfig,
 def forward(params, batch: dict, *, cfg: ModelConfig,
             pcfg: ParallelConfig = NO_PARALLEL, mode: str = "train",
             gather=None):
-    """Full-sequence forward. Returns (logits, aux_loss)."""
+    """Full-sequence forward. Returns (logits, aux_loss): the logits
+    ``[B, T, Vp]``, or on a mesh where the vocabulary splits over
+    ``model`` (``transformer.vocab_split``) this rank's ``[B, T, Vp / M]``
+    block of them."""
     params = _gathered(params, batch, gather, cfg=cfg)
     x, aux = _backbone(params, batch, cfg=cfg, pcfg=pcfg, mode=mode,
                        gather=gather)
@@ -144,24 +147,31 @@ def loss_fn(params, batch: dict, *, cfg: ModelConfig,
 
     ``gather`` (port-only; a mesh train step's ``sharded.BlockGather``)
     takes ``params`` as this rank's blocks: the leaves outside the
-    stacks are gathered whole here, once, and each pattern unit inside
-    ``transformer.stack_apply``.  Without it ``params`` are whole."""
+    stacks are gathered whole here, once (the head's and a
+    ``vocab_parallel`` table's over the batch axes alone: the rank's
+    block of the vocabulary), and each pattern unit inside
+    ``transformer.stack_apply``.  Without it ``params`` are whole.
+
+    Where the vocabulary splits over ``model`` (``transformer.
+    vocab_split``) the head and both cross-entropies run on this rank's
+    block of it (``losses``), every ``model`` rank computing the same
+    loss."""
+    vmesh = None if transformer.vocab_split(cfg, pcfg) is None \
+        else pcfg.mesh
     if pcfg.fused_head and not cfg.logit_softcap:
         params = _gathered(params, batch, gather, cfg=cfg)
         x, aux = _backbone(params, batch, cfg=cfg, pcfg=pcfg, mode="train",
                            gather=gather)
         x = common.rms_norm(x, params["final_norm"]["scale"], cfg.norm_eps)
-        tied = cfg.tie_embeddings
-        w = params["embed"]["w"] if tied else params["lm_head"]["w"]
         loss, metrics = fused_cross_entropy(
-            x, w, batch["labels"], real_vocab=cfg.vocab_size,
-            transpose_w=tied, chunk=pcfg.head_chunk,
-            unroll=pcfg.unroll_scans)
+            x, transformer.head_weight(params, cfg, pcfg), batch["labels"],
+            real_vocab=cfg.vocab_size, transpose_w=cfg.tie_embeddings,
+            chunk=pcfg.head_chunk, unroll=pcfg.unroll_scans, mesh=vmesh)
     else:
         logits, aux = forward(params, batch, cfg=cfg, pcfg=pcfg,
                               mode="train", gather=gather)
         loss, metrics = cross_entropy(logits, batch["labels"],
-                                      real_vocab=cfg.vocab_size)
+                                      real_vocab=cfg.vocab_size, mesh=vmesh)
     metrics["aux_loss"] = aux
     return loss + aux, metrics
 
@@ -176,9 +186,10 @@ def prefill(params, batch: dict, *, cfg: ModelConfig,
     ``patch_pos`` (vision patches, optional).
 
     Under ``layout="tp"`` on a mesh (the serving mesh, ``train/step.py``
-    ``make_prefill_step``) ``params`` are a rank's serving parameters
-    and the cache is the rank's ``model`` block of each leaf
-    (``cache_specs_for``).
+    ``make_prefill_step``) ``params`` are a rank's serving parameters,
+    the cache is the rank's ``model`` block of each leaf
+    (``cache_specs_for``) and the logits the rank's block of the
+    vocabulary where it splits (``transformer.vocab_split``).
 
     Returns (last_logits, cache)."""
     tokens = batch["inputs"]
@@ -201,7 +212,8 @@ def decode_step(params, cache, token, pos, *, cfg: ModelConfig,
     attention whether a cache of whole kv heads is whole or a block of
     the sequence (``attention._whole_cache``).
 
-    Returns (logits [B, Vp], new_cache).
+    Returns (logits [B, Vp], new_cache); on a mesh where the vocabulary
+    splits, the rank's ``[B, Vp / M]`` block of the logits.
     """
     x = transformer.embed(params, token, cfg=cfg, pcfg=pcfg)
     x, new_caches, _ = transformer.stack_apply(

@@ -17,10 +17,12 @@ attention (the encoder's and the cross blocks' too), dense-FFN, RG-LRU
 and MoE layers of both stacks compute on this rank's block of their
 heads, columns, LRU width or experts where ``model`` divides them (their
 modules say how), else whole; a cross block's K / V are projected on
-the rank's kv heads (``attention.project_memory``).  The xLSTM blocks,
-the embedding, the head and the frontends compute whole;
-``embed_mode="vocab_parallel"`` on a mesh raises (ROADMAP item 1.3f
-part 2).
+the rank's kv heads (``attention.project_memory``).  Where ``model``
+divides the padded vocabulary (:func:`vocab_split`) the LM head computes
+the rank's block of the logits (:func:`lm_logits`), and
+``embed_mode="vocab_parallel"`` looks the tokens up in the rank's block
+of the table, summed over ``model`` (:func:`embed`).  The xLSTM blocks
+and the frontends compute whole.
 
 Parameters (and decode caches / recurrent states) for the unit are
 stacked with a leading group dim, as in the JAX package, so the two
@@ -46,8 +48,9 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import attention, mlp, moe, rglru, xlstm
 from repro_torch.models.common import rms_norm, sds, soft_cap
+from repro_torch.parallel import sharded
 from repro_torch.parallel.sharding import (ParallelConfig, batch_spec,
-                                           constrain)
+                                           constrain, tp_block)
 from repro_torch.utils.pytree import tree_map, tree_map_with_path
 
 # ---------------------------------------------------------------------------
@@ -365,19 +368,64 @@ def stack_apply(blocks_params, x, *, cfg: ModelConfig, pcfg: ParallelConfig,
 # Embedding / head / frontends
 # ---------------------------------------------------------------------------
 
+def vocab_split(cfg: ModelConfig, pcfg: ParallelConfig):
+    """(this rank's coordinate along ``model``, the ``model`` size) where
+    the vocabulary splits over ``model``: ``layout="tp"`` on a mesh of
+    several ``model`` ranks whose size divides ``cfg.padded_vocab``
+    (``sharding.tp_block``, as the JAX package's ``validate_spec`` keeps
+    the logits' and the table's ``model`` axis there), else None."""
+    return tp_block(pcfg, cfg.padded_vocab)
+
+
+def vocab_rows(w: torch.Tensor, cfg: ModelConfig, pcfg: ParallelConfig,
+               dim: int = 0) -> torch.Tensor:
+    """This rank's block of the vocabulary along ``dim`` of ``w``: ``w``
+    itself where it is already the block (a rank's parameters), else a
+    view of its rows (columns) of the whole leaf."""
+    split = vocab_split(cfg, pcfg)
+    vp = cfg.padded_vocab
+    if split is None or w.shape[dim] != vp:
+        return w
+    i, n = split
+    return w.narrow(dim, i * (vp // n), vp // n)
+
+
+def head_weight(params, cfg: ModelConfig, pcfg: ParallelConfig
+                ) -> torch.Tensor:
+    """The LM head's weights on this rank: the table's rows ``[Vp', d]``
+    (tied) or ``lm_head/w``'s columns ``[d, Vp']``, ``Vp'`` the rank's
+    block of the vocabulary where it splits (:func:`vocab_split`), else
+    the whole.  A tied table kept whole for ``embed_mode="gather"``
+    gives a view of its rows."""
+    if cfg.tie_embeddings:
+        return vocab_rows(params["embed"]["w"], cfg, pcfg, 0)
+    return vocab_rows(params["lm_head"]["w"], cfg, pcfg, 1)
+
+
 def embed(params, tokens, *, cfg: ModelConfig, pcfg: ParallelConfig):
-    """The token embeddings, gathered from the whole table.  The JAX
-    package's ``embed_mode="vocab_parallel"`` (a masked take of each
-    ``model`` rank's vocab block, summed over ``model``) is not ported:
-    it raises on a mesh of several ``model`` ranks, where it acts."""
-    if pcfg.embed_mode == "vocab_parallel" and pcfg.mesh is not None \
-            and pcfg.model_size > 1:
-        raise NotImplementedError(
-            "embed_mode='vocab_parallel' (the vocab split of the embedding "
-            "over model): ROADMAP item 1.3f part 2")
+    """The token embeddings.  ``embed_mode="gather"`` takes them from the
+    whole table.  ``embed_mode="vocab_parallel"`` where the vocabulary
+    splits (:func:`vocab_split`; else it acts as ``gather``, in both
+    packages) is the JAX package's masked take: each ``model`` rank takes
+    the tokens of its block of the table (relative index, clamped; zero
+    elsewhere) in the compute type, and the rows are summed over
+    ``model`` (``sharded.reduce_from_model``), equal to the gather bit
+    for bit."""
     ct = getattr(torch, cfg.compute_dtype)
     w = params["embed"]["w"]
-    x = w[tokens.long()].to(ct)
+    split = vocab_split(cfg, pcfg)
+    if pcfg.embed_mode == "vocab_parallel" and split is not None:
+        w = vocab_rows(w, cfg, pcfg, 0)
+        n = w.shape[0]
+        rel = tokens.long() - split[0] * n
+        mine = ((rel >= 0) & (rel < n))[..., None]
+        x = w[rel.clamp(0, n - 1)].to(ct)
+        # -0.0 elsewhere: the sum over model is the holder's row, bit for
+        # bit (a zero of either sign included)
+        x = sharded.reduce_from_model(
+            torch.where(mine, x, torch.full_like(x, -0.0)), pcfg.mesh)
+    else:
+        x = w[tokens.long()].to(ct)
     if cfg.embed_scale:
         # sqrt(d_model) is rounded to the compute dtype first, as in the
         # JAX package (bf16: sqrt(2560) = 50.596 becomes 50.5)
@@ -422,10 +470,17 @@ def project_frames(params, frames, *, cfg, pcfg):
 
 
 def lm_logits(params, x, *, cfg: ModelConfig, pcfg: ParallelConfig):
+    """The final norm and the head: ``[B, T, Vp]`` logits, or where the
+    vocabulary splits (:func:`vocab_split`) this rank's ``[B, T, Vp / M]``
+    block of them, ``x`` entering through ``sharded.copy_to_model`` (its
+    gradient the sum of the ranks')."""
     x = rms_norm(x, params["final_norm"]["scale"], cfg.norm_eps)
+    if vocab_split(cfg, pcfg) is not None:
+        x = sharded.copy_to_model(x, pcfg.mesh)
+    w = head_weight(params, cfg, pcfg)
     if cfg.tie_embeddings:
-        logits = torch.einsum("btd,vd->btv", x, params["embed"]["w"])
+        logits = torch.einsum("btd,vd->btv", x, w)
     else:
-        logits = x @ params["lm_head"]["w"]
+        logits = x @ w
     logits = soft_cap(logits, cfg.logit_softcap)
     return constrain(logits, pcfg, batch_spec(pcfg, None, "model"))

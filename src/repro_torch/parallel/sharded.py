@@ -26,10 +26,14 @@ included.
   matching reverse collective;
 * :func:`copy_to_model` and :func:`reduce_from_model` bracket a layer
   that computes on this rank's block of its width under
-  ``layout="tp"`` (``models/attention.py``, ``mlp.py``, ``rglru.py``):
-  the first is the identity forward and sums the gradient over
-  ``model`` backward, the second sums the partial outputs over
-  ``model`` forward and is the identity backward;
+  ``layout="tp"`` (``models/attention.py``, ``mlp.py``, ``rglru.py``,
+  and the LM head, its cross-entropy and the ``vocab_parallel``
+  embedding on the rank's block of the vocabulary): the first is the
+  identity forward and sums the gradient over ``model`` backward, the
+  second sums the partial outputs over ``model`` forward and is the
+  identity backward; :func:`model_argmax` is the maximum and its index
+  over a dim split over ``model`` (the cross-entropy's row maximum and
+  its accuracy);
 * :func:`gather_block` is :func:`gather_leaf` as autograd crosses it,
   with :func:`reduce_scatter_leaf` for its backward, and
   :class:`BlockGather` applies it to the subtrees a mesh train step
@@ -68,7 +72,10 @@ from repro_torch.utils.pytree import (tree_flatten_with_paths, tree_leaves,
 # statistics, ``all_to_all`` its expert exchange), and the sums over
 # ``model`` of the tensor-parallel layers (``tp_all_reduce``: their
 # outputs forward and in the recompute, their inputs' gradients backward,
-# and at decode a sequence-split cache's softmax statistics and product)
+# at decode a sequence-split cache's softmax statistics and product, and a
+# vocab-split cross-entropy's exponentials' sums and gold logits); the
+# vocab-split maxima (``model_argmax``) and a serving rank's logits count
+# under ``all_gather``
 WIRE = {"gather": 0, "reduce_scatter": 0, "norm": 0, "all_gather": 0,
         "all_to_all": 0, "tp_all_reduce": 0}
 
@@ -372,6 +379,30 @@ def reduce_from_model(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
     ``x``'s type, as XLA sums the partial products of a row-split matrix
     in their own type); backward the identity."""
     return _ReduceFromModel.apply(x, mesh)
+
+
+def model_argmax(x: torch.Tensor, mesh: Mesh) -> Tuple[torch.Tensor,
+                                                       torch.Tensor]:
+    """(the maximum along the last dim, its index) of the tensor whose
+    ``model`` block along that dim is this rank's ``x`` (rank ``i`` holds
+    columns ``[i n, (i + 1) n)``, ``n = x.shape[-1]``), with no autograd:
+    each rank's (max, global index) all-gathered over ``model`` (float32
+    pairs, exact for indices below 2**24), the first rank holding the
+    maximum taken, so a tie goes to the lowest index, as ``torch.argmax``
+    breaks it.  The bytes count under ``WIRE["all_gather"]``."""
+    n = x.shape[-1]
+    if n * mesh.axes_size("model") > 2 ** 24:
+        raise ValueError(f"a vocabulary of {n} x {mesh.axes_size('model')} "
+                         f"indices does not fit float32 exactly")
+    with torch.no_grad():
+        i = x.argmax(-1, keepdim=True)
+        v = torch.gather(x, -1, i).float()
+        start = mesh.axis_index("model") * n
+        pairs = torch.cat([v, (i + start).float()], -1)[None]
+        pairs = gather_wire(pairs.contiguous(), mesh, ("model",))
+        top = pairs[..., 0].argmax(0, keepdim=True)
+        best = torch.take_along_dim(pairs, top[..., None], dim=0)[0]
+    return best[..., 0].to(x.dtype), best[..., 1].long()
 
 
 def all_gather(x: torch.Tensor, mesh: Mesh, axes) -> torch.Tensor:

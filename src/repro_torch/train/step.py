@@ -23,10 +23,14 @@ modes:
     before the backward.  Under ``layout="tp"`` the ranks of one
     ``model`` group compute the same rows, the attention (the encoder's
     and the cross blocks' too), dense-FFN, RG-LRU and MoE layers each on
-    the rank's block of their heads, columns, width or experts, where the
-    JAX package's specs split them over ``model`` (:func:`tp_leaf`):
-    those leaves are gathered over the batch axes alone, each ``model``
-    rank keeping its block, whose gradient is its own.  An MoE layer
+    the rank's block of their heads, columns, width or experts, and the
+    head and its cross-entropy (and a ``vocab_parallel`` embedding) on
+    the rank's block of the vocabulary, where the JAX package's specs
+    split them over ``model`` (:func:`tp_leaf`): those leaves are
+    gathered over the batch axes alone, each ``model`` rank keeping its
+    block, whose gradient is its own.  A tied table kept whole for the
+    lookup is gathered whole; the head's gradient lands on the rank's
+    rows of it, and its gather's backward keeps the rank's block.  An MoE layer
     groups tokens, drops slots and takes its aux loss over the global
     batch, exchanging ids and statistics with the other batch ranks, and
     under ``layout="fsdp"`` with ``moe_dispatch="a2a"`` exchanges its
@@ -55,7 +59,8 @@ on, each whole over the batch axes), its cache the block
 :func:`cache_specs_for` gives it (:func:`init_cache_blocks`), its rows
 of the batch those the batch axes give it (all of a batch that does not
 split, ``ParallelConfig.whole_batch``), and the logits come back whole,
-gathered over the batch axes.
+gathered over ``model`` where the vocabulary splits and over the batch
+axes.
 
 A training step is literally a two-stage Sphere job: stage 1 = local
 fwd/bwd UDF over the pod's chunk of the batch, shuffle = the cross-pod
@@ -69,7 +74,7 @@ from typing import Callable
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import model, moe, rglru
+from repro_torch.models import model, moe, rglru, transformer
 from repro_torch.parallel import collectives, sharded
 from repro_torch.parallel.sharding import (NamedSharding, ParallelConfig, P,
                                            batch_spec, param_specs_for,
@@ -90,7 +95,9 @@ _TP_LEAVES = ((re.compile(_STACK + r"x?attn/(wq|bq|wo)$"), ("heads",)),
               (re.compile(_STACK + r"mlp/w[igo]$"), ("ffn",)),
               (re.compile(_STACK + r"rglru/(in_x|in_g|conv_w|a_param|out)$"),
                ("lru",)),
-              (re.compile(_STACK + r"moe/w[igo]$"), ("experts",)))
+              (re.compile(_STACK + r"moe/w[igo]$"), ("experts",)),
+              (re.compile(r"^lm_head/w$"), ("vocab",)),
+              (re.compile(r"^embed/w$"), ("vocab_parallel",)))
 
 
 def tp_leaf(path: str, cfg: ModelConfig, pcfg: ParallelConfig) -> bool:
@@ -98,13 +105,21 @@ def tp_leaf(path: str, cfg: ModelConfig, pcfg: ParallelConfig) -> bool:
     computes on (``sharding.tp_block`` of its widths: the self- and
     cross-attention's heads, and their kv heads for ``wk`` / ``wv``; the
     FFN's; the LRU width where ``rglru.lru_split`` splits it; the experts
-    where ``moe.ep_split`` splits them), so that a rank keeps only that
-    block along ``model``."""
+    where ``moe.ep_split`` splits them; the head's vocabulary, and the
+    table's under ``embed_mode="vocab_parallel"``, where
+    ``transformer.vocab_split`` splits it), so that a rank keeps only
+    that block along ``model``.  A table under ``embed_mode="gather"``
+    stays whole (the lookup reads every row; a tied head takes a view of
+    the rank's rows of it)."""
+    vocab = transformer.vocab_split(cfg, pcfg)
     splits = {"heads": tp_block(pcfg, cfg.n_heads),
               "kv_heads": tp_block(pcfg, cfg.n_kv_heads),
               "ffn": tp_block(pcfg, cfg.d_ff),
               "lru": rglru.lru_split(cfg, pcfg),
-              "experts": moe.ep_split(cfg, pcfg)}
+              "experts": moe.ep_split(cfg, pcfg),
+              "vocab": vocab,
+              "vocab_parallel": vocab if pcfg.embed_mode == "vocab_parallel"
+              else None}
     for pat, need in _TP_LEAVES:
         if pat.search(path):
             return all(splits[w] is not None for w in need)
@@ -425,20 +440,25 @@ def make_train_step(cfg: ModelConfig, pcfg: ParallelConfig,
 # ---------------------------------------------------------------------------
 
 def check_serving_mesh(cfg: ModelConfig, pcfg: ParallelConfig) -> None:
-    """Raise unless ``pcfg``'s mesh serves: ``layout="tp"`` (``fsdp`` is
-    ROADMAP item 1.3f part 2).  Every shipped config serves there, as
-    the JAX package's serve steps lower on any mesh: the self- and
-    cross-attention (the encoder's too), the dense FFN and the MoE's
-    experts compute on the rank's block of their heads, columns or
-    experts where the ``model`` size divides them, else whole on every
+    """Raise unless ``pcfg``'s mesh serves: ``layout="tp"``.  The JAX
+    package cannot serve under ``layout="fsdp"`` either: its
+    ``cache_specs_for`` names ``model`` twice in a KV cache's spec there
+    and raises ``DuplicateSpecError``.  Every shipped config serves under
+    ``tp``, as the JAX package's serve steps lower on any ``tp`` mesh:
+    the self- and cross-attention (the encoder's too), the dense FFN and
+    the MoE's experts compute on the rank's block of their heads, columns
+    or experts where the ``model`` size divides them, else whole on every
     ``model`` rank, their caches with them (``cache_specs_for``); an
     RG-LRU layer computes on its slice of the width, its state too, or
     whole (``rglru.lru_split``); the mLSTM and sLSTM compute whole, on
-    whole states."""
+    whole states; the head on the rank's block of the vocabulary where
+    ``model`` divides it."""
     if pcfg.mesh is not None and pcfg.layout != "tp":
         raise NotImplementedError(
-            f"the serving mesh runs layout='tp', not {pcfg.layout!r}: ROADMAP "
-            f"item 1.3f part 2")
+            f"the serving mesh runs layout='tp', not {pcfg.layout!r}: the "
+            f"JAX package's own cache_specs_for raises DuplicateSpecError "
+            f"under layout='fsdp' (the batch dim's axes and the heads' both "
+            f"name 'model')")
 
 
 def _batch_axes(pcfg: ParallelConfig) -> tuple:
@@ -486,7 +506,6 @@ def init_cache_blocks(cfg: ModelConfig, pcfg: ParallelConfig, batch: int,
     """A zeroed decode cache of ``batch`` slots and ``seq`` positions
     (``model.init_cache`` on ``device``); on a mesh this rank's block of
     each leaf (:func:`cache_specs_for`), on the mesh's device."""
-    from repro_torch.models import transformer
     from repro_torch.models.common import sds
     if pcfg.mesh is None:
         return model.init_cache(cfg, batch, seq, cross_len=cross_len,
@@ -511,10 +530,18 @@ def _rows_pcfg(pcfg: ParallelConfig, split: bool) -> ParallelConfig:
     return pcfg.with_(whole_batch=True)
 
 
-def _global_logits(logits, pcfg: ParallelConfig, split: bool):
-    """A step's logits in float32, gathered over the batch axes where the
-    batch was split over them."""
+def _global_logits(logits, cfg: ModelConfig, pcfg: ParallelConfig,
+                   split: bool):
+    """A step's logits ``[B, Vp]`` in float32: a rank's block of the
+    vocabulary gathered over ``model`` where it splits
+    (``transformer.vocab_split``), then the rows over the batch axes where
+    the batch was split over them."""
     logits = logits.float()
+    n = transformer.vocab_split(cfg, pcfg)
+    if n is not None:
+        blocks = sharded.gather_wire(logits, pcfg.mesh, ("model",))
+        logits = blocks.view((n[1],) + tuple(logits.shape)).movedim(
+            0, -2).reshape(tuple(logits.shape[:-1]) + (-1,))
     if split:
         logits = sharded.gather_wire(logits, pcfg.mesh, _batch_axes(pcfg))
     return logits
@@ -539,7 +566,7 @@ def make_decode_step(cfg: ModelConfig, pcfg: ParallelConfig,
         logits, new_cache = model.decode_step(
             params, cache, rows, serve_rows(pos, pcfg)[0], cfg=cfg,
             pcfg=_rows_pcfg(pcfg, split), max_len=max_len)
-        return _global_logits(logits, pcfg, split), new_cache
+        return _global_logits(logits, cfg, pcfg, split), new_cache
     return decode
 
 
@@ -575,5 +602,5 @@ def make_prefill_step(cfg: ModelConfig, pcfg: ParallelConfig,
         logits, cache = model.prefill(params, rows, cfg=cfg,
                                       pcfg=_rows_pcfg(pcfg, split),
                                       max_len=max_len)
-        return _global_logits(logits, pcfg, split), cache
+        return _global_logits(logits, cfg, pcfg, split), cache
     return prefill_step

@@ -26,9 +26,10 @@ tensors over stand-in meshes.
   exactly a count from the leaf shapes and specs alone.
 * The kernels' closed-form costs against loops over their work; the
   meta routes' launches against the CPU route's calls in one step.
-* The command line: ``ok`` records (``xlstm-1.3b``'s serving cell among
-  them, once refused), a refused one naming its item (the serving mesh
-  under ``layout="fsdp"``), no default group left behind.
+* The command line: ``ok`` records (``xlstm-1.3b``'s serving cell and a
+  ``vocab_parallel`` one among them, each once refused), a refused one
+  (the serving mesh under ``layout="fsdp"``, which the JAX package's
+  serve steps refuse too), no default group left behind.
 * ``dbrx-132b``'s ``decode_32k`` rank on 16x16: the argument bytes are
   rank 0's blocks by the spec trees, and the weights it serves with hold
   one sixteenth of the experts, all of it under the card's 80 GB.
@@ -299,11 +300,12 @@ def test_argument_bytes_equal_the_jax_memory_analysis(jax_arguments, key):
 # ------------------------------------------------------------ the CLI
 def test_command_line_records_ok_and_refused_cells(tmp_path):
     """In a subprocess: cells the port runs write ``ok: true`` (the
-    ``xlstm-1.3b`` serving cell, one decode step over whole states, once
-    refused); a serving cell under ``--knob layout=fsdp``, and one under
-    ``--knob embed_mode=vocab_parallel`` (not ported), write ``ok:
-    false`` naming ROADMAP item 1.3f part 2 (the summary counts them
-    refused, not failed); no default group is left behind."""
+    ``xlstm-1.3b`` serving cell, one decode step over whole states, and
+    one under ``--knob embed_mode=vocab_parallel``, each once refused);
+    a serving cell under ``--knob layout=fsdp`` writes ``ok: false``,
+    refused as the JAX package's own serve steps refuse it (its
+    ``cache_specs_for`` raises ``DuplicateSpecError``; the summary counts
+    it refused, not failed); no default group is left behind."""
     code = textwrap.dedent(f"""
         import torch.distributed as dist
         from repro_torch.launch import dryrun
@@ -327,9 +329,9 @@ def test_command_line_records_ok_and_refused_cells(tmp_path):
                           capture_output=True, text=True, timeout=600)
     assert proc.returncode == 0, proc.stdout[-2000:] + proc.stderr[-3000:]
     assert "RCS [0, 0, 0, 0]" in proc.stdout
-    assert proc.stdout.count("1/1 cells OK, 0 refused, 0 failed") == 2
-    assert proc.stdout.count("1 refused (1 item 1.3f part 2), 0 failed") \
-        == 2
+    assert proc.stdout.count("1/1 cells OK, 0 refused, 0 failed") == 3
+    assert proc.stdout.count("1 refused (1 as the reference), 0 failed") \
+        == 1
     ok = json.loads((tmp_path / "qwen2.5-3b__decode_32k__16x16.json")
                     .read_text())
     assert ok["ok"] and ok["error"] is None
@@ -343,13 +345,15 @@ def test_command_line_records_ok_and_refused_cells(tmp_path):
     assert xl["memory"]["serving_bytes"] >= xl["memory"]["argument_bytes"]
     refused = json.loads(
         (tmp_path / "qwen2.5-3b__decode_32k__16x16__fsdp.json").read_text())
-    assert not refused["ok"] and refused["refused"] == "1.3f part 2"
-    assert "ROADMAP item 1.3f part 2" in refused["error"]
+    assert not refused["ok"] and refused["refused"] == "reference"
+    assert "DuplicateSpecError" in refused["error"]
     assert refused["knobs"] == {"layout": "fsdp"}
     vp = json.loads(
         (tmp_path / "qwen2.5-3b__decode_32k__16x16__vp.json").read_text())
-    assert not vp["ok"] and vp["refused"] == "1.3f part 2"
-    assert "vocab_parallel" in vp["error"]
+    assert vp["ok"] and vp["error"] is None and vp["refused"] is None
+    assert vp["knobs"] == {"embed_mode": "vocab_parallel"}
+    # the table's rows a rank serves with: a sixteenth of the vocabulary
+    assert vp["memory"]["serving_bytes"] < ok["memory"]["serving_bytes"]
 
 
 def test_dbrx_serving_rank_holds_its_experts_block():

@@ -460,8 +460,17 @@ def _tp_split(path: str, cfg, kw: dict, m: int = 2) -> bool:
     split too), its dense FFN where ``model`` divides ``d_ff``, its RG-LRU
     block where it divides the LRU width (``gate_a`` / ``gate_x``
     excepted: their spec splits every block's columns), its MoE's experts
-    where it divides their count."""
-    if kw.get("layout", "tp") != "tp" or "blocks/" not in path:
+    where it divides their count; the head's columns (``lm_head/w``), and
+    a ``vocab_parallel`` table's rows, where it divides the padded
+    vocabulary."""
+    if kw.get("layout", "tp") != "tp":
+        return False
+    vocab = cfg.padded_vocab % m == 0
+    if path == "lm_head/w":
+        return vocab
+    if path == "embed/w":
+        return vocab and kw.get("embed_mode") == "vocab_parallel"
+    if "blocks/" not in path:
         return False
     layer, leaf = path.split("/")[-2:]
     heads = cfg.n_heads % m == 0
@@ -486,12 +495,17 @@ def _expected_tp_bytes(arch: str, kw: dict) -> int:
     gradient in the backward; the replicated leaves inside such a layer
     (the qk-norm scales, ``wk`` / ``wv`` where the kv heads do not
     split, the RG-LRU gates, the MoE's float32 router) sum their
-    gradients."""
+    gradients.  Where ``model`` divides the padded vocabulary the head
+    computes the rank's block of the logits: its input's gradient is
+    summed over ``model``, and the cross-entropy sums each row's
+    exponentials and its gold logit (a float32 each)."""
     cfg = ranks.lm_cfg(arch)
     if kw.get("layout", "tp") != "tp":
         return 0
     m, accum = 2, kw.get("accum_steps", 1)
-    act = ranks.B // 2 // accum * ranks.T * cfg.d_model
+    tokens = ranks.B // 2 // accum * ranks.T
+    act = tokens * cfg.d_model
+    head = act + 2 * tokens if cfg.padded_vocab % m == 0 else 0
     passes = (2 if kw.get("remat") == "full" else 1) + 1
     n = 0
     for sym in cfg.block_pattern:
@@ -511,7 +525,7 @@ def _expected_tp_bytes(arch: str, kw: dict) -> int:
         else cfg.d_ff % m == 0
     if kw.get("remat") == "full" and split_ffn:
         n -= act
-    return 4 * n * cfg.n_groups * accum
+    return 4 * (n * cfg.n_groups + head) * accum
 
 
 def _expected_gathers(arch: str, kw: dict):
@@ -808,9 +822,10 @@ def test_serving_mesh_takes_every_config_and_refuses_fsdp(arch):
     serve steps and ``ServeEngine`` on a ``(2, 2)`` mesh of CPU tensors
     over the dry run's stand-in group (whose collectives move nothing):
     the engine's serving parameters keep the rank's ``model`` block of
-    the experts (4 of 8) and of every attention's heads, the encoder's
-    and the cross blocks' too; ``layout="fsdp"`` still raises
-    ``NotImplementedError`` naming ROADMAP item 1.3f part 2."""
+    the experts (4 of 8), of every attention's heads, the encoder's and
+    the cross blocks' too, and of the head's vocabulary (128 of 256
+    columns); ``layout="fsdp"`` still raises ``NotImplementedError``,
+    naming the JAX package's own ``DuplicateSpecError`` there."""
     import torch
 
     from repro_torch.configs import get_config
@@ -840,45 +855,60 @@ def test_serving_mesh_takes_every_config_and_refuses_fsdp(arch):
             want = list(shapes[path].shape)
             if path in cut:     # the model block: experts, or columns
                 dim = 1 if path.endswith(("/wo", "/bq", "/bk", "/bv")) \
-                    or "/moe/" in path else 2
+                    or "/moe/" in path or path == "lm_head/w" else 2
                 want[dim] //= 2
             assert tuple(x.shape) == tuple(want), path
         kinds = {p.split("/")[-2] for p in cut}
-        assert kinds == {"xlstm-1.3b": set(),
-                         "seamless-m4t-large-v2": {"attn", "xattn", "mlp"}
-                         }.get(arch, {"attn", "moe"}), kinds
+        assert kinds == {"xlstm-1.3b": {"lm_head"},
+                         "seamless-m4t-large-v2": {"attn", "xattn", "mlp",
+                                                   "lm_head"}
+                         }.get(arch, {"attn", "moe", "lm_head"}), kinds
         if cfg.is_encoder_decoder:
             assert any(p.startswith("encoder/") for p in cut)
-        with pytest.raises(NotImplementedError, match="1.3f part 2"):
+        with pytest.raises(NotImplementedError, match="DuplicateSpecError"):
             tstep.make_prefill_step(cfg, TPC(mesh=mesh, layout="fsdp"), 96)
-        with pytest.raises(NotImplementedError, match="1.3f part 2"):
+        with pytest.raises(NotImplementedError, match="DuplicateSpecError"):
             ServeEngine(cfg, blocks, TPC(mesh=mesh, layout="fsdp"),
                         max_len=96)
 
 
-def test_vocab_parallel_embedding_raises_on_a_mesh():
+def test_vocab_parallel_embedding_raises_on_a_mesh(monkeypatch):
     """``embed_mode="vocab_parallel"`` (the JAX package's masked take of
-    each ``model`` rank's vocab block) is not ported: on a mesh of
-    several ``model`` ranks ``transformer.embed`` raises naming ROADMAP
-    item 1.3f part 2, where the JAX package would take that route;
-    without a mesh, or with one ``model`` rank, the knob does not act
-    (in either package) and the lookup is the table's rows."""
+    each ``model`` rank's vocab block) runs on a mesh of several
+    ``model`` ranks and no longer raises: each rank of a ``(2, 2)`` mesh
+    takes the tokens of its rows of the table (the table's block, or a
+    view of a whole one), and the ranks' results added in rank order
+    (``sharded.reduce_from_model``'s sum over ``model``, the identity
+    here, added by hand) equal the gather embedding bit for bit; without
+    a mesh, or with one ``model`` rank, the knob does not act (in either
+    package) and the lookup is the table's rows.  The sum over real
+    ranks: ``tests/test_torch_vocab.py``."""
     import torch
 
     from repro_torch.configs import get_config
     from repro_torch.models import model as tmodel
     from repro_torch.models import transformer
+    from repro_torch.parallel import sharded
     from repro_torch.parallel.mesh_utils import Mesh
     from repro_torch.parallel.sharding import ParallelConfig as TPC
     cfg = get_config("qwen2.5-3b").reduced().replace(
         param_dtype="float32", compute_dtype="float32")
     params = tmodel.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
-    toks = torch.tensor([[1, 5, 7]], dtype=torch.int32)
-    grid = Mesh(("data", "model"), {"data": 2, "model": 2}, object(), 0, 4,
-                "cpu", "gloo")
-    with pytest.raises(NotImplementedError, match="1.3f part 2"):
-        transformer.embed(params, toks, cfg=cfg,
-                          pcfg=TPC(mesh=grid, embed_mode="vocab_parallel"))
+    w = params["embed"]["w"]
+    toks = torch.tensor([[1, 5, 7, 127, 128, 255]], dtype=torch.int32)
+    monkeypatch.setattr(sharded, "reduce_from_model", lambda x, mesh: x)
+    for whole in (True, False):
+        total = None
+        for rank in range(2):       # data 0, model 0 and 1
+            grid = Mesh(("data", "model"), {"data": 2, "model": 2}, object(),
+                        rank, 4, "cpu", "gloo")
+            i = grid.axis_index("model")
+            table = w if whole else w[i * 128:(i + 1) * 128].clone()
+            x = transformer.embed(
+                {"embed": {"w": table}}, toks, cfg=cfg,
+                pcfg=TPC(mesh=grid, embed_mode="vocab_parallel"))
+            total = x if total is None else total + x
+        assert torch.equal(total, w[toks.long()])
     rows = Mesh(("data", "model"), {"data": 4, "model": 1}, object(), 0, 4,
                 "cpu", "gloo")
     for pcfg in (TPC(embed_mode="vocab_parallel"),

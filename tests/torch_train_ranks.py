@@ -877,3 +877,210 @@ def dryrun_wire_suite(rank: int, world: int):
                    moe_dispatch=dispatch)
         out[arch, shape, layout] = log["wire"]
     return out
+
+
+# ------------------------------------------------------------ the vocabulary
+# the vocab-split cross-entropy on (1, 2) and (1, 4): [VOCAB_B, VOCAB_T]
+# tokens over a padded vocabulary of VOCAB_VP, real_vocab 200 (the padding
+# inside the last block of both meshes) and 150 (one block of (1, 4) all
+# padding, another split by it); "exact" data (small integers: every
+# product and sum exact, ties across blocks kept by any order) and
+# "normal" data
+VOCAB_MESHES = ((1, 2), (1, 4))
+VOCAB_B, VOCAB_T, VOCAB_D, VOCAB_VP = 2, 8, 16, 256
+VOCAB_REAL = (200, 150)
+VOCAB_DATA = ("exact", "normal")
+VOCAB_CHUNK = 4                 # the fused head's chunk: two a row
+# labels on block edges (0, 63 | 64, 127 | 128, 149 | 150, 191 | 192),
+# ignored ones, and the labels of the tie rows
+VOCAB_LABELS = ((0, 63, 64, 127, -1, 128, 10, 70),
+                (149, -1, 191, 192, 199, 1, 10, 255))
+# (row, col, indices): rows whose maximum sits at several indices, in
+# different blocks of both meshes; the tie goes to the lowest
+VOCAB_TIES = ((0, 6, (10, 70, 130)), (0, 7, (10, 70)), (1, 6, (10, 140)),
+              (1, 5, (1, 100)))
+# the embedding's configs: tied with a scaled embedding, untied
+VOCAB_EMBED_ARCHS = ("recurrentgemma-2b", "qwen3-8b")
+VOCAB_TOKENS = ((0, 63, 64, 127, 128, 191, 192, 255),
+                (5, 70, 130, 200, 64, 64, 0, 250))
+# (1, 2) train steps whose gradients are held to one device: (arch,
+# knobs); tied under gather (the head on a view of the whole table's
+# rows), both heads, and both embeddings of either kind
+VOCAB_STEPS = (("qwen2.5-3b", {}), ("qwen2.5-3b", {"fused_head": True}),
+               ("qwen2.5-3b", {"embed_mode": "vocab_parallel"}),
+               ("qwen3-8b", {"embed_mode": "vocab_parallel",
+                             "fused_head": True}))
+
+
+def vocab_data(kind: str, tied: bool = False, seed: int = 31) -> dict:
+    """The cross-entropy's inputs: ``logits [B, T, Vp]`` with the ties of
+    ``VOCAB_TIES``, ``x [B, T, D]`` and the head's ``w`` (``[Vp, D]``
+    where ``tied``, else ``[D, Vp]``), ``labels``.  ``"exact"`` draws
+    small integers (x in quarters): every logit exact in float32."""
+    rng = np.random.default_rng(seed)
+    wshape = (VOCAB_VP, VOCAB_D) if tied else (VOCAB_D, VOCAB_VP)
+    if kind == "exact":
+        logits = rng.integers(-6, 6, (VOCAB_B, VOCAB_T, VOCAB_VP))
+        x = rng.integers(-4, 5, (VOCAB_B, VOCAB_T, VOCAB_D)) / 4
+        w = rng.integers(-3, 4, wshape)
+    else:
+        logits = rng.normal(size=(VOCAB_B, VOCAB_T, VOCAB_VP)) * 3
+        x = rng.normal(size=(VOCAB_B, VOCAB_T, VOCAB_D))
+        w = rng.normal(size=wshape) / 4
+    logits = logits.astype(np.float32)
+    for b, t, idx in VOCAB_TIES:
+        logits[b, t, list(idx)] = logits[b, t].max() + 1
+    return {"logits": logits, "x": x.astype(np.float32),
+            "w": w.astype(np.float32),
+            "labels": np.asarray(VOCAB_LABELS, np.int32)}
+
+
+def vocab_cotangent(shape) -> np.ndarray:
+    """The embedding tests' cotangent of ``x``."""
+    return np.random.default_rng(7).normal(size=tuple(shape)).astype(
+        np.float32)
+
+
+def _vocab_block(a: np.ndarray, mesh, dim: int) -> torch.Tensor:
+    n = a.shape[dim] // mesh.shape["model"]
+    i = mesh.axis_index("model")
+    return torch.from_numpy(np.ascontiguousarray(
+        np.take(a, range(i * n, (i + 1) * n), axis=dim))).requires_grad_()
+
+
+def _vocab_ce_cases(mesh) -> dict:
+    """The cross-entropy on this rank's block of the logits, and the head
+    (``copy_to_model`` then the block's product) with both
+    cross-entropies, tied and untied: the metrics, the gradients of the
+    rank's block and of ``x``, the bytes by ``WIRE`` key."""
+    from repro_torch.models import losses
+    from repro_torch.parallel import sharded
+    out = {}
+
+    def metrics(m):
+        return {k: float(v) for k, v in m.items()}
+
+    for kind in VOCAB_DATA:
+        for real in VOCAB_REAL:
+            d = vocab_data(kind)
+            block = _vocab_block(d["logits"], mesh, -1)
+            before = dict(sharded.WIRE)
+            loss, m = losses.cross_entropy(
+                block, torch.from_numpy(d["labels"]), real_vocab=real,
+                mesh=mesh)
+            loss.backward()
+            out["ce", kind, real] = {
+                "loss": float(loss), "metrics": metrics(m),
+                "grad": block.grad.numpy(),
+                "wire": {k: v - before[k] for k, v in sharded.WIRE.items()}}
+            for tied in (False, True):
+                d = vocab_data(kind, tied)
+                labels = torch.from_numpy(d["labels"])
+                for fused in (False, True):
+                    x = torch.from_numpy(d["x"]).requires_grad_()
+                    w = _vocab_block(d["w"], mesh, 0 if tied else 1)
+                    if fused:
+                        loss, m = losses.fused_cross_entropy(
+                            x, w, labels, real_vocab=real, transpose_w=tied,
+                            chunk=VOCAB_CHUNK, mesh=mesh)
+                    else:
+                        h = sharded.copy_to_model(x, mesh)
+                        logits = losses.head_product(h, w, tied)
+                        loss, m = losses.cross_entropy(
+                            logits, labels, real_vocab=real, mesh=mesh)
+                    loss.backward()
+                    out["head", kind, real, tied, fused] = {
+                        "loss": float(loss), "metrics": metrics(m),
+                        "gx": x.grad.numpy(), "gw": w.grad.numpy()}
+    # model_argmax alone on the tie rows
+    d = vocab_data("exact")
+    v, i = sharded.model_argmax(_vocab_block(d["logits"], mesh, -1)
+                                .detach(), mesh)
+    out["argmax"] = {"max": v.numpy(), "index": i.numpy()}
+    return out
+
+
+def _vocab_embed_cases(mesh) -> dict:
+    """``embed_mode="vocab_parallel"`` on this rank's rows of the table,
+    in float32 and bf16: the embeddings and the gradient of ``sum(x *
+    C)`` by the rank's block."""
+    from repro_torch.models import transformer
+    from repro_torch.parallel.sharding import ParallelConfig
+    out = {}
+    toks = torch.tensor(VOCAB_TOKENS, dtype=torch.int32)
+    pcfg = ParallelConfig(mesh=mesh, embed_mode="vocab_parallel")
+    for arch in VOCAB_EMBED_ARCHS:
+        for dtype in ("float32", "bfloat16"):
+            cfg = lm_cfg(arch).replace(param_dtype=dtype,
+                                       compute_dtype=dtype)
+            w = init_numpy(lm_cfg(arch))["embed/w"]
+            block = _vocab_block(w, mesh, 0).detach().to(
+                getattr(torch, dtype)).requires_grad_()
+            x = transformer.embed({"embed": {"w": block}}, toks, cfg=cfg,
+                                  pcfg=pcfg).float()
+            (x * torch.from_numpy(vocab_cotangent(x.shape))).sum().backward()
+            out[arch, dtype] = {"x": x.detach().numpy(),
+                                "grad": block.grad.float().numpy()}
+    return out
+
+
+def _vocab_step_case(mesh, arch: str, knobs: dict) -> dict:
+    """One ``tp`` train step of ``arch`` (float32, no remat) on ``mesh``
+    from :func:`init_numpy`'s blocks, its gradient blocks recorded where
+    AdamW receives them, whole by ``gather_tree``."""
+    from repro_torch.convert import params_from_jax
+    from repro_torch.models import model
+    from repro_torch.parallel import sharded
+    from repro_torch.parallel.sharding import ParallelConfig, param_specs_for
+    from repro_torch.train import optim
+    from repro_torch.train import step as tstep
+    from repro_torch.utils.pytree import tree_flatten_with_paths
+    cfg = lm_cfg(arch)
+    pcfg = ParallelConfig(mesh=mesh, remat="none", layout="tp", **knobs)
+    pshapes = model.param_shapes(cfg)
+    specs = param_specs_for(pshapes, pcfg)
+    params = params_from_jax(nest(init_numpy(cfg)), specs=specs, mesh=mesh)
+    ocfg = optim.AdamWConfig(lr=LR)
+    opt = optim.init_state(params, ocfg)
+    step = tstep.make_train_step(cfg, pcfg, ocfg,
+                                 optim.warmup_cosine(LR, WARMUP, TOTAL))
+    got = {}
+    real = optim.apply_updates
+
+    def held(params, grads, *a, **kw):
+        got["grads"] = grads
+        return real(params, grads, *a, **kw)
+
+    batch = tstep.local_batch({k: torch.from_numpy(v) for k, v in
+                               lm_batch(cfg).items()}, pcfg)
+    optim.apply_updates = held
+    try:
+        _, _, metrics = step(params, opt, batch)
+    finally:
+        optim.apply_updates = real
+    whole = sharded.gather_tree(got["grads"], specs, pshapes, mesh)
+    return {"grads": _flat_np(whole), "loss": float(metrics["loss"]),
+            "kept": sorted(p for p, _ in tree_flatten_with_paths(pshapes)
+                           if tstep.tp_leaf(p, cfg, pcfg))}
+
+
+def vocab_suite(rank: int, world: int):
+    """The vocabulary over ``model`` on 4 gloo ranks: the cross-entropy
+    and embedding cases on ``(1, 2)`` (ranks 0-1) and ``(1, 4)``, the
+    train steps of ``VOCAB_STEPS`` on ``(1, 2)``; every rank's results."""
+    from repro_torch.launch.mesh import make_mesh_compat
+    meshes = {s: make_mesh_compat(s, ("data", "model"), device="cpu",
+                                  ranks=range(s[1]))
+              for s in VOCAB_MESHES}
+    out = {"rank": rank}
+    for shape, mesh in meshes.items():
+        if mesh is None:
+            continue
+        out[shape] = {"index": mesh.axis_index("model"),
+                      **_vocab_ce_cases(mesh), **{
+                          ("embed",) + k: v
+                          for k, v in _vocab_embed_cases(mesh).items()}}
+    pair = meshes[1, 2]
+    if pair is not None:
+        out["steps"] = [_vocab_step_case(pair, a, k) for a, k in VOCAB_STEPS]
+    return out
