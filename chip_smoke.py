@@ -395,8 +395,9 @@ and passed over.
    of its 48 layers (64 of 128 experts a rank), ``seamless-m4t-large-v2``
    at 6 of its 24 encoder and 24 decoder layers (8 of 16 heads a rank,
    the encoder's, the decoder's and the cross blocks'; each request with
-   ``SERVE_LEN`` frames), ``xlstm-1.3b``'s first pattern unit (whole on
-   every rank) with ``MESH_SHORT_PROMPTS``.  Each rank: (a) every layer of
+   ``SERVE_LEN`` frames, projected on a rank's half of the columns),
+   ``xlstm-1.3b``'s first pattern unit (2 of 4 heads a rank) with
+   ``MESH_SHORT_PROMPTS``.  Each rank: (a) every layer of
    each stack's first unit teacher-forced as in 22 (the MoE block from
    the single device's MoE input, so that both route alike; a cross
    layer's three split blocks within ``TP_CROSS_LAYER_TOL``); (b) and (c)
@@ -405,6 +406,21 @@ and passed over.
    captured shapes (seamless's encoder ``[1, 4096, 8, 64]`` non-causal and
    cross ``[1, 3072, 8, 64]`` over 4,096 frames, the MoE's ``[1, 3072,
    16, 128]`` over 2 kv heads) held and timed as in 11 (d).
+28. **Five tensor-parallel ranks,** after phase 27: ``recurrentgemma-2b``
+   at full width cut to ``("R", "R", "L")`` (``TP5_CUT``) on five gloo
+   ranks sharing the card at ``(data, model) = (1, 5)``, spawned once:
+   5 divides the LRU width, the 10 heads, ``d_ff`` and the vocabulary
+   but not the 8 gate blocks, so each rank's 512 LRU columns cross the
+   blocks of 320 and its gates come from the conv output all-gathered
+   over ``model``.  2 steps of (14c)'s kind, held as (14c) to the single
+   device with its 5 ranks emulated (the gathered RG-LRU route as
+   ``gathered_lru``); then the 3,072-token prompt (``TP5_PROMPTS``) and
+   ``MAX_NEW`` decode steps served from the same ranks, held as 22 to the
+   single device's engine and its ranks emulated by threads.  Then
+   ``rg_lru_scan`` at a rank's ``[1, 3072, 512]`` (prefill) and decode
+   shapes and ``flash_attention`` at a rank's 2 heads of 256 over 1 kv
+   head, held and timed; phase 26 holds the step's launches, arguments
+   and bytes by collective.
 23.-24. **Training ``seamless-m4t-large-v2`` and ``llava-next-mistral-7b``**
    at full width in bf16 from ``--seed``, each on a fresh card after
    phase 20, as the JAX package trains these families: ``step.
@@ -3886,14 +3902,27 @@ def pod_single_step(torch, cfg, seed: int, tmp: Path, seq) -> float:
     return hist[1]["wall_s"] - hist[0]["wall_s"]
 
 
+# _checksums widens this many 16-bit words at a time (a multiple of 15,
+# so that each piece starts the strides of 3 and 5 in phase): the whole
+# embedding widened at once took 4.88 GiB more on a card that phase 15's
+# two pods fill
+CHECKSUM_WORDS = 15 << 20
+
+
 def _checksums(torch, tree) -> list:
     """Exact integer checksums of each leaf's bits (the whole leaf and two
-    strided subsets of its 16-bit words)."""
+    strided subsets of its 16-bit words), widened to int64 a piece of
+    ``CHECKSUM_WORDS`` at a time."""
     from repro_torch.utils.pytree import tree_leaves
     out = []
     for x in tree_leaves(tree):
-        v = x.detach().contiguous().view(-1).view(torch.int16).long()
-        out.append([int(v.sum()), int(v[::3].sum()), int(v[1::5].sum())])
+        words = x.detach().contiguous().view(-1).view(torch.int16)
+        sums = [0, 0, 0]
+        for i in range(0, words.numel(), CHECKSUM_WORDS):
+            v = words[i:i + CHECKSUM_WORDS].long()
+            sums = [a + int(b) for a, b in zip(sums, (
+                v.sum(), v[::3].sum(), v[1::5].sum()))]
+        out.append(sums)
     return out
 
 
@@ -3977,7 +4006,7 @@ def _rank_train(torch, rank: int, seed: int, tmp: Path, cfg, seq,
         device=mesh.device)
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t
-    worst, spans, peaks = {}, {}, {}
+    worst, spans, peaks, rels = {}, {}, {}, {}
 
     def held(params, grads, state, *a, **kw):
         if not worst:                       # step 1's gradient blocks
@@ -3989,8 +4018,9 @@ def _rank_train(torch, rank: int, seed: int, tmp: Path, cfg, seq,
                 sl = sharded.block_slices(s, want["whole"][path].shape, mesh)
                 for key, ref_key in (("rowsum", "rowsum" + run),
                                      ("whole", "whole")):
-                    worst[key] = max(worst.get(key, (0.0, "")), (
-                        _rel(torch, g, want[ref_key][path][sl]), path))
+                    rel = _rel(torch, g, want[ref_key][path][sl])
+                    rels.setdefault(key, {})[path] = rel
+                    worst[key] = max(worst.get(key, (0.0, "")), (rel, path))
             del want
             peaks["check"] = torch.cuda.max_memory_allocated()
             torch.cuda.reset_peak_memory_stats()
@@ -4024,7 +4054,7 @@ def _rank_train(torch, rank: int, seed: int, tmp: Path, cfg, seq,
             f"{tuple(shape)}" + "".join(f", {k}={v}" for k, v in
                                         pcfg_kw.items()),
             "peak": peak, "check_peak": peaks["check"], "worst": worst,
-            "spans": spans,
+            "rels": rels, "spans": spans,
             "steps": [(h["loss"], h["grad_norm"], s) for h, s in
                       zip(hist, secs)]}
 
@@ -4684,13 +4714,13 @@ def family_cfgs() -> list:
             MESH_FAMILY_CUTS.items()]
 
 
-def serve_mesh_prompts(cfg, seed: int) -> list:
+def serve_mesh_prompts(cfg, seed: int, lengths=None) -> list:
     """Phases 22 and 27's 4 requests: prompts of ``LONG_PROMPTS`` lengths
     (past the 2,048 window), twice (the xLSTM's ``MESH_SHORT_PROMPTS``),
-    tokens from ``seed``."""
+    or of ``lengths``, tokens from ``seed``."""
     rng = np.random.default_rng([seed, 22])
-    lengths = MESH_SHORT_PROMPTS if cfg.family == "xlstm" \
-        else LONG_PROMPTS * 2
+    lengths = lengths or (MESH_SHORT_PROMPTS if cfg.family == "xlstm"
+                          else LONG_PROMPTS * 2)
     return [rng.integers(0, cfg.vocab_size, n).tolist() for n in lengths]
 
 
@@ -4803,7 +4833,7 @@ def unit_layer_records(torch, cfg, params, prompt, frames=None) -> list:
 
 
 def threaded_serve(torch, cfg, params, prompts, first_tokens,
-                   frames=None) -> dict:
+                   frames=None, size=MESH_SERVE_SHAPE[1]) -> dict:
     """(22b, 27b)'s reference: the serving mesh's ranks emulated by
     threads of this process on its device, as ``emulated_rows`` emulates
     a training mesh.  Thread ``r`` holds rank ``r``'s serving parameters
@@ -4813,9 +4843,11 @@ def threaded_serve(torch, cfg, params, prompts, first_tokens,
     ``step.make_prefill_step`` and runs one ``step.make_decode_step`` with
     ``first_tokens``; its sums and all-gathers over ``model``
     (``sharded.model_sum``, ``gather_wire``) exchange the threads'
-    tensors, summed in rank order in their type, as the two ranks'
-    all-reduce sums them.  Returns rank 0's prefill logits ``[n, V]`` and
-    first decode step's logits ``[slots, V]``."""
+    tensors, summed in their type in gloo's ring order
+    (:func:`ring_sum`), as the ranks' all-reduce sums them (``size``
+    ranks: threads).  Returns rank 0's
+    prefill logits ``[n, V]`` and first decode step's logits ``[slots,
+    V]``."""
     import threading
     from types import SimpleNamespace
 
@@ -4829,7 +4861,6 @@ def threaded_serve(torch, cfg, params, prompts, first_tokens,
     from repro_torch.train import step
     from repro_torch.utils.pytree import (tree_flatten_with_paths,
                                           tree_map_with_path)
-    size = MESH_SERVE_SHAPE[1]
     dev = params["embed"]["w"].device
     frames = frames or [None] * len(prompts)
     shared = SimpleNamespace(slots=[None] * size,
@@ -4847,10 +4878,11 @@ def threaded_serve(torch, cfg, params, prompts, first_tokens,
     def model_sum(x, mesh, op=dist.ReduceOp.SUM):
         # a new tensor: another thread may still read this one's x
         got = swap(x)
+        if op != dist.ReduceOp.MAX:
+            return ring_sum(torch, got)
         out = got[0]
         for g in got[1:]:
-            out = torch.maximum(out, g) if op == dist.ReduceOp.MAX \
-                else out + g
+            out = torch.maximum(out, g)
         return out
 
     def gather_wire(x, mesh, axes):
@@ -5049,7 +5081,8 @@ def _serve_mesh_vp(torch, mesh, seed: int, tmp: Path, cfg, gathered) -> dict:
             "serve_s": time.perf_counter() - t, "wire": dict(sharded.WIRE)}
 
 
-def _serve_mesh_arch(torch, rank, mesh, seed: int, tmp: Path, cfg) -> dict:
+def _serve_mesh_arch(torch, rank, mesh, seed: int, tmp: Path, cfg,
+                     lengths=None) -> dict:
     from repro_torch.kernels.flash_attention import kernel as fkernel
     from repro_torch.kernels.rg_lru_scan import kernel as lkernel
     from repro_torch.models import model
@@ -5067,7 +5100,7 @@ def _serve_mesh_arch(torch, rank, mesh, seed: int, tmp: Path, cfg) -> dict:
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t
     ref = torch.load(tmp / f"serve_{arch}.pt")
-    prompts = serve_mesh_prompts(cfg, seed)
+    prompts = serve_mesh_prompts(cfg, seed, lengths)
     frames = serve_mesh_frames(cfg, seed, len(prompts))
     captured = {}
     real_flash, real_scan = fkernel.flash_attention_fwd, lkernel.lru_scan
@@ -5155,22 +5188,84 @@ def _serve_mesh_arch(torch, rank, mesh, seed: int, tmp: Path, cfg) -> dict:
                                  tree_flatten_with_paths(sp))}
 
 
+def serve_reference(torch, cfg, seed: int, tmp: Path, card: str,
+                    device="cuda", size=MESH_SERVE_SHAPE[1], lengths=None):
+    """Phases 22, 27 and 28's references of ``cfg``, in this process: the
+    single-device engine's requests (``serve_mesh_prompts`` of
+    ``lengths``), each layer of the first unit (``unit_layer_records``)
+    and ``size`` model ranks emulated by threads (``threaded_serve``),
+    written to ``tmp / serve_<arch>.pt`` for the ranks.  Returns (what the
+    ranks are held to, the single device's times)."""
+    from repro_torch.kernels.flash_attention import kernel as fkernel
+    from repro_torch.parallel.sharding import NO_PARALLEL
+    arch = cfg.name
+    t_arch = time.perf_counter()
+    cfg, params = lm_model(torch, seed, cfg, device)
+    prompts = serve_mesh_prompts(cfg, seed, lengths)
+    frames = serve_mesh_frames(cfg, seed, len(prompts))
+    fkernel.launches = 0
+    reqs, steps, rec, peak, _ = mesh_serve_run(
+        torch, cfg, params, prompts, NO_PARALLEL, device=device,
+        frames=frames)
+    single = {"ttft": [r.t_first - r.t_submit for r in reqs],
+              "steps": steps}
+    steady = [(sec, act) for sec, adm, act in steps if adm == 0]
+    print(f"serve mesh: {arch} single device ({card}): ttft_s "
+          f"{[round(x, 4) for x in single['ttft']]} (prompts "
+          f"{[len(p) for p in prompts]}"
+          + (f", {SERVE_LEN} frames each" if frames else "")
+          + f") decode_tok_per_s_steady "
+          f"{sum(a for _, a in steady) / sum(s for s, _ in steady):.1f}"
+          f" max_memory_allocated={peak}")
+    layers = unit_layer_records(torch, cfg, params, prompts[0],
+                                frames and frames[0])
+    emul = threaded_serve(torch, cfg, params, prompts, rec["tokens"],
+                          frames, size)
+    torch.save({"prefill": torch.stack(rec["prefill"]),
+                "decode": rec["decode"], "tokens": rec["tokens"],
+                "layers": layers}, tmp / f"serve_{arch}.pt")
+    want = {"prefill": torch.stack(rec["prefill"]).numpy(),
+            "decode": rec["decode"].numpy(),
+            "tokens": [r.out for r in reqs], **emul}
+    del params, layers, reqs, rec
+    print(f"serve mesh: {arch} single device and references in "
+          f"{time.perf_counter() - t_arch:.1f}s")
+    return want, single
+
+
+def serve_mesh_timings(torch, cfg, kern, label: str) -> dict:
+    """flash_attention (each route) and rg_lru_scan (prefill, decode) at
+    a serving rank's shapes, from its first launches (``kern``)."""
+    arch = cfg.name
+    routes = ("encoder", "cross") if cfg.is_encoder_decoder else ("self",)
+    timings = {"flash": {route: path_flash_times(
+        torch, f"{arch} {label} {route}", (
+            tuple(x.cuda() for x in kern[route][0]), kern[route][1]))
+        for route in routes if route in kern}}
+    if "prefill" in kern:
+        timings["scan_prefill"] = lru_times(
+            torch, f"{arch} {label} prefill",
+            *(x.cuda() for x in kern["prefill"]))
+        timings["scan_decode"] = lru_times(
+            torch, f"{arch} {label} decode",
+            *(x.cuda() for x in kern["decode"]))
+    return timings
+
+
 def serve_mesh_phase(torch, seed: int, cfgs=None, device="cuda",
                      phase=22) -> dict:
     """Phase 22: each of ``MESH_SERVE_LAYERS`` at full width and its
     layers there (or the configs ``cfgs``: phase 27's families) served on
     two gloo ranks sharing the card at ``(data, model) = (1, 2)``, layout
     ``tp``, against the single-device engine at one seed, run first in
-    this process for every config; then the ranks start once and serve
-    each config in turn.  Returns {arch: (the ranks' flash_attention and
-    rg_lru_scan launches, the kernels' timings at a rank's shapes)}.  A
-    CPU rehearsal passes reduced ``cfgs`` and ``device="cpu"`` (with
-    ``torch.cuda``'s synchronize and memory calls stubbed, in the ranks
-    too, and the kernel timings skipped)."""
+    this process for every config (``serve_reference``); then the ranks
+    start once and serve each config in turn.  Returns {arch: (the ranks'
+    flash_attention and rg_lru_scan launches, the kernels' timings at a
+    rank's shapes)}.  A CPU rehearsal passes reduced ``cfgs`` and
+    ``device="cpu"`` (with ``torch.cuda``'s synchronize and memory calls
+    stubbed, in the ranks too, and the kernel timings skipped)."""
     from repro_torch.configs import get_config
-    from repro_torch.kernels.flash_attention import kernel as fkernel
     from repro_torch.launch.mesh import run_ranks
-    from repro_torch.parallel.sharding import NO_PARALLEL
     card = card_line()
     cfgs = cfgs or [get_config(a).replace(n_layers=n)
                     for a, n in MESH_SERVE_LAYERS.items()]
@@ -5178,38 +5273,8 @@ def serve_mesh_phase(torch, seed: int, cfgs=None, device="cuda",
     out, wants, singles = {}, {}, {}
     try:
         for cfg in cfgs:
-            arch = cfg.name
-            t_arch = time.perf_counter()
-            cfg, params = lm_model(torch, seed, cfg, device)
-            prompts = serve_mesh_prompts(cfg, seed)
-            frames = serve_mesh_frames(cfg, seed, len(prompts))
-            fkernel.launches = 0
-            reqs, steps, rec, peak, _ = mesh_serve_run(
-                torch, cfg, params, prompts, NO_PARALLEL, device=device,
-                frames=frames)
-            singles[arch] = {"ttft": [r.t_first - r.t_submit for r in reqs],
-                             "steps": steps}
-            steady = [(sec, act) for sec, adm, act in steps if adm == 0]
-            print(f"serve mesh: {arch} single device ({card}): ttft_s "
-                  f"{[round(x, 4) for x in singles[arch]['ttft']]} (prompts "
-                  f"{[len(p) for p in prompts]}"
-                  + (f", {SERVE_LEN} frames each" if frames else "")
-                  + f") decode_tok_per_s_steady "
-                  f"{sum(a for _, a in steady) / sum(s for s, _ in steady):.1f}"
-                  f" max_memory_allocated={peak}")
-            layers = unit_layer_records(torch, cfg, params, prompts[0],
-                                        frames and frames[0])
-            emul = threaded_serve(torch, cfg, params, prompts, rec["tokens"],
-                                  frames)
-            torch.save({"prefill": torch.stack(rec["prefill"]),
-                        "decode": rec["decode"], "tokens": rec["tokens"],
-                        "layers": layers}, tmp / f"serve_{arch}.pt")
-            wants[arch] = {"prefill": torch.stack(rec["prefill"]).numpy(),
-                           "decode": rec["decode"].numpy(),
-                           "tokens": [r.out for r in reqs], **emul}
-            del params, layers, reqs, rec
-            print(f"serve mesh: {arch} single device and references in "
-                  f"{time.perf_counter() - t_arch:.1f}s")
+            wants[cfg.name], singles[cfg.name] = serve_reference(
+                torch, cfg, seed, tmp, card, device)
         fresh_card(torch, phase, "before the ranks start")
         t = time.perf_counter()
         res = run_ranks(serve_mesh_rank, MESH_LM_RANKS,
@@ -5231,28 +5296,15 @@ def serve_mesh_phase(torch, seed: int, cfgs=None, device="cuda",
         if device != "cuda":
             out[arch] = (launches, {})
             continue
-        kern = kerns.pop(arch)
-        routes = ("encoder", "cross") if cfg.is_encoder_decoder \
-            else ("self",)
-        timings = {"flash": {route: path_flash_times(
-            torch, f"{arch} tensor-parallel rank {route}", (
-                tuple(x.cuda() for x in kern[route][0]), kern[route][1]))
-            for route in routes if route in kern}}
-        if "prefill" in kern:
-            timings["scan_prefill"] = lru_times(
-                torch, f"{arch} tensor-parallel rank prefill",
-                *(x.cuda() for x in kern["prefill"]))
-            timings["scan_decode"] = lru_times(
-                torch, f"{arch} tensor-parallel rank decode",
-                *(x.cuda() for x in kern["decode"]))
-        del kern
-        out[arch] = (launches, timings)
+        out[arch] = (launches, serve_mesh_timings(
+            torch, cfg, kerns.pop(arch), "tensor-parallel rank"))
     return out
 
 
-def check_serve_mesh_rank(arch, r, got, want, single, card) -> None:
-    """Phase 22's (and 27's) bands on rank ``r``'s results, and its
-    lines."""
+def check_serve_mesh_rank(arch, r, got, want, single, card,
+                          shape=MESH_SERVE_SHAPE) -> None:
+    """Phase 22's (and 27's, 28's) bands on rank ``r``'s results on the
+    ``(data, model) = shape`` mesh, and its lines."""
     scale = float(np.abs(want["prefill"]).max())
     err_p = float(np.abs(got["prefill"] - want["prefill"]).max())
     dscale = float(np.abs(want["decode"]).max())
@@ -5264,8 +5316,8 @@ def check_serve_mesh_rank(arch, r, got, want, single, card) -> None:
     emul_d = float(np.abs(got["decode"] - want["emul_decode"]).max())
     steady = [(sec, act) for sec, adm, act in got["steps"] if adm == 0]
     tp = got["tp"]
-    print(f"serve mesh: {arch} rank {r}/{MESH_LM_RANKS} ((data, model) = "
-          f"{MESH_SERVE_SHAPE}, layout tp, gloo sharing the card, "
+    print(f"serve mesh: {arch} rank {r}/{shape[0] * shape[1]} ((data, "
+          f"model) = {shape}, layout tp, gloo sharing the card, "
           f"host-staged; {card}): ttft_s "
           f"{[round(x, 4) for x in got['ttft']]} (single device "
           f"{[round(x, 4) for x in single['ttft']]}) prefill_s "
@@ -5324,6 +5376,67 @@ def check_serve_mesh_rank(arch, r, got, want, single, card) -> None:
               f"differs from the gather run's")
 
 
+# gloo's ring all-reduce cuts the flattened tensor into segments, at
+# least two a rank and at most GLOO_SEGMENT_BYTES each, their number a
+# multiple of the ranks'; segment s is added up around the ring from rank
+# s // (its segments a rank) - 1 downwards, each addition rounded in the
+# tensor's type.  Its reduce-scatter keeps the rank's block of the same
+# sums.  Both bit for bit on gloo ranks on the CPU at 2, 3 and 5 ranks
+# (tests/test_torch_tp_recurrent.py)
+GLOO_SEGMENT_BYTES = 1 << 20
+
+
+def ring_sum(torch, parts):
+    """The ranks' ``parts`` (a tensor a rank, of one shape and type)
+    summed in their type in the order gloo's ring all-reduce adds them
+    (``GLOO_SEGMENT_BYTES``); a contiguous tensor of their shape, no
+    autograd."""
+    size = len(parts)
+    flat = [q.detach().contiguous().reshape(-1) for q in parts]
+    n = flat[0].numel()
+    segs = max(-(-n * flat[0].element_size() // GLOO_SEGMENT_BYTES),
+               2 * size)
+    segs = -(-segs // size) * size
+    per, seg = segs // size, -(-n // segs)
+    out = torch.empty_like(flat[0])
+    for s in range(-(-n // seg) if n else 0):
+        lo, hi, j = s * seg, min((s + 1) * seg, n), s // per
+        acc = flat[(j - 1) % size][lo:hi]
+        for t in range(2, size + 1):
+            acc = acc + flat[(j - t) % size][lo:hi]
+        out[lo:hi] = acc
+    return out.view(parts[0].shape)
+
+
+def ring_ops(torch):
+    """(``add``, ``fan_out``): the emulated ranks' sums over ``model`` as
+    autograd functions, added in gloo's ring order (:func:`ring_sum`).
+    ``add(parts)`` is ``reduce_from_model`` over the ranks' ``parts``
+    (the same gradient to each); ``fan_out(x, n)`` is ``copy_to_model``
+    for ``n`` ranks: ``x`` once a rank, its gradient the ranks' gradients
+    added."""
+    class Add(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, *parts):
+            ctx.n = len(parts)
+            return ring_sum(torch, parts)
+
+        @staticmethod
+        def backward(ctx, g):
+            return (g,) * ctx.n
+
+    class FanOut(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, x, n):
+            return tuple(x.view_as(x) for _ in range(n))
+
+        @staticmethod
+        def backward(ctx, *gs):
+            return ring_sum(torch, gs), None
+
+    return (lambda parts: Add.apply(*parts)), FanOut.apply
+
+
 # the leaves a tensor-parallel layer computes on its model block, and the
 # dim the block cuts (the JAX specs' "model" entry)
 TP_CUTS = {"attn": {"wq": 1, "bq": 0, "wo": 0},
@@ -5341,34 +5454,56 @@ def emulated_model_ranks(torch, size: int, device):
     a rank, with the rank's blocks cut from the whole leaves (contiguous
     copies, as a rank holds them) and a stand-in mesh at the rank's
     ``model`` coordinate; ``sharded.copy_to_model`` and
-    ``reduce_from_model`` are the identity inside, and the ranks' outputs
-    are added in their type, as the all-reduce of two ranks adds them.
-    The layer's input enters each rank's call through an identity node of
-    its own, whose gradient autograd sums over that rank's uses as the
-    rank's ``copy_to_model`` output sums them; the input's gradient is
-    then the ranks' two added in their type, as ``copy_to_model``'s
-    all-reduce adds them, and a replicated leaf used by every rank gets
-    the same sum.  The fused head's chunks (``losses._chunk_stats``)
-    compute each rank's block of the vocabulary's logits from its own
-    view of the input and its float32 sums over the block at the rows'
-    maxima (``losses._block_stats``), added in rank order as the
-    all-reduce of two ranks adds them.  The caches a prefill emits are
-    rank 0's blocks (for the logits alone)."""
-    from repro_torch.models import attention, losses, mlp, rglru
+    ``reduce_from_model`` are the identity inside, and the ranks' sums
+    over ``model`` run as the mesh's gloo all-reduce adds them, in the
+    tensors' type and in its ring order (:func:`ring_ops`): the ranks'
+    outputs; the layer's input and every whole leaf it reads, which
+    enter each rank's call once a rank (``fan_out``), so that each
+    input's gradient is the ranks' gradients added as ``copy_to_model``'s
+    all-reduce adds them.  The fused head's input enters the same way,
+    once for all its chunks, as ``losses.fused_cross_entropy`` passes it
+    through ``copy_to_model``; each chunk computes each rank's block of
+    the vocabulary's logits and its float32 sums over the block at the
+    rows' maxima (``losses._block_stats``), added as the all-reduce adds
+    them.  An RG-LRU layer whose ranks' slices cross its gate blocks
+    (``size`` not dividing ``N_GATE_BLOCKS``) runs each rank's conv
+    first, then each rank's gates on its blocks of their concatenation,
+    as the ranks' all-gather hands it to every rank
+    (:func:`gathered_lru`).  The caches a prefill emits are rank 0's
+    blocks (for the logits alone)."""
+    from repro_torch.models import attention, losses, mlp, model, rglru
     from repro_torch.parallel import sharded
     from repro_torch.parallel.mesh_utils import Mesh
     from repro_torch.parallel.sharding import tp_block
+    add, fan_out = ring_ops(torch)
     meshes = [Mesh(("data", "model"), {"data": 1, "model": size}, object(),
                    r, size, device, "gloo") for r in range(size)]
 
-    def cut(p, tables, r):
-        out = dict(p)
-        for table in tables:
-            for name, dim in table.items():
-                if name in p:
-                    n = p[name].shape[dim] // size
-                    out[name] = p[name].narrow(dim, r * n, n).contiguous()
-        return out
+    def fanned(leaf) -> list:
+        """A whole leaf (or a dict of them) once a rank, through
+        ``fan_out``."""
+        if isinstance(leaf, dict):
+            per = {k: fanned(v) for k, v in leaf.items()}
+            return [{k: v[r] for k, v in per.items()} for r in range(size)]
+        if isinstance(leaf, torch.Tensor):
+            return list(fan_out(leaf, size))
+        return [leaf] * size
+
+    def rank_params(p, tables) -> list:
+        """Each rank's leaves: its blocks of those ``tables`` cut, every
+        other leaf whole through ``fan_out``."""
+        dims = {name: dim for table in tables for name, dim in table.items()}
+        ranks = [{} for _ in range(size)]
+        for name, leaf in p.items():
+            if name in dims:
+                n = leaf.shape[dims[name]] // size
+                blocks = [leaf.narrow(dims[name], r * n, n).contiguous()
+                          for r in range(size)]
+            else:
+                blocks = fanned(leaf)
+            for r in range(size):
+                ranks[r][name] = blocks[r]
+        return ranks
 
     def wrap(module, tables_of, pair):
         real = module.apply
@@ -5378,12 +5513,14 @@ def emulated_model_ranks(torch, size: int, device):
                 pcfg.with_(mesh=meshes[0], layout="tp"), kw)
             if not tables:
                 return real(p, x, *a, pcfg=pcfg, **kw)
-            outs = [real(cut(p, tables, r), x.view_as(x), *a,
+            outs = [real(q, xr, *a,
                          pcfg=pcfg.with_(mesh=meshes[r], layout="tp"),
-                         **rank_kw(kw, r)) for r in range(size)]
+                         **rank_kw(kw, r))
+                    for r, (q, xr) in enumerate(zip(rank_params(p, tables),
+                                                    fan_out(x, size)))]
             if not pair:
-                return sum(outs[1:], outs[0])
-            return sum((o[0] for o in outs[1:]), outs[0][0]), outs[0][1]
+                return add(outs)
+            return add([o[0] for o in outs]), outs[0][1]
         return patched(module, "apply", call)
 
     def rank_kw(kw, r):
@@ -5411,17 +5548,40 @@ def emulated_model_ranks(torch, size: int, device):
         ok = rglru.lru_split(cfg, pc)
         return [TP_CUTS["rglru"]] if ok else None
 
-    real_stats = losses._chunk_stats
+    lru_wrap = wrap(rglru, lru_tables, True)
+
+    def lru_call(p, x, *, cfg, pcfg, state=None, **kw):
+        pc = pcfg.with_(mesh=meshes[0], layout="tp")
+        if pcfg.mesh is not None or rglru.lru_split(cfg, pc) is None \
+                or rglru.N_GATE_BLOCKS % size == 0:
+            return ranks_lru(p, x, cfg=cfg, pcfg=pcfg, state=state, **kw)
+        states = [rank_kw({"state": state}, r)["state"] for r in range(size)]
+        outs = gathered_lru(torch, rank_params(p, [TP_CUTS["rglru"]]),
+                            fan_out(x, size), states, fan_out)
+        return add([o[0] for o in outs]), outs[0][1]
+
+    real_fused, real_stats = losses.fused_cross_entropy, losses._chunk_stats
+
+    def split_head(w, transpose_w):
+        dim = 0 if transpose_w else 1
+        return dim, (w.shape[dim] // size if w.shape[dim] % size == 0
+                     else 0)
+
+    def fused(x, w, labels, *, transpose_w, mesh=None, **kw):
+        # the ranks' inputs stacked on a last dim: the chunks slice all
+        if mesh is None and split_head(w, transpose_w)[1]:
+            x = torch.stack(fan_out(x, size), -1)
+        return real_fused(x, w, labels, transpose_w=transpose_w, mesh=mesh,
+                          **kw)
 
     def chunk_stats(x_c, labels_c, w, *, real_vocab, transpose_w,
                     mesh=None):
-        dim = 0 if transpose_w else 1
-        n = w.shape[dim] // size
-        if mesh is not None or w.shape[dim] % size:
+        dim, n = split_head(w, transpose_w)
+        if mesh is not None or not n:
             return real_stats(x_c, labels_c, w, real_vocab=real_vocab,
                               transpose_w=transpose_w, mesh=mesh)
         blocks = [losses._masked_f32(losses.head_product(
-            x_c.view_as(x_c), w.narrow(dim, r * n, n), transpose_w),
+            x_c[..., r].contiguous(), w.narrow(dim, r * n, n), transpose_w),
             real_vocab, r * n) for r in range(size)]
         with torch.no_grad():       # sharded.model_argmax's pairs
             idx = [b.argmax(-1, keepdim=True) for b in blocks]
@@ -5434,16 +5594,63 @@ def emulated_model_ranks(torch, size: int, device):
                 dim=0)[0]
         parts = [losses._block_stats(b, labels_c, real_vocab, r * n, m)
                  for r, b in enumerate(blocks)]
-        total = sum((p[0] for p in parts[1:]), parts[0][0])
-        gold = sum((p[1] for p in parts[1:]), parts[0][1])
+        total = add([q[0] for q in parts])
+        gold = add([q[1] for q in parts])
         return losses._sums(m + torch.log(total), gold, top, labels_c)
 
     with wrap(attention, attn_tables, True), wrap(mlp, mlp_tables, False), \
-            wrap(rglru, lru_tables, True), \
-            patched(losses, "_chunk_stats", chunk_stats), \
+            lru_wrap, patched(losses, "_chunk_stats", chunk_stats), \
+            patched(model, "fused_cross_entropy", fused), \
             patched(sharded, "copy_to_model", lambda x, mesh: x), \
             patched(sharded, "reduce_from_model", lambda x, mesh: x):
-        yield
+        ranks_lru = rglru.apply      # the per-rank calls of lru_wrap
+        with patched(rglru, "apply", lru_call):
+            yield
+
+
+def gathered_lru(torch, ps, xs, states, fan_out) -> list:
+    """``rglru.apply``'s route on ranks whose slices of the width cross
+    the gate blocks, emulated in one autograd graph: each rank's
+    branch, gate and conv from its leaves ``ps[r]`` (its blocks, and the
+    whole gates through ``fan_out``), its input ``xs[r]`` and its slice of
+    the state, then each rank's gate columns
+    (``rglru.rank_gate_columns``) on its blocks of every rank's conv
+    output concatenated ``[W, B, T]`` (what the all-gather hands each
+    rank, once a rank through ``fan_out``: the ranks' gradients of it are
+    added in gloo's ring order, as its reduce-scatter adds them), the scan
+    and its rows of ``out``.  Returns each rank's (partial output, new
+    state or None)."""
+    import torch.nn.functional as F
+
+    from repro_torch.models import common, rglru
+    size = len(ps)
+    parts = []
+    for q, xr, st in zip(ps, xs, states):
+        branch = xr @ q["in_x"]
+        gate = F.gelu((xr @ q["in_g"]).float(), approximate="tanh").to(
+            xr.dtype)
+        if st is None:
+            xc, conv = common.causal_conv1d(branch, q["conv_w"]), None
+            h0 = torch.zeros(xc.shape[::2], dtype=torch.float32,
+                             device=xr.device)
+        else:
+            xc, conv = common.causal_conv1d(branch, q["conv_w"], st["conv"])
+            h0 = st["h"]
+        parts.append((xc, gate, conv, h0))
+    wholes = fan_out(torch.cat([xc.movedim(-1, 0) for xc, *_ in parts]),
+                     size)
+    width = wholes[0].shape[0]
+    block = width // rglru.N_GATE_BLOCKS
+    outs = []
+    for r, (q, (xc, gate, conv, h0)) in enumerate(zip(ps, parts)):
+        b0, b1 = rglru.gate_span(width, r, size)
+        xb = wholes[r][b0 * block:b1 * block].movedim(0, -1).contiguous()
+        ga, gx = (rglru.rank_gate_columns(xb, q[name]["w"], r, size)
+                  for name in ("gate_a", "gate_x"))
+        y, h_t = rglru._recur(q, xc, ga, gx, h0)
+        outs.append(((y * gate) @ q["out"],
+                     None if conv is None else {"h": h_t, "conv": conv}))
+    return outs
 
 
 # ------------------------------------------------------------ run 14c
@@ -5451,15 +5658,17 @@ TP_TRAIN_SHAPE = (1, 2)         # (data, model), layout tp
 TP_TRAIN_BATCH = 1              # one row of MESH_SEQ tokens
 
 
-def tp_reference(torch, cfg, seed: int, batch, tmp: Path) -> dict:
-    """(14c)'s reference on the card: one single-device forward and
-    backward of phase 8's kind on ``batch``, and the same step with its
-    two ``model`` ranks emulated on this device
-    (:func:`emulated_model_ranks`: each rank's partial products rounded
-    and added where the mesh rounds and adds them), whose gradient the
-    ranks' blocks are held to (``rowsumtp``); the plain step's is
-    ``whole``.  Both go to ``tmp/ref_tp.pt`` (whole leaves, each rank
-    cuts its blocks); returns the emulation's loss and gradient norm."""
+def tp_reference(torch, cfg, seed: int, batch, tmp: Path,
+                 size=TP_TRAIN_SHAPE[1], run="tp") -> dict:
+    """(14c)'s reference on the card (and phase 28's, ``size`` 5, ``run``
+    ``"tp5"``): one single-device forward and backward of phase 8's kind
+    on ``batch``, and the same step with its ``size`` ``model`` ranks
+    emulated on this device (:func:`emulated_model_ranks`: each rank's
+    partial products rounded and added where the mesh rounds and adds
+    them), whose gradient the ranks' blocks are held to (``"rowsum" +
+    run``); the plain step's is ``whole``.  Both go to ``tmp / ("ref_" +
+    run + ".pt")`` (whole leaves, each rank cuts its blocks); returns the
+    emulation's loss and gradient norm."""
     from repro_torch.models import model
     from repro_torch.train import optim, step
     from repro_torch.utils.pytree import tree_flatten_with_paths
@@ -5471,8 +5680,7 @@ def tp_reference(torch, cfg, seed: int, batch, tmp: Path) -> dict:
     whole = {p: g.cpu() for p, g in tree_flatten_with_paths(grads)}
     plain = (float(loss), float(optim.global_norm(grads)))
     del grads
-    with emulated_model_ranks(torch, TP_TRAIN_SHAPE[1],
-                              batch["inputs"].device):
+    with emulated_model_ranks(torch, size, batch["inputs"].device):
         (loss, _), grads = step._value_and_grad_accum(
             params, batch, cfg=cfg, pcfg=train_pcfg())
     gnorm = float(optim.global_norm(grads))
@@ -5480,14 +5688,15 @@ def tp_reference(torch, cfg, seed: int, batch, tmp: Path) -> dict:
     del params, grads
     spread = {p: _rel(torch, whole[p], emul[p]) for p in emul}
     worst = max(spread, key=spread.get)
-    torch.save({"whole": whole, "rowsumtp": emul}, tmp / "ref_tp.pt")
+    torch.save({"whole": whole, "rowsum" + run: emul},
+               tmp / f"ref_{run}.pt")
     del whole, emul
     gc.collect()
     torch.cuda.empty_cache()
     print(f"mesh tp: single-device step of {cfg.name} cut to "
           f"{cfg.n_layers} layers, batch {batch['inputs'].shape[0]} x "
           f"{batch['inputs'].shape[1]}: loss {plain[0]:.6f} grad_norm "
-          f"{plain[1]:.4f}; its {TP_TRAIN_SHAPE[1]} model ranks emulated: "
+          f"{plain[1]:.4f}; its {size} model ranks emulated: "
           f"loss {float(loss):.6f} grad_norm {gnorm:.4f}, the gradient "
           f"{spread[worst]:.3e} relative L2 at most from the plain step's "
           f"({worst}; bf16 rounding of the ranks' partial sums); "
@@ -5548,6 +5757,126 @@ def tp_train_phase(torch, seed: int) -> list:
           f"{spawn_s:.1f}s with the spawn")
     MEASURED["train_mesh_tp"] = ranks_held(res, "tp")
     return [out["tp"]["launches"] for out in res]
+
+
+# ------------------------------------------------------------ phase 28
+# recurrentgemma-2b at full width on (data, model) = (1, 5), layout tp:
+# 5 divides the LRU width of 2,560, the 10 heads, d_ff 7,680 and the
+# vocabulary but not the RG-LRU's 8 gate blocks, so each rank's 512
+# columns cross blocks of 320 and its gates come from the conv output
+# gathered over model; cut to the unit's first three layers
+TP5_SHAPE = (1, 5)
+TP5_CUT = {"block_pattern": ("R", "R", "L"), "n_layers": 3}
+TP5_PROMPTS = (LONG_PROMPTS[0],)     # one prompt of 3,072, MAX_NEW decoded
+
+
+def tp5_cfg():
+    """Phase 28's config: ``LM_ARCH`` cut to ``TP5_CUT``."""
+    from repro_torch.configs import get_config
+    return get_config(LM_ARCH).replace(**TP5_CUT)
+
+
+def tp5_rank(rank: int, world: int, seed: int, tmp: str, cfg,
+             seq: int) -> dict:
+    """One of phase 28's 5 ranks (started once by ``run_ranks``): the
+    steps of (14c)'s kind on ``TP5_SHAPE``, then the prompt served on the
+    same ranks (``_serve_mesh_arch``)."""
+    import torch
+    from repro_torch.launch.mesh import make_mesh_compat
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    t = time.perf_counter()
+    out = {"tp5": _rank_train(torch, rank, seed, Path(tmp), cfg, seq,
+                              shape=TP5_SHAPE, run="tp5",
+                              batch=TP_TRAIN_BATCH, ref="ref_tp5.pt",
+                              layout="tp")}
+    out["train_s"] = time.perf_counter() - t
+    gc.collect()
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    mesh = make_mesh_compat(TP5_SHAPE, ("data", "model"))
+    out["serve"] = _serve_mesh_arch(torch, rank, mesh, seed, Path(tmp), cfg,
+                                    TP5_PROMPTS)
+    out["serve_s"] = time.perf_counter() - t
+    return out
+
+
+def tp5_phase(torch, seed: int, device="cuda") -> dict:
+    """Phase 28: ``tp5_cfg()`` trained 2 steps on one row of ``MESH_SEQ``
+    tokens on ``TP5_SHAPE`` (5 gloo ranks sharing the card), held to the
+    single device with the 5 ranks emulated (``tp_reference``, their sums
+    in gloo's ring order; (14c)'s bands), then serving ``TP5_PROMPTS`` on the
+    same ranks, held to the single device's engine with the ranks
+    emulated by threads (phase 22's bands).  Returns the ranks' launches
+    of both and the kernels' timings at a rank's shapes (``rg_lru_scan``
+    at 512 columns, ``flash_attention`` at 2 heads of 256).  A CPU
+    rehearsal passes ``device="cpu"`` (stubbed as ``serve_mesh_phase``'s,
+    a config whose widths 5 divides, and the timings skipped)."""
+    from repro_torch.data.dataset import Cursor
+    from repro_torch.launch.mesh import run_ranks
+    from repro_torch.models import rglru
+    from repro_torch.parallel.mesh_utils import Mesh
+    from repro_torch.parallel.sharding import ParallelConfig
+    cfg, seq, card = tp5_cfg(), MESH_SEQ, card_line()
+    size = TP5_SHAPE[0] * TP5_SHAPE[1]
+    stand_in = Mesh(("data", "model"), dict(zip(("data", "model"),
+                                                TP5_SHAPE)),
+                    object(), 0, size, "cpu", "gloo")
+    split = rglru.lru_split(cfg, ParallelConfig(mesh=stand_in))
+    check(split == (0, 5) and rglru.N_GATE_BLOCKS % 5
+          and rglru.gate_span(cfg.lru_width, 0, 5) == (0, 2),
+          f"phase 28: the RG-LRU's route on {TP5_SHAPE} is {split}, its "
+          f"rank 0's gate blocks "
+          f"{rglru.gate_span(cfg.lru_width, 0, 5)}")
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_tp5_"))
+    try:
+        _, ds, _ = train_data(torch, tmp / "ref", cfg, seed,
+                              batch=TP_TRAIN_BATCH, seq=seq)
+        host, _ = next(ds.batches(TP_TRAIN_BATCH, Cursor()))
+        ref = tp_reference(torch, cfg, seed, {
+            k: torch.from_numpy(v).to(device) for k, v in host.items()}, tmp,
+            size=TP5_SHAPE[1], run="tp5")
+        want, single = serve_reference(torch, cfg, seed, tmp, card, device,
+                                       size=TP5_SHAPE[1],
+                                       lengths=TP5_PROMPTS)
+        fresh_card(torch, 28, "before the ranks start")
+        t = time.perf_counter()
+        res = run_ranks(tp5_rank, size, (seed, str(tmp), cfg, seq),
+                        timeout_s=600, join_timeout_s=900)
+        spawn_s = time.perf_counter() - t
+        kern = torch.load(tmp / f"kern_{cfg.name}.pt")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    for r, out in enumerate(res):
+        report_mesh_train(f"mesh tp5 rank {r}/{size}", cfg, out["tp5"], seq,
+                          TP_TRAIN_BATCH, card)
+        rels = out["tp5"]["rels"]
+        print(f"mesh tp5 rank {r}/{size}: the farthest gradient blocks from "
+              f"the emulated ranks' (relative L2; the plain step's beside): "
+              + ", ".join(f"{path} {rels['rowsum'][path]:.3e} "
+                          f"({rels['whole'][path]:.3e})" for path in
+                          sorted(rels["rowsum"],
+                                 key=rels["rowsum"].get)[-4:]))
+    for r, out in enumerate(res):
+        check_serve_mesh_rank(cfg.name, r, out["serve"], want, single, card,
+                              shape=TP5_SHAPE)
+    check_mesh_train(cfg, res, ref, key="tp5", falls=False)
+    wire = res[0]["tp5"]["wire"]
+    print(f"mesh tp5: {cfg.name} cut to {cfg.block_pattern}, step-1 loss "
+          f"{res[0]['tp5']['steps'][0][0]:.6f} against the emulated ranks' "
+          f"{ref['loss']:.6f}, grad_norm {res[0]['tp5']['steps'][0][1]:.4f} "
+          f"against {ref['grad_norm']:.4f}; the RG-LRU's gate columns from "
+          f"the conv output gathered over model (all_gather "
+          f"{wire['all_gather']}"
+          f" bytes a step with the head's maxima); ranks trained in "
+          f"{res[0]['train_s']:.1f}s and served in {res[0]['serve_s']:.1f}s,"
+          f" {spawn_s:.1f}s with the spawn ({card})")
+    MEASURED["train_mesh_tp5"] = ranks_held(res, "tp5")
+    return {"train": [out["tp5"]["launches"] for out in res],
+            "serve": [out["serve"]["launches"] for out in res],
+            "timings": serve_mesh_timings(torch, cfg, kern,
+                                          "tensor-parallel rank of 5")
+            if device == "cuda" else {}}
 
 
 # ------------------------------------------------------------ phases 23-25
@@ -5879,8 +6208,9 @@ def xlstm_train_phase(torch, seed: int, device="cuda") -> None:
 
 # ------------------------------------------------------------ phase 26
 # the steps the card ran that the dry run counts, by their MEASURED key:
-# (arch, layers (0: all), kind, tokens a row, global rows, (data, model)
-# of a stand-in mesh or None, knobs beside phase 8's, cache capacity)
+# (arch, layers (0: all; a dict: the config's fields cut), kind, tokens a
+# row, global rows, (data, model) of a stand-in mesh or None, knobs
+# beside phase 8's, cache capacity)
 PREFILL_ARCH = "qwen3-8b"       # phase 17's warm prefill
 DRYRUN_STEPS = {
     "train": (LM_ARCH, 0, "train", TRAIN_SEQ, TRAIN_BATCH, None, {}, 0),
@@ -5891,6 +6221,8 @@ DRYRUN_STEPS = {
                          {"accum_steps": MESH_ACCUM}, 0),
     "train_mesh_tp": (LM_ARCH, POD_LAYERS, "train", MESH_SEQ,
                       TP_TRAIN_BATCH, TP_TRAIN_SHAPE, {"layout": "tp"}, 0),
+    "train_mesh_tp5": (LM_ARCH, TP5_CUT, "train", MESH_SEQ, TP_TRAIN_BATCH,
+                       TP5_SHAPE, {"layout": "tp"}, 0),
     **{"mesh_moe_" + run: (MOE_ARCH, MESH_MOE_LAYERS, "train", MESH_MOE_SEQ,
                            TRAIN_BATCH, shape,
                            {"layout": layout, "moe_dispatch": dispatch}, 0)
@@ -5928,7 +6260,8 @@ def dryrun_counts(out: str) -> None:
             DRYRUN_STEPS.items():
         cfg = get_config(arch)
         if layers:
-            cfg = cfg.replace(n_layers=layers)
+            cfg = cfg.replace(**layers) if isinstance(layers, dict) \
+                else cfg.replace(n_layers=layers)
         t = time.perf_counter()
         with dryrun.standin_group(math.prod(shape) if shape else 1):
             mesh = make_mesh_compat(shape, ("data", "model"),
@@ -6112,8 +6445,16 @@ def main() -> None:
     print(f"phase 27 done in {time.perf_counter() - t:.1f}s (at "
           f"{time.perf_counter() - t0:.1f}s)")
 
+    # phase 28: tensor-parallel training and serving on 5 ranks at
+    # (data, model) = (1, 5), the RG-LRU's slices crossing its gate blocks
+    t = fresh_card(torch, 28)
+    tp5 = tp5_phase(torch, args.seed)
+    print(f"phase 28 done in {time.perf_counter() - t:.1f}s (at "
+          f"{time.perf_counter() - t0:.1f}s)")
+
     # phase 26's counts run on the host beside phases 2-25, after the
-    # host-staged mesh phases 14-22 and 27, whose seconds they would slow
+    # host-staged mesh phases 14-22, 27 and 28, whose seconds they would
+    # slow
     work = Path(tempfile.mkdtemp(prefix="chip_smoke_dryrun_"))
     atexit.register(shutil.rmtree, work, True)
     worker = start_dryrun(work)
@@ -6222,6 +6563,12 @@ def main() -> None:
             rows["rg_lru_scan"]["serve_mesh_prefill"] = \
                 timings["scan_prefill"]
             rows["rg_lru_scan"]["serve_mesh_decode"] = timings["scan_decode"]
+    rows["flash_attention"]["serve_mesh_tp5_" + LM_ARCH] = \
+        tp5["timings"]["flash"]["self"]
+    rows["rg_lru_scan"]["serve_mesh_tp5_prefill"] = \
+        tp5["timings"]["scan_prefill"]
+    rows["rg_lru_scan"]["serve_mesh_tp5_decode"] = \
+        tp5["timings"]["scan_decode"]
     print(f"phase 11 done in {time.perf_counter() - t:.1f}s (at "
           f"{time.perf_counter() - t0:.1f}s)")
 
@@ -6293,6 +6640,10 @@ def main() -> None:
                                      x[0] for x in n) for arch, (n, _) in
                                     {**serve_mesh,
                                      **serve_families}.items()},
+                                 "train_mesh_tp5": sum(
+                                     x[0] for x in tp5["train"]),
+                                 "serve_mesh_tp5": sum(
+                                     x[0] for x in tp5["serve"]),
                                  **train_launches}),
             ("rg_lru_scan", {"serve": lm_launches[1],
                              "train": t_launches[1],
@@ -6301,14 +6652,20 @@ def main() -> None:
                                  x[1] for x in accum_launches),
                              "train_mesh_tp": sum(x[1] for x in tp_launches),
                              "serve_mesh_" + LM_ARCH: sum(
-                                 x[1] for x in serve_mesh[LM_ARCH][0])}),
+                                 x[1] for x in serve_mesh[LM_ARCH][0]),
+                             "train_mesh_tp5": sum(
+                                 x[1] for x in tp5["train"]),
+                             "serve_mesh_tp5": sum(
+                                 x[1] for x in tp5["serve"])}),
             ("rg_lru_scan_backward", {"train": t_launches[2],
                                       "train_mesh": sum(
                                           x[2] for x in mesh_launches),
                                       "train_mesh_accum": sum(
                                           x[2] for x in accum_launches),
                                       "train_mesh_tp": sum(
-                                          x[2] for x in tp_launches)})):
+                                          x[2] for x in tp_launches),
+                                      "train_mesh_tp5": sum(
+                                          x[2] for x in tp5["train"])})):
         rows[name]["launches"] = sum(by_path.values())
         rows[name]["launches_by_path"] = by_path
     # the k-means path runs the fused entry and the partition path the

@@ -43,6 +43,10 @@ For each cell the dry run:
        ``intra_node`` at ``GPUS_PER_NODE`` ranks a node;
      - ``kernels``: each hand-written kernel's launches, operations and
        bytes;
+     - with ``--by-line``, ``memory["peak_by_line"]``: what is live at
+       the peak, by the line of the port's code that made it (the
+       innermost frame under ``src/repro_torch``), or by the autograd
+       node that made it in the backward;
      - ``roofline``: the step's least time on an H100 from the data
        sheet's rates below;
   4. writes ``experiments/dryrun_torch/<arch>__<shape>__<mesh>[__tag].json``.
@@ -64,6 +68,7 @@ import contextlib
 import dataclasses
 import json
 import math
+import os
 import re
 import sys
 import time
@@ -187,13 +192,36 @@ def _grain(n: int) -> int:
     return -(-n // ALLOC_GRAIN) * ALLOC_GRAIN
 
 
+_PORT = str(Path(__file__).resolve().parents[1])
+_NOT_A_SOURCE = ("launch/dryrun.py", "utils/pytree.py")
+
+
+
+def _source_line() -> str:
+    """The autograd node running an op in the backward, else ``path:line``
+    (under ``src/repro_torch``) of the innermost frame of the port's code
+    outside this module that is running it."""
+    node = torch._C._current_autograd_node()
+    if node is not None:
+        return f"backward {node.name()}"
+    f = sys._getframe(2)
+    while f is not None:
+        name = f.f_code.co_filename
+        if name.startswith(_PORT) and not name.endswith(_NOT_A_SOURCE):
+            return f"{os.path.relpath(name, _PORT)}:{f.f_lineno}"
+        f = f.f_back
+    return "elsewhere"
+
+
 class Counter(TorchDispatchMode):
     """Counts the bytes every op moves (``moved``) and the bytes live at
     once: each storage an op makes is added (rounded to the allocator's
     grain) until its last reference goes (a finalizer on the storage),
-    ``peak`` the most ever live beside ``base``, the stand-ins' bytes."""
+    ``peak`` the most ever live beside ``base``, the stand-ins' bytes.
+    With ``by_line`` it also keeps the live bytes by the line that made
+    them (:func:`_source_line`) and ``peak_lines``, those at the peak."""
 
-    def __init__(self, base_storages=()):
+    def __init__(self, base_storages=(), by_line: bool = False):
         super().__init__()
         self.moved = 0
         self.live: dict = {}
@@ -201,9 +229,34 @@ class Counter(TorchDispatchMode):
         self.base = sum(_grain(s.nbytes()) for s in base_storages)
         self.cur = self.peak = self.base
         self.counting = True
+        self.lines = {} if by_line else None     # storage -> its line
+        self.node = None            # the running backward node's number
+        self.made_by: dict = {}     # storage -> the node that made it
+        self.line_bytes: dict = {}
+        self.peak_lines: dict = {}
+
+    def _accumulates(self, args, kwargs) -> bool:
+        """Whether ``add(a, b)`` in the backward is autograd adding the
+        gradient ``b`` the running node just made to the buffer ``a`` an
+        earlier node made (``InputBuffer::accumulate``), which the card
+        adds in place: two dense tensors of one shape and type, ``a`` the
+        whole of its storage."""
+        if kwargs or len(args) != 2 or not all(isinstance(t, torch.Tensor)
+                                               for t in args):
+            return False
+        a, b = args
+        made = [self.made_by.get(id(t.untyped_storage())) for t in args]
+        return (made[1] == self.node and made[0] not in (None, self.node)
+                and a.shape == b.shape and a.dtype == b.dtype
+                and a.is_contiguous()
+                and a.untyped_storage().nbytes() == a.nbytes)
 
     def _free(self, key) -> None:
-        self.cur -= self.live.pop(key)
+        n = self.live.pop(key)
+        self.made_by.pop(key, None)
+        self.cur -= n
+        if self.lines is not None:
+            self.line_bytes[self.lines.pop(key)] -= n
 
     def _track(self, t: torch.Tensor) -> None:
         s = t.untyped_storage()
@@ -212,12 +265,32 @@ class Counter(TorchDispatchMode):
             return
         n = _grain(s.nbytes())
         self.live[key] = n
+        if self.node is not None:
+            self.made_by[key] = self.node
         self.cur += n
+        if self.lines is not None:
+            line = self.lines[key] = _source_line()
+            self.line_bytes[line] = self.line_bytes.get(line, 0) + n
+            if self.cur > self.peak:
+                self.peak_lines = dict(self.line_bytes)
         self.peak = max(self.peak, self.cur)
         weakref.finalize(s, self._free, key)
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
+        # under a dispatch mode autograd takes the out-of-place branches
+        # meant for tensor subclasses, which the card does not take: its
+        # index_backward writes its zeros in place (_index_put_impl_), and
+        # a gradient buffer meeting a second gradient adds it in place
+        # (InputBuffer::accumulate); counted as the card runs them
+        node = torch._C._current_autograd_node()
+        self.node = None if node is None else node._sequence_nr()
+        if node is not None:
+            if func is aten.index_put.default \
+                    and node.name() == "IndexBackward0":
+                func = aten.index_put_.default
+            elif func is aten.add.Tensor and self._accumulates(args, kwargs):
+                func = aten.add_.Tensor
         out = func(*args, **kwargs)
         outs = [t for t in _pt_leaves(out) if isinstance(t, torch.Tensor)]
         if self.counting and func not in _NO_BYTES and not func.is_view:
@@ -374,15 +447,17 @@ def _storages(tree) -> list:
     return out
 
 
-def measure(cell: dict, mesh) -> dict:
+def measure(cell: dict, mesh, by_line: bool = False) -> dict:
     """Run ``cell`` (:func:`build_cell`) once on its stand-ins and count
-    it; returns the record's ``memory``, ``cost``, ``collectives``,
-    ``kernels``, ``roofline`` and ``timing``."""
+    it; returns the record's ``memory`` (with ``peak_by_line`` where
+    ``by_line``: the 20 lines holding the most at the peak, beside the
+    stand-ins' ``arguments``), ``cost``, ``collectives``, ``kernels``,
+    ``roofline`` and ``timing``."""
     t0 = time.perf_counter()
     args = cell["args"]
     world = mesh.size if mesh is not None else 1
     npods = mesh.shape.get("pod", 1) if mesh is not None else 1
-    counter = Counter(_storages(args))
+    counter = Counter(_storages(args), by_line)
     setup_log, log = WireLog(), WireLog()
     grad = torch.enable_grad if cell["setup"] is None \
         else torch.inference_mode
@@ -410,6 +485,11 @@ def measure(cell: dict, mesh) -> dict:
         argument - cell["param_bytes"]
         + sum(t.nbytes for t in tree_leaves(args[0])))}
     peak = counter.peak
+    lines = {}
+    if by_line:
+        top = sorted(counter.peak_lines.items(), key=lambda kv: -kv[1])
+        lines["peak_by_line"] = [["arguments", counter.base]] + [
+            [line, n] for line, n in top[:20] if n]
     colls = _wire_totals(log, world, npods)
     colls["wire"] = wire
     colls["setup_total"] = _wire_totals(setup_log, world, npods)["total"]
@@ -418,7 +498,7 @@ def measure(cell: dict, mesh) -> dict:
                    "output_bytes": sum(_grain(s.nbytes())
                                        for s in made.values()),
                    "temp_bytes": peak - argument, "peak_bytes": peak,
-                   **serving},
+                   **serving, **lines},
         "cost": {"flops": float(flops), "bytes accessed": float(moved)},
         "collectives": colls,
         "kernels": kernels,
@@ -430,10 +510,11 @@ def measure(cell: dict, mesh) -> dict:
 
 def run_cell(arch: str, shape_name: str, *, multi_pod: bool,
              knobs: Optional[dict] = None, tag: str = "",
-             save: bool = True, out_dir: Path = OUT_DIR) -> dict:
+             save: bool = True, out_dir: Path = OUT_DIR,
+             by_line: bool = False) -> dict:
     """One cell on its production mesh (16x16, or 2x16x16 across pods),
     recorded as the JAX package's ``run_cell`` records it; written to
-    ``out_dir`` where ``save``."""
+    ``out_dir`` where ``save``; ``by_line`` as :func:`measure`."""
     cfg = get_config(arch)
     shape = SHAPES[shape_name]
     mesh_name = "2x16x16" if multi_pod else "16x16"
@@ -447,7 +528,8 @@ def run_cell(arch: str, shape_name: str, *, multi_pod: bool,
         with standin_group(512 if multi_pod else 256):
             mesh = make_production_mesh(multi_pod=multi_pod, device="meta")
             rec.update(count_step(cfg, shape, make_pcfg(mesh, multi_pod,
-                                                        knobs)))
+                                                        knobs),
+                                  by_line=by_line))
         rec["ok"] = True
     except Exception as e:  # noqa: BLE001 — recorded, as a failed lowering
         rec["error"] = f"{type(e).__name__}: {e}"
@@ -464,14 +546,16 @@ def run_cell(arch: str, shape_name: str, *, multi_pod: bool,
 
 
 def count_step(cfg: ModelConfig, shape: ShapeConfig,
-               pcfg: ParallelConfig, max_len: int = 0) -> dict:
+               pcfg: ParallelConfig, max_len: int = 0,
+               by_line: bool = False) -> dict:
     """:func:`measure` of ``shape``'s step of ``cfg`` under ``pcfg`` (its
     mesh a stand-in, or None for one device), with the optimizer
     ``run_cell`` gives the knobs; a serve step's cache of ``max_len``
     positions (default the shape's sequence)."""
     ocfg = optim.AdamWConfig(error_feedback=(pcfg.compress_pod
                                              == "int8_ef"))
-    return measure(build_cell(cfg, shape, pcfg, ocfg, max_len), pcfg.mesh)
+    return measure(build_cell(cfg, shape, pcfg, ocfg, max_len), pcfg.mesh,
+                   by_line)
 
 
 def main(argv=None):
@@ -488,6 +572,9 @@ def main(argv=None):
     ap.add_argument("--out-dir", type=Path, default=OUT_DIR,
                     help="where the records go (default "
                     "experiments/dryrun_torch)")
+    ap.add_argument("--by-line", action="store_true",
+                    help="record and print what is live at the peak by "
+                    "the line that made it")
     args = ap.parse_args(argv)
     # the port's collectives call torch's older names, which warn
     warnings.filterwarnings("ignore", category=FutureWarning,
@@ -524,7 +611,7 @@ def main(argv=None):
                 print(f"[skip] {cell_id} (ok)")
                 continue
         rec = run_cell(arch, shape, multi_pod=mp, knobs=knobs, tag=args.tag,
-                       out_dir=args.out_dir)
+                       out_dir=args.out_dir, by_line=args.by_line)
         if rec["ok"]:
             counts["ok"] += 1
             m, c = rec["memory"], rec["collectives"]
@@ -541,6 +628,8 @@ def main(argv=None):
                   f"({m['peak_bytes'] / HBM_BYTES:.3f} of 80 GB) "
                   f"roofline={rec['roofline']['bound_s']:.4e}s "
                   f"({rec['roofline']['bound_by']}; H100 SXM data sheet)")
+            for line, n in m.get("peak_by_line", ()):
+                print(f"      at the peak {n / 1e9:9.3f} GB  {line}")
         else:
             key = "refused" if rec["refused"] else "failed"
             counts[key] += 1

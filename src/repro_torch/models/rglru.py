@@ -17,27 +17,28 @@ Griffin's:
 
     y = W_out( RG-LRU(conv1d(W_x x)) * gelu(W_g x) )
 
-Under ``layout="tp"`` on a mesh whose ``model`` size divides both the
-LRU width and ``N_GATE_BLOCKS`` (:func:`lru_split`), ``p`` holds this
-rank's blocks of ``in_x``, ``in_g``, ``conv_w`` and ``a_param`` (a
-contiguous slice of the width) and of ``out`` (its rows), the recurrent
-state its slice of ``h`` and ``conv``: every op but the two gates is
-elementwise over the width, so the rank runs the conv, the gates and
-``rg_lru_scan`` on its slice ``[B, T, W / model]`` and the partial
-products through its rows of ``out`` are summed over ``model``
-(``sharded.reduce_from_model``).  The gates are block-diagonal over
-``N_GATE_BLOCKS`` blocks, and the JAX rule for ``gate_a`` / ``gate_x``
-(``P(None, None, "model")``) splits the output columns of every block,
-not the blocks: the rank needs its ``N_GATE_BLOCKS / model`` whole
-blocks, so those two leaves come whole (gathered over ``model`` as well)
-and the rank takes its blocks; their gradient is summed over ``model``
-(``sharded.copy_to_model``), so each rank's whole gradient is the
-layer's.  A ``model`` size that divides the width but not
-``N_GATE_BLOCKS`` would cut a block between ranks: there the layer
-computes whole on every ``model`` rank, on whole leaves and a whole
-state, as every rank computes the embedding, so each rank's gradient is
-already the layer's and nothing is summed over ``model``.  A true split
-of the gate columns is ROADMAP item 1.3f part 2.
+Under ``layout="tp"`` on a mesh whose ``model`` size divides the LRU
+width (:func:`lru_split`), ``p`` holds this rank's blocks of ``in_x``,
+``in_g``, ``conv_w`` and ``a_param`` (a contiguous slice ``[s, e)`` of
+the width) and of ``out`` (its rows), the recurrent state its slice of
+``h`` and ``conv``: every op but the two gates is elementwise over the
+width, so the rank runs the conv, ``rg_lru_scan`` and the gating on its
+slice ``[B, T, W / model]`` and the partial products through its rows of
+``out`` are summed over ``model`` (``sharded.reduce_from_model``).  The
+gates are block-diagonal over ``N_GATE_BLOCKS`` blocks, and the JAX rule
+for ``gate_a`` / ``gate_x`` (``P(None, None, "model")``) splits the
+output columns of every block, not the blocks, so those two leaves come
+whole (gathered over ``model`` as well) and their gradient is summed
+over ``model`` (``sharded.copy_to_model``), so each rank's whole
+gradient is the layer's.  Where ``model`` divides ``N_GATE_BLOCKS`` the
+rank's slice is whole blocks, and it applies them to its own slice of
+the conv output.  Elsewhere a block spans several ranks (``model = 16``)
+or a slice crosses blocks (``model = 5``): the rank all-gathers the conv
+output over ``model`` (``sharded.all_gather``, whose backward
+reduce-scatters: each rank's gradient of the gathered whole covers the
+blocks it used, and their sum is each slice's whole gradient), keeps the
+blocks its slice touches (:func:`gate_span`) and applies them, keeping
+its own columns (:func:`rank_gate_columns`).
 """
 from __future__ import annotations
 
@@ -88,8 +89,15 @@ def _lru(p, x, h0, *, chunk: int = 0, unroll: bool = False):
     and the ``rg_lru_scan`` kernel holds one state per channel whatever
     ``T`` is.
     """
-    r = torch.sigmoid(block_diag_apply(p["gate_a"], x).float())
-    i = torch.sigmoid(block_diag_apply(p["gate_x"], x).float())
+    return _recur(p, x, block_diag_apply(p["gate_a"], x),
+                  block_diag_apply(p["gate_x"], x), h0)
+
+
+def _recur(p, x, gate_a, gate_x, h0):
+    """The RG-LRU from the gates' products ``gate_a`` / ``gate_x``
+    (``[B, T, W]``, before the sigmoid) of the conv output ``x``."""
+    r = torch.sigmoid(gate_a.float())
+    i = torch.sigmoid(gate_x.float())
     log_a = -RGLRU_C * F.softplus(p["a_param"]) * r   # [B,T,W]
     a = torch.exp(log_a)
     gated = i * x.float()
@@ -103,53 +111,79 @@ def lru_split(cfg: ModelConfig, pcfg: ParallelConfig
               ) -> Optional[Tuple[int, int]]:
     """(this rank's coordinate along ``model``, the ``model`` size) where
     the layer computes on the rank's slice of the LRU width
-    (``sharding.tp_block`` of the width, and a ``model`` size that
-    divides ``N_GATE_BLOCKS``), else None: the layer computes whole."""
-    split = tp_block(pcfg, cfg.lru_width or cfg.d_model)
-    if split is None or N_GATE_BLOCKS % split[1]:
-        return None
-    return split
+    (``sharding.tp_block`` of the width), else None: the layer computes
+    whole."""
+    return tp_block(pcfg, cfg.lru_width or cfg.d_model)
 
 
-def _rank_gates(p, pcfg: ParallelConfig, split) -> dict:
-    """``p`` with the gates cut to this rank's ``N_GATE_BLOCKS / model``
-    blocks (the whole leaves through ``copy_to_model``)."""
+def gate_span(width: int, index: int, size: int) -> Tuple[int, int]:
+    """The gate blocks ``[b0, b1)`` that hold rank ``index``'s columns
+    ``[index W / size, (index + 1) W / size)`` of the width ``W``."""
+    block, n = width // N_GATE_BLOCKS, width // size
+    return index * n // block, -(-(index + 1) * n // block)
+
+
+def rank_gate_columns(xb: torch.Tensor, w: torch.Tensor, index: int,
+                      size: int) -> torch.Tensor:
+    """Rank ``index``'s columns of ``block_diag_apply({"w": w}, x)`` (of
+    ``size`` equal slices of the width): ``w`` is the whole gate leaf
+    ``[N_GATE_BLOCKS, W / 8, W / 8]`` and ``xb`` the whole blocks of the
+    conv output ``x`` that :func:`gate_span` names, ``[..., (b1 - b0) W
+    / 8]``."""
+    width = w.shape[0] * w.shape[1]
+    b0, b1 = gate_span(width, index, size)
+    y = block_diag_apply({"w": w[b0:b1]}, xb)
+    n = width // size
+    start = index * n - b0 * w.shape[1]
+    return y[..., start:start + n]
+
+
+def _split_gates(p, xc, mesh, split):
+    """The products of the two gates on this rank's slice ``xc`` of the
+    conv output (the module doc): the rank's columns of the blocks its
+    slice touches, from ``xc`` itself where ``model`` divides
+    ``N_GATE_BLOCKS`` (the slice is whole blocks), else from the conv
+    output gathered over ``model``."""
     index, size = split
-    k = N_GATE_BLOCKS // size
-    out = dict(p)
-    for name in ("gate_a", "gate_x"):
-        w = sharded.copy_to_model(p[name]["w"], pcfg.mesh)
-        out[name] = {"w": w[index * k:(index + 1) * k]}
-    return out
+    gates = [sharded.copy_to_model(p[name]["w"], mesh)
+             for name in ("gate_a", "gate_x")]
+    xb = xc
+    if N_GATE_BLOCKS % size:
+        width = xc.shape[-1] * size
+        b0, b1 = gate_span(width, index, size)
+        block = width // N_GATE_BLOCKS
+        whole = sharded.all_gather(xc.movedim(-1, 0).contiguous(), mesh,
+                                   ("model",))           # [W, B, T]
+        # the touched blocks alone, a tensor of their own: the gathered
+        # whole is not kept for the backward
+        xb = whole[b0 * block:b1 * block].movedim(0, -1).contiguous()
+        del whole
+    return [rank_gate_columns(xb, w, index, size) for w in gates]
 
 
 def apply(p, x, *, cfg: ModelConfig, state=None, chunk: int = 0,
           unroll: bool = False, pcfg: ParallelConfig = NO_PARALLEL):
     """Full Griffin recurrent block. x: [B,T,d] -> (out, new_state | None);
-    on a ``tp`` mesh on this rank's slice of the width (module doc)."""
-    B, T, d = x.shape
-    w = cfg.lru_width or d
+    on a ``tp`` mesh on this rank's slice of the width (module doc).
+    ``chunk`` and ``unroll`` change nothing (:func:`_lru`)."""
     split = lru_split(cfg, pcfg)
     if split is not None:
-        p = _rank_gates(p, pcfg, split)
         x = sharded.copy_to_model(x, pcfg.mesh)
-        w //= split[1]
-    out, new_state = _block(p, x, w, state, chunk, unroll)
-    if split is not None:
-        out = sharded.reduce_from_model(out, pcfg.mesh)
-    return out, new_state
-
-
-def _block(p, x, w, state, chunk, unroll):
-    B = x.shape[0]
     branch = x @ p["in_x"]
     gate = F.gelu((x @ p["in_g"]).float(), approximate="tanh").to(x.dtype)
     if state is None:
-        xc = common.causal_conv1d(branch, p["conv_w"])
-        h0 = torch.zeros((B, w), dtype=torch.float32, device=x.device)
-        y, _ = _lru(p, xc, h0, chunk=chunk, unroll=unroll)
-        return (y * gate) @ p["out"], None
-    xc, new_conv = common.causal_conv1d(branch, p["conv_w"], state["conv"])
-    y, h_t = _lru(p, xc, state["h"], chunk=chunk, unroll=unroll)
+        xc, new_conv = common.causal_conv1d(branch, p["conv_w"]), None
+        h0 = torch.zeros(xc.shape[::2], dtype=torch.float32,
+                         device=x.device)
+    else:
+        xc, new_conv = common.causal_conv1d(branch, p["conv_w"],
+                                            state["conv"])
+        h0 = state["h"]
+    if split is None:
+        y, h_t = _lru(p, xc, h0, chunk=chunk, unroll=unroll)
+    else:
+        y, h_t = _recur(p, xc, *_split_gates(p, xc, pcfg.mesh, split), h0)
     out = (y * gate) @ p["out"]
-    return out, {"h": h_t, "conv": new_conv}
+    if split is not None:
+        out = sharded.reduce_from_model(out, pcfg.mesh)
+    return out, None if state is None else {"h": h_t, "conv": new_conv}

@@ -13,16 +13,18 @@ the encoder memory, whose projected K / V the decode cache keeps
 ``project_frames`` (one linear map of precomputed audio frames) and
 ``splice_patches`` (a two-layer projector of precomputed vision patches,
 spliced into the token stream).  Under ``layout="tp"`` on a mesh the
-attention (the encoder's and the cross blocks' too), dense-FFN, RG-LRU
-and MoE layers of both stacks compute on this rank's block of their
-heads, columns, LRU width or experts where ``model`` divides them (their
-modules say how), else whole; a cross block's K / V are projected on
-the rank's kv heads (``attention.project_memory``).  Where ``model``
-divides the padded vocabulary (:func:`vocab_split`) the LM head computes
-the rank's block of the logits (:func:`lm_logits`), and
+attention (the encoder's and the cross blocks' too), dense-FFN, RG-LRU,
+mLSTM, sLSTM and MoE layers of both stacks compute on this rank's block
+of their heads, columns, LRU width or experts where ``model`` divides
+them (their modules say how), else whole, their recurrent states with
+them (:func:`rec_split`); a cross block's K / V are projected on the
+rank's kv heads (``attention.project_memory``).  Where ``model`` divides
+the padded vocabulary (:func:`vocab_split`) the LM head computes the
+rank's block of the logits (:func:`lm_logits`), and
 ``embed_mode="vocab_parallel"`` looks the tokens up in the rank's block
-of the table, summed over ``model`` (:func:`embed`).  The xLSTM blocks
-and the frontends compute whole.
+of the table, summed over ``model`` (:func:`embed`).  Where ``model``
+divides ``d_model`` (:func:`frontend_split`) the frontends compute on
+the rank's columns of ``w1``.
 
 Parameters (and decode caches / recurrent states) for the unit are
 stacked with a leading group dim, as in the JAX package, so the two
@@ -130,6 +132,21 @@ def shapes(cfg: ModelConfig) -> dict:
 
 _STATE_SHAPES = {"R": rglru.state_shapes, "m": xlstm.mlstm_state_shapes,
                  "s": xlstm.slstm_state_shapes}
+# each recurrent layer's split under tp and the dim of each state leaf
+# ([B, ...]) that it cuts: the LRU width; the mLSTM's heads (its conv's
+# features); the sLSTM's features
+_REC_SPLIT = {"R": (rglru.lru_split, {"h": -1, "conv": -1}),
+              "m": (xlstm.head_split, {"C": 1, "n": 1, "m": 1, "conv": -1}),
+              "s": (xlstm.head_split, dict.fromkeys("cnmh", -1))}
+
+
+def rec_split(sym: str, cfg: ModelConfig, pcfg: ParallelConfig):
+    """(the split of a recurrent layer ``sym``, ``(index, size)`` or None
+    where it computes whole; {state leaf: the dim of its ``[B, ...]``
+    shape that the split cuts into ``size`` blocks, the rank's the
+    ``index``-th})."""
+    split, dims = _REC_SPLIT[sym]
+    return split(cfg, pcfg), dims
 
 
 def _unit_cache_shapes(cfg: ModelConfig, batch: int, seq: int,
@@ -205,10 +222,10 @@ def _unit_apply(unit_params, x, *, cfg: ModelConfig, pcfg: ParallelConfig,
         if mode != "prefill":
             return None
         state = _zero_state(_STATE_SHAPES[sym](cfg, B), x.device)
-        split = rglru.lru_split(cfg, pcfg) if sym == "R" else None
-        if split is not None:    # the rank's slice of the width
+        split, dims = rec_split(sym, cfg, pcfg)
+        if split is not None:    # the rank's block
             index, size = split
-            state = {k: v.chunk(size, dim=-1)[index].contiguous()
+            state = {k: v.chunk(size, dim=dims[k])[index].contiguous()
                      for k, v in state.items()}
         return state
 
@@ -264,10 +281,12 @@ def _unit_apply(unit_params, x, *, cfg: ModelConfig, pcfg: ParallelConfig,
             if sym == "m":
                 out, st = xlstm.mlstm_apply(lp["mlstm"], h, cfg=cfg,
                                             state=rec_state(i, sym),
-                                            unroll=pcfg.unroll_scans)
+                                            unroll=pcfg.unroll_scans,
+                                            pcfg=pcfg)
             else:
                 out, st = xlstm.slstm_apply(lp["slstm"], h, cfg=cfg,
-                                            state=rec_state(i, sym))
+                                            state=rec_state(i, sym),
+                                            pcfg=pcfg)
             x = x + out
             if new_cache is not None:
                 new_cache[f"layer{i}"] = {"rec": st}
@@ -434,6 +453,14 @@ def embed(params, tokens, *, cfg: ModelConfig, pcfg: ParallelConfig):
     return constrain(x, pcfg, batch_spec(pcfg, None, None))
 
 
+def frontend_split(cfg: ModelConfig, pcfg: ParallelConfig):
+    """(this rank's coordinate along ``model``, the ``model`` size) where
+    the frontends compute on the rank's columns of ``w1`` (the JAX spec's
+    ``model`` block of ``frontend/w1``, ``sharding.tp_block`` of
+    ``d_model``), else None: they compute whole."""
+    return tp_block(pcfg, cfg.d_model)
+
+
 def splice_patches(params, x, patch_embeds, patch_pos, *, cfg, pcfg):
     """Splice projected vision-patch embeddings into the token stream.
 
@@ -442,11 +469,25 @@ def splice_patches(params, x, patch_embeds, patch_pos, *, cfg, pcfg):
     scatter order is undefined).  The projector is ``gelu(e @ w1) @ w2``
     (tanh GELU) in the compute type, scaled as the embedding is; as in
     the JAX package, an int inverse-index map ([B, S], -1 where no patch
-    lands) is scattered first and the projection gathered through it."""
+    lands) is scattered first and the projection gathered through it.
+    Where :func:`frontend_split` splits it, ``w1`` is the rank's columns
+    and ``w2`` comes whole (its JAX block is columns too), its gradient
+    summed over ``model``: the rank's GELU columns go through its rows of
+    ``w2`` and the partial products are summed over ``model``."""
     fp = params["frontend"]
     ct = getattr(torch, cfg.compute_dtype)
-    proj = torch.nn.functional.gelu(patch_embeds.to(ct) @ fp["w1"],
-                                    approximate="tanh") @ fp["w2"]
+    split = frontend_split(cfg, pcfg)
+    if split is not None:
+        patch_embeds = sharded.copy_to_model(patch_embeds, pcfg.mesh)
+    hid = torch.nn.functional.gelu(patch_embeds.to(ct) @ fp["w1"],
+                                   approximate="tanh")
+    if split is None:
+        proj = hid @ fp["w2"]
+    else:
+        index, n = split[0], hid.shape[-1]
+        w2 = sharded.copy_to_model(fp["w2"], pcfg.mesh)
+        proj = sharded.reduce_from_model(hid @ w2[index * n:(index + 1) * n],
+                                         pcfg.mesh)
     if cfg.embed_scale:
         proj = proj * torch.tensor(math.sqrt(cfg.d_model), dtype=ct,
                                    device=proj.device)
@@ -463,10 +504,18 @@ def splice_patches(params, x, patch_embeds, patch_pos, *, cfg, pcfg):
 
 def project_frames(params, frames, *, cfg, pcfg):
     """Audio frontend stub: one linear projection over frame embeddings
-    (cast to the compute type first)."""
+    (cast to the compute type first).  Where :func:`frontend_split`
+    splits it, the rank projects its columns of ``w1`` and gathers them
+    over ``model`` for the encoder, which takes them whole
+    (``sharded.gather_from_model``)."""
     ct = getattr(torch, cfg.compute_dtype)
-    return constrain(frames.to(ct) @ params["frontend"]["w1"], pcfg,
-                     batch_spec(pcfg, None, None))
+    split = frontend_split(cfg, pcfg)
+    if split is not None:
+        frames = sharded.copy_to_model(frames, pcfg.mesh)
+    x = frames.to(ct) @ params["frontend"]["w1"]
+    if split is not None:
+        x = sharded.gather_from_model(x, pcfg.mesh)
+    return constrain(x, pcfg, batch_spec(pcfg, None, None))
 
 
 def lm_logits(params, x, *, cfg: ModelConfig, pcfg: ParallelConfig):

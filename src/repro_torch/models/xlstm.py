@@ -22,10 +22,46 @@ Every float32 island of the JAX package is kept: the gate products over
 ``qkv`` cast to float32 with float32 gate weights, the chunk and decode
 math, the sLSTM pre-activations and its whole recurrence; ``h`` goes back
 to the input's dtype before ``out_norm``.
+
+Under ``layout="tp"`` on a mesh whose ``model`` size divides the heads
+(:func:`head_split`) both blocks compute on this rank's contiguous block
+of heads, the JAX package's specs' blocks of their features:
+
+* the mLSTM: ``p`` holds the rank's features of ``conv_w``, of the
+  block-diagonal ``q`` / ``k`` / ``v`` (whole blocks), of ``out_norm``
+  and ``down``'s rows.  ``up``, ``igate`` and ``fgate`` come whole (their
+  JAX blocks, halves of ``[xm | z]`` and thirds of ``qkv``, do not line
+  up with heads).  The rank takes its heads' ``xm`` and ``z`` columns of
+  ``up``, whose gradient is summed over ``model``
+  (``sharded.copy_to_model``).  The gates mix every head's features
+  into each head's gate, and a random-weight stack amplifies the
+  rounding of a sum of the ranks' partial products into the gates'
+  log-space stabiliser: the ranks gather ``q`` / ``k`` / ``v`` over
+  ``model`` in the compute type (``sharded.gather_from_model``, a
+  ``[B, T, 3 inner / model]`` block a rank) and compute the gate
+  products alike, bit for bit the whole layer's, then keep their
+  heads' gates (:func:`_head_gates`).  The chunks and the decode step
+  run on ``[B, T, H / model, dh]``; ``out_norm``'s mean square is the
+  sum over ``model`` of the ranks' sums (``reduce_from_model``, then
+  ``copy_to_model``), and the partial products through ``down``'s rows
+  are summed over ``model``.
+* the sLSTM: ``p`` holds the rank's columns of ``w_i/f/z/o`` and its
+  features of ``b_*``; ``r_*`` comes whole (its JAX spec splits every
+  head's columns) and the rank takes its heads' blocks.  The token loop
+  runs on ``[B, d / model]`` with no collective a step; ``h`` is then
+  gathered over ``model`` (``sharded.gather_from_model``, whose backward
+  keeps the rank's columns) for ``out_norm`` and the FFN, which the JAX
+  specs keep whole and every rank computes alike.
+
+The recurrent states are the rank's heads' (``C``, ``n``, ``m``) and
+features (``conv``; the sLSTM's ``c``, ``n``, ``m``, ``h``).  Where
+``model`` does not divide the heads, both blocks compute whole on every
+``model`` rank, on whole leaves and states.
 """
 from __future__ import annotations
 
 import math
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -33,12 +69,43 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import common
 from repro_torch.models.common import block_diag_apply, block_diag_shapes, sds
+from repro_torch.parallel import sharded
+from repro_torch.parallel.sharding import NO_PARALLEL, ParallelConfig, tp_block
 
 CHUNK = 256  # mLSTM chunk length for the chunkwise-parallel form
 
 
 def _inner(cfg: ModelConfig) -> int:
     return int(cfg.d_model * cfg.mlstm_proj_factor)
+
+
+def head_split(cfg: ModelConfig, pcfg: ParallelConfig
+               ) -> Optional[Tuple[int, int]]:
+    """(this rank's coordinate along ``model``, the ``model`` size) where
+    the mLSTM and sLSTM compute on the rank's block of heads
+    (``sharding.tp_block`` of the heads, and a ``model`` size that
+    divides the mLSTM's ``q`` / ``k`` / ``v`` blocks, as the JAX spec
+    splits them), else None: they compute whole."""
+    split = tp_block(pcfg, cfg.n_heads)
+    if split is None or (_inner(cfg) // cfg.mlstm_qkv_blocksize) % split[1]:
+        return None
+    return split
+
+
+def split_rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float,
+                   mesh) -> torch.Tensor:
+    """``common.rms_norm`` over a width whose ``model`` blocks the ranks
+    hold: ``x`` and ``scale`` are this rank's columns, and the mean
+    square is the sum over ``model`` of the ranks' sums of squares
+    (``reduce_from_model``, then ``copy_to_model``: each rank's sum
+    feeds every rank's columns, so its gradient is their sum)."""
+    dt = x.dtype
+    x = x.float()
+    sq = torch.sum(torch.square(x), dim=-1, keepdim=True)
+    sq = sharded.copy_to_model(sharded.reduce_from_model(sq, mesh), mesh)
+    var = sq / (x.shape[-1] * mesh.axes_size("model"))
+    out = x * torch.rsqrt(var + eps)
+    return (out * (1.0 + scale.float())).to(dt)
 
 
 # ---------------------------------------------------------------------------
@@ -77,12 +144,23 @@ def mlstm_state_shapes(cfg: ModelConfig, batch: int) -> dict:
     }
 
 
-def _mlstm_qkv_gates(p, x, cfg: ModelConfig, conv_state=None):
-    """x: [B,T,d] -> q,k,v [B,T,H,dh], i/f raw gates [B,T,H], z [B,T,inner]."""
+def _mlstm_qkv_gates(p, x, cfg: ModelConfig, conv_state=None,
+                     split=None, mesh=None):
+    """x: [B,T,d] -> q,k,v [B,T,H,dh], i/f raw gates [B,T,H], z [B,T,inner];
+    on a ``split`` (:func:`head_split`) the rank's heads' (module doc)."""
     inner = _inner(cfg)
     h = cfg.n_heads
-    up = x @ p["up"]
-    xm, z = torch.chunk(up, 2, dim=-1)
+    dh = inner // h
+    if split is None:
+        xm, z = torch.chunk(x @ p["up"], 2, dim=-1)
+    else:
+        index, size = split
+        x = sharded.copy_to_model(x, mesh)
+        up = sharded.copy_to_model(p["up"], mesh)
+        n = inner // size
+        xm = x @ up[:, index * n:(index + 1) * n]
+        z = x @ up[:, inner + index * n:inner + (index + 1) * n]
+        h //= size
     if conv_state is None:
         xc = common.causal_conv1d(xm, p["conv_w"])
         new_conv = None
@@ -90,15 +168,51 @@ def _mlstm_qkv_gates(p, x, cfg: ModelConfig, conv_state=None):
         xc, new_conv = common.causal_conv1d(xm, p["conv_w"], conv_state)
     xc = F.silu(xc)
     q = block_diag_apply(p["q"], xc)
-    k = block_diag_apply(p["k"], xc) / math.sqrt(inner // h)
+    k = block_diag_apply(p["k"], xc) / math.sqrt(dh)
     v = block_diag_apply(p["v"], xm)
-    qkv = torch.cat([q, k, v], dim=-1).float()
-    ig = qkv @ p["igate"]["w"] + p["igate"]["b"]  # [B,T,H]
-    fg = qkv @ p["fgate"]["w"] + p["fgate"]["b"]
-    dh = inner // h
+    if split is None:
+        qkv = torch.cat([q, k, v], dim=-1).float()
+        ig = qkv @ p["igate"]["w"] + p["igate"]["b"]  # [B,T,H]
+        fg = qkv @ p["fgate"]["w"] + p["fgate"]["b"]
+    else:
+        ig, fg = _head_gates(p, q, k, v, split, mesh)
     shp = x.shape[:-1] + (h, dh)
     return (q.reshape(shp), k.reshape(shp), v.reshape(shp), ig, fg, z,
             new_conv)
+
+
+def _head_gates(p, q, k, v, split, mesh):
+    """The input and forget gates of this rank's heads from its ``q`` /
+    ``k`` / ``v`` features (``[B, T, inner / model]`` each, the compute
+    type): every rank's gathered over ``model`` into the whole ``qkv``
+    (``sharded.gather_from_model``), whose gate products every rank
+    computes alike, as the whole layer computes them, through
+    ``copy_to_model`` (each rank's gradient is its heads' gates', and
+    their sum is the whole one every rank then holds) before the rank
+    takes its heads' gates."""
+    index, size = split
+    parts = sharded.gather_from_model(torch.stack([q, k, v], dim=-2), mesh)
+    qkv = parts.reshape(parts.shape[:-2] + (-1,)).float()   # [q | k | v]
+    g = torch.cat([qkv @ p[name]["w"] + p[name]["b"]
+                   for name in ("igate", "fgate")], dim=-1)
+    g = sharded.copy_to_model(g, mesh)
+    H = g.shape[-1] // 2
+    n = H // size
+    return (g[..., index * n:(index + 1) * n],
+            g[..., H + index * n:H + (index + 1) * n])
+
+
+def _mlstm_out(p, h, z, dtype, cfg: ModelConfig, split, mesh):
+    """``out_norm``, the ``z`` gate and ``down`` on ``h`` ``[B, T,
+    inner]`` (the rank's heads' on a ``split``, summed over ``model``)."""
+    if split is None:
+        h = common.rms_norm(h.to(dtype), p["out_norm"], cfg.norm_eps)
+    else:
+        h = split_rms_norm(h.to(dtype), p["out_norm"], cfg.norm_eps, mesh)
+    out = (h * F.silu(z)) @ p["down"]
+    if split is not None:
+        out = sharded.reduce_from_model(out, mesh)
+    return out
 
 
 def _mlstm_chunk(carry, qkvif):
@@ -154,8 +268,10 @@ def _mlstm_chunk(carry, qkvif):
     return (C_new, n_new, m_new), h.transpose(1, 2)        # [B,L,H,dh]
 
 
-def mlstm_apply(p, x, *, cfg: ModelConfig, state=None, unroll: bool = False):
-    """Full block. x: [B,T,d]. Returns (out [B,T,d], new_state | None).
+def mlstm_apply(p, x, *, cfg: ModelConfig, state=None, unroll: bool = False,
+                pcfg: ParallelConfig = NO_PARALLEL):
+    """Full block. x: [B,T,d]. Returns (out [B,T,d], new_state | None);
+    on a ``tp`` mesh on this rank's heads (module doc).
 
     The prompt runs in chunks of ``L``: ``CHUNK`` halved until it divides
     ``T`` (the JAX package's rule; the chunk length changes the rounding,
@@ -163,15 +279,15 @@ def mlstm_apply(p, x, *, cfg: ModelConfig, state=None, unroll: bool = False):
     is accepted for the JAX package's signature: the loop over the chunks
     is a Python loop either way."""
     B, T, d = x.shape
-    inner = _inner(cfg)
-    H = cfg.n_heads
-    dh = inner // H
 
     if state is not None and T == 1:
-        return _mlstm_decode(p, x, cfg, state)
+        return _mlstm_decode(p, x, cfg, state, pcfg)
 
+    split = head_split(cfg, pcfg)
     conv_state = state["conv"] if state is not None else None
-    q, k, v, ig, fg, z, new_conv = _mlstm_qkv_gates(p, x, cfg, conv_state)
+    q, k, v, ig, fg, z, new_conv = _mlstm_qkv_gates(p, x, cfg, conv_state,
+                                                    split, pcfg.mesh)
+    H, dh = q.shape[-2:]
 
     L = CHUNK
     while T % L:
@@ -190,10 +306,8 @@ def mlstm_apply(p, x, *, cfg: ModelConfig, state=None, unroll: bool = False):
         carry, h_c = _mlstm_chunk(carry, tuple(
             a[:, t:t + L] for a in (q, k, v, ig, fg)))
         hs.append(h_c)
-    h = torch.cat(hs, dim=1).reshape(B, T, inner)
-
-    h = common.rms_norm(h.to(x.dtype), p["out_norm"], cfg.norm_eps)
-    out = (h * F.silu(z)) @ p["down"]
+    h = torch.cat(hs, dim=1).reshape(B, T, H * dh)
+    out = _mlstm_out(p, h, z, x.dtype, cfg, split, pcfg.mesh)
     new_state = None
     if state is not None:
         C, n, m = carry
@@ -201,11 +315,15 @@ def mlstm_apply(p, x, *, cfg: ModelConfig, state=None, unroll: bool = False):
     return out, new_state
 
 
-def _mlstm_decode(p, x, cfg: ModelConfig, state):
-    """O(1) recurrent step. x: [B,1,d]."""
+def _mlstm_decode(p, x, cfg: ModelConfig, state,
+                  pcfg: ParallelConfig = NO_PARALLEL):
+    """O(1) recurrent step. x: [B,1,d]; on a ``tp`` mesh on this rank's
+    heads and its block of the state (module doc)."""
     B = x.shape[0]
-    inner = _inner(cfg)
-    q, k, v, ig, fg, z, new_conv = _mlstm_qkv_gates(p, x, cfg, state["conv"])
+    split = head_split(cfg, pcfg)
+    q, k, v, ig, fg, z, new_conv = _mlstm_qkv_gates(p, x, cfg, state["conv"],
+                                                    split, pcfg.mesh)
+    width = q.shape[-2] * q.shape[-1]
     q, k, v = (a[:, 0].float() for a in (q, k, v))        # [B,H,dh]
     ig, fg = ig[:, 0].float(), fg[:, 0].float()
     C, n, m = state["C"], state["n"], state["m"]
@@ -219,9 +337,8 @@ def _mlstm_decode(p, x, cfg: ModelConfig, state):
     num = torch.einsum("bhd,bhde->bhe", q, C_new)
     den = torch.einsum("bhd,bhd->bh", q, n_new)
     h = num / torch.maximum(torch.abs(den), torch.exp(-m_new))[..., None]
-    h = h.reshape(B, 1, inner)
-    h = common.rms_norm(h.to(x.dtype), p["out_norm"], cfg.norm_eps)
-    out = (h * F.silu(z)) @ p["down"]
+    out = _mlstm_out(p, h.reshape(B, 1, width), z, x.dtype, cfg, split,
+                     pcfg.mesh)
     return out, {"C": C_new, "n": n_new, "m": m_new, "conv": new_conv}
 
 
@@ -273,14 +390,15 @@ def slstm_state_shapes(cfg: ModelConfig, batch: int) -> dict:
     }
 
 
-def _slstm_step(p, cfg, carry, x_t, r32):
-    """x_t: [B,d] fp32 pre-activations W x (4 gates stacked).  ``r32``:
-    the recurrent weights ``r_*`` in float32, which ``slstm_apply`` casts
-    once per call (the JAX package casts them in every step)."""
+def _slstm_step(p, carry, x_t, r32):
+    """x_t: [B,d] fp32 pre-activations W x (4 gates stacked; a rank's
+    ``[B, d / model]`` of its heads under a ``tp`` split).  ``r32``: the
+    recurrent weights ``r_*`` of those heads in float32, which
+    ``slstm_apply`` casts once per call (the JAX package casts them in
+    every step)."""
     c, n, m, h = carry
-    H = cfg.n_heads
-    d = cfg.d_model
-    hd = d // H
+    H, hd = r32["i"].shape[:2]
+    d = H * hd
 
     def rec(name, hh):
         hb = hh.reshape(hh.shape[0], H, hd)
@@ -304,9 +422,20 @@ def _slstm_step(p, cfg, carry, x_t, r32):
     return (c_new, n_new, m_new, h_new), h_new
 
 
-def slstm_apply(p, x, *, cfg: ModelConfig, state=None):
-    """x: [B,T,d] -> (out, new_state | None). Sequential loop over T."""
-    B, T, d = x.shape
+def slstm_apply(p, x, *, cfg: ModelConfig, state=None,
+                pcfg: ParallelConfig = NO_PARALLEL):
+    """x: [B,T,d] -> (out, new_state | None). Sequential loop over T; on
+    a ``tp`` mesh over this rank's heads (module doc)."""
+    B, T, _ = x.shape
+    split = head_split(cfg, pcfg)
+    r = {g: p[f"r_{g}"] for g in "ifzo"}
+    if split is not None:
+        index, size = split
+        x = sharded.copy_to_model(x, pcfg.mesh)
+        k = cfg.n_heads // size
+        r = {g: sharded.copy_to_model(w, pcfg.mesh)[index * k:(index + 1) * k]
+             for g, w in r.items()}
+    d = r["i"].shape[0] * r["i"].shape[1]   # the rank's heads' width
     xf = x.float()
     pre = torch.cat([xf @ p[f"w_{g}"].float() for g in "ifzo"], dim=-1)
     if state is None:
@@ -317,12 +446,14 @@ def slstm_apply(p, x, *, cfg: ModelConfig, state=None):
                  torch.zeros((B, d), dtype=torch.float32, device=x.device))
     else:
         carry = (state["c"], state["n"], state["m"], state["h"])
-    r32 = {g: p[f"r_{g}"].float() for g in "ifzo"}
+    r32 = {g: w.float() for g, w in r.items()}
     hs = []
     for t in range(T):
-        carry, h_t = _slstm_step(p, cfg, carry, pre[:, t], r32)
+        carry, h_t = _slstm_step(p, carry, pre[:, t], r32)
         hs.append(h_t)
     h = torch.stack(hs, dim=1).to(x.dtype)  # [B,T,d]
+    if split is not None:
+        h = sharded.gather_from_model(h, pcfg.mesh)
     h = common.rms_norm(h, p["out_norm"], cfg.norm_eps)
     ffn = p["ffn"]
     out = (F.gelu(h @ ffn["wg"], approximate="tanh") * (h @ ffn["wi"])) \

@@ -24,11 +24,15 @@ included.
   autograd crosses (the MoE's token grouping, aux statistics and expert
   exchange on a mesh, ``models/moe.py``): the backward of each is the
   matching reverse collective;
+* :func:`gather_from_model` hands a layer's columns, computed on this
+  rank's block, to what every ``model`` rank computes whole (its
+  backward keeps the rank's block of the gradient);
 * :func:`copy_to_model` and :func:`reduce_from_model` bracket a layer
   that computes on this rank's block of its width under
   ``layout="tp"`` (``models/attention.py``, ``mlp.py``, ``rglru.py``,
-  and the LM head, its cross-entropy and the ``vocab_parallel``
-  embedding on the rank's block of the vocabulary): the first is the
+  ``xlstm.py``, the frontends, and the LM head, its cross-entropy and
+  the ``vocab_parallel`` embedding on the rank's block of the
+  vocabulary): the first is the
   identity forward and sums the gradient over ``model`` backward, the
   second sums the partial outputs over ``model`` forward and is the
   identity backward; :func:`model_argmax` is the maximum and its index
@@ -74,8 +78,10 @@ from repro_torch.utils.pytree import (tree_flatten_with_paths, tree_leaves,
 # outputs forward and in the recompute, their inputs' gradients backward,
 # at decode a sequence-split cache's softmax statistics and product, and a
 # vocab-split cross-entropy's exponentials' sums and gold logits); the
-# vocab-split maxima (``model_argmax``) and a serving rank's logits count
-# under ``all_gather``
+# vocab-split maxima (``model_argmax``), a serving rank's logits, the
+# RG-LRU's conv output where its gate blocks do not split over ``model``
+# (forward, and the reduce-scatter backward) and ``gather_from_model``'s
+# columns count under ``all_gather``
 WIRE = {"gather": 0, "reduce_scatter": 0, "norm": 0, "all_gather": 0,
         "all_to_all": 0, "tp_all_reduce": 0}
 
@@ -336,6 +342,23 @@ class _AllToAll(torch.autograd.Function):
         return exchange_wire(g, ctx.mesh, ctx.axes), None, None
 
 
+class _GatherFromModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh):
+        ctx.mesh = mesh
+        n = mesh.axes_size("model")
+        blocks = gather_wire(x[None].contiguous(), mesh, ("model",))
+        # [model, ..., k] -> [..., model * k]
+        return blocks.movedim(0, -2).reshape(
+            tuple(x.shape[:-1]) + (n * x.shape[-1],))
+
+    @staticmethod
+    def backward(ctx, g):
+        k = g.shape[-1] // ctx.mesh.axes_size("model")
+        i = ctx.mesh.axis_index("model")
+        return g[..., i * k:(i + 1) * k], None
+
+
 class _CopyToModel(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, mesh):
@@ -411,6 +434,19 @@ def all_gather(x: torch.Tensor, mesh: Mesh, axes) -> torch.Tensor:
     sum over the ranks of their gradients' block ``index`` (a
     reduce-scatter)."""
     return _AllGather.apply(x, mesh, mesh.mesh_axes(axes))
+
+
+def gather_from_model(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """Every ``model`` rank's ``x`` concatenated along the last dim in
+    rank order (rank ``i``'s columns ``[i n, (i + 1) n)``), for a layer
+    that computes on its block of the columns and hands the whole to
+    what every ``model`` rank computes alike (the sLSTM's ``h`` before
+    its norm and FFN, the audio frames' projection before the encoder);
+    the gradient of this rank's ``x`` is its block of the columns of the
+    whole one, which every ``model`` rank holds alike (summing them would
+    count it ``model`` times).  The bytes count under
+    ``WIRE["all_gather"]``."""
+    return _GatherFromModel.apply(x, mesh)
 
 
 def all_to_all(x: torch.Tensor, mesh: Mesh, axes) -> torch.Tensor:

@@ -22,10 +22,11 @@ modes:
     batch: each rank's loss is weighted by its share of the valid tokens
     before the backward.  Under ``layout="tp"`` the ranks of one
     ``model`` group compute the same rows, the attention (the encoder's
-    and the cross blocks' too), dense-FFN, RG-LRU and MoE layers each on
-    the rank's block of their heads, columns, width or experts, and the
-    head and its cross-entropy (and a ``vocab_parallel`` embedding) on
-    the rank's block of the vocabulary, where the JAX package's specs
+    and the cross blocks' too), dense-FFN, RG-LRU, mLSTM, sLSTM and MoE
+    layers and the frontends each on the rank's block of their heads,
+    columns, width or experts, and the head and its cross-entropy (and a
+    ``vocab_parallel`` embedding) on the rank's block of the vocabulary,
+    where the JAX package's specs
     split them over ``model`` (:func:`tp_leaf`): those leaves are
     gathered over the batch axes alone, each ``model`` rank keeping its
     block, whose gradient is its own.  A tied table kept whole for the
@@ -74,7 +75,7 @@ from typing import Callable
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import model, moe, rglru, transformer
+from repro_torch.models import model, moe, rglru, transformer, xlstm
 from repro_torch.parallel import collectives, sharded
 from repro_torch.parallel.sharding import (NamedSharding, ParallelConfig, P,
                                            batch_spec, param_specs_for,
@@ -87,7 +88,8 @@ METRIC_KEYS = ("nll", "z_loss", "accuracy", "tokens", "aux_loss")
 _EXPERTS = re.compile(r"moe/w[igo]$")
 # the leaves of the decoder's and the encoder's stacks a layer computes on
 # its model block (the self- and cross-attention, the dense FFN, the
-# RG-LRU block, the MoE's experts), by the widths that must split
+# RG-LRU block, the mLSTM and sLSTM blocks, the MoE's experts), and of
+# the head, the table and the frontends, by the widths that must split
 _STACK = r"^(encoder/)?blocks/.*/"
 _TP_LEAVES = ((re.compile(_STACK + r"x?attn/(wq|bq|wo)$"), ("heads",)),
               (re.compile(_STACK + r"x?attn/(wk|wv|bk|bv)$"),
@@ -95,19 +97,25 @@ _TP_LEAVES = ((re.compile(_STACK + r"x?attn/(wq|bq|wo)$"), ("heads",)),
               (re.compile(_STACK + r"mlp/w[igo]$"), ("ffn",)),
               (re.compile(_STACK + r"rglru/(in_x|in_g|conv_w|a_param|out)$"),
                ("lru",)),
+              (re.compile(_STACK + r"mlstm/(conv_w|out_norm|down|[qkv]/w)$"),
+               ("xlstm",)),
+              (re.compile(_STACK + r"slstm/[wb]_[ifzo]$"), ("xlstm",)),
               (re.compile(_STACK + r"moe/w[igo]$"), ("experts",)),
               (re.compile(r"^lm_head/w$"), ("vocab",)),
-              (re.compile(r"^embed/w$"), ("vocab_parallel",)))
+              (re.compile(r"^embed/w$"), ("vocab_parallel",)),
+              (re.compile(r"^frontend/w1$"), ("frontend",)))
 
 
 def tp_leaf(path: str, cfg: ModelConfig, pcfg: ParallelConfig) -> bool:
     """Whether the leaf at ``path`` is one whose ``model`` block a layer
     computes on (``sharding.tp_block`` of its widths: the self- and
     cross-attention's heads, and their kv heads for ``wk`` / ``wv``; the
-    FFN's; the LRU width where ``rglru.lru_split`` splits it; the experts
+    FFN's; the LRU width where ``rglru.lru_split`` splits it; the mLSTM's
+    and sLSTM's heads where ``xlstm.head_split`` splits them; the experts
     where ``moe.ep_split`` splits them; the head's vocabulary, and the
     table's under ``embed_mode="vocab_parallel"``, where
-    ``transformer.vocab_split`` splits it), so that a rank keeps only
+    ``transformer.vocab_split`` splits it; the frontends' ``w1`` where
+    ``transformer.frontend_split`` splits it), so that a rank keeps only
     that block along ``model``.  A table under ``embed_mode="gather"``
     stays whole (the lookup reads every row; a tied head takes a view of
     the rank's rows of it)."""
@@ -116,6 +124,8 @@ def tp_leaf(path: str, cfg: ModelConfig, pcfg: ParallelConfig) -> bool:
               "kv_heads": tp_block(pcfg, cfg.n_kv_heads),
               "ffn": tp_block(pcfg, cfg.d_ff),
               "lru": rglru.lru_split(cfg, pcfg),
+              "xlstm": xlstm.head_split(cfg, pcfg),
+              "frontend": transformer.frontend_split(cfg, pcfg),
               "experts": moe.ep_split(cfg, pcfg),
               "vocab": vocab,
               "vocab_parallel": vocab if pcfg.embed_mode == "vocab_parallel"
@@ -165,10 +175,15 @@ def cache_specs_for(cache_tree, pcfg: ParallelConfig, cfg: ModelConfig):
     computes whole, so its K / V (and a ring's ``kpos``) stay whole over
     ``model``; a cross block's ``xk`` / ``xv`` are the rank's kv heads
     where its heads and kv heads both split, else whole (it then reads
-    its q heads' kv heads from them); an RG-LRU state stays whole where
-    the layer computes whole (``rglru.lru_split``) and is split along the
-    LRU width, its last dim, where the layer computes on its slice; the
-    mLSTM's and sLSTM's states stay whole, as their layers compute whole.
+    its q heads' kv heads from them); a recurrent state is split where
+    its layer computes on its block (``transformer.rec_split``): an
+    RG-LRU state along the LRU width wherever ``model`` divides it (the
+    JAX spec's first dim that ``model`` divides, as ``h`` and the conv
+    window's width at ``model`` = 2, 5 or 16), the mLSTM's ``C`` / ``n``
+    / ``m`` by heads and its ``conv`` by features, the sLSTM's states
+    along ``d`` (the JAX spec wherever ``model`` divides the heads and
+    not the conv window's 3 rows), and stays whole where it computes
+    whole.
     """
     if pcfg.mesh is None:
         return tree_map(lambda s: P(), cache_tree)
@@ -177,7 +192,6 @@ def cache_specs_for(cache_tree, pcfg: ParallelConfig, cfg: ModelConfig):
     tp = pcfg.layout == "tp"
     whole_attn = tp and tp_block(pcfg, cfg.n_heads) is None
     whole_cross = whole_attn or tp and tp_block(pcfg, cfg.n_kv_heads) is None
-    lru_whole = rglru.lru_split(cfg, pcfg) is None
 
     def leaf(path: str, s):
         name = path.split("/")[-1]
@@ -197,12 +211,13 @@ def cache_specs_for(cache_tree, pcfg: ParallelConfig, cfg: ModelConfig):
             spec = P(None, b, "model") if S % msz == 0 and not whole_attn \
                 else P(None, b, None)
         elif tp and _layer_sym(path, cfg) in ("R", "m", "s"):
-            # a recurrent state: whole, or the rank's slice of the RG-LRU
-            # width
+            # a recurrent state: whole, or the rank's block
             dims = [None] * len(shape)
             dims[1] = b
-            if _layer_sym(path, cfg) == "R" and not lru_whole:
-                dims[-1] = "model"
+            split, cut = transformer.rec_split(_layer_sym(path, cfg), cfg,
+                                               pcfg)
+            if split is not None:   # cut's dims count from the batch dim
+                dims[cut[name] % (len(shape) - 1) + 1] = "model"
             spec = P(*dims)
         else:
             # recurrent state: [G, B, ...feature dims]
@@ -449,10 +464,12 @@ def check_serving_mesh(cfg: ModelConfig, pcfg: ParallelConfig) -> None:
     the MoE's experts compute on the rank's block of their heads, columns
     or experts where the ``model`` size divides them, else whole on every
     ``model`` rank, their caches with them (``cache_specs_for``); an
-    RG-LRU layer computes on its slice of the width, its state too, or
-    whole (``rglru.lru_split``); the mLSTM and sLSTM compute whole, on
-    whole states; the head on the rank's block of the vocabulary where
-    ``model`` divides it."""
+    RG-LRU layer computes on its slice of the width wherever ``model``
+    divides it (``rglru.lru_split``), the mLSTM and sLSTM on the rank's
+    heads wherever ``model`` divides them (``xlstm.head_split``), their
+    states too, else whole; the frontends on the rank's columns
+    (``transformer.frontend_split``); the head on the rank's block of
+    the vocabulary where ``model`` divides it."""
     if pcfg.mesh is not None and pcfg.layout != "tp":
         raise NotImplementedError(
             f"the serving mesh runs layout='tp', not {pcfg.layout!r}: the "

@@ -222,6 +222,29 @@ def test_flops_match_the_analytic_model(arch):
     assert not dist.is_initialized()
 
 
+def test_counter_takes_the_cards_in_place_gradient_routes():
+    """A tied table looked up and narrowed for a head, on meta under the
+    dry run's counter: the lookup's backward writes its zeros in place and
+    autograd adds the head's gradient of the table to that buffer in
+    place, as they run on the card (under a dispatch mode autograd takes
+    the out-of-place branches, a table more each): three tables live at
+    the peak (the forward's table, the head's gradient, the lookup's),
+    not five; ``by_line`` names the backward nodes that made them."""
+    rows, width = 1024, 64
+    table = rows * width * 2
+    w0 = torch.zeros(rows, width, dtype=torch.bfloat16, device="meta",
+                     requires_grad=True)
+    idx = torch.tensor([[1, 5, 7]], device="meta")
+    with dryrun.Counter(by_line=True) as c, torch.enable_grad():
+        w = w0 * 1
+        x = w[idx]
+        (x @ w.narrow(0, 0, rows // 2).t()).float().sum().backward()
+    assert 3 * table <= c.peak < 3.5 * table    # and a few small ones
+    lines = {line for line, n in c.peak_lines.items() if n >= table}
+    assert lines == {"elsewhere", "backward SliceBackward0",
+                     "backward IndexBackward0"}, c.peak_lines
+
+
 # ------------------------------------------------------------ collectives
 def test_collective_bytes_equal_a_real_two_rank_step():
     """``torch_train_ranks.DRYRUN_WIRE_CASES`` on 2 gloo ranks and on the

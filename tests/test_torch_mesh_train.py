@@ -47,10 +47,11 @@ seed, a numpy batch whose rows carry unequal valid-token counts.
     tensor-parallel collectives, the configs it refuses, the launcher's
     rank body.
 (l) A ``tp`` mesh whose ``model`` size divides the LRU width but not the
-    RG-LRU gates' 8 blocks (``(1, 3)``, ``lru_width = 48``): the layer
-    computes whole on every ``model`` rank; the train step against the
-    JAX package's step on its host mesh, the serve steps and engine
-    against its serve steps and engine.
+    RG-LRU gates' 8 blocks (``(1, 3)``, ``lru_width = 48``): each rank
+    computes the layer on its slice of the width, its gates from the conv
+    output gathered over ``model``; the train step against the JAX
+    package's step on its host mesh, the serve steps and engine against
+    its serve steps and engine.
 """
 import os
 import subprocess
@@ -230,8 +231,8 @@ _JAX_SPLIT = (
     + [(ranks.PODWISE_ARCH, _POD_ACCUM), ("qwen2.5-3b", "serve"),
        ("xlstm-1.3b", "serve")],
     [("xlstm-1.3b", "tp"), ("qwen2.5-3b", "tp"), ("qwen2.5-3b", "fsdp"),
-     ("recurrentgemma-2b", "serve"), (ranks.LRU_WHOLE, "tp"),
-     (ranks.LRU_WHOLE, "serve"), (ranks.HEADS_WHOLE, "serve13"),
+     ("recurrentgemma-2b", "serve"), (ranks.LRU_SPLIT, "tp"),
+     (ranks.LRU_SPLIT, "serve"), (ranks.HEADS_WHOLE, "serve13"),
      (ranks.RING_WHOLE, "serve13")],
     [(a, "tp") for a in ("gemma3-12b", "qwen3-8b", "deepseek-7b",
                          "llava-next-mistral-7b", "seamless-m4t-large-v2")]
@@ -459,10 +460,12 @@ def _tp_split(path: str, cfg, kw: dict, m: int = 2) -> bool:
     ``heads_spec`` splits the heads (``wk`` / ``wv`` where the kv heads
     split too), its dense FFN where ``model`` divides ``d_ff``, its RG-LRU
     block where it divides the LRU width (``gate_a`` / ``gate_x``
-    excepted: their spec splits every block's columns), its MoE's experts
+    excepted: their spec splits every block's columns), its mLSTM's and
+    sLSTM's leaves where it divides the heads (``up``, the gates and
+    ``r_*`` excepted: their specs split other columns), its MoE's experts
     where it divides their count; the head's columns (``lm_head/w``), and
     a ``vocab_parallel`` table's rows, where it divides the padded
-    vocabulary."""
+    vocabulary; the frontends' ``w1`` where it divides ``d_model``."""
     if kw.get("layout", "tp") != "tp":
         return False
     vocab = cfg.padded_vocab % m == 0
@@ -470,6 +473,8 @@ def _tp_split(path: str, cfg, kw: dict, m: int = 2) -> bool:
         return vocab
     if path == "embed/w":
         return vocab and kw.get("embed_mode") == "vocab_parallel"
+    if path == "frontend/w1":
+        return cfg.d_model % m == 0
     if "blocks/" not in path:
         return False
     layer, leaf = path.split("/")[-2:]
@@ -482,6 +487,11 @@ def _tp_split(path: str, cfg, kw: dict, m: int = 2) -> bool:
     if layer == "rglru":
         return leaf in ("in_x", "in_g", "conv_w", "a_param", "out") \
             and cfg.lru_width % m == 0
+    if "/mlstm/" in path:
+        return heads and (leaf in ("conv_w", "out_norm", "down")
+                          or layer in ("q", "k", "v"))
+    if layer == "slstm":
+        return heads and leaf[:2] in ("w_", "b_")
     if layer == "moe":
         return leaf != "router" and cfg.n_experts % m == 0
     return False
@@ -708,8 +718,8 @@ def test_serving_mesh_matches_jax_host_mesh(runs, arch, shape):
     decoder and cross blocks on 2 of 4 heads a rank from the frames of
     ``serve_inputs`` / ``serve_request_frames`` (requests of 40 frames
     write only their prefix of a recycled slot's 96 cross rows, in both
-    engines), ``xlstm-1.3b`` computes whole on every rank, summing
-    nothing over ``model``."""
+    engines, the frames projected on a rank's columns), ``xlstm-1.3b`` its
+    mLSTM and sLSTM on 2 of 4 heads a rank."""
     port, ref = runs
     got, want = port["serve"][arch, shape], _serve_ref(ref, arch)
     for key in ("prefill", "decode"):
@@ -721,7 +731,7 @@ def test_serving_mesh_matches_jax_host_mesh(runs, arch, shape):
     # the serve steps gather no weight; the layers on a model block sum
     # over model
     assert got["wire"]["gather"] == 0
-    assert (got["wire"]["tp_all_reduce"] > 0) == (arch != "xlstm-1.3b")
+    assert got["wire"]["tp_all_reduce"] > 0
 
 
 @pytest.mark.parametrize("arch,shape", ranks.SERVE_CASES, ids=str)
@@ -733,7 +743,8 @@ def test_serving_cache_blocks_follow_cache_specs(runs, arch, shape):
     block of the sequence (``recurrentgemma-2b``'s one kv head,
     ``qwen2.5-3b``'s two on ``(1, 4)``), the
     RG-LRU state by width, the cross caches ``xk`` / ``xv`` by kv heads,
-    the xLSTM states whole; and the engine's pool holds its blocks of a
+    the mLSTM's states by heads (its conv window by features) and the
+    sLSTM's by features; and the engine's pool holds its blocks of a
     4-slot cache (an encoder-decoder's cross rows ``SERVE_LEN``)."""
     from repro_torch.convert import cache_from_jax
     from repro_torch.models import model as tmodel
@@ -772,13 +783,17 @@ def test_serving_cache_blocks_follow_cache_specs(runs, arch, shape):
     whole_cache = dict(flat(tmodel.cache_shapes(cfg, ranks.SERVE_B,
                                                 ranks.SERVE_LEN)))
     # every leaf is [G, B, ...]: the rank's rows; along model the cross
-    # caches' kv heads split, the xLSTM states do not
+    # caches' kv heads split, so do the xLSTM states' heads or features
     for path, x in got["cache"].items():
         assert x.shape[1] == ranks.SERVE_B // shape[0], path
         if path.endswith(("/xk", "/xv")):
             assert x.shape[3] == cfg.n_kv_heads // shape[1], path
         if "/rec/" in path and cfg.family == "xlstm":
-            assert x.shape[2:] == whole_cache[path].shape[2:], path
+            dim = 2 if path.endswith(("/C", "/n", "/m")) \
+                and "layer7" not in path else -1
+            want_shape = list(whole_cache[path].shape)
+            want_shape[dim] //= shape[1]
+            assert list(x.shape) == want_shape, path
 
 
 def test_sequence_split_decode_adds_nothing_for_an_empty_block(runs):
@@ -823,7 +838,8 @@ def test_serving_mesh_takes_every_config_and_refuses_fsdp(arch):
     over the dry run's stand-in group (whose collectives move nothing):
     the engine's serving parameters keep the rank's ``model`` block of
     the experts (4 of 8), of every attention's heads, the encoder's and
-    the cross blocks' too, and of the head's vocabulary (128 of 256
+    the cross blocks' too, of the mLSTM's and sLSTM's heads, of the
+    frontend's ``w1`` columns, and of the head's vocabulary (128 of 256
     columns); ``layout="fsdp"`` still raises ``NotImplementedError``,
     naming the JAX package's own ``DuplicateSpecError`` there."""
     import torch
@@ -854,14 +870,17 @@ def test_serving_mesh_takes_every_config_and_refuses_fsdp(arch):
         for path, x in served.items():
             want = list(shapes[path].shape)
             if path in cut:     # the model block: experts, or columns
-                dim = 1 if path.endswith(("/wo", "/bq", "/bk", "/bv")) \
-                    or "/moe/" in path or path == "lm_head/w" else 2
+                dim = 1 if path.endswith(("/wo", "/bq", "/bk", "/bv", "/w",
+                                          "/out_norm", "/down")) \
+                    or "/moe/" in path or "/b_" in path \
+                    or path in ("lm_head/w", "frontend/w1") else 2
                 want[dim] //= 2
             assert tuple(x.shape) == tuple(want), path
         kinds = {p.split("/")[-2] for p in cut}
-        assert kinds == {"xlstm-1.3b": {"lm_head"},
+        assert kinds == {"xlstm-1.3b": {"mlstm", "q", "k", "v", "slstm",
+                                        "lm_head"},
                          "seamless-m4t-large-v2": {"attn", "xattn", "mlp",
-                                                   "lm_head"}
+                                                   "lm_head", "frontend"}
                          }.get(arch, {"attn", "moe", "lm_head"}), kinds
         if cfg.is_encoder_decoder:
             assert any(p.startswith("encoder/") for p in cut)
@@ -917,54 +936,87 @@ def test_vocab_parallel_embedding_raises_on_a_mesh(monkeypatch):
         assert torch.equal(x, params["embed"]["w"][toks.long()])
 
 
-def test_tp_step_computes_an_lru_whole_where_its_gate_blocks_do_not_split(
-        runs):
-    """(l) ``torch_train_ranks.LRU_WHOLE`` on ``(data, model) = (1, 3)``,
+def _lru_gather_bytes(cfg, rows: int, tokens: int, backward: bool) -> int:
+    """The bytes a rank of the ``(1, 3)`` mesh hands to the RG-LRU's
+    gathers of its conv output (float32): each R layer's ``[rows,
+    tokens, W / 3]`` slice forward, and the whole ``[rows, tokens, W]``
+    gradient to the reduce-scatter backward."""
+    layers = cfg.block_pattern.count("R") * cfg.n_groups
+    part = rows * tokens * cfg.lru_width // 3 * 4
+    return layers * part * (1 + 3 * backward)
+
+
+def test_tp_step_splits_an_lru_whose_gate_blocks_do_not_split(runs):
+    """(l) ``torch_train_ranks.LRU_SPLIT`` on ``(data, model) = (1, 3)``,
     ``layout="tp"``: 3 ranks divide the LRU width of 48 but not the
-    gates' 8 blocks, so ``rglru.lru_split`` is None and the layer
-    computes whole (its leaves gathered over ``model`` too) while the
-    attention computes on one of the 3 heads a rank.  One step, rank 0,
-    against the JAX package's step by ``_hold``'s bars; the attention's
-    sums over ``model`` ran, and nothing raised over the gate blocks."""
+    gates' 8 blocks of 6, so each rank's slice of 16 columns crosses
+    blocks: ``rglru.lru_split`` is ``(0, 3)`` on rank 0, the layer
+    computes on the rank's slice from its conv output gathered over
+    ``model`` (those bytes exactly: ``all_gather`` carries nothing else
+    here) while the attention computes on one of the 3 heads a rank.
+    One step, rank 0, against the JAX package's step by ``_hold``'s
+    bars; the layers' sums over ``model`` ran."""
     port, ref = runs
-    got = port["lru_whole"]
-    assert got["split"] is None
-    _hold(got["step"], _ref(ref, ranks.LRU_WHOLE, "tp"),
-          [_ref(ref, ranks.LRU_WHOLE, "tp", t) for t in "uvwx"])
+    got = port["lru_split"]
+    assert got["split"] == (0, 3)
+    _hold(got["step"], _ref(ref, ranks.LRU_SPLIT, "tp"),
+          [_ref(ref, ranks.LRU_SPLIT, "tp", t) for t in "uvwx"])
     assert got["wire"]["tp_all_reduce"] > 0
+    assert got["wire"]["all_gather"] == _lru_gather_bytes(
+        ranks.lm_cfg(ranks.LRU_SPLIT), ranks.B, ranks.T, backward=True)
 
 
-def test_serving_mesh_computes_an_lru_whole_where_its_gate_blocks_do_not_split(
-        runs):
-    """(l) The serve steps and the engine of ``LRU_WHOLE`` (one pattern
+def test_serving_mesh_splits_an_lru_whose_gate_blocks_do_not_split(runs):
+    """(l) The serve steps and the engine of ``LRU_SPLIT`` (one pattern
     unit) on the ``(1, 3)`` mesh, rank 0, against the JAX package's on
     its host mesh, by ``test_serving_mesh_matches_jax_host_mesh``'s
-    bars: ``check_serving_mesh`` takes the config, and the RG-LRU state
-    of the prefill's cache and of the pool stays whole over ``model``
-    (``cache_specs_for(..., cfg)``), at the LRU width of 48."""
+    bars: ``check_serving_mesh`` takes the config, the serve steps gather
+    the conv output of each R layer (the prefill's and two decode steps'
+    bytes exactly, by ``sharded.all_gather``), and the RG-LRU state of
+    the prefill's cache and of the pool is the rank's slice of the LRU
+    width of 48 (``cache_specs_for(..., cfg)``), equal to the JAX
+    package's cache cut there."""
+    from repro_torch.convert import cache_from_jax
     from repro_torch.models import model as tmodel
+    from repro_torch.parallel.mesh_utils import Mesh
+    from repro_torch.parallel.sharding import ParallelConfig as TPC
+    from repro_torch.train import step as tstep
     from repro_torch.utils.pytree import tree_flatten_with_paths as flat
     port, ref = runs
-    got = port["lru_whole"]["serve"]
-    want = _serve_ref(ref, ranks.LRU_WHOLE)
+    got = port["lru_split"]["serve"]
+    want = _serve_ref(ref, ranks.LRU_SPLIT)
     for key in ("prefill", "decode"):
         scale = np.abs(want[key]).max()
         assert got[key].shape == want[key].shape, key
         assert np.abs(got[key] - want[key]).max() <= SERVE_TOL * scale, key
     np.testing.assert_array_equal(got["next"], want["next"])
     assert got["tokens"] == want["tokens"].tolist()
-    cfg = ranks.serve_cfg(ranks.LRU_WHOLE)
+    cfg = ranks.serve_cfg(ranks.LRU_SPLIT)
+    assert got["autograd_gather"] == _lru_gather_bytes(
+        cfg, ranks.SERVE_B, ranks.SERVE_T, backward=False) \
+        + 2 * _lru_gather_bytes(cfg, ranks.SERVE_B, 1, backward=False)
+    assert got["wire"]["all_gather"] >= got["autograd_gather"]
+    mesh = Mesh(("data", "model"), dict(zip(("data", "model"),
+                                            ranks.LRU_SPLIT_SHAPE)),
+                object(), 0, 3, "cpu", "gloo")
+    specs = tstep.cache_specs_for(
+        tmodel.cache_shapes(cfg, ranks.SERVE_B, ranks.SERVE_LEN),
+        TPC(mesh=mesh), cfg)
+    jax_cache = ranks.nest({k[len("cache/"):]: v for k, v in want.items()
+                            if k.startswith("cache/")})
+    cut = dict(flat(cache_from_jax(jax_cache, specs=specs, mesh=mesh)))
     pool = dict(flat(tmodel.cache_shapes(cfg, ranks.SERVE_SLOTS,
                                          ranks.SERVE_LEN)))
     rec = [p for p in pool if "/rec/" in p]
     assert rec
     for path in rec:
-        w = want["cache/" + path]
+        w = cut[path].numpy()
         assert got["cache"][path].shape == w.shape, path
+        assert w.shape[-1] == cfg.lru_width // 3, path
         assert np.abs(got["cache"][path] - w).max() <= SERVE_TOL * max(
             np.abs(w).max(), 1), path
-        assert got["pool"][path] == tuple(pool[path].shape), path
-        assert pool[path].shape[-1] == cfg.lru_width
+        assert got["pool"][path] == tuple(pool[path].shape[:-1]) + (
+            cfg.lru_width // 3,), path
 
 
 def test_serve_launcher_rank_on_a_two_by_two_mesh(runs):
@@ -1083,11 +1135,7 @@ def test_spec_trees_match_jax(arch):
     ``_RULES``, the state's with ``ef`` under ``multi_pod``, the batch's,
     a decode cache's) equal the JAX package's for every shipped config,
     on a ``(pod, data, model) = (2, 2, 2)`` grid (JAX reads only its axis
-    names and sizes here).  One departure, by design: under ``tp`` the
-    mLSTM's and sLSTM's states are whole over ``model`` (the port's
-    layers compute whole on every ``model`` rank; the JAX spec splits
-    their first feature dim that ``model`` divides), their batch dim
-    split as the JAX spec splits it."""
+    names and sizes here), the xLSTM's states by heads or features too."""
     from types import SimpleNamespace
 
     from repro.configs import ARCHS
@@ -1131,10 +1179,7 @@ def test_spec_trees_match_jax(arch):
                                          tp, tcfg))
         assert [p for p, _ in jl] == [p for p, _ in tl]
         for (p, a), (_, b) in zip(jl, tl):
-            a = tuple(a)
-            if layout == "tp" and tcfg.family == "xlstm":
-                a = (None, a[1]) + (None,) * (len(a) - 2)
-            assert a == tuple(b), (p, a, b)
+            assert tuple(a) == tuple(b), (p, a, b)
 
 
 @pytest.mark.parametrize("variant", [ranks.HEADS_WHOLE, ranks.RING_WHOLE])
@@ -1147,10 +1192,12 @@ def test_serving_mesh_serves_heads_and_caches_that_do_not_split(runs,
     ``test_serving_mesh_matches_jax_host_mesh``'s bars.  ``HEADS_WHOLE``:
     4 heads over 2 kv heads do not split over 3, so the attention serves
     whole on every ``model`` rank with whole caches (the ring of 40 slots
-    and the full cache of 96) and nothing summed over ``model``;
+    and the full cache of 96), its output summed over nothing;
     ``RING_WHOLE``: 3 heads over 1 kv head split, the ring of 40 slots
     does not and stays whole beside them (``attention._whole_cache``),
-    the full cache of 96 splits over the sequence."""
+    the full cache of 96 splits over the sequence.  The R layer computes
+    on its slice of the LRU width of 48 in both, its output summed over
+    ``model``: ``HEADS_WHOLE``'s only sums."""
     from repro_torch.models import model as tmodel
     from repro_torch.utils.pytree import tree_flatten_with_paths as flat
     port, ref = runs
@@ -1174,8 +1221,10 @@ def test_serving_mesh_serves_heads_and_caches_that_do_not_split(runs,
         if variant == ranks.RING_WHOLE and path.startswith("layer2/"):
             shape = shape[:2] + (shape[2] // 3,) + shape[3:]
         assert got["pool"][path] == shape, path
-    if variant == ranks.HEADS_WHOLE:     # every layer whole: no sum
-        assert got["wire"]["tp_all_reduce"] == 0
+    if variant == ranks.HEADS_WHOLE:     # the R layer's outputs alone
+        rows = ranks.SERVE_B * (ranks.SERVE_T + 2)   # prefill, 2 decodes
+        assert got["wire"]["tp_all_reduce"] == cfg.n_groups \
+            * cfg.block_pattern.count("R") * rows * cfg.d_model * 4
     else:
         assert got["wire"]["tp_all_reduce"] > 0
     assert got["wire"]["gather"] == 0

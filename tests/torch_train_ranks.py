@@ -41,11 +41,12 @@ POD_SHAPE = (4, 256)
 
 
 # (l): a tp mesh whose model size divides the LRU width but not the
-# RG-LRU gates' 8 blocks, so the layer computes whole on every model
-# rank; 3 heads split over the 3 ranks, the FFN's 128 columns do not,
-# and the local layers' ring of 48 slots splits over them for serving
-LRU_WHOLE = "recurrentgemma-2b:lru48"
-LRU_WHOLE_SHAPE = (1, 3)
+# RG-LRU gates' 8 blocks: each rank's 16 columns cross the blocks of 6,
+# so the layer gathers its conv output over model for the gates; 3 heads
+# split over the 3 ranks, the FFN's 128 columns do not, and the local
+# layers' ring of 48 slots splits over them for serving
+LRU_SPLIT = "recurrentgemma-2b:lru48"
+LRU_SPLIT_SHAPE = (1, 3)
 # serving on the same (1, 3) mesh, one R, L and A layer each: 4 heads over
 # 2 kv heads do not split over 3 ranks, so the attention computes whole
 # with a whole cache; 3 heads over 1 kv head split, and the ring of 40
@@ -56,7 +57,7 @@ RING_WHOLE = "recurrentgemma-2b:ring40"
 _RLA = {"lru_width": 48, "local_window": 40, "block_pattern": ("R", "L", "A"),
         "n_layers": 3}
 # a variant "<arch>:<tag>" is the reduced config with these fields
-VARIANTS = {LRU_WHOLE: {"lru_width": 48, "n_heads": 3, "local_window": 48},
+VARIANTS = {LRU_SPLIT: {"lru_width": 48, "n_heads": 3, "local_window": 48},
             HEADS_WHOLE: {**_RLA, "n_heads": 4, "n_kv_heads": 2},
             RING_WHOLE: {**_RLA, "n_heads": 3, "n_kv_heads": 1}}
 
@@ -253,10 +254,10 @@ def mesh_train_suite(rank: int, world: int):
                                                    meshes[shape])
     if pair is not None:
         out["seq_decode"] = seq_split_decode_case(pair)
-    trio = make_mesh_compat(LRU_WHOLE_SHAPE, ("data", "model"),
+    trio = make_mesh_compat(LRU_SPLIT_SHAPE, ("data", "model"),
                             device="cpu", ranks=range(3))
     if trio is not None:
-        out["lru_whole"] = lru_whole_case(trio)
+        out["lru_split"] = lru_split_case(trio)
         out["serve_whole"] = {v: serve_case(serve_cfg(v), trio)
                               for v in (HEADS_WHOLE, RING_WHOLE)}
     out["launcher"] = _launcher_rank(rank, world)
@@ -655,8 +656,8 @@ SERVE_ARCHS = ("recurrentgemma-2b", "qwen2.5-3b", "gemma3-12b")
 # over the sequence, 2 q heads a rank over one kv head.  The other
 # families: the MoE's 8 experts 4 a model rank on (2, 2) and (1, 2); the
 # encoder-decoder's encoder, decoder and cross blocks on 2 of 4 heads a
-# rank (its 2 kv heads split, so do the cross caches); the xLSTM whole on
-# every model rank, its states whole
+# rank (its 2 kv heads split, so do the cross caches); the xLSTM's mLSTM
+# and sLSTM on 2 of 4 heads a rank, their states by heads
 SERVE_CASES = [(a, s) for a in SERVE_ARCHS for s in ((2, 2), (1, 2))] \
     + [("qwen2.5-3b", (1, 4)), ("qwen3-moe-30b-a3b", (2, 2)),
        ("qwen3-moe-30b-a3b", (1, 2)), ("seamless-m4t-large-v2", (1, 2)),
@@ -718,7 +719,9 @@ def serve_case(cfg, mesh) -> dict:
     logits and greedy tokens from its cache, the greedy token streams of
     :func:`serve_prompts` (with :func:`serve_request_frames`), the
     prefill's cache blocks and the shapes of
-    the pool's; the bytes the serve steps handed to each collective."""
+    the pool's; the bytes the serve steps handed to each collective, and
+    of those the bytes of ``sharded.all_gather``'s calls (the RG-LRU's
+    conv output where its gate blocks do not split over ``model``)."""
     from repro_torch.convert import params_from_jax
     from repro_torch.models import model
     from repro_torch.parallel import sharded
@@ -734,13 +737,22 @@ def serve_case(cfg, mesh) -> dict:
     toks = batch["inputs"]
     pos = torch.full((SERVE_B,), SERVE_T, dtype=torch.int32)
     before = dict(sharded.WIRE)
-    with torch.inference_mode():
-        logits, cache = tstep.make_prefill_step(cfg, pcfg, SERVE_LEN)(
-            params, batch)
-        dec, _ = tstep.make_decode_step(cfg, pcfg, SERVE_LEN)(
-            params, cache, toks[:, -1:], pos)
-        nxt, _ = tstep.make_serve_step(cfg, pcfg, SERVE_LEN)(
-            params, cache, toks[:, -1:], pos)
+    gathered, real_gather = [], sharded.all_gather
+
+    def all_gather(x, mesh_, axes):
+        gathered.append(x.nbytes)
+        return real_gather(x, mesh_, axes)
+    sharded.all_gather = all_gather
+    try:
+        with torch.inference_mode():
+            logits, cache = tstep.make_prefill_step(cfg, pcfg, SERVE_LEN)(
+                params, batch)
+            dec, _ = tstep.make_decode_step(cfg, pcfg, SERVE_LEN)(
+                params, cache, toks[:, -1:], pos)
+            nxt, _ = tstep.make_serve_step(cfg, pcfg, SERVE_LEN)(
+                params, cache, toks[:, -1:], pos)
+    finally:
+        sharded.all_gather = real_gather
     wire = {k: v - before[k] for k, v in sharded.WIRE.items()}
     eng = ServeEngine(cfg, blocks, pcfg, max_batch=SERVE_SLOTS,
                       max_len=SERVE_LEN, scfg=SamplerConfig())
@@ -749,7 +761,7 @@ def serve_case(cfg, mesh) -> dict:
     eng.run()
     return {"prefill": logits.numpy(), "decode": dec.numpy(),
             "next": nxt.numpy(), "tokens": [r.out for r in reqs],
-            "wire": wire,
+            "wire": wire, "autograd_gather": sum(gathered),
             "cache": {p: x.numpy()
                       for p, x in tree_flatten_with_paths(cache)},
             "pool": {p: tuple(x.shape)
@@ -829,16 +841,16 @@ def seq_split_decode_case(mesh) -> dict:
                 new_whole[k], i, n)) for k in whole)}
 
 
-def lru_whole_case(mesh) -> dict:
-    """(l) ``LRU_WHOLE`` on ``mesh``, ``layout="tp"``: one train step
+def lru_split_case(mesh) -> dict:
+    """(l) ``LRU_SPLIT`` on ``mesh``, ``layout="tp"``: one train step
     (:func:`_mesh_step`, the bytes it handed to each collective) and the
     serve steps and engine (:func:`serve_case` at one pattern unit)."""
     from repro_torch.models import rglru
     from repro_torch.parallel.sharding import ParallelConfig
     log = {}
-    step = _mesh_step(lm_cfg(LRU_WHOLE), mesh, lm_batch(lm_cfg(LRU_WHOLE)),
+    step = _mesh_step(lm_cfg(LRU_SPLIT), mesh, lm_batch(lm_cfg(LRU_SPLIT)),
                       log, layout="tp")
-    cfg = serve_cfg(LRU_WHOLE)
+    cfg = serve_cfg(LRU_SPLIT)
     return {"step": step, "wire": log["wire"],
             "split": rglru.lru_split(cfg, ParallelConfig(mesh=mesh)),
             "serve": serve_case(cfg, mesh)}
@@ -1083,4 +1095,367 @@ def vocab_suite(rank: int, world: int):
     pair = meshes[1, 2]
     if pair is not None:
         out["steps"] = [_vocab_step_case(pair, a, k) for a, k in VOCAB_STEPS]
+    return out
+
+
+# ------------------------------------------------------------ tp recurrent
+# the leaves a tensor-parallel recurrent layer or frontend keeps as its
+# model block, and the dim the block cuts ("[qkv]" the mLSTM's q / k / v
+# blocks)
+TP_RECURRENT_CUTS = {
+    "rglru": {"in_x": 1, "in_g": 1, "conv_w": 1, "a_param": 0, "out": 0},
+    "mlstm": {"conv_w": 1, "q": 0, "k": 0, "v": 0, "out_norm": 0,
+              "down": 0},
+    "slstm": {**{f"w_{g}": 1 for g in "ifzo"}, **{f"b_{g}": 0
+                                                  for g in "ifzo"}},
+    "frontend": {"w1": 1}}
+TP_RECURRENT_SEQ = 12           # tokens of the layers' prefill
+TP_RECURRENT_LRU = 48           # the LRU width: blocks of 6
+
+
+def tp_recurrent_cfgs() -> dict:
+    """The reduced float32 configs of the tensor-parallel recurrent cases:
+    an RG-LRU at width 48, the xLSTM (4 heads), llava's and seamless's
+    frontends (d_model 64)."""
+    return {"rglru": lm_cfg("recurrentgemma-2b").replace(
+                lru_width=TP_RECURRENT_LRU),
+            "xlstm": lm_cfg("xlstm-1.3b"),
+            "vision": lm_cfg("llava-next-mistral-7b"),
+            "audio": lm_cfg("seamless-m4t-large-v2")}
+
+
+def _tp_leaf_block(name, path, x, index, size):
+    """Rank ``index``'s block of the layer leaf ``path`` (its
+    ``TP_RECURRENT_CUTS[name]`` entry, by the leaf's first key), else the
+    whole leaf."""
+    dim = TP_RECURRENT_CUTS[name].get(path.split("/")[0])
+    if dim is None:
+        return x
+    n = x.shape[dim] // size
+    return x.narrow(dim, index * n, n).contiguous()
+
+
+def _tp_layer_case(name, cfg, fn, params, x, pcfg, index, size,
+                   state=None, state_dims=None) -> dict:
+    """``fn(params, x, pcfg, state)`` whole (no mesh) and on this rank's
+    blocks: the largest differences, each of its reference's scale, of
+    the output, of ``x``'s gradient, of each leaf's gradient (the rank's
+    block of the whole one), and of the new state (the rank's block)."""
+    from repro_torch.parallel.sharding import NO_PARALLEL
+    from repro_torch.utils.pytree import (tree_flatten_with_paths,
+                                          tree_unflatten)
+    flat = tree_flatten_with_paths(params)
+    rng = np.random.default_rng(41)
+
+    def run(leaves, p_cfg, st):
+        xs = x.clone().requires_grad_()
+        ps = [v.clone().requires_grad_() for v in leaves]
+        out, new = fn(tree_unflatten(params, ps), xs, p_cfg, st)
+        cot = torch.from_numpy(rng.normal(size=tuple(out.shape))
+                               .astype(np.float32))
+        (out * cot).sum().backward()
+        return out.detach(), xs.grad, [v.grad for v in ps], new
+
+    whole = run([v for _, v in flat], NO_PARALLEL, state)
+    rng = np.random.default_rng(41)
+    cut_state = None if state is None else {
+        k: v.chunk(size, dim=state_dims[k])[index].contiguous()
+        for k, v in state.items()}
+    mine = run([_tp_leaf_block(name, p, v, index, size) for p, v in flat],
+               pcfg, cut_state)
+
+    def rel(a, b):
+        return float((a - b).abs().max() / max(float(b.abs().max()), 1e-30))
+    out = {"out": rel(mine[0], whole[0]), "x": rel(mine[1], whole[1])}
+    for (path, _), g, w in zip(flat, mine[2], whole[2]):
+        out["grad/" + path] = rel(g, _tp_leaf_block(name, path, w, index,
+                                                    size))
+    if state is not None:
+        for k, v in mine[3].items():
+            w = whole[3][k].chunk(size, dim=state_dims[k])[index]
+            out["state/" + k] = rel(v.detach(), w.detach())
+    return out
+
+
+def _tp_recurrent_layers(mesh) -> dict:
+    """Each tensor-parallel recurrent layer (and frontend) of
+    :func:`tp_recurrent_cfgs` on ``mesh``'s ``model`` ranks against one
+    process's whole layer (:func:`_tp_layer_case`): the RG-LRU in a
+    prefill from zero states and then a decode step, the mLSTM (the same),
+    the sLSTM, the vision projector spliced at 3 positions, the audio
+    frames' projection."""
+    from repro_torch.models import common, model, rglru, transformer, xlstm
+    from repro_torch.parallel.sharding import NO_PARALLEL, ParallelConfig
+    cfgs = tp_recurrent_cfgs()
+    pcfg = ParallelConfig(mesh=mesh)
+    index, size = mesh.axis_index("model"), mesh.axes_size("model")
+    rng = np.random.default_rng(40)
+    out = {}
+
+    def seq(cfg, T=TP_RECURRENT_SEQ):
+        return torch.from_numpy(rng.normal(size=(2, T, cfg.d_model))
+                                .astype(np.float32))
+
+    def layer_params(shapes):
+        return common.materialize(shapes, torch.Generator().manual_seed(7),
+                                  "cpu")
+
+    def zero_state(cfg, sym):
+        return transformer._zero_state(transformer._STATE_SHAPES[sym](cfg, 2),
+                                       "cpu")
+
+    layers = {"rglru": ("R", rglru.shapes, lambda p, x, c, s, cfg: rglru.apply(
+                  p, x, cfg=cfg, state=s, pcfg=c)),
+              "mlstm": ("m", xlstm.mlstm_shapes,
+                        lambda p, x, c, s, cfg: xlstm.mlstm_apply(
+                            p, x, cfg=cfg, state=s, pcfg=c)),
+              "slstm": ("s", xlstm.slstm_shapes,
+                        lambda p, x, c, s, cfg: xlstm.slstm_apply(
+                            p, x, cfg=cfg, state=s, pcfg=c))}
+    for name, (sym, shapes, call) in layers.items():
+        cfg = cfgs["rglru" if name == "rglru" else "xlstm"]
+        if transformer.rec_split(sym, cfg, pcfg)[0] is None:
+            continue
+        params = layer_params(shapes(cfg))
+        dims = transformer.rec_split(sym, cfg, pcfg)[1]
+
+        def fn(p, x, c, s, call=call, cfg=cfg):
+            return call(p, x, c, s, cfg)
+        out[name] = _tp_layer_case(name, cfg, fn, params, seq(cfg), pcfg,
+                                   index, size)
+        # a prefill from zero states, then a decode step from the whole
+        # prefill's state
+        x = seq(cfg)
+        with torch.no_grad():
+            state = call(params, x, NO_PARALLEL, zero_state(cfg, sym), cfg)[1]
+        out[name + "/prefill"] = _tp_layer_case(
+            name, cfg, fn, params, x, pcfg, index, size,
+            state=zero_state(cfg, sym), state_dims=dims)
+        out[name + "/decode"] = _tp_layer_case(
+            name, cfg, fn, params, seq(cfg, 1), pcfg, index, size,
+            state=state, state_dims=dims)
+    vis, aud = cfgs["vision"], cfgs["audio"]
+    if transformer.frontend_split(vis, pcfg) is not None:
+        fp = layer_params(model.param_shapes(vis)["frontend"])
+        pos = torch.tensor([[1, 4, 9]] * 2)
+        patches = seq(vis, 3)
+
+        def splice(p, x, c, s):
+            return transformer.splice_patches({"frontend": p}, x, patches,
+                                              pos, cfg=vis, pcfg=c), None
+        out["vision"] = _tp_layer_case("frontend", vis, splice, fp, seq(vis),
+                                       pcfg, index, size)
+        fa = layer_params(model.param_shapes(aud)["frontend"])
+
+        def frames(p, x, c, s):
+            return transformer.project_frames({"frontend": p}, x, cfg=aud,
+                                              pcfg=c), None
+        out["audio"] = _tp_layer_case("frontend", aud, frames, fa, seq(aud),
+                                      pcfg, index, size)
+    return out
+
+
+def _tp_collective_pieces(mesh) -> dict:
+    """``xlstm.split_rms_norm`` and ``sharded.gather_from_model`` on this
+    rank's 4 columns of a width of 4 x ``model``, against one process's
+    whole ``rms_norm`` and identity: the output (the rank's columns, or
+    the whole gathered) and the gradients of ``sum(tanh(out) * C)``
+    (every rank's loss its own columns', or the whole one alike), each
+    the largest difference of its reference's scale."""
+    from repro_torch.models import common, xlstm
+    from repro_torch.parallel import sharded
+    index, size = mesh.axis_index("model"), mesh.axes_size("model")
+    rng = np.random.default_rng(42)
+    width = 4 * size
+    x_np = rng.normal(size=(2, 5, width)).astype(np.float32)
+    s_np = rng.normal(size=(width,)).astype(np.float32)
+    c_np = rng.normal(size=(2, 5, width)).astype(np.float32)
+    cols = slice(4 * index, 4 * (index + 1))
+    C = torch.from_numpy(c_np)
+
+    def rel(a, b):
+        return float((a - b).abs().max() / max(float(b.abs().max()), 1e-30))
+
+    xw = torch.from_numpy(x_np).requires_grad_()
+    sw = torch.from_numpy(s_np).requires_grad_()
+    want = common.rms_norm(xw, sw, 1e-6)
+    (torch.tanh(want) * C).sum().backward()
+    xr = torch.from_numpy(x_np[..., cols].copy()).requires_grad_()
+    sr = torch.from_numpy(s_np[cols].copy()).requires_grad_()
+    before = sharded.WIRE["tp_all_reduce"]
+    got = xlstm.split_rms_norm(xr, sr, 1e-6, mesh)
+    (torch.tanh(got) * C[..., cols]).sum().backward()
+    out = {"norm": {"out": rel(got.detach(), want.detach()[..., cols]),
+                    "x": rel(xr.grad, xw.grad[..., cols]),
+                    "scale": rel(sr.grad, sw.grad[cols]),
+                    "wire": sharded.WIRE["tp_all_reduce"] - before}}
+    xw.grad = None
+    (torch.tanh(xw) * C).sum().backward()
+    before = sharded.WIRE["all_gather"]
+    xr.grad = None
+    whole = sharded.gather_from_model(xr, mesh)
+    (torch.tanh(whole) * C).sum().backward()
+    out["gather"] = {"out": rel(whole.detach(), xw.detach()),
+                     "x": rel(xr.grad, xw.grad[..., cols]),
+                     "wire": sharded.WIRE["all_gather"] - before,
+                     "part_bytes": xr.nbytes}
+    return out
+
+
+def tp_recurrent_suite(rank: int, world: int):
+    """On 3 ranks: the collective pieces and the layers on ``(data,
+    model) = (1, 3)`` (the RG-LRU's gate blocks of 6 cut by slices of
+    16), then on ranks 0 and 1 at ``(1, 2)`` (the RG-LRU's whole blocks,
+    the xLSTM's 2 of 4 heads, the frontends' 32 of 64 columns); rank 0's
+    results by mesh."""
+    from repro_torch.launch.mesh import make_mesh_compat
+    out = {}
+    trio = make_mesh_compat((1, 3), ("data", "model"), device="cpu")
+    out[3] = {"pieces": _tp_collective_pieces(trio),
+              "layers": _tp_recurrent_layers(trio)}
+    pair = make_mesh_compat((1, 2), ("data", "model"), device="cpu",
+                            ranks=range(2))
+    if pair is not None:
+        out[2] = {"pieces": _tp_collective_pieces(pair),
+                  "layers": _tp_recurrent_layers(pair)}
+    return out if rank == 0 else None
+
+
+# ------------------------------------------------------------ the ring
+# gloo's sums, which the card's references of more than two model ranks
+# follow (``chip_smoke.ring_sum``): groups of the first 2, 3 and 5 ranks,
+# bf16 and float32, from a few elements to segments cut at
+# ``chip_smoke.GLOO_SEGMENT_BYTES`` (24 MB of float32 make 25 segments
+# over 5 ranks), and a length no rank count divides, all-reduced alone
+# (12 MB of float32: the cap moves the segments' ends, and with them the
+# rank that starts a few elements' sums)
+RING_SIZES = (2, 3, 5)
+RING_LENGTHS = (30, 3000, 6_000_000, 3_000_017)
+# the tp step that ``chip_smoke.emulated_model_ranks`` emulates, on 5 and
+# 2 ranks: recurrentgemma-2b's reduced twin in bf16 at widths 5 divides,
+# cut to R, R, L as phase 28 cuts it (the LRU's 80 columns in gate
+# blocks of 10: a rank's 16 of 5 cross them), one row of 32 tokens
+RING_STEP_CFG = {"d_model": 80, "n_heads": 5, "n_kv_heads": 1,
+                 "d_head": 16, "d_ff": 160, "lru_width": 80,
+                 "vocab_size": 640, "block_pattern": ("R", "R", "L"),
+                 "n_layers": 3, "local_window": 16}
+RING_STEP_SEQ = 32
+
+
+def ring_part(rank: int, n: int, dtype: str) -> torch.Tensor:
+    """Rank ``rank``'s addend of ``n`` elements, of three magnitudes over
+    the ranks, so that the order of the additions shows."""
+    x = np.random.default_rng([rank, n]).normal(size=n) * 10.0 ** (rank % 3)
+    return torch.from_numpy(x).to(getattr(torch, dtype))
+
+
+def _chip_smoke():
+    import sys
+    root = str(Path(__file__).resolve().parents[1])
+    if root not in sys.path:
+        sys.path.insert(0, root)
+    import chip_smoke
+    return chip_smoke
+
+
+def _ring_sums(rank: int) -> dict:
+    """This rank's all-reduce and reduce-scatter (of a length the group
+    divides) in each group of ``RING_SIZES`` it belongs to, against ``chip_smoke.ring_sum`` of every
+    member's ``ring_part`` and against their sum in rank order: the
+    number of elements that differ, by (size, dtype, length)."""
+    import torch.distributed as dist
+    cs = _chip_smoke()
+    out = {}
+    for size in RING_SIZES:
+        group = dist.new_group(list(range(size)))   # every rank calls it
+        if rank >= size:
+            continue
+        for dtype in ("bfloat16", "float32"):
+            for n in RING_LENGTHS:
+                parts = [ring_part(r, n, dtype) for r in range(size)]
+                ring = cs.ring_sum(torch, parts)
+                x = parts[rank].clone()
+                dist.all_reduce(x, group=group)
+                got = {"all_reduce": int((x != ring).sum()),
+                       "rank_order": int((x != sum(parts[1:],
+                                                   parts[0])).sum())}
+                k = n // size
+                if n % size == 0:
+                    y = torch.empty(k, dtype=x.dtype)
+                    dist.reduce_scatter_tensor(y, parts[rank].clone(),
+                                               group=group)
+                    got["reduce_scatter"] = int(
+                        (y != ring[rank * k:(rank + 1) * k]).sum())
+                out[size, dtype, n] = got
+    return out
+
+
+def _ring_step(mesh, size: int) -> dict:
+    """One ``tp`` step of ``RING_STEP_CFG`` on ``mesh`` with phase 8's
+    knobs (full remat, the fused head), its gradient whole as AdamW
+    receives it; then, in this process, the same step off the mesh with
+    its ``size`` ranks emulated (``chip_smoke.emulated_model_ranks``) on
+    rank 0.  Returns both losses and the elements of each leaf that
+    differ (rank 0; the others, nothing)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import model
+    from repro_torch.parallel import sharded
+    from repro_torch.parallel.sharding import param_specs_for
+    from repro_torch.train import optim
+    from repro_torch.train import step as tstep
+    from repro_torch.utils.pytree import tree_flatten_with_paths
+    cs = _chip_smoke()
+    cfg = get_config("recurrentgemma-2b").reduced().replace(**RING_STEP_CFG)
+    toks = np.random.default_rng(3).integers(
+        0, cfg.vocab_size, (1, RING_STEP_SEQ + 1)).astype(np.int32)
+    batch = {"inputs": torch.from_numpy(toks[:, :-1]),
+             "labels": torch.from_numpy(toks[:, 1:])}
+
+    def init():
+        return model.init_params(cfg, torch.Generator().manual_seed(SEED),
+                                 "cpu")
+    pcfg = cs.mesh_lm_pcfg(mesh, layout="tp")
+    pshapes = model.param_shapes(cfg)
+    specs = param_specs_for(pshapes, pcfg)
+    params = sharded.shard_tree(init(), specs, mesh)
+    ocfg = optim.AdamWConfig(lr=LR)
+    step = tstep.make_train_step(cfg, pcfg, ocfg,
+                                 optim.warmup_cosine(LR, WARMUP, TOTAL))
+    got, real = {}, optim.apply_updates
+
+    def held(params, grads, *a, **kw):
+        got["grads"] = grads
+        return real(params, grads, *a, **kw)
+    optim.apply_updates = held
+    try:
+        _, _, metrics = step(params, optim.init_state(params, ocfg),
+                             tstep.local_batch(batch, pcfg))
+    finally:
+        optim.apply_updates = real
+    whole = dict(tree_flatten_with_paths(
+        sharded.gather_tree(got["grads"], specs, pshapes, mesh)))
+    if torch.distributed.get_rank():
+        return {}
+    with cs.emulated_model_ranks(torch, size, "cpu"):
+        (loss, _), grads = tstep._value_and_grad_accum(
+            init(), batch, cfg=cfg, pcfg=cs.train_pcfg())
+    return {"loss": float(metrics["loss"]), "emulated_loss": float(loss),
+            "unequal": {p: int((g != whole[p]).sum()) for p, g in
+                        tree_flatten_with_paths(grads)}}
+
+
+def gloo_ring_suite(rank: int, world: int):
+    """On 5 ranks: :func:`_ring_sums` on every rank, then
+    :func:`_ring_step` on ``(data, model) = (1, 5)`` and on ranks 0 and 1
+    at ``(1, 2)``.  Each rank's sums; rank 0's steps by ``model`` size."""
+    from repro_torch.launch.mesh import make_mesh_compat
+    out = {"sums": _ring_sums(rank), "steps": {}}
+    five = make_mesh_compat((1, 5), ("data", "model"), device="cpu")
+    step5 = _ring_step(five, 5)
+    pair = make_mesh_compat((1, 2), ("data", "model"), device="cpu",
+                            ranks=range(2))
+    if pair is not None:
+        step2 = _ring_step(pair, 2)
+        if rank == 0:
+            out["steps"] = {5: step5, 2: step2}
     return out
