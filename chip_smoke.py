@@ -159,14 +159,25 @@ and passed over.
    stack.  (b) 3 and then 4 ranks sharing the card over gloo (NCCL
    refuses two ranks on one GPU; gloo's collectives copy through the
    host), started by ``launch.mesh.run_ranks``; each rank builds its own
-   cloud of 2,000,000 records (6 chunk servers, replication 3) from
-   ``--seed`` and must pass: TeraSort byte-identical to a numpy oracle,
-   through the mesh round at 3 ranks (the rows kernel once a round) and
-   the gathered route at 4 (6 workers do not divide over 4 ranks;
-   ``bucket_dest`` once a round); ``distributed_sort`` and
-   ``barrier_sort`` of 1,000,000 uint32 keys a rank equal to ``np.sort``;
-   ``kmeans_step(mesh=)`` on 2,097,152 points within ``rtol = atol =
-   1e-5`` of the meshless step.  Any rank's failure fails the script.
+   cloud of 2,000,000 records (6 chunk servers, replication 3, 13 chunks
+   of 16,000,000 bytes) from ``--seed`` and must pass: TeraSort
+   byte-identical to a numpy oracle, through the mesh round at 3 ranks
+   (the rows kernel once a round) and the gathered route at 4 (6 workers
+   do not divide over 4 ranks; ``bucket_dest`` once a round); stage 0
+   split over the ranks: the chunks a rank fetched (its tracer's
+   ``fetch-chunk`` keys) exactly its own slots' chunks of the plan
+   (``own_chunks``), the ranks' sets disjoint and covering the plan;
+   ``distributed_sort`` and ``barrier_sort`` of 1,000,000 uint32 keys a
+   rank equal to ``np.sort``; ``kmeans_step(mesh=)`` on 2,097,152 points
+   within ``rtol = atol = 1e-5`` of the meshless step; ``kmeans_sphere``
+   over a cloud of 12 x 2,097,152 points (D = 8, K = 10, 3 iterations,
+   replication 2) on the mesh engine, its centroids and report equal bit
+   for bit to the meshless run's in the same rank on the same cloud, the
+   rank's ``kmeans_partials`` launches its own tasks x iterations and
+   the ranks' sum chunks x iterations.  Prints a rank's chunks fetched,
+   stage-0 seconds (fetch spans and ``exec:partition``), peak device
+   memory after stage 0 and TeraSort wall, and the k-means launches and
+   walls.  Any rank's failure fails the script.
 10. **Serving ``xlstm-1.3b``** (arXiv:2405.04517, xLSTM[7:1]: 48 layers,
    ``d_model`` 2048, 4 heads, the pattern ``m`` x 7, ``s``; vocab 50,304;
    1,499,863,376 parameters at 48 layers) from ``--seed`` at full width and
@@ -1287,10 +1298,13 @@ def terasort_data(n_records: int, seed: int):
 
 
 def terasort_path(torch, n_records: int, seed: int, device="cuda", mesh=None,
-                  label="terasort", verbose=True):
-    """TeraSort through the port's engine (on ``mesh`` when given).
-    Returns (launches {kernel name: count} of the run, report, outputs,
-    data, oracle order, boundaries, run wall seconds, shuffle paths)."""
+                  label="terasort", verbose=True,
+                  chunk_records=CHUNK_RECORDS, tracer=None):
+    """TeraSort through the port's engine (on ``mesh`` when given), in a
+    cloud of ``chunk_records``-record chunks, its spans recorded in
+    ``tracer`` (a fresh ``Tracer`` by default).  Returns (launches
+    {kernel name: count} of the run, report, outputs, data, oracle order,
+    boundaries, run wall seconds, shuffle paths)."""
     say = print if verbose else (lambda *a, **k: None)
     from repro_torch.core import SphereEngine, SphereJob
     from repro_torch.core.shuffle import sample_boundaries, terasort_stages
@@ -1303,7 +1317,7 @@ def terasort_path(torch, n_records: int, seed: int, device="cuda", mesh=None,
 
     tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_"))
     try:
-        master, client = cloud(tmp, CHUNK_RECORDS * RECORD)
+        master, client = cloud(tmp, chunk_records * RECORD)
         t = time.perf_counter()
         client.upload("tera", data.tobytes(), replication=3)
         upload_s = time.perf_counter() - t
@@ -1313,7 +1327,7 @@ def terasort_path(torch, n_records: int, seed: int, device="cuda", mesh=None,
         job = SphereJob("terasort", "tera",
                         terasort_stages(bounds, "array", N_BUCKETS, KEY),
                         record_size=RECORD, backend="array")
-        tracer = Tracer()
+        tracer = Tracer() if tracer is None else tracer
         engine = SphereEngine(master, client,
                               device=None if mesh is not None else device,
                               timing_sync=True, tracer=tracer, mesh=mesh)
@@ -2715,8 +2729,12 @@ SIM_FIELDS = ("sim_seconds", "bytes_moved", "bytes_local", "tasks",
               "reused_tasks", "shuffle_rounds", "partitioned_records",
               "udf_traces")
 MESH_WORLDS = (3, 4)            # 6 workers: the mesh round; the gathered route
-MESH_RECORDS = 2_000_000        # (b): each rank's TeraSort cloud
+MESH_RECORDS = 2_000_000        # (b): each rank's TeraSort cloud, in
+MESH_CHUNK_RECORDS = 160_000    # 13 chunks of 16,000,000 bytes, so every rank
+                                # owns some of stage 0 at 3 and 4 ranks
 MESH_KEYS = 1_000_000           # (b): uint32 keys a rank for the sorts
+MESH_KM_CHUNKS = 12             # (b): kmeans_sphere on the mesh over 12 chunks
+MESH_KM_ITERS = 3               # of ASSIGN_ROWS points, 3 iterations
 # (b): kmeans_step(mesh=) against the meshless step, the tolerance of the
 # CPU test of the meshless step (tests/test_torch_kmeans.py)
 STEP_RTOL = STEP_ATOL = 1e-5
@@ -2840,13 +2858,137 @@ def mesh_world1(torch, n_records: int, seed: int, tera: dict):
     return launches
 
 
+def own_chunks(plan, workers, rank: int, world: int) -> list:
+    """(b): the stage-0 chunks rank ``rank`` of ``world`` owns: the plan's
+    ``(key, executor, nbytes)`` tasks with bytes, stable-sorted by their
+    executor's place in ``workers``, in blocks of ``ceil(n / world)``."""
+    order = sorted((t for t in plan if t[2] > 0),
+                   key=lambda t: workers.index(t[1]))
+    k = -(-len(order) // world)
+    return [t[0] for t in order[rank * k:(rank + 1) * k]]
+
+
+def stage0_reads(tracer, stage: str, workers, rank: int, world: int
+                 ) -> dict:
+    """(b): what a run read at stage ``stage``, from its tracer: the chunks
+    fetched (a ``fetch-chunk`` span a read attempt), their seconds (the
+    fetch, decode and copy to the card, on the host clock), the stage's
+    own seconds (``exec:<stage>``), its plan's chunks and those this rank
+    owns."""
+    ev = tracer.snapshot()
+    plan = list({e.name: (e.name[len("task:"):], e.track[len("worker:"):],
+                          e.attrs["nbytes"]) for e in ev
+                 if e.clock == "sim" and e.name.startswith("task:")
+                 and e.attrs.get("stage") == stage}.values())
+    fetches = [e for e in ev if e.name == "fetch-chunk"]
+    return {"fetched": [e.attrs["key"] for e in fetches],
+            "fetch_s": sum(e.wall_seconds for e in fetches),
+            "stage0_s": sum(e.wall_seconds for e in ev
+                            if e.name == f"exec:{stage}"),
+            "plan": [k for k, _, n in plan if n],
+            "own": own_chunks(plan, workers, rank, world)}
+
+
+def mesh_terasort(torch, mesh, seed: int, n_records: int) -> dict:
+    """(b): TeraSort of the rank's own cloud on ``mesh``: its launches,
+    report, outputs' check, what stage 0 read and the card's peak memory
+    after stage 0 (``max_memory_allocated`` as the shuffle starts).
+    Checks nothing of the split: also run on an older tree's engine."""
+    from repro_torch.core.executor import ArrayExecutor
+    from repro_torch.core.trace import Tracer
+    tracer, peak0 = Tracer(), []
+    bucketize = ArrayExecutor.bucketize
+
+    def noting(self, *a, **kw):
+        if not peak0:
+            peak0.append(torch.cuda.max_memory_allocated())
+        return bucketize(self, *a, **kw)
+
+    with patched(ArrayExecutor, "bucketize", noting):
+        launches, rep, outs, data, order, _, wall_s, paths = terasort_path(
+            torch, n_records, seed, mesh=mesh, verbose=False,
+            chunk_records=MESH_CHUNK_RECORDS, tracer=tracer)
+    same = b"".join(outs) == data[order].tobytes()
+    del outs, data, order
+    workers = sorted(f"s{i}" for i in range(N_BUCKETS))
+    return {"launches": launches, "rep": rep, "wall_s": wall_s,
+            "paths": paths, "same": same, "peak0": peak0[0],
+            "peak": torch.cuda.max_memory_allocated(),
+            **stage0_reads(tracer, "partition", workers,
+                           mesh.axis_index("data"), mesh.shape["data"])}
+
+
+def mesh_kmeans(torch, mesh, seed: int, n_points: int) -> dict:
+    """(b): ``kmeans_sphere`` over the rank's own cloud of ``n_points``
+    points (replication 2, chunks of ``ASSIGN_ROWS`` points: 64 MiB), on
+    the meshless engine and then on ``mesh`` in this rank: each run's
+    centroids, report, ``kmeans_partials`` (and ids kernel) launches, wall
+    and reads."""
+    from repro_torch.core import SphereEngine
+    from repro_torch.core.kmeans import encode_points, kmeans_sphere
+    from repro_torch.core.trace import Tracer
+    from repro_torch.kernels.kmeans_assign import kernel
+    pts = make_points(torch, n_points, seed, mesh.device)
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_mesh_km_"))
+    out = {}
+    try:
+        master, client = cloud(tmp, ASSIGN_ROWS * DIM * 4)
+        client.upload("angle/points.f32", encode_points(pts), replication=2)
+        del pts
+        out["chunks"] = master.files["angle/points.f32"].n_chunks
+        for key, m in (("meshless", None), ("mesh", mesh)):
+            tracer = Tracer()
+            engine = SphereEngine(master, client, tracer=tracer, mesh=m,
+                                  device=mesh.device if m is None else None)
+            torch.cuda.synchronize()
+            kernel.partials_launches = kernel.launches = 0
+            t = time.perf_counter()
+            cents, rep = kmeans_sphere(engine, "angle/points.f32", dim=DIM,
+                                       k=K, iters=MESH_KM_ITERS, seed=seed,
+                                       backend="array")
+            torch.cuda.synchronize()
+            out[key] = {
+                "cents": cents, "fields": sim_fields(rep),
+                "launches": (kernel.partials_launches, kernel.launches),
+                "wall_s": time.perf_counter() - t,
+                **stage0_reads(tracer, "assign", engine._workers(),
+                               *((0, 1) if m is None else
+                                 (m.axis_index("data"), m.shape["data"])))}
+            del engine
+            torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
+
+def stage0_rank(rank: int, world: int, seed: int, n_records: int,
+                n_points: int) -> dict:
+    """(b)'s TeraSort and k-means on ``world`` ranks sharing the card,
+    measured and not checked (``scripts/mesh_stage0.py`` runs it on this
+    tree's engine and on an older one's)."""
+    import torch
+
+    from repro_torch.launch.mesh import make_flat_mesh
+    mesh = make_flat_mesh()
+    torch.cuda.reset_peak_memory_stats()
+    tera = mesh_terasort(torch, mesh, seed, n_records)
+    tera.pop("rep")
+    km = mesh_kmeans(torch, mesh, seed, n_points)
+    for run in ("meshless", "mesh"):
+        km[run].pop("cents")
+    return {"terasort": tera, "kmeans": km}
+
+
 def mesh_rank(rank: int, world: int, seed: int, n_records: int,
               n_keys: int, n_points: int) -> dict:
     """(b): one of ``world`` ranks sharing the card over gloo (started by
     ``launch.mesh.run_ranks``).  TeraSort of its own cloud (the mesh round
-    when ``world`` divides the 6 workers, else the gathered route), the
-    two sorts, and ``kmeans_step(mesh=)``; every check here, nothing
-    caught.  Returns what rank 0 prints."""
+    when ``world`` divides the 6 workers, else the gathered route), its
+    stage 0 reading exactly the rank's own slots' chunks; the two sorts;
+    ``kmeans_step(mesh=)``; ``kmeans_sphere`` on the mesh bit for bit the
+    meshless run's, assigning only the rank's own chunks.  Every check
+    here, nothing caught.  Returns what rank 0 prints and the parent
+    checks across the ranks."""
     import torch
 
     from repro_torch.core import spmd
@@ -2864,21 +3006,26 @@ def mesh_rank(rank: int, world: int, seed: int, n_records: int,
     kernel_on, other = (("bucket_partition_rows", "bucket_dest")
                         if route == "mesh" else
                         ("bucket_dest", "bucket_partition_rows"))
-    launches, rep, outs, data, order, _, wall_s, paths = terasort_path(
-        torch, n_records, seed, mesh=mesh, verbose=False)
-    check(paths == [route], f"rank {rank}/{world}: shuffle took {paths}")
+    torch.cuda.reset_peak_memory_stats()
+    tera = mesh_terasort(torch, mesh, seed, n_records)
+    rep, launches = tera.pop("rep"), tera["launches"]
+    check(tera["paths"] == [route],
+          f"rank {rank}/{world}: shuffle took {tera['paths']}")
     check(launches[kernel_on] == rep.shuffle_rounds
           and launches[other] == 0,
           f"rank {rank}/{world}: launches {launches} for "
           f"{rep.shuffle_rounds} rounds on the {route} route")
     check(rep.host_syncs == rep.shuffle_rounds,
           f"rank {rank}/{world}: host_syncs {rep.host_syncs}")
-    check(b"".join(outs) == data[order].tobytes(),
+    check(tera["same"],
           f"rank {rank}/{world}: sorted output differs from the oracle")
-    out["terasort"] = {"route": route, "wall_s": wall_s,
-                       "round_s": rep.partition_seconds,
-                       "launches": launches}
-    del outs, data, order
+    check(len(tera["plan"]) >= 12,
+          f"rank {rank}/{world}: stage 0 has {len(tera['plan'])} chunks")
+    check(sorted(tera["fetched"]) == sorted(tera["own"]) and tera["own"],
+          f"rank {rank}/{world}: stage 0 fetched {tera['fetched']}, its "
+          f"own slots' chunks are {tera['own']}")
+    out["terasort"] = {**tera, "route": route,
+                       "round_s": rep.partition_seconds}
     # the sorts: this rank's block of world x n_keys keys from the seed
     keys = np.random.default_rng([seed, 9]).integers(
         0, 2 ** 32, world * n_keys, dtype=np.uint32)
@@ -2916,12 +3063,40 @@ def mesh_rank(rank: int, world: int, seed: int, n_records: int,
           f"rank {rank}/{world}: kmeans_step(mesh=) off the meshless step by "
           f"{err} (inertia {float(inertia)} against {float(ref_i)})")
     out["kmeans_err"] = err
+    del pts, new_c, ref_c
+    torch.cuda.empty_cache()
+    # kmeans_sphere on the mesh against the meshless run, same cloud
+    km = mesh_kmeans(torch, mesh, seed, MESH_KM_CHUNKS * n_points)
+    one, many = km["meshless"], km["mesh"]
+    check(km["chunks"] == MESH_KM_CHUNKS,
+          f"rank {rank}/{world}: k-means cloud of {km['chunks']} chunks")
+    check(np.array_equal(one["cents"], many["cents"]),
+          f"rank {rank}/{world}: kmeans_sphere on the mesh differs from the "
+          f"meshless run by {np.abs(one['cents'] - many['cents']).max()}")
+    check(one["fields"] == many["fields"],
+          f"rank {rank}/{world}: k-means report {many['fields']} against "
+          f"the meshless {one['fields']}")
+    check(one["launches"] == (MESH_KM_CHUNKS * MESH_KM_ITERS, 0),
+          f"rank {rank}/{world}: meshless launches {one['launches']}")
+    check(many["launches"] == (len(many["own"]) * MESH_KM_ITERS, 0),
+          f"rank {rank}/{world}: kmeans_partials launched "
+          f"{many['launches']} times for {len(many['own'])} own tasks x "
+          f"{MESH_KM_ITERS} iterations")
+    check(sorted(many["fetched"]) == sorted(many["own"]),
+          f"rank {rank}/{world}: k-means fetched {many['fetched']}, its "
+          f"own slots' chunks are {many['own']}")
+    for run in (one, many):
+        run.pop("cents")
+    out["kmeans_sphere"] = km
     return out
 
 
-def mesh_ranks(seed: int, n_records: int) -> None:
-    """(b): 3 and 4 ranks sharing the card over gloo."""
+def mesh_ranks(seed: int, n_records: int) -> dict:
+    """(b): 3 and 4 ranks sharing the card over gloo.  Returns each
+    world's launches summed over its ranks."""
     from repro_torch.launch.mesh import run_ranks
+    card = card_line()
+    launches = {}
     for world in MESH_WORLDS:
         t = time.perf_counter()
         res = run_ranks(mesh_rank, world,
@@ -2929,6 +3104,23 @@ def mesh_ranks(seed: int, n_records: int) -> None:
                         timeout_s=300, join_timeout_s=600)
         r0 = res[0]
         ts = [r["terasort"] for r in res]
+        kms = [r["kmeans_sphere"] for r in res]
+        # stage 0 split: disjoint sets covering the plan
+        owned = [k for x in ts for k in x["own"]]
+        check(sorted(owned) == sorted(ts[0]["plan"]),
+              f"{world} ranks: stage-0 chunks owned {owned}, the plan's "
+              f"{ts[0]['plan']}")
+        k_owned = [k for x in kms for k in x["mesh"]["own"]]
+        check(sorted(k_owned) == sorted(kms[0]["mesh"]["plan"]),
+              f"{world} ranks: k-means chunks owned {k_owned}")
+        k_sum = sum(x["mesh"]["launches"][0] for x in kms)
+        check(k_sum == MESH_KM_CHUNKS * MESH_KM_ITERS,
+              f"{world} ranks: kmeans_partials launched {k_sum} times in "
+              f"all for {MESH_KM_CHUNKS} chunks x {MESH_KM_ITERS} iterations")
+        launches[world] = {
+            name: sum(x["launches"][name] for x in ts)
+            for name in ("bucket_dest", "bucket_partition_rows")}
+        launches[world]["kmeans_partials"] = k_sum
         print(f"mesh: {world} ranks on {r0['device']} over "
               f"{r0['transport']}, {n_records} records each: TeraSort "
               f"route {ts[0]['route']}, wall "
@@ -2940,6 +3132,29 @@ def mesh_ranks(seed: int, n_records: int) -> None:
               + f" s; kmeans_step(mesh=) on {ASSIGN_ROWS} points within "
               f"{max(r['kmeans_err'] for r in res):.3e} of the meshless "
               f"step; {time.perf_counter() - t:.1f} s with the spawn")
+        print(f"mesh: {world} ranks, stage 0 of {len(ts[0]['plan'])} chunks "
+              f"split: chunks fetched a rank "
+              f"{[len(x['fetched']) for x in ts]}, fetch spans "
+              + ", ".join(f"{x['fetch_s']:.4f}" for x in ts)
+              + " s, exec:partition "
+              + ", ".join(f"{x['stage0_s']:.4f}" for x in ts)
+              + " s, peak after stage 0 "
+              f"{[x['peak0'] for x in ts]} B, TeraSort peak "
+              f"{[x['peak'] for x in ts]} B, wall "
+              + ", ".join(f"{x['wall_s']:.3f}" for x in ts)
+              + f" s ({card})")
+        print(f"mesh: {world} ranks, kmeans_sphere over {MESH_KM_CHUNKS} x "
+              f"{ASSIGN_ROWS} points, {MESH_KM_ITERS} iterations: centroids "
+              f"bit for bit the meshless run's on every rank; "
+              f"kmeans_partials launches a rank "
+              f"{[x['mesh']['launches'][0] for x in kms]} (meshless "
+              f"{kms[0]['meshless']['launches'][0]}), chunks fetched "
+              f"{[len(x['mesh']['fetched']) for x in kms]}, wall "
+              + ", ".join(f"{x['mesh']['wall_s']:.3f}" for x in kms)
+              + " s (meshless "
+              + ", ".join(f"{x['meshless']['wall_s']:.3f}" for x in kms)
+              + f" s) ({card})")
+    return launches
 
 
 # ------------------------------------------------------------ phases 10-11
@@ -6542,7 +6757,7 @@ def main() -> None:
     # phase 9: the mesh data plane, world 1 over NCCL, then 3 and 4 ranks
     # sharing the card over gloo
     m_launches = mesh_world1(torch, args.records, args.seed, tera)
-    mesh_ranks(args.seed, min(args.records, MESH_RECORDS))
+    rank_launches = mesh_ranks(args.seed, min(args.records, MESH_RECORDS))
     print(f"mesh done at {time.perf_counter() - t0:.1f}s")
 
     # phases 10-11: the xLSTM and MoE families served at full width, each
@@ -6618,9 +6833,19 @@ def main() -> None:
           f"{time.perf_counter() - t0:.1f}s)")
 
     for name, by_path in (
+            ("bucket_dest", {
+                "terasort": launches["bucket_dest"],
+                **{f"mesh_ranks_{w}": n["bucket_dest"]
+                   for w, n in rank_launches.items()}}),
             ("bucket_partition_rows", {
                 "partition": p_launches[0],
-                "mesh": m_launches["bucket_partition_rows"]}),
+                "mesh": m_launches["bucket_partition_rows"],
+                **{f"mesh_ranks_{w}": n["bucket_partition_rows"]
+                   for w, n in rank_launches.items()}}),
+            ("kmeans_partials", {
+                "kmeans": k_launches[0],
+                **{f"mesh_ranks_{w}": n["kmeans_partials"]
+                   for w, n in rank_launches.items()}}),
             ("flash_attention", {"serve": lm_launches[0],
                                  "train": t_launches[0],
                                  "train_mesh": sum(x[0] for x in

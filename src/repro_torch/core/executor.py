@@ -20,10 +20,12 @@ makes a placement decision.
   bucket scatter (one kernel launch) and the regrouping onto destination
   workers (one gather) — is O(1) device dispatches with one host sync.
   With a ``mesh`` (:mod:`repro_torch.core.spmd`) every rank runs the same
-  executor: stage 0 is decoded whole on every rank, a fused stage's
-  UDF runs on the rank's block of the stacked slots, and the shuffle
-  round exchanges rows between ranks (``spmd.fused_scatter_round``);
-  a round the mesh cannot carry is gathered and runs replicated.
+  executor: a fused or masked stage 0 is split over the ranks from the
+  plan alone (each rank fetches, decodes and caches only its own slots'
+  chunks), a fused stage's UDF runs on the rank's block of the stacked
+  slots, and the shuffle round exchanges rows between ranks
+  (``spmd.fused_scatter_round``); a round the mesh cannot carry is
+  gathered and runs replicated.
 
 Both executors report identical shuffle flows (per-bucket origin bytes),
 so the planner charges movement from each bucket's *actual* origin
@@ -48,6 +50,7 @@ from repro_torch.core.shuffle import (FusedRoundResult, ReducePartitioner,
                                       scatter_pieces_dispatch,
                                       scatter_round_dispatch)
 from repro_torch.core.spmd import (ShardedStackedBatch, fused_scatter_round,
+                                   gather_blocks, host_gather_axis,
                                    local_block)
 from repro_torch.core.trace import NULL_TRACER
 from repro_torch.device import mesh_device
@@ -114,16 +117,18 @@ class _ExecutorBase:
     # ------------------------------------------------- stage-0 prefetch
     def _stage0_batches(self, job: SphereJob, tasks, rep: SphereReport
                         ) -> Iterator[tuple]:
-        """Yield ``(task, decoded_input)`` for the stage-0 task list with
-        a ``prefetch_depth``-deep fetch+decode pipeline: ONE producer
-        thread walks the chunks strictly in task order, pushing decoded
-        inputs into a bounded queue the caller drains, so host I/O of up
-        to ``prefetch_depth`` chunks overlaps device work.  A failed read
-        is replayed on the MAIN thread through :meth:`_stage0_input`'s
-        retry loop, so ``rep.retried`` and repair behaviour are
-        bit-identical with prefetching off.  The producer's host-to-device
-        copy runs on the default stream and returns once the data is on
-        the device, so the consumer's kernels read complete pieces."""
+        """Yield ``(task, decoded_input)`` for the stage-0 task list (on a
+        mesh, the rank's own slots' tasks: nothing else is read or
+        decoded) with a ``prefetch_depth``-deep fetch+decode pipeline: ONE
+        producer thread walks the chunks strictly in task order, pushing
+        decoded inputs into a bounded queue the caller drains, so host I/O
+        of up to ``prefetch_depth`` chunks overlaps device work.  A failed
+        read is replayed on the MAIN thread through :meth:`_stage0_input`'s
+        retry loop (the given tasks only), so ``rep.retried`` and repair
+        behaviour are bit-identical with prefetching off.  The producer's
+        host-to-device copy runs on the default stream and returns once the
+        data is on the device, so the consumer's kernels read complete
+        pieces."""
         if not self.prefetch or len(tasks) <= 1:
             for t in tasks:
                 yield t, self._stage0_input(job, t.key, rep)
@@ -325,15 +330,14 @@ class _TracedUDF:
         return self._vmapped(data3, n_valids)
 
     def stack_pieces(self, pieces: Sequence[torch.Tensor], n_valids,
-                     target: int) -> torch.Tensor:
+                     target: int, shapes: tuple) -> torch.Tensor:
         """Per-task 2-D pieces (stage-0 decoded chunks) stacked into one
         [s, target, width] block — each piece sliced or zero-grown to
-        ``target`` rows — before the vmapped body.  With a mesh, every
-        slot's piece comes in and the rank's block is stacked."""
-        self._note(("pieces", tuple(tuple(p.shape) for p in pieces),
-                    target))
+        ``target`` rows — before the vmapped body.  With a mesh only the
+        rank's block of pieces comes in; ``n_valids`` and ``shapes`` (the
+        pieces' shapes, the trace signature) are the whole round's."""
+        self._note(("pieces", shapes, target))
         if self.mesh is not None:
-            pieces = local_block(list(pieces), self.mesh)
             n_valids = local_block(np.asarray(n_valids), self.mesh)
         width = pieces[0].shape[1]
         data3 = pieces[0].new_zeros((len(pieces), target, width))
@@ -409,13 +413,31 @@ class _StackedOut:
         return out
 
 
+@dataclass
+class _Stage0Layout:
+    """A stage-0 round's slots on a mesh, from the plan: ``slots[i]`` is
+    slot ``i``'s task (None for a padding slot), ``workers[i]`` its origin
+    worker (index into the executor's worker ring), and ``mine`` the slot
+    indices this rank owns."""
+
+    slots: List
+    workers: np.ndarray
+    mine: List[int]
+
+
 class ArrayExecutor(_ExecutorBase):
     """Device-resident data plane: one RecordBatch per worker partition,
     on ``device`` (default CUDA, or the mesh's device; raises without
     it).  With a ``mesh`` (:class:`repro_torch.parallel.mesh_utils.Mesh`)
     this executor is one rank's: fused stage outputs and mesh-round
     partitions hold the rank's block of slots, and every rank must run
-    the same calls in the same order."""
+    the same calls in the same order.  A fused or masked stage 0 is split
+    by the plan (:meth:`_stage0_layout`): the rank fetches, decodes,
+    caches and runs only the chunks of its own slots, and one host
+    exchange per stage 0 (:meth:`_agree_stage0`) tells every rank the
+    retries, valid rows and lost chunks of the others.  Any other stage 0
+    (a shape-polymorphic UDF, or a pad-stable one with
+    ``fused_rounds=False``) reads every chunk on every rank."""
 
     def __init__(self, client, workers: Sequence[str], max_retries: int = 3,
                  pad_block: int = 4096, cache_chunks: bool = False,
@@ -542,6 +564,8 @@ class ArrayExecutor(_ExecutorBase):
                                           first_stage, target)
             if fused is not None:
                 return fused
+        if masked and first_stage and self.mesh is not None:
+            return self._run_masked_split(job, stage, plan, rep, target)
         out: Dict[str, List[RecordBatch]] = {w: [] for w in self.workers}
         if first_stage:
             source = self._stage0_batches(job, plan.tasks, rep)
@@ -589,6 +613,135 @@ class ArrayExecutor(_ExecutorBase):
             return StackedBatch(data, n_valid)
         return ShardedStackedBatch(data, n_valid, self.mesh)
 
+    # ------------------------------------------------ stage 0 on a mesh
+    def _stage0_layout(self, plan: StagePlan) -> _Stage0Layout:
+        """The stage-0 round's slots from the plan alone, before any read:
+        the tasks with bytes, stable-sorted worker-major (by the chunk's
+        executor: the order the meshless round stacks them in), padded
+        with empty slots to the block rule.  The rank owns the block of
+        slots :func:`spmd.local_block` gives it; every rank derives the
+        same layout from the plan the engine held them to."""
+        windex = {w: i for i, w in enumerate(self.workers)}
+        tasks = sorted((t for t in plan.tasks if t.nbytes > 0),
+                       key=lambda t: windex[t.executor])
+        slots: List = tasks + [None] * (self._mesh_slots(len(tasks))
+                                        - len(tasks))
+        workers = np.array([windex[t.executor] if t is not None else 0
+                            for t in slots], np.int64)
+        return _Stage0Layout(slots, workers,
+                             local_block(list(range(len(slots))), self.mesh))
+
+    def _fetch_owned(self, job: SphereJob, lay: _Stage0Layout,
+                     rep: SphereReport) -> Dict[int, RecordBatch]:
+        """Fetch and decode the rank's own slots' chunks (through the
+        prefetch pipeline and the chunk cache), after evicting the cached
+        chunks of slots another rank owns now (a stream window that moved
+        them).  Maps each owned slot to its batch; a lost chunk maps to
+        None."""
+        mine = set(lay.mine)
+        self.evict_chunks(t.key for i, t in enumerate(lay.slots)
+                          if t is not None and i not in mine)
+        owned = [(i, lay.slots[i]) for i in lay.mine
+                 if lay.slots[i] is not None]
+        slot_of = {t.key: i for i, t in owned}
+        return {slot_of[t.key]: batch for t, batch in
+                self._stage0_batches(job, [t for _, t in owned], rep)}
+
+    def _agree_stage0(self, rep: SphereReport, retried0: int,
+                      mine: np.ndarray) -> np.ndarray:
+        """The one host exchange of a split stage 0 (``spmd.
+        host_gather_axis``, on the host: no device sync).  Only a chunk's
+        owner sees its failed reads, so the ranks' retries since
+        ``retried0`` are summed into ``rep.retried``; ``mine`` (``[k, m]``
+        ints for the rank's ``k`` slots) comes back as every slot's,
+        ``[S, m]`` in slot order."""
+        m = mine.shape[1]
+        every = host_gather_axis([rep.retried - retried0,
+                                  *mine.reshape(-1).tolist()], self.mesh)
+        rep.retried = retried0 + sum(e[0] for e in every)
+        return np.asarray([e[1:] for e in every], np.int64).reshape(-1, m)
+
+    def _run_fused_split(self, job: SphereJob, stage: SphereStage,
+                         plan: StagePlan, rep: SphereReport,
+                         traced: _TracedUDF, target: int):
+        """A fused stage 0 on a mesh: the rank stacks only its own slots'
+        chunks.  The exchange gives every rank each slot's valid rows, so
+        the ``[S]`` count vector is the same on every rank.  A lost chunk
+        (every replica gone) keeps its slot with 0 valid rows, where the
+        meshless round drops it: an empty slot adds no row, so the output
+        bytes are the same."""
+        lay = self._stage0_layout(plan)
+        if not lay.slots:
+            return {w: [] for w in self.workers}
+        retried0 = rep.retried
+        got = self._fetch_owned(job, lay, rep)
+        rows = np.array([[got[i].num_records if got.get(i) is not None
+                          else 0] for i in lay.mine], np.int64)
+        n_valid = self._agree_stage0(rep, retried0, rows)[:, 0] \
+            .astype(np.int32)
+        if not n_valid.any():
+            return {w: [] for w in self.workers}
+        width = job.record_size
+        zero = torch.zeros((target, width), dtype=torch.uint8,
+                           device=self.device)
+        pieces = [got[i].data if n_valid[i] else zero for i in lay.mine]
+        with self.tracer.span("dispatch:udf-fused", track="dispatch",
+                              attrs={"stage": stage.name,
+                                     "slots": len(lay.slots),
+                                     "rows": target}):
+            out = traced.stack_pieces(
+                pieces, n_valid, target,
+                tuple((int(n), width) for n in n_valid))
+        rep.device_dispatches += 1
+        self._note_traces(stage, traced, rep)
+        self._check_stacked(stage, out, len(pieces), target)
+        return _StackedOut(self._stack(out, n_valid), lay.workers)
+
+    def _run_masked_split(self, job: SphereJob, stage: SphereStage,
+                          plan: StagePlan, rep: SphereReport, target: int
+                          ) -> Dict[str, List[RecordBatch]]:
+        """A masked stage 0 on a mesh: the rank fetches and runs only its
+        own slots' tasks, then every task's output is all-gathered over
+        ``data`` and put back under its executor in plan order, so the
+        next round sees exactly the meshless output.  The exchange gives
+        each slot's output rows and width (0 for a lost chunk or an empty
+        slot, which yield no output, as meshless), so the gather reads no
+        size from the device."""
+        out: Dict[str, List[RecordBatch]] = {w: [] for w in self.workers}
+        lay = self._stage0_layout(plan)
+        if not lay.slots:
+            return out
+        retried0 = rep.retried
+        res: Dict[int, torch.Tensor] = {}
+        for i, batch in self._fetch_owned(job, lay, rep).items():
+            if batch is not None and batch.num_records:
+                res[i] = self._apply_masked(stage, batch, target, rep).data
+        shape = self._agree_stage0(rep, retried0, np.array(
+            [res[i].shape if i in res else (0, 0) for i in lay.mine],
+            np.int64))
+        if not shape.any():
+            return out
+        # a rank that ran none of the tasks still reports the round's trace
+        traced = self._traced_for(stage, stage.masked_udf, masked=True)
+        traced._note(("masked", (target, job.record_size),
+                      _shape_sig(stage.params)))
+        self._note_traces(stage, traced, rep)
+        rows, width = (int(v) for v in shape.max(0))
+        buf = torch.zeros((len(lay.mine), rows, width), dtype=torch.uint8,
+                          device=self.device)
+        for j, i in enumerate(lay.mine):
+            if i in res:
+                buf[j, :res[i].shape[0], :res[i].shape[1]] = res[i]
+        every = gather_blocks(buf, self.mesh)
+        rep.device_dispatches += 1
+        slot_of = {t.key: i for i, t in enumerate(lay.slots) if t is not None}
+        for t in plan.tasks:
+            i = slot_of.get(t.key)
+            if i is not None and shape[i, 0]:
+                out[t.executor].append(
+                    RecordBatch(every[i, :shape[i, 0], :shape[i, 1]]))
+        return out
+
     def _aligned_stacked(self, parts) -> Optional[StackedBatch]:
         """The previous fused round's StackedBatch, when every worker's
         resident part is exactly its slot of ONE stack (the steady state
@@ -614,8 +767,9 @@ class ArrayExecutor(_ExecutorBase):
         """The whole stage as ONE vmapped UDF dispatch over a stacked
         slot axis.  Slots collect worker-major (the chunk's executor at
         stage 0, the partition's OWNER later; plan order within a
-        worker).  Returns None when the stage must take the per-task
-        path (a task placed on an unknown worker)."""
+        worker).  On a mesh a stage 0 stacks only the rank's own slots
+        (:meth:`_run_fused_split`).  Returns None when the stage must take
+        the per-task path (a task placed on an unknown worker)."""
         windex = {w: i for i, w in enumerate(self.workers)}
         if any(t.executor not in windex for t in plan.tasks):
             return None
@@ -641,6 +795,9 @@ class ArrayExecutor(_ExecutorBase):
                 return _StackedOut(
                     self._stack(out, stacked.n_valid),
                     np.arange(stacked.n_slots, dtype=np.int64))
+        if first_stage and self.mesh is not None:
+            return self._run_fused_split(job, stage, plan, rep, traced,
+                                         target)
         items: List[Tuple[int, RecordBatch]] = []
         if first_stage:
             for t, batch in self._stage0_batches(job, plan.tasks, rep):
@@ -669,13 +826,16 @@ class ArrayExecutor(_ExecutorBase):
                                       np.zeros(pad_slots, np.int32)])
             slot_workers = np.concatenate(
                 [slot_workers, np.zeros(pad_slots, np.int64)])
+        shapes = tuple(tuple(p.shape) for p in pieces)
+        if self.mesh is not None:
+            pieces = local_block(pieces, self.mesh)
         with self.tracer.span("dispatch:udf-fused", track="dispatch",
                               attrs={"stage": stage.name,
-                                     "slots": len(pieces), "rows": target}):
-            out = traced.stack_pieces(pieces, n_valid, target)
+                                     "slots": len(shapes), "rows": target}):
+            out = traced.stack_pieces(pieces, n_valid, target, shapes)
         rep.device_dispatches += 1
         self._note_traces(stage, traced, rep)
-        self._check_stacked(stage, out, len(pieces) // self._ranks, target)
+        self._check_stacked(stage, out, len(pieces), target)
         return _StackedOut(self._stack(out, n_valid), slot_workers)
 
     # ----------------------------------------------------------- shuffle

@@ -26,8 +26,11 @@ kernel through ``kmeans_partials`` when the points are on the card: one
 pass over the points gives the task's sums and counts.
 :func:`kmeans_step` is the reference's ``kmeans_step_jax``, on one device
 or, with a ``mesh``, over the ranks' blocks of points.  On a mesh engine
-``kmeans_sphere`` and ``StreamingKMeans`` need nothing of their own: the
-masked assign and the reduce fold run replicated on every rank.
+``kmeans_sphere`` and ``StreamingKMeans`` need nothing of their own: each
+rank fetches and assigns only the chunks of its own slots of the plan,
+the tasks' partial records are all-gathered over ``data`` in plan order,
+and the reduce fold runs replicated on every rank, so the centroids are
+bit-identical to the meshless run's.
 """
 from __future__ import annotations
 

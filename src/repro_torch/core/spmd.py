@@ -34,6 +34,7 @@ and its collectives are the identity.
 """
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass, field
 from typing import Callable
 
@@ -98,6 +99,19 @@ def host_gather(values, mesh: Mesh) -> list:
     parts = [torch.empty_like(mine) for _ in range(mesh.size)]
     dist.all_gather(parts, mine, group=mesh.host_group)
     return [p.tolist() for p in parts]
+
+
+def host_gather_axis(values, mesh: Mesh, axis: str = "data") -> list:
+    """:func:`host_gather` kept to the ranks that differ from this one
+    only along ``axis``, in ``axis`` order: entry ``d`` is the values of
+    the rank at coordinate ``d`` (the other axes' ranks repeat the same
+    work)."""
+    every = host_gather(values, mesh)
+    names = mesh.axis_names
+    stride = math.prod(mesh.shape[a] for a in names[names.index(axis) + 1:])
+    r = mesh.axis_index(axis)
+    return [every[mesh.rank + (d - r) * stride]
+            for d in range(mesh.shape[axis])]
 
 
 def psum(x: torch.Tensor, mesh: Mesh, axis: str = "data") -> torch.Tensor:

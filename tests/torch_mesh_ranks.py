@@ -182,13 +182,58 @@ def _paths(tracer):
                    if sp.name == "shuffle-round"})
 
 
-def _terasort(tmp: Path, mesh, data):
+def own_chunks(plan, workers, rank: int, world: int) -> list:
+    """The stage-0 chunks rank ``rank`` of ``world`` owns: the plan's
+    ``(key, executor, nbytes)`` tasks with bytes, stable-sorted by their
+    executor's place in ``workers``, in blocks of ``ceil(n / world)``."""
+    order = sorted((t for t in plan if t[2] > 0),
+                   key=lambda t: workers.index(t[1]))
+    k = -(-len(order) // world)
+    return [t[0] for t in order[rank * k:(rank + 1) * k]]
+
+
+class _Reads:
+    """What each run of one engine read: the chunks this rank fetched
+    (the tracer's ``fetch-chunk`` spans, one per read attempt on a
+    thread), the run's stage-0 plan (its simulated task spans) and the
+    chunks of it this rank owns."""
+
+    def __init__(self, tracer, workers, mesh):
+        self.tracer, self.workers = tracer, list(workers)
+        self.rank, self.world = ((0, 1) if mesh is None else
+                                 (mesh.axis_index("data"),
+                                  mesh.shape["data"]))
+        self.mark = 0
+
+    def take(self, stage0: str) -> dict:
+        ev = self.tracer.snapshot()[self.mark:]
+        self.mark += len(ev)
+        plan = list({e.name: (e.name[len("task:"):],
+                              e.track[len("worker:"):], e.attrs["nbytes"])
+                     for e in ev
+                     if e.clock == "sim" and e.name.startswith("task:")
+                     and e.attrs.get("stage") == stage0}.values())
+        return {"fetched": [e.attrs["key"] for e in ev
+                            if e.name == "fetch-chunk"],
+                "plan": [k for k, _, n in plan if n],
+                "own": own_chunks(plan, self.workers, self.rank, self.world),
+                "assigns": sum(1 for e in ev if e.name == "dispatch:udf"
+                               and e.attrs.get("stage") == "assign")}
+
+
+def _terasort(tmp: Path, mesh, data, replication=3, dead=None):
+    """One TeraSort; ``dead`` names a server killed (and deregistered)
+    after the upload."""
     from repro_torch.core.trace import Tracer
     tracer = Tracer()
     eng, client = _engine(tmp, mesh, tracer)
-    client.upload("f", data, replication=3)
+    client.upload("f", data, replication=replication)
+    if dead is not None:
+        eng.master.servers[dead].kill()
+        eng.master.deregister(dead)
+    reads = _Reads(tracer, eng._workers(), mesh)
     outs, rep = eng.run(_terasort_job(data))
-    return outs, rep, _paths(tracer)
+    return outs, rep, _paths(tracer), reads.take("partition")
 
 
 def _session(tmp: Path, mesh, data):
@@ -212,91 +257,130 @@ def _session(tmp: Path, mesh, data):
         return gather(*a)
     eng.__class__._check_plan = counted_check
     eng_mod.host_gather = counted_gather
+    reads = _Reads(tracer, eng._workers(), mesh)
     try:
         o1, r1 = sess.run(_terasort_job(data))
+        read1 = reads.take("partition")
         o2, r2 = sess.run(_terasort_job(data), input="chained")
+        read2 = reads.take("partition")
     finally:
         eng.__class__._check_plan = check
         eng_mod.host_gather = gather
-    return (o1, o2), (r1, r2), _paths(tracer), plans
+    return (o1, o2), (r1, r2), _paths(tracer), plans, (read1, read2)
 
 
 def _stream(tmp: Path, mesh, files):
     """A sliding window of 2 over 3 arriving files: TeraSort and an
-    identity job (no shuffle) on every window."""
+    identity job (no shuffle) on every window; each job's reads and the
+    chunk cache's keys before and after it."""
     from repro_torch import core
-    eng, client = _engine(tmp, mesh)
+    from repro_torch.core.trace import Tracer
+    tracer = Tracer()
+    eng, client = _engine(tmp, mesh, tracer)
     stream = eng.stream("s/", window=core.WindowPolicy.sliding(2),
                         record_size=REC, backend="array")
     ident = core.SphereJob("id", "s/", [core.SphereStage(
         "id", lambda rs: list(rs), batch_udf=lambda b: b, pad_value=0xFF)],
         record_size=REC, backend="array")
-    outs, reps = [], []
+    reads = _Reads(tracer, eng._workers(), mesh)
+    outs, reps, seen = [], [], []
     for i, blob in enumerate(files):
         client.upload(f"s/{i}", blob, replication=2)
         if stream.windows_formed:
             for job in (_terasort_job(b"".join(files), "s/"), ident):
+                before = sorted(stream.executor._chunk_cache)
                 o, r = stream.run(job)
                 outs.append(o)
                 reps.append(r)
+                seen.append({**reads.take(job.stages[0].name),
+                             "cached_before": before,
+                             "cached": sorted(stream.executor._chunk_cache)})
     stream.close()
-    return outs, reps
+    return outs, reps, seen
+
+
+KM_ITERS = 3
+
+
+def km_points() -> np.ndarray:
+    """8,000 float32 points of 4 dims in two clusters: 5 chunks of the
+    engine cloud's 30,000 bytes."""
+    rng = np.random.default_rng(2)
+    return np.concatenate([rng.normal(c, 0.4, (4000, 4))
+                           for c in (np.zeros(4), np.full(4, 7.0))]) \
+        .astype(np.float32)
 
 
 def _kmeans(tmp: Path, mesh):
+    """``kmeans_sphere`` over ``km_points``: the centroids, the report's
+    fields and what the iterations read."""
     from repro_torch.core.kmeans import encode_points, kmeans_sphere
-    eng, client = _engine(tmp, mesh)
-    rng = np.random.default_rng(2)
-    pts = np.concatenate([rng.normal(c, 0.4, (300, 4))
-                          for c in (np.zeros(4), np.full(4, 7.0))])
-    client.upload("pts", encode_points(pts.astype(np.float32)),
-                  replication=2)
-    cents, _ = kmeans_sphere(eng, "pts", dim=4, k=2, iters=3,
-                             backend="array")
-    return cents
+    from repro_torch.core.trace import Tracer
+    tracer = Tracer()
+    eng, client = _engine(tmp, mesh, tracer)
+    client.upload("pts", encode_points(km_points()), replication=2)
+    reads = _Reads(tracer, eng._workers(), mesh)
+    cents, rep = kmeans_sphere(eng, "pts", dim=4, k=2, iters=KM_ITERS,
+                               backend="array")
+    return cents, _fields(rep), reads.take("assign")
+
+
+def _tera_case(dirs, key, mesh, data, **kw) -> dict:
+    """One TeraSort case without and with the mesh, in this process."""
+    outs, rep, paths, reads = _terasort(dirs[key], None, data, **kw)
+    m_outs, m_rep, m_paths, m_reads = _terasort(dirs[key + "-m"], mesh,
+                                                 data, **kw)
+    return {"outs": m_outs, "same": m_outs == outs, "paths": (paths, m_paths),
+            "diff": _diff(_fields(rep), _fields(m_rep)),
+            "syncs": (m_rep.host_syncs, m_rep.shuffle_rounds),
+            "dispatches": (rep.device_dispatches, m_rep.device_dispatches),
+            "retried": (rep.retried, m_rep.retried),
+            "reads": (reads, m_reads)}
 
 
 def engine_suite(rank: int, world: int, tmp: str, with_streams: bool):
     """``SphereEngine(mesh=)`` against the meshless engine in this
-    process: TeraSort; with ``with_streams`` also a chained session, a
-    sliding-window stream and ``kmeans_sphere``."""
+    process: TeraSort, also with a dead server (replication 3) and with a
+    lost chunk (replication 1, its server dead); with ``with_streams``
+    also a chained session, a sliding-window stream and
+    ``kmeans_sphere``.  Each case reports what the rank read."""
     from repro_torch.launch.mesh import make_flat_mesh
 
     mesh = make_flat_mesh(device="cpu")
     base = Path(tmp) / f"rank{rank}"
     dirs = {}
-    for key in ("tera", "tera-m", "sess", "sess-m", "strm", "strm-m",
-                "km", "km-m"):
-        dirs[key] = base / key
-        dirs[key].mkdir(parents=True)
+    for key in ("tera", "dead", "lost", "sess", "strm", "km"):
+        for d in (key, key + "-m"):
+            dirs[d] = base / d
+            dirs[d].mkdir(parents=True)
     data = tera_data()
-    outs, rep, paths = _terasort(dirs["tera"], None, data)
-    m_outs, m_rep, m_paths = _terasort(dirs["tera-m"], mesh, data)
-    res = {"terasort": {
-        "outs": m_outs, "same": m_outs == outs, "paths": (paths, m_paths),
-        "diff": _diff(_fields(rep), _fields(m_rep)),
-        "syncs": (m_rep.host_syncs, m_rep.shuffle_rounds),
-        "dispatches": (rep.device_dispatches, m_rep.device_dispatches)}}
+    res = {"terasort": _tera_case(dirs, "tera", mesh, data),
+           "dead": _tera_case(dirs, "dead", mesh, data, dead="s2"),
+           "lost": _tera_case(dirs, "lost", mesh, data, replication=1,
+                              dead="s2")}
     if not with_streams:
         return res
-    s_outs, s_reps, _, _ = _session(dirs["sess"], None, data)
-    ms_outs, ms_reps, ms_paths, plans = _session(dirs["sess-m"], mesh, data)
+    s_outs, s_reps, _, _, _ = _session(dirs["sess"], None, data)
+    ms_outs, ms_reps, ms_paths, plans, reads = _session(dirs["sess-m"], mesh,
+                                                        data)
     res["session"] = {
         "same": ms_outs == s_outs, "outs": ms_outs[1], "paths": ms_paths,
-        "plans": plans,
+        "plans": plans, "reads": reads,
         "diff": [_diff(_fields(a), _fields(b))
                  for a, b in zip(s_reps, ms_reps)],
         "syncs": [(r.host_syncs, r.shuffle_rounds) for r in ms_reps]}
     files = [tera_data(700, seed=20 + i) for i in range(3)]
-    st_outs, st_reps = _stream(dirs["strm"], None, files)
-    mst_outs, mst_reps = _stream(dirs["strm-m"], mesh, files)
+    st_outs, st_reps, _ = _stream(dirs["strm"], None, files)
+    mst_outs, mst_reps, seen = _stream(dirs["strm-m"], mesh, files)
     res["stream"] = {
-        "same": mst_outs == st_outs, "n": len(mst_outs),
+        "same": mst_outs == st_outs, "n": len(mst_outs), "reads": seen,
         "diff": [_diff(_fields(a), _fields(b))
                  for a, b in zip(st_reps, mst_reps)]}
-    cents = _kmeans(dirs["km"], None)
-    m_cents = _kmeans(dirs["km-m"], mesh)
-    res["kmeans"] = (cents, m_cents)
+    cents, fields, reads = _kmeans(dirs["km"], None)
+    m_cents, m_fields, m_reads = _kmeans(dirs["km-m"], mesh)
+    res["kmeans"] = {"cents": (cents, m_cents),
+                     "diff": _diff(fields, m_fields),
+                     "reads": (reads, m_reads)}
     return res
 
 
